@@ -1,0 +1,496 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (one NVIDIA H100).
+
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases build,codec
+
+Phases, each printing its lines; any failure exits non-zero:
+
+1. build  -- print the card's name and power limit, build the CUDA
+             kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
+2. codec  -- the CUDA encode reproduces every raw golden wire vector of
+             ``tests/golden/wire_vectors.npz`` byte for byte; for scale_int,
+             fp16-meta and edge-case configs the kernels equal their plain
+             PyTorch versions on the card (encode bytes, decode bits,
+             decode+reduce bits at (8, 4096)).
+3. time   -- at the serving path's two shapes, the prefill's
+             (1, BATCH*PROMPT_LEN*d_model) and the decode step's
+             (1, BATCH*d_model): each kernel equals its plain version, and
+             its device time from a torch.profiler trace (25 calls) and its
+             time per call with CUDA events (median of 25 calls after 5
+             warm-up calls) stand beside the plain version's and the bound.
+4. serve  -- qwen3-14b at full width (40 layers, bf16 weights from seed
+             SEED by the JAX package's init rules, with the zero-initialised
+             attention and MLP output projections filled from a fan-in
+             normal so that every site carries data). For each policy, the
+             prefill's hidden states and DECODE_CHECK_STEPS decode steps'
+             logits through the CUDA kernels equal those through the plain
+             codec on the card, bit for bit. Then it serves BATCH x
+             PROMPT_LEN prompt tokens + GEN generated tokens under
+             paper/two_step, paper/fused and aggressive/two_step, and
+             without the codec (bf16). The launch counts of every kernel
+             are zeroed just before these runs and read just after; each
+             kernel must have run the expected number of times, and
+             prefill and decode must agree on the first generated token
+             (``repro_torch.launch.serve.prefill_decode_agreement``; the
+             run without the codec to CACHE_REL_TOL).
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "tests", "golden", "wire_vectors.npz")
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+PHASES = ("build", "codec", "time", "serve")
+SOURCE = "src/repro_torch/kernels/csrc/wire.cu"
+REPLACES = {"encode_wire": "src/repro/kernels/wire.py:58",
+            "decode_wire": "src/repro/kernels/wire.py:100",
+            "decode_reduce": "src/repro/kernels/emulate.py:110"}
+RUNS = (("paper/two_step", "paper", None),
+        ("paper/fused", "paper", "fused"),
+        ("aggressive/two_step", "aggressive", None))
+# No codec: every site is the exact sum. It times the path without the
+# codec, and holds the cache to a tighter bound than the quantized runs
+# can: unquantized, prefill and decode differ by bf16 rounding only
+# (about 0.02 of the logits' spread at full width on one H100).
+BASELINE = ("bf16", "bf16", None)
+CACHE_REL_TOL = 0.1
+ARCH = "qwen3-14b"
+BATCH, PROMPT_LEN, GEN, SEED = 4, 128, 16, 0
+DECODE_CHECK_STEPS = 4
+TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
+                ("int5 g128 scale_int", dict(bits=5, group=128,
+                                             scale_int=True)),
+                ("int2 g32 spike", dict(bits=2, group=32, spike=True)))
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+# ---------------------------------------------------------------------------
+# phase 1: card + build
+# ---------------------------------------------------------------------------
+
+def phase_build(torch):
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"[build] card: {card}", flush=True)
+    print(card, flush=True)
+    from repro_torch.kernels import build, wire
+    t0 = time.perf_counter()
+    path = build.build(wire.SOURCE, verbose=True)
+    print(f"[build] {path.name} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    wire._lib()
+    return card
+
+
+# ---------------------------------------------------------------------------
+# phase 2: codec against goldens and plain versions
+# ---------------------------------------------------------------------------
+
+def _bits_equal(torch, a, b) -> bool:
+    """Bitwise equality of two same-dtype tensors (NaN-exact)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16, torch.uint8: torch.uint8}[a.dtype]
+    return bool(torch.equal(a.view(view), b.view(view)))
+
+
+def _edge_input(np, rows: int, n: int, seed: int):
+    """Gaussian rows with outliers plus the codec's edge cases: a NaN
+    group, a single-NaN group, a two-NaN group, inf, a constant group and
+    duplicated extremes."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, n)) * 3).astype(np.float32)
+    x[0, 5] = 45.0
+    x[1, 70] = -38.0
+    x[2, 0:128] = 1.25                       # constant groups
+    x[2, 130] = x[2, 140] = 9.0              # duplicated max
+    x[2, 150] = x[2, 160] = -9.0             # duplicated min
+    x[3, 300] = np.nan                       # single NaN
+    x[3, 520] = x[3, 530] = np.nan           # two NaNs in one group
+    x[3, 700] = np.inf
+    x[3, 800] = -np.inf
+    return x
+
+
+def phase_codec(torch, np):
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.kernels import wire
+    dev = torch.device("cuda")
+    data = np.load(GOLDEN)
+    skipped = [k for k in data.files if "_rot" in k or k.startswith("frame")]
+    keys = [k for k in data.files if k.startswith(("int", "a2a_int"))
+            and k not in skipped]
+    for key in keys:
+        stem = key[len("a2a_"):] if key.startswith("a2a_") else key
+        bits = int(stem.split("_")[0][len("int"):])
+        cfg = CommConfig(bits=bits, group=32 if bits <= 4 else 128,
+                         spike=stem.endswith("_sr"))
+        x = data["xa"] if key.startswith("a2a_") else data["x"]
+        xt = torch.from_numpy(x.reshape(-1, x.shape[-1])).to(dev)
+        buf = wire.encode_wire(xt, cfg)
+        gold = torch.from_numpy(data[key].reshape(buf.shape)).to(dev)
+        check(torch.equal(buf, gold), f"CUDA encode != golden {key}")
+        dec = wire.decode_wire(buf, cfg, xt.shape[1])
+        ref = wire.decode_plain(buf, cfg, xt.shape[1])
+        check(_bits_equal(torch, dec, ref), f"CUDA decode != plain {key}")
+    print(f"[codec] {len(keys)} raw golden keys byte-equal from the CUDA "
+          f"encode, decode bit-equal to plain; skipped {len(skipped)} "
+          f"keys (_rot: no CUDA rotation mode yet; frame_*: framed wire "
+          f"not ported)", flush=True)
+
+    x = torch.from_numpy(_edge_input(np, 4, 1024, 7)).to(dev)
+    cfgs = []
+    for bits in range(1, 9):
+        for group in (32, 64, 128):
+            for spike in (False, True):
+                cfgs.append(CommConfig(bits=bits, group=group, spike=spike,
+                                       scale_int=True))
+    for theta in (5, 20):
+        for bits, group, spike in ((2, 32, True), (5, 128, False),
+                                   (8, 128, False)):
+            cfgs.append(CommConfig(bits=bits, group=group, spike=spike,
+                                   scale_int=True, theta=theta))
+    for bits, group, spike in ((2, 32, True), (3, 64, False),
+                               (8, 128, False), (4, 32, True)):
+        cfgs.append(CommConfig(bits=bits, group=group, spike=spike,
+                               meta_dtype="float16"))
+    for cfg in cfgs:
+        buf = wire.encode_wire(x, cfg)
+        check(torch.equal(buf, wire.encode_plain(x, cfg)),
+              f"CUDA encode != plain for {cfg}")
+        for out_dtype in (torch.float32, torch.bfloat16):
+            dec = wire.decode_wire(buf, cfg, x.shape[1], out_dtype)
+            check(_bits_equal(torch, dec, wire.decode_plain(
+                buf, cfg, x.shape[1], out_dtype)),
+                f"CUDA decode != plain ({out_dtype}) for {cfg}")
+    print(f"[codec] {len(cfgs)} scale_int / theta / fp16-meta configs with "
+          f"NaN, inf, constant and duplicated-extreme groups: CUDA encode "
+          f"byte-equal and decode (f32, bf16) bit-equal to plain",
+          flush=True)
+
+    rng = np.random.default_rng(11)
+    xr = torch.from_numpy((rng.standard_normal((8, 4096)) * 2).astype(
+        np.float32)).to(dev)
+    for cfg in (CommConfig(bits=8, group=128),
+                CommConfig(bits=5, group=128, scale_int=True),
+                CommConfig(bits=2, group=32, spike=True)):
+        buf = wire.encode_wire(xr, cfg)
+        red = wire.decode_reduce(buf, cfg, 4096)
+        check(_bits_equal(torch, red, wire.decode_reduce_plain(
+            buf, cfg, 4096)), f"CUDA decode_reduce != plain for {cfg}")
+    print("[codec] decode_reduce at (8, 4096): bit-equal to plain for int8, "
+          "int5 scale_int and int2 spike", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel times at the serving path's shapes
+# ---------------------------------------------------------------------------
+
+def _time_ms(torch, fn, runs: int = 25, warmup: int = 5) -> float:
+    """Median time of one call, CUDA events around each call: what a
+    caller waits for, host-side launch work included."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _device_ms(torch, fn, runs: int = 25):
+    """Device time of one call: the kernels' own time from a
+    torch.profiler (CUPTI) trace, summed over the call's kernels and
+    averaged over ``runs`` calls; None when the trace has no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        total_us += getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0))
+    return total_us / runs / 1e3 if total_us > 0 else None
+
+
+def phase_time(torch, np, card: str):
+    """Rows keyed by (shape label, config label, kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.kernels import wire
+    dev = torch.device("cuda")
+    d_model = get_config(ARCH).d_model
+    rng = np.random.default_rng(3)
+    rows = {}
+    for shape, n in (("prefill", BATCH * PROMPT_LEN * d_model),
+                     ("decode", BATCH * d_model)):
+        x = torch.from_numpy(rng.standard_normal((1, n)).astype(
+            np.float32)).to(dev)
+        for label, kw in TIME_CONFIGS:
+            cfg = CommConfig(**kw)
+            buf = wire.encode_wire(x, cfg)
+            fns = {
+                "encode_wire": (lambda: wire.encode_wire(x, cfg),
+                                lambda: wire.encode_plain(x, cfg)),
+                "decode_wire": (lambda: wire.decode_wire(buf, cfg, n),
+                                lambda: wire.decode_plain(buf, cfg, n)),
+                "decode_reduce": (lambda: wire.decode_reduce(buf, cfg, n),
+                                  lambda: wire.decode_reduce_plain(
+                                      buf, cfg, n)),
+            }
+            for name, (kern, plain) in fns.items():
+                err = float((kern().float() - plain().float()).abs().max())
+                call_ms, plain_call_ms = _time_ms(torch, kern), _time_ms(
+                    torch, plain)
+                dev_ms, plain_dev_ms = _device_ms(torch, kern), _device_ms(
+                    torch, plain)
+                ms = dev_ms if dev_ms is not None else call_ms
+                plain_ms = plain_dev_ms if plain_dev_ms is not None \
+                    else plain_call_ms
+                bound = wire.bound_bytes(name, cfg, 1, n) / HBM_BYTES_PER_S \
+                    * 1e3
+                print(f"[time] {name:13s} {label:20s} (1, {n}): kernel "
+                      f"{ms:.4f} ms (device; {call_ms:.4f} ms per call)  "
+                      f"plain {plain_ms:.4f} ms (device; {plain_call_ms:.4f}"
+                      f" ms per call)  bound {bound:.4f} ms (bytes)  "
+                      f"max_abs_err {err}  [{card}]", flush=True)
+                check(err == 0.0, f"{name} {label} (1, {n}): kernel differs "
+                      f"from plain")
+                rows.setdefault(shape, {}).setdefault(label, {})[name] = {
+                    "n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "max_abs_err": err, "call_ms": call_ms,
+                    "plain_call_ms": plain_call_ms,
+                    "device_time": dev_ms is not None}
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serve qwen3-14b at full width
+# ---------------------------------------------------------------------------
+
+def _fill_output_projections(torch, cfg, plan, params, seed: int):
+    """Fill the zero-initialised attention and MLP output projections
+    from a fan-in normal (std 1/sqrt(fan_in)), so that every TP site of
+    every layer carries data."""
+    from repro_torch.models.model import param_groups
+    names = [n for n, sp in param_groups(cfg, plan)["pattern"][1].items()
+             if sp.init == "zeros"]
+    t0 = params["pattern"][names[0]]
+    gen = torch.Generator(device=t0.device)
+    gen.manual_seed(seed)
+    for name in names:
+        t = params["pattern"][name]
+        for i in range(t.shape[0]):
+            t[i] = (torch.randn(t.shape[1:], generator=gen, device=t.device)
+                    / t.shape[-2] ** 0.5).to(t.dtype)
+    return names
+
+
+def phase_serve(torch, np):
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import wire
+    from repro_torch.launch.serve import build_policy, serve
+    from repro_torch.models.model import forward
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.parallel.shardings import init_params
+    from repro_torch.train.data import DataConfig, make_dataset
+    from repro_torch.train.serve_step import (make_cache_init,
+                                              make_decode_step, make_prefill)
+    torch.set_grad_enabled(False)
+    dev = torch.device("cuda")
+
+    # reference on a small input: the smoke config's prefill gives the
+    # same logits through the CUDA codec as through the plain one
+    scfg = get_smoke_config(ARCH)
+    splan = make_plan(scfg, tp=1)
+    sparams = init_params(scfg, splan, 1, dev)
+    _fill_output_projections(torch, scfg, splan, sparams, 2)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, scfg.vocab, (2, 64))).to(dev)
+    for name in ("paper", "aggressive"):
+        a, b = (make_prefill(scfg, splan, build_policy(name, backend=be))(
+            sparams, toks) for be in ("cuda", "ref"))
+        check(_bits_equal(torch, a, b), f"smoke prefill {name}: logits "
+              f"through the CUDA codec differ from the plain codec's")
+    print("[serve] smoke config: prefill logits through the CUDA codec "
+          "equal the plain codec's (paper, aggressive)", flush=True)
+    del sparams
+
+    cfg = get_config(ARCH)
+    plan = make_plan(cfg, tp=1)
+    t0 = time.perf_counter()
+    params = init_params(cfg, plan, SEED, dev, torch.bfloat16)
+    filled = _fill_output_projections(torch, cfg, plan, params, SEED + 1)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for g in params.values()
+                 for t in g.values())
+    print(f"[serve] {ARCH} full width, {cfg.n_layers} layers: "
+          f"{nbytes / 1e9:.2f} GB bf16 weights from seed {SEED} ({filled} "
+          f"filled) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # The codec on the card with data at every site, at both of the
+    # path's shapes: the CUDA kernels against the plain codec, on the same
+    # weights, inputs and (for decode) caches, bit for bit.
+    prompts = torch.from_numpy(make_dataset(DataConfig(
+        vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH,
+        seed=SEED)).batch(0)["tokens"]).to(dev)
+    for label, pol, scheme in RUNS:
+        pols = [build_policy(pol, backend=b, scheme=scheme)
+                for b in ("cuda", "ref")]
+        h_cuda, h_plain = (forward(params, prompts, cfg, plan, p,
+                                   dtype=torch.bfloat16)[0] for p in pols)
+        check(_bits_equal(torch, h_cuda, h_plain),
+              f"full-width prefill {label}: hidden states through the CUDA "
+              f"codec differ from the plain codec's")
+        steps = [make_decode_step(cfg, plan, p) for p in pols]
+        caches = [make_cache_init(cfg, plan, BATCH, DECODE_CHECK_STEPS,
+                                  dev)() for _ in pols]
+        for i in range(DECODE_CHECK_STEPS):
+            (lc, caches[0]), (lr, caches[1]) = (
+                st(params, c, prompts[:, i:i + 1])
+                for st, c in zip(steps, caches))
+            check(_bits_equal(torch, lc, lr),
+                  f"full-width decode {label} step {i}: logits through the "
+                  f"CUDA codec differ from the plain codec's")
+            check(torch.equal(lc.argmax(-1), lr.argmax(-1)),
+                  f"full-width decode {label} step {i}: tokens differ")
+        del caches
+    print(f"[serve] full width: prefill hidden states and "
+          f"{DECODE_CHECK_STEPS} decode steps' logits and tokens through "
+          f"the CUDA codec equal the plain codec's bit for bit "
+          f"({', '.join(r[0] for r in RUNS)})", flush=True)
+
+    sites = 1 + 2 * cfg.n_layers           # embedding + attn/MLP per layer
+    forwards = 1 + PROMPT_LEN + GEN - 1
+    wire.reset_launches()                  # the main path starts here
+    results = {}
+    for label, pol, scheme in RUNS + (BASELINE,):
+        before = dict(wire.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
+                    batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN, device=dev,
+                    seed=SEED, label=f" {label}")
+        got = {k: wire.LAUNCHES[k] - before[k] for k in wire.LAUNCHES}
+        per_site = {"encode_wire": 2,
+                    "decode_wire": 1 if scheme == "fused" else 2,
+                    "decode_reduce": 1 if scheme == "fused" else 0}
+        want = {k: 0 if label == BASELINE[0] else v * sites * forwards
+                for k, v in per_site.items()}
+        print(f"[serve {label}] launches {got} (expected {want}); peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+        check(got == want, f"{label}: launches {got} != {want}")
+        check(res["agreement"] is not None,
+              f"{label}: no prefill/decode check")
+        results[label] = res
+    launches = dict(wire.LAUNCHES)         # read right after the main path
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} never launched on the main path")
+    rel = max(results[BASELINE[0]]["agreement"]["rel_divergence"])
+    check(rel <= CACHE_REL_TOL, f"unquantized prefill/decode logit "
+          f"divergence {rel} > {CACHE_REL_TOL}: KV-cache drift")
+    print(f"[serve] unquantized prefill/decode logit divergence {rel} <= "
+          f"{CACHE_REL_TOL}", flush=True)
+    check(np.array_equal(results["paper/two_step"]["generated"],
+                         results["paper/fused"]["generated"]),
+          "fused and two_step generated different tokens")
+    print("[serve] paper/fused generated the same tokens as "
+          "paper/two_step", flush=True)
+    return launches, results
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+    card = phase_build(torch)
+    if "codec" in phases:
+        phase_codec(torch, np)
+    timing = phase_time(torch, np, card) if "time" in phases else {}
+    launches, served = {}, {}
+    if "serve" in phases:
+        launches, served = phase_serve(torch, np)
+
+    main_cfg = timing.get("prefill", {}).get("int8 g128", {})
+    kernels = []
+    for name in ("encode_wire", "decode_wire", "decode_reduce"):
+        t = main_cfg.get(name, {})
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches.get(name, 0),
+            "max_abs_err": max((r[name]["max_abs_err"]
+                                for by_cfg in timing.values()
+                                for r in by_cfg.values()), default=None),
+            "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+            "bound_ms": t.get("bound_ms"), "bound_by": "bytes",
+            "library_ms": None})
+    record = {"card": card, "timing": timing, "launches": launches,
+              "serve": {k: {m: v for m, v in r.items()
+                            if isinstance(v, (int, float, bool, dict))}
+                        for k, r in served.items()}}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    print(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s "
+          f"(numbers in chiprun_out/chip_smoke.json)", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""Architecture registry: full configs and reduced smoke variants.
+
+Only the architectures whose blocks this package runs are listed.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_IDS = ("qwen3-14b",)
+
+_MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+
+
+def get_config(arch: str) -> ModelConfig:
+    return importlib.import_module(f"repro_torch.configs.{_MOD[arch]}"
+                                   ).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family variant (2 layers, narrow widths)."""
+    return importlib.import_module(f"repro_torch.configs.{_MOD[arch]}"
+                                   ).smoke_config()

@@ -1,0 +1,106 @@
+"""Quantized AllReduce over a ``torch.distributed`` process group.
+
+The paper's Flash two-step AllReduce: chunk + quantize + all-to-all +
+dequantize + local reduce, then re-quantize + all-gather + dequantize.
+The wire that crosses the link is the uint8 buffer of
+:mod:`repro_torch.core.codec`. A ``group`` of ``None`` is one rank: the
+schedule runs in full (both phases encode and decode), with no hop.
+
+Schemes: ``"nccl"`` is the exact all-reduce; ``"two_step"`` runs the codec
+around library collectives; ``"fused"`` runs the phases as the fused
+kernels of :mod:`repro_torch.kernels.emulate` (one flat vector). The
+hierarchical schemes reduce to the two-step on one axis, as in the JAX
+package; ``"hier_pp"`` feeds its microchunks through one batched
+two-step.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import codec
+from repro_torch.core.comm_config import CommConfig
+from repro_torch.kernels.emulate import (all_gather_rows, all_to_all_rows,
+                                         fused_all_reduce_emulated,
+                                         group_size)
+
+
+def _pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
+    rem = (-x.shape[-1]) % mult
+    if rem == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, rem))
+
+
+def sum_rows(parts: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in index order from +0.0, the order the fused
+    decode-reduce kernel uses, so both schemes give equal bits."""
+    acc = torch.zeros_like(parts.select(dim, 0))
+    for r in range(parts.shape[dim]):
+        acc = acc + parts.select(dim, r)
+    return acc
+
+
+def quantized_all_reduce(x: torch.Tensor, cfg: CommConfig,
+                         group=None) -> torch.Tensor:
+    """Flash two-step AllReduce of (..., n) vectors over ``group``.
+
+    Leading dims batch through one schedule (one collective per phase).
+    ``n`` must be a multiple of tp * group.
+    """
+    if cfg.scheme == "fused":
+        out = fused_all_reduce_emulated(x.reshape(-1), cfg, group)
+        return out.reshape(x.shape).to(x.dtype)
+    tp = group_size(group)
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    b = len(lead)                                        # tp-axis position
+    assert n % tp == 0 and (n // tp) % cfg.group == 0, (n, tp, cfg.group)
+    xc = x.reshape(*lead, tp, n // tp)
+    wire = codec.encode(xc, cfg)                         # (..., tp, w)
+    recv = all_to_all_rows(wire.movedim(b, 0), group).movedim(0, b)
+    parts = codec.decode(recv, cfg, n // tp)             # (..., tp, n/tp)
+    partial = sum_rows(parts, b)                         # my chunk, summed
+    wire2 = codec.encode(partial, cfg)                   # (..., w)
+    allw = all_gather_rows(wire2, group).movedim(0, b)   # (..., tp, w)
+    full = codec.decode(allw, cfg, n // tp)              # (..., tp, n/tp)
+    return full.reshape(*lead, n).to(x.dtype)
+
+
+def _flat_all_reduce(xf: torch.Tensor, cfg: CommConfig,
+                     group=None) -> torch.Tensor:
+    """Dispatch on scheme for a padded flat vector over one group.
+
+    One axis has no (inner, outer) split, so "hierarchical" is the
+    two-step itself and "hier_pp" batches its microchunks through one
+    two-step schedule.
+    """
+    if cfg.scheme == "hier_pp":
+        chunks = max(1, cfg.pipeline_chunks)
+        out = quantized_all_reduce(xf.reshape(chunks, -1), cfg, group)
+        return out.reshape(xf.shape)
+    if cfg.scheme in ("two_step", "fused", "hierarchical"):
+        return quantized_all_reduce(xf, cfg, group)
+    raise ValueError(f"unknown scheme {cfg.scheme}")
+
+
+def compressed_psum(x: torch.Tensor, cfg: CommConfig,
+                    group=None) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``group`` with the compressed wire.
+
+    Any shape: flattens, zero-pads to tp * group (* microchunks),
+    casts to f32, runs the scheme, slices and restores shape and dtype.
+    ``cfg.enabled`` false or scheme ``"nccl"`` is the exact all-reduce.
+    """
+    if not cfg.enabled or cfg.scheme == "nccl":
+        if group_size(group) == 1:
+            return x
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+    chunks = cfg.pipeline_chunks if cfg.scheme == "hier_pp" else 1
+    mult = group_size(group) * cfg.group * chunks
+    n = x.numel()
+    xf = _pad_to(x.reshape(-1), mult)
+    out = _flat_all_reduce(xf.to(torch.float32), cfg, group)
+    return out[:n].reshape(x.shape).to(x.dtype)

@@ -1,0 +1,111 @@
+"""Asymmetric group round-to-nearest quantization at any bit width.
+
+The paper's base quantizer (Tables 1-2): per-group (last axis reshaped to
+``(..., n_groups, group)``) asymmetric RTN. Scale and zero are rounded to
+the wire's meta dtype first, and the codes are computed with those stored
+values, so encode and decode agree on them.
+
+Float details follow the JAX package exactly: ``torch.round`` rounds half
+to even as ``jnp.round`` does, min/max propagate NaN, a NaN code becomes
+0, and a NaN rounded to the meta dtype takes one canonical bit pattern
+(see :func:`to_meta`).
+"""
+from __future__ import annotations
+
+import torch
+
+EPS = 1e-12
+
+META_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def meta_dtype_of(name) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    return META_DTYPES[str(name)]
+
+
+def to_meta(x: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 -> bf16/fp16, round to nearest even, one canonical NaN.
+
+    A NaN becomes 0x7FC0 (bf16) or 0x7E00 (fp16): what ``jnp.astype``
+    writes for the quiet NaN that NaN inputs carry. The sign and payload
+    of a NaN made inside the codec depend on the machine (x86 makes
+    negative NaNs, CUDA 0x7FFFFFFF, and PyTorch's CPU, vectorised and
+    CUDA conversions all differ), so they are not carried.
+    """
+    dtype = meta_dtype_of(dtype)
+    xf = x.to(torch.float32)
+    bits = xf.to(dtype).view(torch.int16)
+    nan_bits = 0x7FC0 if dtype == torch.bfloat16 else 0x7E00
+    return torch.where(torch.isnan(xf), nan_bits, bits).view(dtype)
+
+
+def to_code(t: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Rounded float codes -> uint8: clip to [0, qmax], NaN -> 0."""
+    t = torch.clamp(torch.round(t), 0.0, qmax)
+    return torch.where(torch.isnan(t), torch.zeros_like(t), t).to(
+        torch.uint8)
+
+
+def cast_out(x: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 -> an output dtype, with JAX's NaN bits for bf16/fp16."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return to_meta(x, dtype)
+    return x.to(dtype)
+
+
+def group_reshape(x: torch.Tensor, group: int) -> torch.Tensor:
+    """(..., n) -> (..., n//group, group). n must divide."""
+    n = x.shape[-1]
+    assert n % group == 0, f"n={n} not divisible by group={group}"
+    return x.reshape(*x.shape[:-1], n // group, group)
+
+
+def group_unreshape(xg: torch.Tensor) -> torch.Tensor:
+    return xg.reshape(*xg.shape[:-2], xg.shape[-2] * xg.shape[-1])
+
+
+def group_min_max(xg: torch.Tensor):
+    """(..., group) -> NaN-propagating (min, max) over the last axis."""
+    return torch.amin(xg, dim=-1), torch.amax(xg, dim=-1)
+
+
+def scale_zero(mn: torch.Tensor, mx: torch.Tensor, qmax: float,
+               meta_dtype):
+    """Group range -> (scale_w, zero_w) rounded to the meta dtype."""
+    # a full divisor tensor: PyTorch's CUDA division by a scalar
+    # multiplies by its reciprocal, which is not IEEE division
+    scale = (mx - mn) / torch.full_like(mx, qmax)
+    scale_w = to_meta(torch.clamp_min(scale, EPS), meta_dtype)
+    return scale_w, to_meta(mn, meta_dtype)
+
+
+def quantize(x: torch.Tensor, bits: int, group: int,
+             meta_dtype="bfloat16"):
+    """Asymmetric RTN. Returns (codes uint8, scale, zero), grouped shapes.
+
+    codes: (..., n_groups, group) uint8 in [0, 2^bits-1]
+    scale/zero: (..., n_groups) meta dtype
+    """
+    xg = group_reshape(x.to(torch.float32), group)
+    qmax = float(2 ** bits - 1)
+    mn, mx = group_min_max(xg)
+    scale_w, zero_w = scale_zero(mn, mx, qmax, meta_dtype)
+    s = scale_w.to(torch.float32)[..., None]
+    z = zero_w.to(torch.float32)[..., None]
+    return to_code((xg - z) / s, qmax), scale_w, zero_w
+
+
+def dequantize(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+               out_dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize`; returns the flat (..., n) tensor.
+
+    ``codes * s + z`` is two roundings (a product, then a sum): PyTorch's
+    eager ops never fuse them into one FMA, and the CUDA kernels use
+    ``__fmul_rn``/``__fadd_rn`` to do the same.
+    """
+    s = scale.to(torch.float32)[..., None]
+    z = zero.to(torch.float32)[..., None]
+    xg = codes.to(torch.float32) * s + z
+    return cast_out(group_unreshape(xg), out_dtype)

@@ -1,0 +1,85 @@
+"""The fused two-step AllReduce with the hop over a process group.
+
+The JAX package runs the codec phases of its fused AllReduce as kernels
+and pushes wire rows to peers by RDMA from inside the kernel. Here the
+phases are the CUDA kernels of :mod:`repro_torch.kernels.wire` and the hop
+is ``torch.distributed`` on the uint8 wire (``all_to_all_single`` for the
+scatter phase, ``all_gather_into_tensor`` for the gather phase). With one
+rank there is no hop: the wire rows a rank sends are the rows it receives.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.comm_config import CommConfig
+from repro_torch.kernels import ops
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_to_all_rows(wire: torch.Tensor, group) -> torch.Tensor:
+    """(tp, ...) rows -> (tp, ...): row p goes to peer p, row p of the
+    result came from peer p."""
+    if group_size(group) == 1:
+        return wire
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire.contiguous(), group=group)
+    return out
+
+
+def all_gather_rows(wire: torch.Tensor, group) -> torch.Tensor:
+    """(...) -> (tp, ...): every rank's tensor, in rank order."""
+    tp = group_size(group)
+    if tp == 1:
+        return wire[None]
+    flat = wire.reshape(-1)             # gathered as a concatenation
+    out = torch.empty((tp * flat.shape[0],), dtype=wire.dtype,
+                      device=wire.device)
+    dist.all_gather_into_tensor(out, flat.contiguous(), group=group)
+    return out.reshape(tp, *wire.shape)
+
+
+def encode_rows(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
+    """(R, chunk) float -> (R, wire_bytes(chunk)) uint8, one kernel pass:
+    phase 1's quantize + pack and, with R == 1, phase 2's re-quantize."""
+    return ops.fused_encode_wire(x, cfg)
+
+
+def decode_reduce_rows(wire: torch.Tensor, cfg: CommConfig,
+                       chunk: int) -> torch.Tensor:
+    """(R, wb) uint8 -> (1, chunk) f32: fused dequantize + local reduce."""
+    assert wire.shape == (wire.shape[0], cfg.wire_bytes(chunk))
+    return ops.fused_decode_reduce(wire, cfg, chunk)
+
+
+def decode_rows(wire: torch.Tensor, cfg: CommConfig, chunk: int,
+                out_dtype=torch.float32) -> torch.Tensor:
+    """(R, wb) uint8 -> (R, chunk): the receive-side dequantize."""
+    assert wire.shape == (wire.shape[0], cfg.wire_bytes(chunk))
+    return ops.fused_decode_wire(wire, cfg, chunk, out_dtype)
+
+
+def fused_all_reduce_emulated(x: torch.Tensor, cfg: CommConfig,
+                              group=None) -> torch.Tensor:
+    """Flash two-step AllReduce of a flat (n,) vector, fused phases.
+
+    Phase 1: one kernel encodes the tp per-peer chunks into wire rows,
+    the rows go to their peers, one kernel dequantizes the received rows
+    and sums them. Phase 2: the partial sum is re-encoded, gathered from
+    every rank, and one kernel dequantizes all tp rows.
+    """
+    tp = group_size(group)
+    n = x.shape[-1]
+    assert n % tp == 0 and (n // tp) % cfg.group == 0, (n, tp, cfg.group)
+    chunk = n // tp
+    xc = x.reshape(tp, chunk).to(torch.float32)
+    wire = encode_rows(xc, cfg)                              # (tp, wb)
+    recv = all_to_all_rows(wire, group)                      # rows from peers
+    partial = decode_reduce_rows(recv, cfg, chunk)           # (1, chunk)
+    wire2 = encode_rows(partial, cfg)                        # (1, wb)
+    allw = all_gather_rows(wire2[0], group)                  # (tp, wb)
+    full = decode_rows(allw, cfg, chunk)                     # (tp, chunk)
+    return full.reshape(n).to(x.dtype)

@@ -1,0 +1,219 @@
+"""Serving launcher: batched prefill + greedy decode loop.
+
+Runs on the GPU unless ``--device cpu`` is given; without a GPU it raises
+rather than run on the CPU. Example (full width, random weights)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+      --batch 4 --prompt-len 128 --gen 16 --policy paper
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import ARCH_IDS, get_config, \
+    get_smoke_config
+from repro_torch.core.comm_config import BACKENDS, SCHEMES
+from repro_torch.core.policy import (BF16_POLICY, CommPolicy,
+                                     aggressive_policy, describe_policy,
+                                     load_policy_file, paper_policy,
+                                     with_backend, with_scheme)
+from repro_torch.models.model import greedy_next_token
+from repro_torch.parallel.plan import make_plan
+from repro_torch.parallel.shardings import init_params
+from repro_torch.train.data import DataConfig, make_dataset
+from repro_torch.train.serve_step import (make_cache_init, make_decode_step,
+                                          make_prefill)
+
+POLICIES = {"paper": paper_policy, "bf16": lambda: BF16_POLICY,
+            "aggressive": aggressive_policy}
+#: bound on the relative prefill/decode divergence of the next-token
+#: logits (see :func:`prefill_decode_agreement`). It must pass the
+#: rounding noise of the coarsest policy: on qwen3-14b at full width with
+#: random bf16 weights (``chip_smoke.py``, one H100) a correct cache gives
+#: about 0.02 unquantized, 0.03 under the paper policy (int8) and 0.2
+#: under the aggressive one (int5, Eq.-1 scales). A cache that loses the
+#: earlier positions' values or slots gives more than 1
+#: (``tests/test_torch_serve.py``).
+AGREEMENT_REL_TOL = 0.5
+
+
+def resolve_device(name: Optional[str]) -> torch.device:
+    """``cpu`` only when asked for; anything else needs a GPU."""
+    if name == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: this launcher runs on the GPU "
+                           "unless --device cpu is given")
+    return torch.device(name or "cuda")
+
+
+def build_policy(name: str = "paper", policy_file: Optional[str] = None,
+                 backend: str = "auto",
+                 scheme: Optional[str] = None) -> CommPolicy:
+    base = load_policy_file(policy_file) if policy_file \
+        else POLICIES[name]()
+    policy = with_backend(base, backend)
+    return with_scheme(policy, scheme) if scheme else policy
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def prefill_decode_agreement(prefill_logits: torch.Tensor,
+                             decode_logits: torch.Tensor,
+                             prefill_tokens: torch.Tensor,
+                             decode_tokens: torch.Tensor,
+                             vocab: int) -> Dict:
+    """Hold the decode path's first generated token against the prefill's.
+
+    The decode step that consumed the last prompt token through the cache
+    and the prefill of the whole prompt predict the same token from the
+    same weights. They run it through matmuls of other shapes (M = B*S
+    against M = B), whose bf16 results can differ in the last bit, and a
+    quantized site can turn such a bit into a code step. So:
+
+    - the logits must agree to ``AGREEMENT_REL_TOL``: the norm of their
+      difference over the norm of the prefill's centred logits, per row.
+      A cache that loses, misplaces or mis-rotates positions moves them by
+      about their whole spread;
+    - the tokens must be equal in every row whose prefill top-2 margin
+      exceeds twice the row's largest logit difference (there the
+      difference cannot move the argmax), and in every row whose logits
+      are bit-identical.
+
+    Raises AssertionError otherwise; returns the measured numbers.
+    """
+    p = prefill_logits[:, :vocab].float()
+    d = decode_logits[:, :vocab].float()
+    diff = (p - d).abs().amax(-1)
+    top2 = torch.topk(p, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    rel = (torch.linalg.vector_norm(p - d, dim=-1)
+           / torch.linalg.vector_norm(p - p.mean(-1, keepdim=True), dim=-1))
+    held = (margin > 2 * diff) | (diff == 0)
+    same = prefill_tokens == decode_tokens
+    res = {"rel_divergence": rel.tolist(), "max_logit_diff": diff.tolist(),
+           "margin": margin.tolist(), "rows_held": int(held.sum())}
+    if not bool((rel <= AGREEMENT_REL_TOL).all()):
+        raise AssertionError(
+            f"prefill and decode logits diverge by {res['rel_divergence']} "
+            f"(> {AGREEMENT_REL_TOL}): KV-cache seeding drift")
+    if not bool((same | ~held).all()):
+        raise AssertionError(
+            f"decode's first post-prompt token {decode_tokens.tolist()} != "
+            f"prefill's {prefill_tokens.tolist()} in a row whose top-2 "
+            f"margin {res['margin']} exceeds twice the logit difference "
+            f"{res['max_logit_diff']}")
+    return res
+
+
+def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
+          prompt_len: int, gen: int, device: torch.device, seed: int = 0,
+          label: str = "", log=print) -> Dict:
+    """Prefill a batch of synthetic prompts, then decode: the prompt is
+    teacher-forced through the cache, then ``gen`` tokens are generated.
+
+    Checks that decode's first generated token agrees with prefill's
+    prediction (:func:`prefill_decode_agreement`): a mismatch means the
+    cache was seeded or rolled wrong.
+    """
+    ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
+                                 global_batch=batch, seed=seed))
+    prompts = torch.from_numpy(ds.batch(0)["tokens"]).to(device)
+
+    prefill = make_prefill(cfg, plan, policy)
+    _sync(device)
+    t0 = time.perf_counter()
+    prefill_logits = prefill(params, prompts)
+    _sync(device)
+    ttft = time.perf_counter() - t0
+    first = greedy_next_token(prefill_logits, plan)
+    log(f"[serve{label}] TTFT (prefill {prompt_len} toks x{batch}): "
+        f"{ttft * 1000:.1f} ms")
+
+    caches = make_cache_init(cfg, plan, batch, prompt_len + gen, device)()
+    step = make_decode_step(cfg, plan, policy)
+    out, agree = [], None
+    tok = prompts[:, :1]
+    step_ms = []
+    steps = prompt_len + gen - 1
+    for i in range(steps):
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, caches = step(params, caches, tok)
+        nt = greedy_next_token(logits, plan)
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1000)
+        if i + 1 < prompt_len:
+            tok = prompts[:, i + 1:i + 2]          # teacher-forced prompt
+        else:
+            if agree is None:
+                agree = prefill_decode_agreement(prefill_logits, logits,
+                                                 first, nt, cfg.vocab)
+            tok = nt[:, None]
+            out.append(nt.cpu().numpy())
+    gen_toks = np.stack(out, 1) if out else np.zeros((batch, 0), np.int64)
+    steady = np.asarray(step_ms[1:]) if steps > 1 else np.full(1, np.nan)
+    med, p90 = float(np.median(steady)), float(np.percentile(steady, 90))
+    log(f"[serve{label}] {steps} decode steps: first {step_ms[0]:.1f} ms; "
+        f"steady median {med:.2f} ms/step, p90 {p90:.2f} ms/step "
+        f"({steady.size} steps)")
+    if agree is not None:
+        log(f"[serve{label}] prefill/decode agreement: logit divergence "
+            f"{agree['rel_divergence']}; first generated token matches "
+            f"prefill in the {agree['rows_held']} of {batch} rows held "
+            f"(top-2 margins {agree['margin']})")
+    assert np.all((gen_toks >= 0) & (gen_toks < cfg.vocab))
+    log(f"[serve{label}] generated tokens (first row): {gen_toks[0][:16]}")
+    return {"ttft_ms": ttft * 1000, "first_step_ms": step_ms[0],
+            "step_ms_median": med, "step_ms_p90": p90, "decode_steps": steps,
+            "first_tokens": first.cpu().numpy(), "generated": gen_toks,
+            "agreement": agree}
+
+
+def main(argv=None) -> Dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=list(ARCH_IDS), required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--policy", default="paper", choices=list(POLICIES))
+    ap.add_argument("--policy-file", default=None,
+                    help="JSON policy artifact (see configs/policies/); "
+                         "overrides --policy")
+    ap.add_argument("--codec-backend", default="auto", choices=BACKENDS,
+                    help="wire codec backend for every comm site")
+    ap.add_argument("--comm-scheme", default=None, choices=SCHEMES,
+                    help="override the collective schedule at every "
+                         "enabled site")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default, raises without a GPU) or 'cpu'")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and the prompts")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    plan = make_plan(cfg, tp=1)
+    policy = build_policy(args.policy, args.policy_file, args.codec_backend,
+                          args.comm_scheme)
+    print(describe_policy(policy, cfg.n_layers))
+    params = init_params(cfg, plan, args.seed, device, getattr(torch,
+                                                              cfg.dtype))
+    res = serve(params, cfg, plan, policy, batch=args.batch,
+                prompt_len=args.prompt_len, gen=args.gen, device=device,
+                seed=args.seed)
+    print("[serve] OK")
+    return res
+
+
+if __name__ == "__main__":
+    main()

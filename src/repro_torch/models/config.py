@@ -1,0 +1,56 @@
+"""Model configuration (the port's copy of the JAX package's schema).
+
+A model is a sequence of blocks: ``prefix + pattern * pattern_repeats +
+suffix``. This package runs the ``dense`` block (causal self-attention +
+dense MLP); the other kinds are named so that configs validate the same
+way, and :func:`repro_torch.models.model.forward` raises for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+BLOCK_KINDS = ("dense", "local", "moe", "xattn", "enc", "dec", "rec",
+               "mlstm", "slstm")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    pattern: Tuple[str, ...]
+    pattern_repeats: int
+    prefix: Tuple[str, ...] = ()
+    suffix: Tuple[str, ...] = ()
+    head_dim: Optional[int] = None
+    act: str = "swiglu"          # swiglu | geglu | gelu
+    norm: str = "rms"            # rms | ln
+    use_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: Optional[float] = 10000.0
+    logit_softcap: Optional[float] = None
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    source: str = ""
+
+    def __post_init__(self):
+        for k in self.prefix + self.pattern + self.suffix:
+            assert k in BLOCK_KINDS, f"unknown block kind {k}"
+        assert self.n_heads % self.n_kv_heads == 0
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        return (self.prefix + self.pattern * self.pattern_repeats
+                + self.suffix)
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.layer_kinds)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads

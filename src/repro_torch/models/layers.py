@@ -1,0 +1,100 @@
+"""Normalization, RoPE, embeddings, vocab-parallel logits, dense MLP.
+
+Every activation that crosses the TP ranks goes through
+:func:`tp_psum`, the paper's quantized AllReduce site. ``group`` is the
+TP process group (``None``: one rank) and ``rank`` this rank's index in
+it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.collectives import compressed_psum
+from repro_torch.core.comm_config import NO_COMPRESSION
+from repro_torch.core.policy import CommPolicy
+
+
+def tp_psum(x: torch.Tensor, policy: CommPolicy, group=None,
+            layer: Optional[int] = None) -> torch.Tensor:
+    """The TP AllReduce site. ``layer`` is the global block index (None
+    for the embedding psum); the policy resolves ``("tp", layer)``."""
+    cfg = policy.resolve("tp", layer) or NO_COMPRESSION
+    return compressed_psum(x, cfg, group)
+
+
+def rms_norm(x: torch.Tensor, gain: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * gain.to(torch.float32)
+            ).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (S,) or (B, S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32,
+                             device=x.device) / half
+    # a Python-scalar base (rounded to float32, as JAX's weak-typed
+    # ``theta ** arr`` is): a device tensor made from a host scalar would
+    # synchronise the stream on every call
+    freqs = torch.pow(float(theta), exponent)
+    ang = positions.to(torch.float32)[..., None] * freqs     # (.., S, half)
+    cos = torch.cos(ang)[..., None, :]                        # (.., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    while cos.dim() < x.dim():
+        cos, sin = cos[None], sin[None]
+    xf1 = x[..., :half].to(torch.float32)
+    xf2 = x[..., half:].to(torch.float32)
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def embed_lookup(tokens: torch.Tensor, emb_loc: torch.Tensor,
+                 policy: CommPolicy, dtype, group=None,
+                 rank: int = 0) -> torch.Tensor:
+    """tokens (B,S) int; emb_loc (v_loc, d) = this rank's vocab rows.
+    Masked local lookup + TP psum (the paper's quantized AR site)."""
+    v_loc = emb_loc.shape[0]
+    ids = tokens.to(torch.int64) - rank * v_loc
+    ok = (ids >= 0) & (ids < v_loc)
+    vec = emb_loc[torch.clamp(ids, 0, v_loc - 1)]
+    vec = torch.where(ok[..., None], vec, torch.zeros_like(vec)).to(dtype)
+    return tp_psum(vec, policy, group).to(dtype)
+
+
+def vocab_parallel_logits(x: torch.Tensor, unemb_loc: torch.Tensor,
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """x (..., d) @ unemb_loc (v_loc, d)^T -> this rank's logits, f32."""
+    logits = torch.einsum("...d,vd->...v", x.to(torch.float32),
+                          unemb_loc.to(torch.float32))
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits
+
+
+def mlp_apply(p: Dict, x: torch.Tensor, act: str, policy: CommPolicy,
+              use_bias: bool = False, layer: Optional[int] = None,
+              group=None) -> torch.Tensor:
+    """Dense MLP with the hidden sharded; the down-projection's partial
+    sums go through the TP AllReduce."""
+    h = x @ p["w1"]
+    if use_bias:
+        h = h + p["b1"]
+    if act in ("swiglu", "geglu"):
+        g = x @ p["w3"]
+        if use_bias:
+            g = g + p["b3"]
+        h = (F.silu(h) if act == "swiglu"
+             else F.gelu(h, approximate="tanh")) * g
+    else:
+        h = F.gelu(h, approximate="tanh")
+    y = tp_psum(h @ p["w2"], policy, group, layer)
+    if use_bias:
+        y = y + p["b2"]
+    return y.to(x.dtype)

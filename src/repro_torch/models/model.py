@@ -1,0 +1,179 @@
+"""Dense decoder: parameter layout, forward, decode caches, greedy next.
+
+Parameters are ``params[group][name]`` tensors of shape
+``(n_stack, *local_shape)`` (see :mod:`repro_torch.parallel.shardings`),
+grouped as in the JAX package: ``embed`` (``tok``), ``out`` (``nf_gain``,
+``unemb``) and ``pattern`` (the repeated blocks, names prefixed ``L{j}_``),
+plus ``pre{i}_{kind}`` / ``suf{i}_{kind}`` for unrepeated blocks. Every
+activation crossing the TP ranks goes through the quantized AllReduce
+site, resolved per ``(site, global block index)``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.policy import CommPolicy
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (embed_lookup, mlp_apply, rms_norm,
+                                       vocab_parallel_logits)
+from repro_torch.parallel.plan import ShardingPlan
+from repro_torch.parallel.shardings import ParamSpec, Params
+
+SUPPORTED_KINDS = ("dense",)
+
+
+def _norm_specs(cfg: ModelConfig, name: str) -> Dict[str, ParamSpec]:
+    if cfg.norm != "rms":
+        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
+    return {name + "gain": ParamSpec((cfg.d_model,), init="ones")}
+
+
+def _mlp_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
+    d, f = cfg.d_model, plan.f_loc * plan.tp
+    s = {"w1": ParamSpec((d, f), tp_dim=1),
+         "w2": ParamSpec((f, d), tp_dim=0, init="zeros")}
+    if cfg.act in ("swiglu", "geglu"):
+        s["w3"] = ParamSpec((d, f), tp_dim=1)
+    if cfg.use_bias:
+        s["b1"] = ParamSpec((f,), tp_dim=0, init="zeros")
+        s["b2"] = ParamSpec((d,), init="zeros")
+        if cfg.act in ("swiglu", "geglu"):
+            s["b3"] = ParamSpec((f,), tp_dim=0, init="zeros")
+    return s
+
+
+def block_specs(kind: str, cfg: ModelConfig,
+                plan: ShardingPlan) -> Dict[str, ParamSpec]:
+    if kind not in SUPPORTED_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
+    s = dict(_norm_specs(cfg, "n1_"))
+    s.update(attn.attn_specs(cfg, plan))
+    s.update(_norm_specs(cfg, "n2_"))
+    s.update(_mlp_specs(cfg, plan))
+    return s
+
+
+def param_groups(cfg: ModelConfig, plan: ShardingPlan
+                 ) -> Dict[str, Tuple[int, Dict[str, ParamSpec]]]:
+    """{group_name: (n_stack, {param: spec})}, as in the JAX package."""
+    if cfg.rope_theta is None:
+        raise NotImplementedError("learned positions are not ported")
+    d = cfg.d_model
+    groups: Dict[str, Tuple[int, Dict[str, ParamSpec]]] = {
+        "embed": (1, {"tok": ParamSpec((plan.vocab_pad, d), tp_dim=0)})}
+    out = dict(_norm_specs(cfg, "nf_"))
+    if not cfg.tie_embeddings:
+        out["unemb"] = ParamSpec((plan.vocab_pad, d), tp_dim=0)
+    groups["out"] = (1, out)
+    for i, kind in enumerate(cfg.prefix):
+        groups[f"pre{i}_{kind}"] = (1, block_specs(kind, cfg, plan))
+    if cfg.pattern_repeats:
+        merged: Dict[str, ParamSpec] = {}
+        for j, kind in enumerate(cfg.pattern):
+            for n, sp in block_specs(kind, cfg, plan).items():
+                merged[f"L{j}_{n}"] = sp
+        groups["pattern"] = (cfg.pattern_repeats, merged)
+    for i, kind in enumerate(cfg.suffix):
+        groups[f"suf{i}_{kind}"] = (1, block_specs(kind, cfg, plan))
+    return groups
+
+
+def layer_params(params: Params, cfg: ModelConfig
+                 ) -> List[Tuple[str, Dict[str, torch.Tensor]]]:
+    """[(kind, {name: tensor}), ...] for every block in layer order."""
+    out = []
+    for i, kind in enumerate(cfg.prefix):
+        out.append((kind, {k: v[0] for k, v in
+                           params[f"pre{i}_{kind}"].items()}))
+    for r in range(cfg.pattern_repeats):
+        for j, kind in enumerate(cfg.pattern):
+            pre = f"L{j}_"
+            out.append((kind, {k[len(pre):]: v[r] for k, v in
+                               params["pattern"].items()
+                               if k.startswith(pre)}))
+    for i, kind in enumerate(cfg.suffix):
+        out.append((kind, {k: v[0] for k, v in
+                           params[f"suf{i}_{kind}"].items()}))
+    return out
+
+
+def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
+                cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
+                cache: Optional[Dict], pos: int = 0,
+                layer: Optional[int] = None, group=None,
+                rank: int = 0) -> torch.Tensor:
+    """The dense block: x + attn(norm(x)); x + mlp(norm(x))."""
+    if kind not in SUPPORTED_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
+    h = rms_norm(x, p["n1_gain"])
+    a, _ = attn.self_attention(p, h, positions, cfg, plan, policy,
+                               cache=cache, pos=pos, layer=layer,
+                               group=group, rank=rank)
+    x = x + a
+    h = rms_norm(x, p["n2_gain"])
+    return x + mlp_apply(p, h, cfg.act, policy, cfg.use_bias, layer=layer,
+                         group=group)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            plan: ShardingPlan, policy: CommPolicy, *,
+            caches: Optional[Dict] = None, dtype=torch.bfloat16,
+            group=None, rank: int = 0):
+    """tokens (B, S) -> (hidden (B, S, d), unemb, caches).
+
+    caches=None: full sequence (prefill). caches given: S must be 1, the
+    token sits at ``caches["pos"]``, and the caches are updated in place
+    (``pos`` advances by one).
+    """
+    policy = policy.bind(cfg.n_layers)
+    decode = caches is not None
+    x = embed_lookup(tokens, params["embed"]["tok"][0], policy, dtype,
+                     group, rank)
+    pos = caches["pos"] if decode else 0
+    positions = None if decode else torch.arange(tokens.shape[1],
+                                                 device=tokens.device)
+    for layer, (kind, p) in enumerate(layer_params(params, cfg)):
+        x = apply_block(kind, p, x, positions=positions, cfg=cfg, plan=plan,
+                        policy=policy,
+                        cache=caches["layers"][layer] if decode else None,
+                        pos=pos, layer=layer, group=group, rank=rank)
+    if decode:
+        caches["pos"] = pos + 1
+    po = params["out"]
+    x = rms_norm(x, po["nf_gain"][0])
+    unemb = (po["unemb"] if not cfg.tie_embeddings
+             else params["embed"]["tok"])[0]
+    return x, unemb, caches
+
+
+def init_caches(cfg: ModelConfig, plan: ShardingPlan, batch: int,
+                cache_len: int, dtype, device) -> Dict:
+    """{"pos": 0, "layers": [per-block kv cache]} for decoding."""
+    return {"pos": 0,
+            "layers": [attn.init_kv_cache(cfg, plan, batch, cache_len,
+                                          dtype, device)
+                       for _ in cfg.layer_kinds]}
+
+
+def next_token_logits(hidden: torch.Tensor, unemb: torch.Tensor,
+                      cfg: ModelConfig, plan: ShardingPlan,
+                      rank: int = 0) -> torch.Tensor:
+    """(B, S, d) -> (B, v_loc) f32 logits at the last position, padded
+    vocabulary masked to -inf."""
+    logits = vocab_parallel_logits(hidden[:, -1], unemb, cfg.logit_softcap)
+    col = torch.arange(plan.v_loc, device=logits.device) + rank * plan.v_loc
+    return torch.where(col[None, :] < cfg.vocab, logits,
+                       torch.full_like(logits, float("-inf")))
+
+
+def greedy_next_token(logits: torch.Tensor,
+                      plan: ShardingPlan) -> torch.Tensor:
+    """(B, v_loc) logits -> (B,) argmax over the vocabulary (first on
+    ties)."""
+    if plan.tp != 1:
+        raise NotImplementedError("greedy decoding over tp > 1 vocab "
+                                  "shards is not ported")
+    return torch.argmax(logits, dim=-1)

@@ -1,0 +1,62 @@
+"""Serving: prefill (full-sequence forward) and single-token decode.
+
+The TP AllReduces inside the forward run through the paper's quantized
+two-step (the TTFT site of the paper's Fig. 2). This package serves at
+tp = 1 (``group=None``): each site still runs the full codec schedule.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.policy import CommPolicy
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import (forward, init_caches,
+                                      next_token_logits)
+from repro_torch.parallel.plan import ShardingPlan
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def make_prefill(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
+                 group=None):
+    """prefill(params, tokens (B, S)) -> (B, v_loc) f32 logits of the
+    next token; :func:`repro_torch.models.model.greedy_next_token` picks
+    it."""
+    dtype = _dtype(cfg)
+
+    @torch.no_grad()
+    def prefill(params, tokens):
+        hidden, unemb, _ = forward(params, tokens, cfg, plan, policy,
+                                   dtype=dtype, group=group)
+        return next_token_logits(hidden, unemb, cfg, plan)
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig, plan: ShardingPlan,
+                     policy: CommPolicy, group=None):
+    """step(params, caches, tokens (B, 1)) -> ((B, v_loc) f32 logits of
+    the next token, caches); the caches are updated in place."""
+    dtype = _dtype(cfg)
+
+    @torch.no_grad()
+    def step(params, caches, tokens):
+        hidden, unemb, caches = forward(params, tokens, cfg, plan, policy,
+                                        caches=caches, dtype=dtype,
+                                        group=group)
+        return next_token_logits(hidden, unemb, cfg, plan), caches
+
+    return step
+
+
+def make_cache_init(cfg: ModelConfig, plan: ShardingPlan, batch: int,
+                    cache_len: int, device):
+    """init() -> fresh decode caches on ``device``."""
+    dtype = _dtype(cfg)
+
+    def init():
+        return init_caches(cfg, plan, batch, cache_len, dtype, device)
+
+    return init

@@ -1,0 +1,361 @@
+"""The PyTorch port's wire codec held against the JAX package.
+
+Same inputs (numpy, fixed seeds) through both packages in one process.
+Every comparison is bit for bit unless a test states its tolerance and
+why. The CUDA kernels cannot run here; on the CPU every kernel wrapper
+runs its plain PyTorch version, which is what these tests pin, and
+``chip_smoke.py`` holds the kernels against that version on the card.
+"""
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import codec as jcodec
+from repro.core import quant as jquant
+from repro.core import scale_codec as jscale
+from repro.core import spike as jspike
+from repro.core import wordpack as jwordpack
+from repro.core.comm_config import CommConfig as JConfig
+from repro.core.comm_config import _wire_layout as j_wire_layout
+from repro_torch.core import codec, quant, scale_codec, spike, wordpack
+from repro_torch.core.comm_config import CommConfig, _wire_layout
+from repro_torch.kernels import ops, wire
+
+sys.path.insert(0, os.path.join(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__))), "scripts"))
+from gen_golden_wire import golden_cfg  # noqa: E402
+
+GOLDEN = np.load(os.path.join(os.path.dirname(__file__), "golden",
+                              "wire_vectors.npz"))
+RAW_KEYS = [k for k in GOLDEN.files if k.startswith(("int", "a2a_int"))]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _bits(a) -> np.ndarray:
+    """Bit pattern of a float array (NaN-exact comparisons)."""
+    a = np.asarray(a)
+    return a.view({4: np.uint32, 2: np.uint16, 1: np.uint8}[a.itemsize])
+
+
+def _edge_x(seed=0) -> np.ndarray:
+    """Gaussian rows with outliers, NaN groups (one and two NaNs), inf,
+    constant groups and duplicated extremes (group-32 positions)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((4, 512)) * 3).astype(np.float32)
+    x[0, 7] = 41.0
+    x[1, 100] = -36.0
+    x[2, 0:128] = 0.75                      # constant groups
+    x[2, 130] = x[2, 140] = 8.0             # duplicated max
+    x[2, 131] = x[2, 141] = -8.0            # duplicated min
+    x[3, 33] = np.nan                       # single NaN
+    x[3, 70] = x[3, 80] = np.nan            # two NaNs
+    x[3, 200] = np.inf
+    x[3, 300] = -np.inf
+    return x
+
+
+# ---------------------------------------------------------------------------
+# comm_config
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_wire_layout_equal(bits):
+    for group in (32, 64, 128):
+        for spike_on in (False, True):
+            for scale_int in (False, True):
+                for n in (group, 4 * group, 96 * group):
+                    assert tuple(_wire_layout(n, bits, group, spike_on,
+                                              scale_int)) == \
+                        tuple(j_wire_layout(n, bits, group, spike_on,
+                                            scale_int))
+                kw = dict(bits=bits, group=group, spike=spike_on,
+                          scale_int=scale_int)
+                assert CommConfig(**kw).wire_bytes(4096) == \
+                    JConfig(**kw).wire_bytes(4096)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bits=9), dict(bits=0), dict(group=2), dict(scheme="ring"),
+    dict(spike=True, group=512), dict(spike=True, group=3),
+    dict(spike=True, rotation=True), dict(rotation=True, group=96),
+    dict(framed=True, scheme="fused"), dict(bits=3, group=64, spike=True),
+    dict(enabled=False, bits=9), dict(rotation=True, group=64),
+])
+def test_post_init_rejections_match(kw):
+    def rejects(cls):
+        try:
+            cls(**kw)
+        except AssertionError:
+            return True
+        return False
+    assert rejects(CommConfig) == rejects(JConfig)
+
+
+def test_backend_names():
+    assert CommConfig(backend="cuda").backend == "cuda"
+    with pytest.raises(AssertionError):
+        CommConfig(backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# codec primitives
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("unit", [1, 2, 4, 8])
+def test_wordpack_planes(unit):
+    rng = np.random.default_rng(unit)
+    for n in (7, 33, 512):
+        f = rng.integers(0, 1 << unit, (3, n)).astype(np.uint8)
+        jp = np.asarray(jwordpack.pack_plane(jnp.asarray(f), unit))
+        tp = wordpack.pack_plane(_t(f), unit).numpy()
+        np.testing.assert_array_equal(tp, jp)
+        np.testing.assert_array_equal(
+            wordpack.unpack_plane(_t(tp), unit, n).numpy(),
+            np.asarray(jwordpack.unpack_plane(jnp.asarray(jp), unit, n)))
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_wordpack_codes(bits):
+    rng = np.random.default_rng(bits)
+    codes = rng.integers(0, 1 << bits, (2, 96)).astype(np.uint8)
+    jplanes = jwordpack.pack_codes(jnp.asarray(codes), bits)
+    tplanes = wordpack.pack_codes(_t(codes), bits)
+    for (ju, jp), (tu, tp) in zip(jplanes, tplanes):
+        assert ju == tu
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    back = wordpack.unpack_codes(lambda i, u, nb: tplanes[i][1], bits, 96)
+    np.testing.assert_array_equal(back.numpy(), codes)
+
+
+@pytest.mark.parametrize("theta", [5, 10, 20])
+def test_scale_codec_tables_and_all_codes(theta):
+    assert scale_codec.mant_thresholds(theta) == \
+        jscale._mant_thresholds(theta)
+    assert scale_codec.frac_table(theta) == jscale._frac_table(theta)
+    codes = np.arange(-128, 128, dtype=np.int8)
+    np.testing.assert_array_equal(
+        _bits(scale_codec.decode_scale(_t(codes), theta).numpy()),
+        _bits(jscale.decode_scale(jnp.asarray(codes), theta)))
+    scodes = np.arange(256, dtype=np.uint8)
+    np.testing.assert_array_equal(
+        _bits(scale_codec.decode_signed(_t(scodes), theta).numpy()),
+        _bits(jscale.decode_signed(jnp.asarray(scodes), theta)))
+
+
+@pytest.mark.parametrize("theta", [5, 10, 20])
+def test_scale_codec_encode_grid(theta):
+    rng = np.random.default_rng(theta)
+    grid = np.concatenate([
+        np.exp2(rng.uniform(-80, 80, 20000)),
+        np.exp2(np.arange(-70, 70) / theta),       # on/near code edges
+        np.nextafter(np.exp2(np.arange(-70, 70) / theta), 0),
+        [0.0, 1e-30, 1e-20, 1e-12, 1.0, 3.4e38, np.inf, np.nan],
+    ]).astype(np.float32)
+    signed = np.concatenate([grid, -grid, [-0.0, -np.nan]]).astype(
+        np.float32)
+    np.testing.assert_array_equal(
+        scale_codec.encode_scale(_t(grid), theta).numpy(),
+        np.asarray(jscale.encode_scale(jnp.asarray(grid), theta)))
+    np.testing.assert_array_equal(
+        scale_codec.encode_signed(_t(signed), theta).numpy(),
+        np.asarray(jscale.encode_signed(jnp.asarray(signed), theta)))
+
+
+@pytest.mark.parametrize("meta", ["bfloat16", "float16"])
+@pytest.mark.parametrize("bits,group", [(8, 128), (5, 128), (4, 32),
+                                        (2, 32), (3, 64), (1, 32)])
+def test_quantize_bits_equal(bits, group, meta):
+    x = _edge_x()
+    jc, js, jz = jquant.quantize(jnp.asarray(x), bits, group,
+                                 jnp.dtype(meta))
+    tc, ts, tz = quant.quantize(_t(x), bits, group, meta)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(_bits(ts.view(torch.int16).numpy()),
+                                  _bits(np.asarray(js)))
+    np.testing.assert_array_equal(_bits(tz.view(torch.int16).numpy()),
+                                  _bits(np.asarray(jz)))
+    np.testing.assert_array_equal(
+        _bits(quant.dequantize(tc, ts, tz).numpy()),
+        _bits(jquant.dequantize(jc, js, jz)))
+
+
+@pytest.mark.parametrize("meta", ["bfloat16", "float16"])
+@pytest.mark.parametrize("bits,group", [(2, 32), (3, 32), (4, 64),
+                                        (8, 128), (2, 4)])
+def test_spike_quantize_bits_equal(bits, group, meta):
+    x = _edge_x()
+    jq = jspike.spike_quantize(jnp.asarray(x), bits, group, jnp.dtype(meta))
+    tq = spike.spike_quantize(_t(x), bits, group, meta)
+    np.testing.assert_array_equal(tq.codes.numpy(), np.asarray(jq.codes))
+    for tf, jf in ((tq.scale, jq.scale), (tq.zero, jq.zero),
+                   (tq.spike_vals, jq.spike_vals)):
+        np.testing.assert_array_equal(_bits(tf.view(torch.int16).numpy()),
+                                      _bits(np.asarray(jf)))
+    np.testing.assert_array_equal(tq.spike_idx.numpy(),
+                                  np.asarray(jq.spike_idx))
+    np.testing.assert_array_equal(
+        _bits(spike.spike_dequantize(tq).numpy()),
+        _bits(jspike.spike_dequantize(jq)))
+
+
+def test_spike_edge_rules():
+    """The documented election rules, on hand-built groups of 4."""
+    x = np.array([[1.0, 5.0, 5.0, 1.0],          # duplicated extremes
+                  [2.0, 2.0, 2.0, 2.0],          # constant group
+                  [0.0, np.nan, 3.0, 1.0],       # one NaN: max forfeited
+                  [np.nan, 1.0, np.nan, 2.0]],   # two NaNs take both
+                 np.float32)
+    q = spike.spike_quantize(_t(x), 2, 4)
+    np.testing.assert_array_equal(q.spike_idx.reshape(4, 2).numpy(),
+                                  [[0, 1], [0, 1], [1, 1], [0, 2]])
+
+
+# ---------------------------------------------------------------------------
+# the wire: goldens, scale_int, pallas interpret, decode
+# ---------------------------------------------------------------------------
+
+def _golden(key):
+    stem = key[len("a2a_"):] if key.startswith("a2a_") else key
+    bits = int(stem.split("_")[0][len("int"):])
+    jc = golden_cfg(bits, stem.endswith("_sr"), stem.endswith("_rot"))
+    cfg = CommConfig(bits=jc.bits, group=jc.group, spike=jc.spike,
+                     rotation=jc.rotation, backend="ref")
+    x = GOLDEN["xa"] if key.startswith("a2a_") else GOLDEN["x"]
+    return cfg, jc, x
+
+
+@pytest.mark.parametrize("key", RAW_KEYS)
+def test_golden_encode_and_decode(key):
+    """Raw keys: byte for byte. ``_rot`` keys: the rotation is an f32
+    (g, g) matrix product whose summation order PyTorch and XLA choose
+    differently, so a rotated value within rounding of a code boundary
+    may take the neighbouring code: at most 1% of bytes may differ, and
+    the decoded values then differ by at most one quantization step of
+    the group (here < 0.6 on a 3-sigma input) plus f32 rounding."""
+    cfg, jc, x = _golden(key)
+    buf = codec.encode(_t(x), cfg).numpy()
+    assert buf.shape == GOLDEN[key].shape
+    dec = codec.decode(_t(GOLDEN[key]), cfg, x.shape[-1]).numpy()
+    jdec = np.asarray(jcodec.decode(jnp.asarray(GOLDEN[key]), jc,
+                                    x.shape[-1]))
+    if cfg.rotation:
+        assert np.mean(buf != GOLDEN[key]) <= 0.01
+        np.testing.assert_allclose(dec, jdec, rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(buf, GOLDEN[key])
+        np.testing.assert_array_equal(_bits(dec), _bits(jdec))
+
+
+SCALE_INT_GRID = [(bits, 32 if bits <= 4 else 128, sp, 10)
+                  for bits in range(1, 9) for sp in (False, True)] + \
+    [(3, 64, False, 10), (3, 64, True, 10)] + \
+    [(bits, 64, sp, theta) for bits in (2, 5, 8) for sp in (False, True)
+     for theta in (5, 20)]
+
+
+@pytest.mark.parametrize("bits,group,sp,theta", SCALE_INT_GRID)
+def test_scale_int_matches_jax(bits, group, sp, theta):
+    """No golden covers scale_int: held against repro.core.codec."""
+    x = _edge_x(seed=bits * 7 + theta)
+    jc = JConfig(bits=bits, group=group, spike=sp, scale_int=True,
+                 theta=theta, backend="ref")
+    cfg = CommConfig(bits=bits, group=group, spike=sp, scale_int=True,
+                     theta=theta)
+    jbuf = np.asarray(jcodec.encode(jnp.asarray(x), jc))
+    np.testing.assert_array_equal(codec.encode(_t(x), cfg).numpy(), jbuf)
+    np.testing.assert_array_equal(
+        _bits(codec.decode(_t(jbuf), cfg, 512).numpy()),
+        _bits(jcodec.decode(jnp.asarray(jbuf), jc, 512)))
+
+
+def _assert_within_fma_rounding(td, jd, group):
+    """JAX's jitted decode (its "pallas" backend, kernels interpreted
+    under jit) lets XLA's CPU backend contract ``codes * s + z`` into one
+    FMA; the port, like JAX's eager ``"ref"`` decode, rounds the product
+    first (and so do the CUDA kernels). The two differ by at most one
+    rounding of the product: |d| <= ulp(codes*s) <= 2^-23 |codes*s|, and
+    |codes*s| <= |value| + |z| <= |value| + max |value| of its group
+    (z is the value of code 0). Twice that bound is asserted."""
+    assert np.array_equal(np.isnan(td), np.isnan(jd))
+    ok = np.isfinite(td) & np.isfinite(jd)
+    np.testing.assert_array_equal(td[~ok], jd[~ok])
+    a = np.abs(np.where(ok, jd, 0.0)).reshape(*jd.shape[:-1], -1, group)
+    gmax = np.repeat(a.max(-1), group, axis=-1).reshape(jd.shape)
+    bound = 2.0 ** -22 * (np.abs(jd) + gmax)
+    assert np.all(np.abs(td[ok] - jd[ok]) <= bound[ok])
+
+
+@pytest.mark.parametrize("bits,sp", [(5, False), (2, True), (8, False)])
+def test_matches_jax_pallas_backend(bits, sp):
+    """The JAX "pallas" backend (kernels in interpret mode) gives the
+    same bytes as the port's plain codec; decode within one rounding of
+    the product (see :func:`_assert_within_fma_rounding`)."""
+    x = _edge_x(seed=bits)
+    group = 128 if bits >= 5 else 32
+    jc = JConfig(bits=bits, group=group, spike=sp, scale_int=True,
+                 backend="pallas")
+    cfg = CommConfig(bits=bits, group=group, spike=sp, scale_int=True)
+    jbuf = np.asarray(jcodec.encode(jnp.asarray(x), jc))
+    np.testing.assert_array_equal(codec.encode(_t(x), cfg).numpy(), jbuf)
+    _assert_within_fma_rounding(
+        codec.decode(_t(jbuf), cfg, 512).numpy(),
+        np.asarray(jcodec.decode(jnp.asarray(jbuf), jc, 512)), group)
+
+
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("meta", ["bfloat16", "float16"])
+def test_decode_out_dtype_and_meta(out, meta):
+    x = _edge_x(seed=3)
+    jc = JConfig(bits=3, group=32, spike=True, meta_dtype=meta,
+                 backend="ref")
+    cfg = CommConfig(bits=3, group=32, spike=True, meta_dtype=meta)
+    jbuf = np.asarray(jcodec.encode(jnp.asarray(x), jc))
+    np.testing.assert_array_equal(codec.encode(_t(x), cfg).numpy(), jbuf)
+    td = codec.decode(_t(jbuf), cfg, 512, getattr(torch, out))
+    jd = jcodec.decode(jnp.asarray(jbuf), jc, 512, jnp.dtype(out))
+    np.testing.assert_array_equal(
+        _bits(td.view(torch.int16 if out == "bfloat16" else torch.int32)
+              .numpy()), _bits(np.asarray(jd)))
+
+
+def test_wrappers_plain_on_cpu_and_backend_rules():
+    """On a CPU tensor the dispatching wrappers run the plain versions and
+    count no launch; the kernel wrappers refuse a CPU tensor, and so does
+    the 'cuda' backend."""
+    x = _t(_edge_x())
+    cfg = CommConfig(bits=5, group=128, scale_int=True)
+    wire.reset_launches()
+    buf = ops.fused_encode_wire(x, cfg)
+    assert torch.equal(buf, wire.encode_plain(x, cfg))
+    assert torch.equal(ops.fused_decode_wire(buf, cfg, 512),
+                       wire.decode_plain(buf, cfg, 512))
+    assert torch.equal(ops.fused_decode_reduce(buf, cfg, 512),
+                       wire.decode_reduce_plain(buf, cfg, 512))
+    assert set(wire.LAUNCHES.values()) == {0}
+    for call in (lambda: wire.encode_wire(x, cfg),
+                 lambda: wire.decode_wire(buf, cfg, 512),
+                 lambda: wire.decode_reduce(buf, cfg, 512)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        codec.encode(x, cfg.with_backend("cuda"))
+    with pytest.raises(NotImplementedError):
+        codec.encode(x, CommConfig(framed=True))
+    assert codec.wire_shape((3, 512), cfg) == (3, cfg.wire_bytes(512))
+
+
+def test_qdq_wire_round_trip():
+    x = _edge_x()
+    x = np.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    cfg = CommConfig(bits=8, group=128)
+    jc = JConfig(bits=8, group=128, backend="ref")
+    np.testing.assert_array_equal(
+        codec.qdq_wire(_t(x), cfg).numpy(),
+        np.asarray(jcodec.qdq_wire(jnp.asarray(x), jc)))
