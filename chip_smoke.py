@@ -7,19 +7,31 @@
 Phases, each printing its lines; any failure exits non-zero:
 
 1. build  -- print the card's name and power limit, build the CUDA
-             kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
+             kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
+             process for each source, all at once.
 2. codec  -- the CUDA encode reproduces every raw golden wire vector of
-             ``tests/golden/wire_vectors.npz`` byte for byte; for scale_int,
-             fp16-meta and edge-case configs the kernels equal their plain
-             PyTorch versions on the card (encode bytes, decode bits,
-             decode+reduce bits at (8, 4096)).
-3. time   -- at the serving path's two shapes, the prefill's
+             ``tests/golden/wire_vectors.npz`` byte for byte, and each
+             ``_rot`` key within the CPU tests' bound (at most 1% of bytes
+             differ; the CUDA decode of the golden equals the plain decode
+             on the CPU bit for bit); for scale_int, fp16-meta, rotation
+             and edge-case configs the kernels equal their plain PyTorch
+             versions on the card (encode bytes, decode bits,
+             decode+reduce bits, on the edge input and at (8, 4096)).
+3. stage  -- the per-stage kernels (quant_pack, dequant_unpack,
+             spike_pack) equal their plain versions byte for byte (payload,
+             scale, zero, spike values and indices) and bit for bit
+             (dequantized values) at the serving path's two shapes, at
+             (64, 4096) and on the edge input, for STAGE_SWEEP with f32 and
+             bf16 input, with exact launch counts. Then their entry points
+             (``repro_torch.kernels.fused_*``) are driven at the prefill
+             site's shape with the counts zeroed before and read after.
+4. time   -- at the serving path's two shapes, the prefill's
              (1, BATCH*PROMPT_LEN*d_model) and the decode step's
              (1, BATCH*d_model): each kernel equals its plain version, and
              its device time from a torch.profiler trace (25 calls) and its
              time per call with CUDA events (median of 25 calls after 5
              warm-up calls) stand beside the plain version's and the bound.
-4. serve  -- qwen3-14b at full width (40 layers, bf16 weights from seed
+5. serve  -- qwen3-14b at full width (40 layers, bf16 weights from seed
              SEED by the JAX package's init rules, with the zero-initialised
              attention and MLP output projections filled from a fan-in
              normal so that every site carries data). For each policy, the
@@ -30,12 +42,15 @@ Phases, each printing its lines; any failure exits non-zero:
              paper/two_step, paper/fused and aggressive/two_step, and
              without the codec (bf16). The launch counts of every kernel
              are zeroed just before these runs and read just after; each
-             kernel must have run the expected number of times, and
-             prefill and decode must agree on the first generated token
+             wire kernel must have run the expected number of times and
+             each stage kernel none, and prefill and decode must agree on
+             the first generated token
              (``repro_torch.launch.serve.prefill_decode_agreement``; the
              run without the codec to CACHE_REL_TOL).
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel
+(``launches``: the wire kernels' from the serve path, the stage kernels'
+from their entry points; ``serve_launches``: from the serve path); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -51,11 +66,21 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "wire_vectors.npz")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
-PHASES = ("build", "codec", "time", "serve")
-SOURCE = "src/repro_torch/kernels/csrc/wire.cu"
+F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+PHASES = ("build", "codec", "stage", "time", "serve")
+CSRC = "src/repro_torch/kernels/csrc/"
+WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
+STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
 REPLACES = {"encode_wire": "src/repro/kernels/wire.py:58",
             "decode_wire": "src/repro/kernels/wire.py:100",
-            "decode_reduce": "src/repro/kernels/emulate.py:110"}
+            "decode_reduce": "src/repro/kernels/emulate.py:110",
+            "quant_pack": "src/repro/kernels/quant_pack.py:54",
+            "dequant_unpack": "src/repro/kernels/dequant_unpack.py:42",
+            "spike_pack": "src/repro/kernels/spike_reserve.py:46"}
+# (bits, group): SWEEP of tests/test_kernels.py, and its spike configs
+STAGE_SWEEP = ((8, 128), (6, 128), (5, 128), (4, 32), (3, 32), (2, 32),
+               (7, 128))
+STAGE_SPIKE = ((2, 32), (3, 32), (4, 32))
 RUNS = (("paper/two_step", "paper", None),
         ("paper/fused", "paper", "fused"),
         ("aggressive/two_step", "aggressive", None))
@@ -71,7 +96,15 @@ DECODE_CHECK_STEPS = 4
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
                                              scale_int=True)),
-                ("int2 g32 spike", dict(bits=2, group=32, spike=True)))
+                ("int2 g32 spike", dict(bits=2, group=32, spike=True)),
+                ("int2 g32 rotation", dict(bits=2, group=32,
+                                           rotation=True)))
+# (label, kernel, bits, group): the stage kernels' timing configs
+STAGE_TIME = (("int8 g128", "quant_pack", 8, 128),
+              ("int8 g128", "dequant_unpack", 8, 128),
+              ("int4 g32", "quant_pack", 4, 32),
+              ("int4 g32", "dequant_unpack", 4, 32),
+              ("int2 g32 spike", "spike_pack", 2, 32))
 
 
 def fail(msg: str) -> None:
@@ -96,12 +129,13 @@ def phase_build(torch):
     card = smi.stdout.strip().splitlines()[0]
     print(f"[build] card: {card}", flush=True)
     print(card, flush=True)
-    from repro_torch.kernels import build, wire
+    from repro_torch.kernels import build, stage, wire
     t0 = time.perf_counter()
-    path = build.build(wire.SOURCE, verbose=True)
-    print(f"[build] {path.name} built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    paths = build.build_all([wire.SOURCE, stage.SOURCE], verbose=True)
+    print(f"[build] {', '.join(p.name for p in paths)} built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     wire._lib()
+    stage._lib()
     return card
 
 
@@ -114,7 +148,8 @@ def _bits_equal(torch, a, b) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
-            torch.float16: torch.int16, torch.uint8: torch.uint8}[a.dtype]
+            torch.float16: torch.int16, torch.uint8: torch.uint8,
+            torch.int8: torch.int8}[a.dtype]
     return bool(torch.equal(a.view(view), b.view(view)))
 
 
@@ -141,26 +176,43 @@ def phase_codec(torch, np):
     from repro_torch.kernels import wire
     dev = torch.device("cuda")
     data = np.load(GOLDEN)
-    skipped = [k for k in data.files if "_rot" in k or k.startswith("frame")]
-    keys = [k for k in data.files if k.startswith(("int", "a2a_int"))
-            and k not in skipped]
+    skipped = [k for k in data.files if k.startswith("frame")]
+    keys = [k for k in data.files if k.startswith(("int", "a2a_int"))]
+    n_rot, rot_diff = 0, 0.0
     for key in keys:
         stem = key[len("a2a_"):] if key.startswith("a2a_") else key
         bits = int(stem.split("_")[0][len("int"):])
         cfg = CommConfig(bits=bits, group=32 if bits <= 4 else 128,
-                         spike=stem.endswith("_sr"))
+                         spike=stem.endswith("_sr"),
+                         rotation=stem.endswith("_rot"))
         x = data["xa"] if key.startswith("a2a_") else data["x"]
         xt = torch.from_numpy(x.reshape(-1, x.shape[-1])).to(dev)
         buf = wire.encode_wire(xt, cfg)
         gold = torch.from_numpy(data[key].reshape(buf.shape)).to(dev)
-        check(torch.equal(buf, gold), f"CUDA encode != golden {key}")
+        if cfg.rotation:
+            # the goldens' rotation summed in XLA's order (see
+            # tests/test_torch_codec.py::test_golden_encode_and_decode)
+            check(torch.equal(buf, wire.encode_plain(xt, cfg)),
+                  f"CUDA encode != plain {key}")
+            frac = float((buf != gold).float().mean())
+            check(frac <= 0.01, f"CUDA encode differs from golden {key} in "
+                  f"{frac:.4f} of bytes > 0.01")
+            n_rot, rot_diff = n_rot + 1, max(rot_diff, frac)
+            cpu = wire.decode_plain(gold.cpu(), cfg, xt.shape[1])
+            check(_bits_equal(torch, wire.decode_wire(
+                gold, cfg, xt.shape[1]).cpu(), cpu),
+                f"CUDA decode of golden {key} != plain decode on the CPU")
+        else:
+            check(torch.equal(buf, gold), f"CUDA encode != golden {key}")
         dec = wire.decode_wire(buf, cfg, xt.shape[1])
         ref = wire.decode_plain(buf, cfg, xt.shape[1])
         check(_bits_equal(torch, dec, ref), f"CUDA decode != plain {key}")
-    print(f"[codec] {len(keys)} raw golden keys byte-equal from the CUDA "
-          f"encode, decode bit-equal to plain; skipped {len(skipped)} "
-          f"keys (_rot: no CUDA rotation mode yet; frame_*: framed wire "
-          f"not ported)", flush=True)
+    print(f"[codec] {len(keys) - n_rot} raw golden keys byte-equal from the "
+          f"CUDA encode, decode bit-equal to plain; {n_rot} _rot keys: CUDA "
+          f"encode byte-equal to plain and within {rot_diff:.4f} <= 0.01 of "
+          f"golden bytes, decode of the golden bit-equal to plain on the "
+          f"card and on the CPU; skipped {len(skipped)} keys (frame_*: "
+          f"framed wire not ported)", flush=True)
 
     x = torch.from_numpy(_edge_input(np, 4, 1024, 7)).to(dev)
     cfgs = []
@@ -178,6 +230,11 @@ def phase_codec(torch, np):
                                (8, 128, False), (4, 32, True)):
         cfgs.append(CommConfig(bits=bits, group=group, spike=spike,
                                meta_dtype="float16"))
+    n_rot = 0
+    for bits in (2, 4, 8):
+        for group in (32, 64, 128):
+            cfgs.append(CommConfig(bits=bits, group=group, rotation=True))
+            n_rot += 1
     for cfg in cfgs:
         buf = wire.encode_wire(x, cfg)
         check(torch.equal(buf, wire.encode_plain(x, cfg)),
@@ -187,27 +244,137 @@ def phase_codec(torch, np):
             check(_bits_equal(torch, dec, wire.decode_plain(
                 buf, cfg, x.shape[1], out_dtype)),
                 f"CUDA decode != plain ({out_dtype}) for {cfg}")
-    print(f"[codec] {len(cfgs)} scale_int / theta / fp16-meta configs with "
-          f"NaN, inf, constant and duplicated-extreme groups: CUDA encode "
-          f"byte-equal and decode (f32, bf16) bit-equal to plain",
-          flush=True)
+        check(_bits_equal(torch, wire.decode_reduce(buf, cfg, x.shape[1]),
+                          wire.decode_reduce_plain(buf, cfg, x.shape[1])),
+              f"CUDA decode_reduce != plain for {cfg}")
+    print(f"[codec] {len(cfgs)} scale_int / theta / fp16-meta / rotation "
+          f"({n_rot}) configs with NaN, inf, constant and "
+          f"duplicated-extreme groups: CUDA encode byte-equal, decode "
+          f"(f32, bf16) and decode_reduce bit-equal to plain", flush=True)
 
     rng = np.random.default_rng(11)
     xr = torch.from_numpy((rng.standard_normal((8, 4096)) * 2).astype(
         np.float32)).to(dev)
     for cfg in (CommConfig(bits=8, group=128),
                 CommConfig(bits=5, group=128, scale_int=True),
-                CommConfig(bits=2, group=32, spike=True)):
+                CommConfig(bits=2, group=32, spike=True),
+                CommConfig(bits=2, group=32, rotation=True),
+                CommConfig(bits=4, group=64, rotation=True),
+                CommConfig(bits=8, group=128, rotation=True)):
         buf = wire.encode_wire(xr, cfg)
         red = wire.decode_reduce(buf, cfg, 4096)
         check(_bits_equal(torch, red, wire.decode_reduce_plain(
             buf, cfg, 4096)), f"CUDA decode_reduce != plain for {cfg}")
     print("[codec] decode_reduce at (8, 4096): bit-equal to plain for int8, "
-          "int5 scale_int and int2 spike", flush=True)
+          "int5 scale_int, int2 spike and rotation int2 g32 / int4 g64 / "
+          "int8 g128", flush=True)
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernel times at the serving path's shapes
+# phase 3: the per-stage kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _stage_input(np, rows: int, n: int, seed: int):
+    """The edge input, plus NaNs that carry a sign or a payload, each the
+    only NaN of its group: the meta dtype must keep their bits as
+    ``jnp.astype`` does."""
+    x = _edge_input(np, rows, n, seed)
+    bits = x.view(np.uint32)
+    bits[1, 300] = 0xFFC00000                # negative NaN
+    bits[1, 600] = 0x7FA12345                # NaN with a payload
+    bits[0, 900] = 0xFFE54321                # both
+    return x
+
+
+def _stage_inputs(torch, np, dev):
+    from repro_torch.configs import get_config
+    d_model = get_config(ARCH).d_model
+    rng = np.random.default_rng(21)
+    shapes = {"prefill": (1, BATCH * PROMPT_LEN * d_model),
+              "decode": (1, BATCH * d_model), "bench": (64, 4096)}
+    out = {k: torch.from_numpy((rng.standard_normal(v) * 3).astype(
+        np.float32)).to(dev) for k, v in shapes.items()}
+    out["edge"] = torch.from_numpy(_stage_input(np, 4, 1024, 9)).to(dev)
+    return out
+
+
+def _group_err_ok(torch, y, x, scale, group) -> bool:
+    """Every finite value within two quantization steps of its group."""
+    err = (y.float() - x.float()).abs().reshape(*scale.shape, group)
+    step = scale.float()[..., None]
+    return bool(torch.isfinite(y).all()) and bool((err <= 2 * step).all())
+
+
+def phase_stage(torch, np):
+    from repro_torch.kernels import (dequant_unpack, ops, quant_pack, ref,
+                                     spike_reserve, stage)
+    dev = torch.device("cuda")
+    inputs = _stage_inputs(torch, np, dev)
+    stage.reset_launches()
+    want = dict.fromkeys(stage.LAUNCHES, 0)
+    names = ("payload", "scale", "zero", "spike_vals", "spike_idx")
+    for label, x32 in inputs.items():
+        n = x32.shape[1]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            for bits, group in STAGE_SWEEP:
+                got = quant_pack.quant_pack(x, bits, group)
+                for name, a, b in zip(names, got, ref.quant_pack_ref(
+                        x, bits, group)):
+                    check(_bits_equal(torch, a, b), f"quant_pack {name} != "
+                          f"plain: {label} {dtype} int{bits} g{group}")
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    y = dequant_unpack.dequant_unpack(*got, bits, group, n,
+                                                      out_dtype)
+                    check(_bits_equal(torch, y, ref.dequant_unpack_ref(
+                        *got, bits, group, n, out_dtype)),
+                        f"dequant_unpack != plain: {label} {dtype} "
+                        f"int{bits} g{group} -> {out_dtype}")
+                want["quant_pack"] += 1
+                want["dequant_unpack"] += 2
+            for bits, group in STAGE_SPIKE:
+                got = spike_reserve.spike_pack(x, bits, group)
+                for name, a, b in zip(names, got, ref.spike_pack_ref(
+                        x, bits, group)):
+                    check(_bits_equal(torch, a, b), f"spike_pack {name} != "
+                          f"plain: {label} {dtype} int{bits} g{group}")
+                want["spike_pack"] += 1
+    got_launches = dict(stage.LAUNCHES)
+    check(got_launches == want, f"stage launches {got_launches} != {want}")
+    print(f"[stage] quant_pack, dequant_unpack (f32, bf16 out) and "
+          f"spike_pack equal their plain versions byte for byte at "
+          f"{', '.join(f'{k} {tuple(v.shape)}' for k, v in inputs.items())}"
+          f", f32 and bf16 input, {len(STAGE_SWEEP)} + {len(STAGE_SPIKE)} "
+          f"configs; launches {got_launches} exact", flush=True)
+
+    # the entry points, at the prefill site's shape
+    x = inputs["prefill"]
+    n = x.shape[1]
+    stage.reset_launches()
+    for bits, group in ((8, 128), (4, 32)):
+        payload, scale, zero = ops.fused_quant_pack(x, bits, group)
+        y = ops.fused_dequant_unpack(payload, scale, zero, bits, group, n)
+        check(y.shape == x.shape and _group_err_ok(torch, y, x, scale,
+                                                    group),
+              f"fused quant_pack -> dequant_unpack int{bits} g{group}: "
+              f"values off by more than two steps")
+    outs = ops.fused_spike_pack(x, 2, 32)
+    y = ref.spike_unpack_ref(*outs, 2, 32, n)
+    check(_group_err_ok(torch, y, x, outs[1], 32),
+          "fused spike_pack int2 g32: values off by more than two steps")
+    launches = dict(stage.LAUNCHES)
+    check(launches == {"quant_pack": 2, "dequant_unpack": 2,
+                       "spike_pack": 1},
+          f"entry points launched {launches}")
+    print(f"[stage] entry points repro_torch.kernels.fused_quant_pack / "
+          f"fused_dequant_unpack (int8 g128, int4 g32) and fused_spike_pack "
+          f"(int2 g32) at (1, {n}): within two steps of the input; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: kernel times at the serving path's shapes
 # ---------------------------------------------------------------------------
 
 def _time_ms(torch, fn, runs: int = 25, warmup: int = 5) -> float:
@@ -235,22 +402,58 @@ def _device_ms(torch, fn, runs: int = 25):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        total_us += getattr(ev, "self_device_time_total",
-                            getattr(ev, "self_cuda_time_total", 0.0))
-    return total_us / runs / 1e3 if total_us > 0 else None
+    for _ in range(2):                   # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for ev in prof.key_averages():
+            total_us += getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0.0))
+        if total_us > 0:
+            return total_us / runs / 1e3
+    return None
+
+
+def _max_abs_err(torch, a, b) -> float:
+    """Largest |a - b| over a kernel's outputs (one tensor or a tuple)."""
+    pairs = zip(a, b) if isinstance(a, tuple) else ((a, b),)
+    return max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
+
+
+def _time_row(torch, name, label, n, kern, plain, nbytes, flops, card):
+    """Time a kernel beside its plain version; the row of the record."""
+    err = _max_abs_err(torch, kern(), plain())
+    call_ms, plain_call_ms = _time_ms(torch, kern), _time_ms(torch, plain)
+    dev_ms, plain_dev_ms = _device_ms(torch, kern), _device_ms(torch, plain)
+    ms = dev_ms if dev_ms is not None else call_ms
+    plain_ms = plain_dev_ms if plain_dev_ms is not None else plain_call_ms
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / F32_FLOPS_PER_S * 1e3
+    bound, bound_by = max((byte_ms, "bytes"), (flop_ms, "operations"))
+    src = "device" if dev_ms is not None else "no device trace: per call"
+    psrc = "device" if plain_dev_ms is not None else \
+        "no device trace: per call"
+    print(f"[time] {name:14s} {label:18s} (1, {n}): kernel {ms:.4f} ms "
+          f"({src}; {call_ms:.4f} ms per call)  plain {plain_ms:.4f} ms "
+          f"({psrc}; {plain_call_ms:.4f} ms per call)  bound {bound:.6f} ms "
+          f"({bound_by}; bytes {byte_ms:.6f}, f32 ops {flop_ms:.6f})  "
+          f"max_abs_err {err}  [{card}]", flush=True)
+    check(err == 0.0, f"{name} {label} (1, {n}): kernel differs from plain")
+    return {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "max_abs_err": err, "call_ms": call_ms,
+            "plain_call_ms": plain_call_ms,
+            "device_time": dev_ms is not None,
+            "plain_device_time": plain_dev_ms is not None}
 
 
 def phase_time(torch, np, card: str):
     """Rows keyed by (shape label, config label, kernel)."""
     from repro_torch.configs import get_config
     from repro_torch.core.comm_config import CommConfig
-    from repro_torch.kernels import wire
+    from repro_torch.kernels import (dequant_unpack, quant_pack, ref,
+                                     spike_reserve, stage, wire)
     dev = torch.device("cuda")
     d_model = get_config(ARCH).d_model
     rng = np.random.default_rng(3)
@@ -272,33 +475,32 @@ def phase_time(torch, np, card: str):
                                       buf, cfg, n)),
             }
             for name, (kern, plain) in fns.items():
-                err = float((kern().float() - plain().float()).abs().max())
-                call_ms, plain_call_ms = _time_ms(torch, kern), _time_ms(
-                    torch, plain)
-                dev_ms, plain_dev_ms = _device_ms(torch, kern), _device_ms(
-                    torch, plain)
-                ms = dev_ms if dev_ms is not None else call_ms
-                plain_ms = plain_dev_ms if plain_dev_ms is not None \
-                    else plain_call_ms
-                bound = wire.bound_bytes(name, cfg, 1, n) / HBM_BYTES_PER_S \
-                    * 1e3
-                print(f"[time] {name:13s} {label:20s} (1, {n}): kernel "
-                      f"{ms:.4f} ms (device; {call_ms:.4f} ms per call)  "
-                      f"plain {plain_ms:.4f} ms (device; {plain_call_ms:.4f}"
-                      f" ms per call)  bound {bound:.4f} ms (bytes)  "
-                      f"max_abs_err {err}  [{card}]", flush=True)
-                check(err == 0.0, f"{name} {label} (1, {n}): kernel differs "
-                      f"from plain")
-                rows.setdefault(shape, {}).setdefault(label, {})[name] = {
-                    "n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "max_abs_err": err, "call_ms": call_ms,
-                    "plain_call_ms": plain_call_ms,
-                    "device_time": dev_ms is not None}
+                rows.setdefault(shape, {}).setdefault(label, {})[name] = \
+                    _time_row(torch, name, label, n, kern, plain,
+                              wire.bound_bytes(name, cfg, 1, n),
+                              wire.bound_flops(name, cfg, 1, n), card)
+        for label, name, bits, group in STAGE_TIME:
+            packed = quant_pack.quant_pack(x, bits, group)
+            kern, plain = {
+                "quant_pack": (
+                    lambda: quant_pack.quant_pack(x, bits, group),
+                    lambda: ref.quant_pack_ref(x, bits, group)),
+                "dequant_unpack": (
+                    lambda: dequant_unpack.dequant_unpack(*packed, bits,
+                                                          group, n),
+                    lambda: ref.dequant_unpack_ref(*packed, bits, group, n)),
+                "spike_pack": (
+                    lambda: spike_reserve.spike_pack(x, bits, group),
+                    lambda: ref.spike_pack_ref(x, bits, group)),
+            }[name]
+            rows.setdefault(shape, {}).setdefault(label, {})[name] = \
+                _time_row(torch, name, label, n, kern, plain,
+                          stage.bound_bytes(name, bits, group, 1, n), 0, card)
     return rows
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve qwen3-14b at full width
+# phase 5: serve qwen3-14b at full width
 # ---------------------------------------------------------------------------
 
 def _fill_output_projections(torch, cfg, plan, params, seed: int):
@@ -321,7 +523,7 @@ def _fill_output_projections(torch, cfg, plan, params, seed: int):
 
 def phase_serve(torch, np):
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels import wire
+    from repro_torch.kernels import stage, wire
     from repro_torch.launch.serve import build_policy, serve
     from repro_torch.models.model import forward
     from repro_torch.parallel.plan import make_plan
@@ -396,6 +598,7 @@ def phase_serve(torch, np):
     sites = 1 + 2 * cfg.n_layers           # embedding + attn/MLP per layer
     forwards = 1 + PROMPT_LEN + GEN - 1
     wire.reset_launches()                  # the main path starts here
+    stage.reset_launches()
     results = {}
     for label, pol, scheme in RUNS + (BASELINE,):
         before = dict(wire.LAUNCHES)
@@ -417,8 +620,12 @@ def phase_serve(torch, np):
               f"{label}: no prefill/decode check")
         results[label] = res
     launches = dict(wire.LAUNCHES)         # read right after the main path
+    stage_launches = dict(stage.LAUNCHES)
     for k, v in launches.items():
         check(v > 0, f"kernel {k} never launched on the main path")
+    check(set(stage_launches.values()) == {0},
+          f"stage kernels launched on the serve path: {stage_launches}")
+    launches.update(stage_launches)
     rel = max(results[BASELINE[0]]["agreement"]["rel_divergence"])
     check(rel <= CACHE_REL_TOL, f"unquantized prefill/decode logit "
           f"divergence {rel} > {CACHE_REL_TOL}: KV-cache drift")
@@ -458,25 +665,33 @@ def main(argv=None) -> int:
     card = phase_build(torch)
     if "codec" in phases:
         phase_codec(torch, np)
+    stage_launches = phase_stage(torch, np) if "stage" in phases else {}
     timing = phase_time(torch, np, card) if "time" in phases else {}
     launches, served = {}, {}
     if "serve" in phases:
         launches, served = phase_serve(torch, np)
 
-    main_cfg = timing.get("prefill", {}).get("int8 g128", {})
+    main_cfg = {name: "int2 g32 spike" if name == "spike_pack"
+                else "int8 g128" for name in REPLACES}
     kernels = []
-    for name in ("encode_wire", "decode_wire", "decode_reduce"):
-        t = main_cfg.get(name, {})
+    for name in WIRE_KERNELS + STAGE_KERNELS:
+        t = timing.get("prefill", {}).get(main_cfg[name], {}).get(name, {})
+        errs = [r[name]["max_abs_err"] for by_cfg in timing.values()
+                for r in by_cfg.values() if name in r]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches.get(name, 0),
-            "max_abs_err": max((r[name]["max_abs_err"]
-                                for by_cfg in timing.values()
-                                for r in by_cfg.values()), default=None),
+            "name": name, "route": "cuda",
+            "source": CSRC + ("wire.cu" if name in WIRE_KERNELS
+                              else "stage.cu"),
+            "replaces": REPLACES[name],
+            "launches": (launches.get(name, 0) if name in WIRE_KERNELS
+                         else stage_launches.get(name, 0)),
+            "serve_launches": launches.get(name, 0),
+            "max_abs_err": max(errs, default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
-            "bound_ms": t.get("bound_ms"), "bound_by": "bytes",
+            "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": None})
     record = {"card": card, "timing": timing, "launches": launches,
+              "stage_launches": stage_launches,
               "serve": {k: {m: v for m, v in r.items()
                             if isinstance(v, (int, float, bool, dict))}
                         for k, r in served.items()}}

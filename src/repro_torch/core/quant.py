@@ -7,8 +7,9 @@ values, so encode and decode agree on them.
 
 Float details follow the JAX package exactly: ``torch.round`` rounds half
 to even as ``jnp.round`` does, min/max propagate NaN, a NaN code becomes
-0, and a NaN rounded to the meta dtype takes one canonical bit pattern
-(see :func:`to_meta`).
+0, and a NaN rounded to the meta dtype keeps the bits ``jnp.astype``
+keeps (see :func:`to_meta`), except a NaN scale, which the codec makes by
+arithmetic and writes canonical (see :func:`scale_zero`).
 """
 from __future__ import annotations
 
@@ -26,19 +27,32 @@ def meta_dtype_of(name) -> torch.dtype:
 
 
 def to_meta(x: torch.Tensor, dtype) -> torch.Tensor:
-    """float32 -> bf16/fp16, round to nearest even, one canonical NaN.
+    """float32 -> bf16/fp16 as ``jnp.astype`` converts, on any device.
 
-    A NaN becomes 0x7FC0 (bf16) or 0x7E00 (fp16): what ``jnp.astype``
-    writes for the quiet NaN that NaN inputs carry. The sign and payload
-    of a NaN made inside the codec depend on the machine (x86 makes
-    negative NaNs, CUDA 0x7FFFFFFF, and PyTorch's CPU, vectorised and
-    CUDA conversions all differ), so they are not carried.
+    Numbers round to nearest even. A NaN keeps its sign and, in fp16, the
+    top 9 bits of its payload, quieted: bf16 ``sign | 0x7FC0``, fp16
+    ``sign | 0x7E00 | (mant >> 13)``. The bits are computed here, because
+    PyTorch's own conversions of a NaN differ between its CPU kernels and
+    CUDA.
     """
     dtype = meta_dtype_of(dtype)
     xf = x.to(torch.float32)
     bits = xf.to(dtype).view(torch.int16)
-    nan_bits = 0x7FC0 if dtype == torch.bfloat16 else 0x7E00
-    return torch.where(torch.isnan(xf), nan_bits, bits).view(dtype)
+    u = xf.view(torch.int32)
+    nan_bits = torch.where(u < 0, -0x8000, 0)
+    if dtype == torch.bfloat16:
+        nan_bits = nan_bits + 0x7FC0
+    else:
+        nan_bits = nan_bits + (0x7E00 | ((u >> 13) & 0x1FF))
+    return torch.where(torch.isnan(xf), nan_bits.to(torch.int16),
+                       bits).view(dtype)
+
+
+def canonical_nan(x: torch.Tensor) -> torch.Tensor:
+    """Every NaN -> 0x7FC00000. A NaN that arithmetic makes has bits that
+    depend on the machine (x86 propagates an operand's NaN or makes
+    0xFFC00000, CUDA makes 0x7FFFFFFF), so the codec writes one pattern."""
+    return torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
 
 
 def to_code(t: torch.Tensor, qmax: float) -> torch.Tensor:
@@ -49,7 +63,7 @@ def to_code(t: torch.Tensor, qmax: float) -> torch.Tensor:
 
 
 def cast_out(x: torch.Tensor, dtype) -> torch.Tensor:
-    """float32 -> an output dtype, with JAX's NaN bits for bf16/fp16."""
+    """float32 -> an output dtype, with ``jnp.astype``'s NaN bits."""
     if dtype in (torch.bfloat16, torch.float16):
         return to_meta(x, dtype)
     return x.to(dtype)
@@ -67,17 +81,31 @@ def group_unreshape(xg: torch.Tensor) -> torch.Tensor:
 
 
 def group_min_max(xg: torch.Tensor):
-    """(..., group) -> NaN-propagating (min, max) over the last axis."""
-    return torch.amin(xg, dim=-1), torch.amax(xg, dim=-1)
+    """(..., group) -> NaN-propagating (min, max) over the last axis.
+
+    In a group holding NaN both are its first NaN, with that element's
+    bits: PyTorch's reductions return a NaN of their own on the CPU.
+    """
+    mn, mx = torch.amin(xg, dim=-1), torch.amax(xg, dim=-1)
+    nan = torch.isnan(xg)
+    first = torch.gather(xg, -1, nan.to(torch.uint8).argmax(-1, keepdim=True))
+    has_nan = nan.any(-1)
+    return (torch.where(has_nan, first[..., 0], mn),
+            torch.where(has_nan, first[..., 0], mx))
 
 
 def scale_zero(mn: torch.Tensor, mx: torch.Tensor, qmax: float,
                meta_dtype):
-    """Group range -> (scale_w, zero_w) rounded to the meta dtype."""
+    """Group range -> (scale_w, zero_w) rounded to the meta dtype.
+
+    The zero is the group minimum, an input value, so a NaN there keeps
+    its input bits; a NaN scale comes out of arithmetic and is canonical.
+    """
     # a full divisor tensor: PyTorch's CUDA division by a scalar
     # multiplies by its reciprocal, which is not IEEE division
     scale = (mx - mn) / torch.full_like(mx, qmax)
-    scale_w = to_meta(torch.clamp_min(scale, EPS), meta_dtype)
+    scale_w = to_meta(canonical_nan(torch.clamp_min(scale, EPS)),
+                      meta_dtype)
     return scale_w, to_meta(mn, meta_dtype)
 
 

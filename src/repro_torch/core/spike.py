@@ -7,7 +7,8 @@ the spikes back.
 
 Election rules, equal to the JAX package's:
 
-* the spike values are the NaN-propagating group min and max;
+* the spike values are the NaN-propagating group min and max (in a
+  group holding NaN, both its first NaN, bits and all);
 * the min index is the first position equal to the min, the max index
   the first position equal to the max, or the second such position when
   the first collides with the min index (constant groups, duplicated
@@ -25,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.quant import (cast_out, group_reshape,
+from repro_torch.core.quant import (cast_out, group_min_max, group_reshape,
                                     group_unreshape, scale_zero, to_code,
                                     to_meta)
 
@@ -51,7 +52,7 @@ def spike_quantize(x: torch.Tensor, bits: int, group: int,
     pos = torch.arange(group, dtype=torch.int64, device=xg.device)
     nan = torch.isnan(xg)
 
-    vmin, vmax = torch.amin(xg, dim=-1), torch.amax(xg, dim=-1)
+    vmin, vmax = group_min_max(xg)
     has_nan = torch.isnan(vmin)[..., None]
     eq_min = torch.where(has_nan, nan, xg == vmin[..., None])
     eq_max = torch.where(has_nan, nan, xg == vmax[..., None])

@@ -14,7 +14,8 @@ import torch
 from repro_torch.core import rotation as rot
 from repro_torch.core import scale_codec, wordpack
 from repro_torch.core.comm_config import WireLayout, _wire_layout
-from repro_torch.core.quant import dequantize, meta_dtype_of, quantize
+from repro_torch.core.quant import (cast_out, dequantize, meta_dtype_of,
+                                    quantize)
 from repro_torch.core.spike import (SpikeQuant, spike_dequantize,
                                     spike_quantize)
 
@@ -142,5 +143,5 @@ def decode_tile(wire: torch.Tensor, *, bits: int, group: int, n: int,
         return spike_dequantize(q, out_dtype)
     if rotation:
         deq = dequantize(codes, scale, zero, torch.float32)
-        return rot.unrotate(deq, group).to(out_dtype)
+        return cast_out(rot.unrotate(deq, group), out_dtype)
     return dequantize(codes, scale, zero, out_dtype)

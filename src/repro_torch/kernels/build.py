@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (nvcc -> .so -> ctypes).
 
-The sources in ``csrc/`` are compiled at first use with
+Each ``.cu`` source in ``csrc/`` is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into a shared
 library with a plain C interface, under ``build/kernels/`` at the root of
-the checkout. The file name carries a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+the checkout. The file name carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is. :func:`build_all` runs one nvcc for
+each source, all at once.
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
 """
@@ -17,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -43,7 +46,9 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    data = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
@@ -70,6 +75,13 @@ def build(source: str, verbose: bool = False) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(sources, verbose: bool = False):
+    """Build several sources at once, one nvcc each; their library paths
+    in the order given."""
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return list(pool.map(lambda s: build(s, verbose), sources))
 
 
 @functools.lru_cache(maxsize=None)

@@ -18,25 +18,30 @@
 //   plane bytes  plane_off + g * group * unit / 8
 //   scale, zero  scale_off + g * meta_bytes, zero_off + g * meta_bytes
 //   spikes       sv_off + 4 g,  si_off + 2 g * idx_bytes
-// Group min/max and the spike election are warp shuffles; the codes go
-// through 128 bytes of shared memory per warp to be packed into planes.
+// Group min/max and the spike election are warp shuffles (codec.cuh);
+// the codes go through shared memory, one byte a value, and lane l packs
+// codes 8l .. 8l+7 into u whole bytes of each unit-u plane.
 //
-// Numerics follow the JAX reference exactly (and the plain PyTorch
-// version in repro_torch/core): IEEE division (__fdiv_rn), round half to
-// even (rintf), NaN-propagating min/max written by hand, scale and zero
-// rounded to the meta dtype before use, NaN codes -> 0, one canonical NaN
-// in the meta dtype (0x7FC0 bf16, 0x7E00 fp16), and dequantize as two roundings (__fmul_rn, __fadd_rn)
-// so no FMA contraction changes a value.
+// Rotation (CommConfig.rotation): each group is rotated before it is
+// quantized, x -> (x * s) @ H / sqrt(g), and rotated back after it is
+// dequantized, as repro_torch/core/rotation.py does, in its fixed order:
+// output j is a sum over i in increasing order from +0.0 of products
+// rounded before the add. The warp broadcasts value i by __shfl_sync;
+// H[i][j] = +-1/sqrt(g) by the parity of popcount(i & j), and the signs s
+// come from the lowbias32 hash of the position. That is 2g flops a value
+// (64 at g = 32): at the card's 67 TFLOP/s of f32 about as long as moving
+// the value's bytes, so a rotating kernel sits near both bounds.
+//
+// Numerics: see codec.cuh.
 
-#include <cuda_runtime.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include "codec.cuh"
 
 namespace {
 
+using namespace fc;
+
 constexpr int kWarps = 8;                 // warps (groups) per block
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxGroup = 128;
 constexpr int kMaxTheta = 20;
 
 struct Params {
@@ -46,61 +51,14 @@ struct Params {
   long long plane_off[3];
   long long scale_off, zero_off, sv_off, si_off;
   int spike, scale_int, theta, meta_f16, out_kind;   // out: 0 f32 1 bf16 2 f16
+  int rotation;
+  unsigned sign_seed;                     // rotation: the sign hash's seed
+  float hscale;                           // rotation: 1 / sqrt(group) in f32
   int n_thr;
   unsigned thr[kMaxTheta];
   float frac[kMaxTheta];
   float eps, mag_min;
 };
-
-// ---- float helpers ------------------------------------------------------
-
-__device__ __forceinline__ bool isnan_(float a) { return a != a; }
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return isnan_(a) ? a : (isnan_(b) ? b : fminf(a, b));
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return isnan_(a) ? a : (isnan_(b) ? b : fmaxf(a, b));
-}
-
-// float32 -> bf16 bits, round to nearest even; NaN -> canonical 0x7FC0
-__device__ __forceinline__ unsigned short f2bf(float f) {
-  unsigned u = __float_as_uint(f);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return (unsigned short)0x7fc0u;
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return (unsigned short)(u >> 16);
-}
-
-// float32 -> fp16 bits, round to nearest even; NaN -> canonical 0x7E00
-__device__ __forceinline__ unsigned short f2h(float f) {
-  unsigned u = __float_as_uint(f);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return (unsigned short)0x7e00u;
-  return __half_as_ushort(__float2half_rn(f));
-}
-
-__device__ __forceinline__ unsigned short to_meta(float f, int f16) {
-  return f16 ? f2h(f) : f2bf(f);
-}
-
-__device__ __forceinline__ float from_meta(unsigned short b, int f16) {
-  return f16 ? __half2float(__ushort_as_half(b)) : __uint_as_float((unsigned)b << 16);
-}
-
-__device__ __forceinline__ float warp_nan_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_nan_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_min_int(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // ---- Eq. 1 integer-log codec (exponent arithmetic, no log2/exp2) --------
 
@@ -147,12 +105,6 @@ __device__ __forceinline__ float decode_signed(unsigned char b, const Params& p)
   return (b >> 7) ? -mag : mag;
 }
 
-__device__ __forceinline__ unsigned char quant_code(float v, float z, float s, float qmax) {
-  float t = rintf(__fdiv_rn(__fsub_rn(v, z), s));
-  t = nan_min(nan_max(t, 0.f), qmax);
-  return isnan_(t) ? (unsigned char)0 : (unsigned char)t;
-}
-
 __device__ __forceinline__ unsigned short rd16(const uint8_t* w, long long off) {
   return (unsigned short)(w[off] | (w[off + 1] << 8));
 }
@@ -162,123 +114,122 @@ __device__ __forceinline__ void wr16(uint8_t* w, long long off, unsigned short v
   w[off + 1] = (uint8_t)(v >> 8);
 }
 
+// ---- rotation -------------------------------------------------------------
+
+// The fixed sign of in-group position j (repro_torch/core/rotation.py).
+__device__ __forceinline__ float rot_sign(int j, unsigned seed) {
+  unsigned u = (unsigned)j + seed;
+  u = (u ^ (u >> 16)) * 0x7feb352du;
+  u = (u ^ (u >> 15)) * 0x846ca68bu;
+  u ^= u >> 16;
+  return (u & 1u) ? -1.f : 1.f;
+}
+
+// In place: lane value k is position k * 32 + lane of the warp's group.
+// out_j = sum_i x_i * H[i][j], i increasing, from +0.0; H is symmetric,
+// so the same sum is the rotation and its transpose.
+template <int VPL>
+__device__ __forceinline__ void hadamard_warp(float (&v)[VPL], int lane, float h) {
+  float acc[VPL];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < VPL; ++kk) {
+    for (int l = 0; l < 32; ++l) {
+      const float xi = __shfl_sync(kFull, v[kk], l);
+      const int i = kk * 32 + l;
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        const float hij = (__popc(i & (k * 32 + lane)) & 1) ? -h : h;
+        acc[k] = __fadd_rn(acc[k], __fmul_rn(xi, hij));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) v[k] = acc[k];
+}
+
+template <int VPL>
+__device__ __forceinline__ void rotate_warp(float (&v)[VPL], int lane, const Params& p) {
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) v[k] = __fmul_rn(v[k], rot_sign(k * 32 + lane, p.sign_seed));
+  hadamard_warp<VPL>(v, lane, p.hscale);
+}
+
+template <int VPL>
+__device__ __forceinline__ void unrotate_warp(float (&v)[VPL], int lane, const Params& p) {
+  hadamard_warp<VPL>(v, lane, p.hscale);
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) v[k] = __fmul_rn(v[k], rot_sign(k * 32 + lane, p.sign_seed));
+}
+
 // ---- encode ---------------------------------------------------------------
 
 template <int VPL>
 __global__ void __launch_bounds__(kThreads) encode_kernel(const float* __restrict__ x,
                                                           uint8_t* __restrict__ wire,
                                                           const Params p) {
-  __shared__ uint8_t codes_s[kWarps][kMaxGroup];
+  __shared__ __align__(8) uint8_t codes_s[kWarps][VPL * 32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long gid = (long long)blockIdx.x * kWarps + warp;
   if (gid >= p.rows * p.groups) return;           // uniform per warp
   const long long row = gid / p.groups, g = gid % p.groups;
-  const int G = p.group;
+  const int G = VPL * 32;
   const float* xg = x + row * p.n + g * G;
   uint8_t* w = wire + row * p.wb;
   const float qmax = (float)((1 << p.bits) - 1);
 
   float v[VPL];
-  float vmin = __int_as_float(0x7f800000), vmax = -__int_as_float(0x7f800000);
+  int pos[VPL];
 #pragma unroll
   for (int k = 0; k < VPL; ++k) {
-    v[k] = xg[k * 32 + lane];
-    vmin = nan_min(vmin, v[k]);
-    vmax = nan_max(vmax, v[k]);
+    pos[k] = k * 32 + lane;
+    v[k] = xg[pos[k]];
   }
-  vmin = warp_nan_min(vmin);
-  vmax = warp_nan_max(vmax);
-
-  float mn = vmin, mx = vmax;
-  int imin = G, imax = G;
-  if (p.spike) {
-    const bool has_nan = isnan_(vmin);
-    int pmin = G, t1 = G;
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const int pos = k * 32 + lane;
-      const bool em = has_nan ? isnan_(v[k]) : v[k] == vmin;
-      const bool ex = has_nan ? isnan_(v[k]) : v[k] == vmax;
-      if (em) pmin = min(pmin, pos);
-      if (ex) t1 = min(t1, pos);
-    }
-    imin = warp_min_int(pmin);
-    t1 = warp_min_int(t1);
-    int t2 = G;
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const int pos = k * 32 + lane;
-      const bool ex = has_nan ? isnan_(v[k]) : v[k] == vmax;
-      if (ex && pos != t1) t2 = min(t2, pos);
-    }
-    t2 = warp_min_int(t2);
-    imax = (t1 == imin) ? t2 : t1;
-    if (imax == G) imax = imin;                   // single-NaN forfeit
-    float lo = __int_as_float(0x7f800000), hi = -__int_as_float(0x7f800000);
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const int pos = k * 32 + lane;
-      if (!isnan_(v[k])) {
-        if (pos != imin) lo = fminf(lo, v[k]);
-        if (pos != imax) hi = fmaxf(hi, v[k]);
-      }
-    }
-    lo = warp_nan_min(lo);
-    hi = warp_nan_max(hi);
-    if (isinf(lo) && lo > 0.f && isinf(hi) && hi < 0.f) {
-      lo = __int_as_float(0x7fc00000);
-      hi = lo;
-    }
-    mn = lo;
-    mx = hi;
-  }
-
-  const float scale = __fdiv_rn(__fsub_rn(mx, mn), qmax);
-  const unsigned short sbits = to_meta(nan_max(scale, p.eps), p.meta_f16);
-  const unsigned short zbits = to_meta(mn, p.meta_f16);
-  const float s = from_meta(sbits, p.meta_f16), z = from_meta(zbits, p.meta_f16);
-  const unsigned char code_mn = quant_code(mn, z, s, qmax);
+  if (p.rotation) rotate_warp<VPL>(v, lane, p);
+  const Range r = group_range<VPL, 32>(v, pos, G, p.spike);
+  const Meta m = rtn_meta(r.mn, r.mx, qmax, p.eps, p.meta_f16);
+  const unsigned char code_mn = quant_code(r.mn, m.z, m.s, qmax);
 
 #pragma unroll
   for (int k = 0; k < VPL; ++k) {
-    const int pos = k * 32 + lane;
-    unsigned char c = quant_code(v[k], z, s, qmax);
-    if (p.spike && (pos == imin || pos == imax)) c = code_mn;
-    codes_s[warp][pos] = c;
+    unsigned char c = quant_code(v[k], m.z, m.s, qmax);
+    if (p.spike && (pos[k] == r.imin || pos[k] == r.imax)) c = code_mn;
+    codes_s[warp][pos[k]] = c;
   }
   __syncwarp();
 
-  int shift = 0;
-  for (int i = 0; i < p.n_planes; ++i) {
-    const int u = p.unit[i], per = 8 / u, nbytes = G * u / 8;
-    const unsigned mask = (1u << u) - 1u;
-    uint8_t* dst = w + p.plane_off[i] + g * nbytes;
-    for (int b = lane; b < nbytes; b += 32) {
-      unsigned byte = 0;
-      for (int j = 0; j < per; ++j)
-        byte |= ((codes_s[warp][b * per + j] >> shift) & mask) << (j * u);
-      dst[b] = (uint8_t)byte;
+  // lane l < G / 8 packs codes 8l .. 8l+7 into u bytes of each plane
+  if (lane < G / 8) {
+    const unsigned long long codes8 =
+        *reinterpret_cast<const unsigned long long*>(&codes_s[warp][8 * lane]);
+    int shift = 0;
+    for (int i = 0; i < p.n_planes; ++i) {
+      const int u = p.unit[i];
+      const unsigned long long word = pack8(codes8, u, shift);
+      uint8_t* dst = w + p.plane_off[i] + (g * G + 8 * lane) * u / 8;
+      for (int b = 0; b < u; ++b) dst[b] = (uint8_t)(word >> (8 * b));
+      shift += u;
     }
-    shift += u;
   }
 
   if (lane == 0) {
     if (p.scale_int) {
-      w[p.scale_off + g] = encode_scale(s, p);
-      w[p.zero_off + g] = encode_signed(z, p);
+      w[p.scale_off + g] = encode_scale(m.s, p);
+      w[p.zero_off + g] = encode_signed(m.z, p);
     } else {
-      wr16(w, p.scale_off + 2 * g, sbits);
-      wr16(w, p.zero_off + 2 * g, zbits);
+      wr16(w, p.scale_off + 2 * g, m.sbits);
+      wr16(w, p.zero_off + 2 * g, m.zbits);
     }
     if (p.spike) {
-      wr16(w, p.sv_off + 4 * g, to_meta(vmin, p.meta_f16));
-      wr16(w, p.sv_off + 4 * g + 2, to_meta(vmax, p.meta_f16));
+      wr16(w, p.sv_off + 4 * g, to_meta(r.vmin, p.meta_f16));
+      wr16(w, p.sv_off + 4 * g + 2, to_meta(r.vmax, p.meta_f16));
       if (p.scale_int) {
-        w[p.si_off + 2 * g] = (uint8_t)imin;
-        w[p.si_off + 2 * g + 1] = (uint8_t)imax;
+        w[p.si_off + 2 * g] = (uint8_t)r.imin;
+        w[p.si_off + 2 * g + 1] = (uint8_t)r.imax;
       } else {
-        wr16(w, p.si_off + 4 * g, to_meta((float)imin, p.meta_f16));
-        wr16(w, p.si_off + 4 * g + 2, to_meta((float)imax, p.meta_f16));
+        wr16(w, p.si_off + 4 * g, to_meta((float)r.imin, p.meta_f16));
+        wr16(w, p.si_off + 4 * g + 2, to_meta((float)r.imax, p.meta_f16));
       }
     }
   }
@@ -323,12 +274,10 @@ __device__ __forceinline__ float decode_value(const uint8_t* w, long long g, int
   unsigned code = 0;
   int shift = 0;
   for (int i = 0; i < p.n_planes; ++i) {
-    const int u = p.unit[i], per = 8 / u;
-    const unsigned byte = w[p.plane_off[i] + (e * u) / 8];
-    code |= ((byte >> ((int)(e % per) * u)) & ((1u << u) - 1u)) << shift;
-    shift += u;
+    code |= plane_field(w + p.plane_off[i], e, p.unit[i], shift);
+    shift += p.unit[i];
   }
-  float val = __fadd_rn(__fmul_rn((float)(code & 0xffu), m.s), m.z);
+  float val = dequant(code & 0xffu, m.s, m.z);
   if (p.spike) {
     if (pos == m.si1) val = m.sv1;
     else if (pos == m.si0) val = m.sv0;
@@ -336,12 +285,17 @@ __device__ __forceinline__ float decode_value(const uint8_t* w, long long g, int
   return val;
 }
 
-__device__ __forceinline__ void store_out(void* out, long long i, float v, int kind) {
-  if (kind == 0) reinterpret_cast<float*>(out)[i] = v;
-  else if (kind == 1) reinterpret_cast<unsigned short*>(out)[i] = f2bf(v);
-  else reinterpret_cast<unsigned short*>(out)[i] = f2h(v);
+// The warp's group of one row, decoded (and rotated back) into v.
+template <int VPL>
+__device__ __forceinline__ void decode_group(const uint8_t* w, long long g, int lane,
+                                             const Params& p, float (&v)[VPL]) {
+  const GroupMeta m = read_meta(w, g, p);
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) v[k] = decode_value(w, g, k * 32 + lane, m, p);
+  if (p.rotation) unrotate_warp<VPL>(v, lane, p);
 }
 
+template <int VPL>
 __global__ void __launch_bounds__(kThreads) decode_kernel(const uint8_t* __restrict__ wire,
                                                           void* __restrict__ out,
                                                           const Params p) {
@@ -349,43 +303,40 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const uint8_t* __restr
   const long long gid = (long long)blockIdx.x * kWarps + warp;
   if (gid >= p.rows * p.groups) return;
   const long long row = gid / p.groups, g = gid % p.groups;
-  const uint8_t* w = wire + row * p.wb;
-  const GroupMeta m = read_meta(w, g, p);
-  for (int pos = lane; pos < p.group; pos += 32)
-    store_out(out, row * p.n + g * p.group + pos, decode_value(w, g, pos, m, p), p.out_kind);
+  float v[VPL];
+  decode_group<VPL>(wire + row * p.wb, g, lane, p, v);
+#pragma unroll
+  for (int k = 0; k < VPL; ++k)
+    store_out(out, row * p.n + g * p.group + k * 32 + lane, v[k], p.out_kind);
 }
 
 // Dequantize rows 0..R-1 of one chunk and sum them in that order (from
 // +0.0, as a reduction with initial value 0 does) into one f32 row.
+template <int VPL>
 __global__ void __launch_bounds__(kThreads) decode_reduce_kernel(const uint8_t* __restrict__ wire,
                                                                  float* __restrict__ out,
                                                                  const Params p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long g = (long long)blockIdx.x * kWarps + warp;
   if (g >= p.groups) return;
-  float acc[kMaxGroup / 32];
+  float acc[VPL];
 #pragma unroll
-  for (int k = 0; k < kMaxGroup / 32; ++k) acc[k] = 0.f;
+  for (int k = 0; k < VPL; ++k) acc[k] = 0.f;
   for (long long r = 0; r < p.rows; ++r) {
-    const uint8_t* w = wire + r * p.wb;
-    const GroupMeta m = read_meta(w, g, p);
+    float v[VPL];
+    decode_group<VPL>(wire + r * p.wb, g, lane, p, v);
 #pragma unroll
-    for (int k = 0; k < kMaxGroup / 32; ++k) {
-      const int pos = k * 32 + lane;
-      if (pos < p.group) acc[k] = __fadd_rn(acc[k], decode_value(w, g, pos, m, p));
-    }
+    for (int k = 0; k < VPL; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
   }
 #pragma unroll
-  for (int k = 0; k < kMaxGroup / 32; ++k) {
-    const int pos = k * 32 + lane;
-    if (pos < p.group) out[g * p.group + pos] = acc[k];
-  }
+  for (int k = 0; k < VPL; ++k) out[g * p.group + k * 32 + lane] = acc[k];
 }
 
-// params: int64 array in the order of fill_params below; fthr: theta
-// thresholds (uint32), ffrac: 2^(r/theta) table, feps: {eps, mag_min}.
+// params: int64 array in the order of fill_params below; thr: theta
+// thresholds (uint32), frac: 2^(r/theta) table, f: {eps, mag_min,
+// hscale}; the sign seed is params[22].
 Params fill_params(const long long* a, const unsigned* thr, const float* frac,
-                   const float* eps) {
+                   const float* f) {
   Params p;
   p.rows = a[0]; p.n = a[1]; p.wb = a[2]; p.group = (int)a[3]; p.bits = (int)a[4];
   p.groups = p.n / p.group;
@@ -394,55 +345,59 @@ Params fill_params(const long long* a, const unsigned* thr, const float* frac,
   p.scale_off = a[12]; p.zero_off = a[13]; p.sv_off = a[14]; p.si_off = a[15];
   p.spike = (int)a[16]; p.scale_int = (int)a[17]; p.theta = (int)a[18];
   p.meta_f16 = (int)a[19]; p.out_kind = (int)a[20];
+  p.rotation = (int)a[21]; p.sign_seed = (unsigned)a[22];
   p.n_thr = p.theta - 1;
   for (int k = 0; k < kMaxTheta; ++k) {
     p.thr[k] = k < p.n_thr ? thr[k] : 0xffffffffu;
     p.frac[k] = k < p.theta ? frac[k] : 0.f;
   }
-  p.eps = eps[0];
-  p.mag_min = eps[1];
+  p.eps = f[0];
+  p.mag_min = f[1];
+  p.hscale = f[2];
   return p;
 }
 
 unsigned blocks_for(long long warps) { return (unsigned)((warps + kWarps - 1) / kWarps); }
+
+// One launch of kernel K<VPL> for the config's group (32, 64 or 128).
+#define FC_LAUNCH_BY_GROUP(K, blocks, st, ...)                                 \
+  switch (p.group) {                                                          \
+    case 32: K<1><<<(blocks), kThreads, 0, (st)>>>(__VA_ARGS__); break;       \
+    case 64: K<2><<<(blocks), kThreads, 0, (st)>>>(__VA_ARGS__); break;       \
+    case 128: K<4><<<(blocks), kThreads, 0, (st)>>>(__VA_ARGS__); break;      \
+    default: return (int)cudaErrorInvalidValue;                               \
+  }
 
 }  // namespace
 
 extern "C" {
 
 int fc_encode_wire(const void* x, void* wire, const long long* params, const unsigned* thr,
-                   const float* frac, const float* eps, void* stream) {
-  const Params p = fill_params(params, thr, frac, eps);
+                   const float* frac, const float* f, void* stream) {
+  const Params p = fill_params(params, thr, frac, f);
   const long long warps = p.rows * p.groups;
   if (warps == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const float* xf = (const float*)x;
-  uint8_t* w = (uint8_t*)wire;
-  switch (p.group) {
-    case 32: encode_kernel<1><<<blocks_for(warps), kThreads, 0, st>>>(xf, w, p); break;
-    case 64: encode_kernel<2><<<blocks_for(warps), kThreads, 0, st>>>(xf, w, p); break;
-    case 128: encode_kernel<4><<<blocks_for(warps), kThreads, 0, st>>>(xf, w, p); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  FC_LAUNCH_BY_GROUP(encode_kernel, blocks_for(warps), (cudaStream_t)stream,
+                     (const float*)x, (uint8_t*)wire, p);
   return (int)cudaGetLastError();
 }
 
 int fc_decode_wire(const void* wire, void* out, const long long* params, const unsigned* thr,
-                   const float* frac, const float* eps, void* stream) {
-  const Params p = fill_params(params, thr, frac, eps);
+                   const float* frac, const float* f, void* stream) {
+  const Params p = fill_params(params, thr, frac, f);
   const long long warps = p.rows * p.groups;
   if (warps == 0) return 0;
-  decode_kernel<<<blocks_for(warps), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)wire, out, p);
+  FC_LAUNCH_BY_GROUP(decode_kernel, blocks_for(warps), (cudaStream_t)stream,
+                     (const uint8_t*)wire, out, p);
   return (int)cudaGetLastError();
 }
 
 int fc_decode_reduce(const void* wire, void* out, const long long* params, const unsigned* thr,
-                     const float* frac, const float* eps, void* stream) {
-  const Params p = fill_params(params, thr, frac, eps);
+                     const float* frac, const float* f, void* stream) {
+  const Params p = fill_params(params, thr, frac, f);
   if (p.groups == 0) return 0;
-  decode_reduce_kernel<<<blocks_for(p.groups), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)wire, (float*)out, p);
+  FC_LAUNCH_BY_GROUP(decode_reduce_kernel, blocks_for(p.groups), (cudaStream_t)stream,
+                     (const uint8_t*)wire, (float*)out, p);
   return (int)cudaGetLastError();
 }
 

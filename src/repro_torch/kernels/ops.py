@@ -1,15 +1,25 @@
-"""Backend dispatch for the wire codec.
+"""Backend dispatch for the codec kernels.
 
-``CommConfig.backend`` decides which implementation a tensor goes
-through: ``"ref"`` the plain codec on any device, ``"cuda"`` the kernels
-(a CPU tensor raises), ``"auto"`` the kernels for a CUDA tensor and the
-plain codec for a CPU one. This is the only place that decides; the
-kernel wrappers of :mod:`repro_torch.kernels.wire` take CUDA tensors only.
+The wire codec: ``CommConfig.backend`` decides which implementation a
+tensor goes through: ``"ref"`` the plain codec on any device, ``"cuda"``
+the kernels (a CPU tensor raises), ``"auto"`` the kernels for a CUDA
+tensor and the plain codec for a CPU one.
+
+The per-stage kernels (``fused_quant_pack``, ``fused_dequant_unpack``,
+``fused_spike_pack``, the JAX package's entry points of the same names)
+take ``use_kernel``: ``None`` the kernel for a CUDA tensor and the plain
+version for a CPU one, ``True`` the kernel (a CPU tensor raises),
+``False`` the plain version. The kernels take any number of rows, so
+there is no row padding.
+
+This is the only place that decides; the kernel wrappers take CUDA
+tensors only.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import dequant_unpack, quant_pack, ref, spike_reserve
 from repro_torch.kernels import wire
 
 
@@ -43,3 +53,45 @@ def fused_decode_reduce(buf: torch.Tensor, cfg, n: int) -> torch.Tensor:
     if use_kernel(cfg, buf):
         return wire.decode_reduce(buf.contiguous(), cfg, n)
     return wire.decode_reduce_plain(buf, cfg, n)
+
+
+# ---------------------------------------------------------------------------
+# per-stage kernels
+# ---------------------------------------------------------------------------
+
+def _stage_kernel(use_kernel, t: torch.Tensor) -> bool:
+    """Whether ``use_kernel`` sends tensor ``t`` through a stage kernel."""
+    if use_kernel is None:
+        return t.device.type == "cuda"
+    if use_kernel and t.device.type != "cuda":
+        raise ValueError(f"use_kernel=True needs a CUDA tensor, got one on "
+                         f"{t.device}")
+    return bool(use_kernel)
+
+
+def fused_quant_pack(x: torch.Tensor, bits: int, group: int,
+                     use_kernel: bool | None = None):
+    """(R, n) -> (payload, scale, zero)."""
+    if _stage_kernel(use_kernel, x):
+        return quant_pack.quant_pack(x.contiguous(), bits, group)
+    return ref.quant_pack_ref(x, bits, group)
+
+
+def fused_dequant_unpack(payload, scale, zero, bits: int, group: int,
+                         n: int, out_dtype=torch.float32,
+                         use_kernel: bool | None = None) -> torch.Tensor:
+    """(payload, scale, zero) -> (R, n) ``out_dtype``."""
+    if _stage_kernel(use_kernel, payload):
+        return dequant_unpack.dequant_unpack(
+            payload.contiguous(), scale.contiguous(), zero.contiguous(),
+            bits, group, n, out_dtype)
+    return ref.dequant_unpack_ref(payload, scale, zero, bits, group, n,
+                                  out_dtype)
+
+
+def fused_spike_pack(x: torch.Tensor, bits: int, group: int,
+                     use_kernel: bool | None = None):
+    """(R, n) -> (payload, scale, zero, spike_vals, spike_idx)."""
+    if _stage_kernel(use_kernel, x):
+        return spike_reserve.spike_pack(x.contiguous(), bits, group)
+    return ref.spike_pack_ref(x, bits, group)

@@ -15,12 +15,14 @@ wrapper              TPU kernel replaced                              bound (H10
 ===================  ===============================================  ============
 
 All three are memory-bound: the least time is the bytes read plus the
-bytes written over 3.35 TB/s (:func:`bound_bytes`). Each kernel gives one
-warp to one quantization group (see the source's header).
+bytes written over 3.35 TB/s (:func:`bound_bytes`); a rotating config
+adds ``2 * group`` f32 operations a value (:func:`bound_flops`). Each
+kernel gives one warp to one quantization group (see the source's
+header).
 
 Each wrapper launches its kernel on a CUDA tensor, or raises: for a
-tensor elsewhere, and for what the kernel does not take (rotation, a group
-other than 32/64/128, a framed wire); it never falls back.
+tensor elsewhere, and for what the kernel does not take (a group other
+than 32/64/128, a framed wire); it never falls back.
 :mod:`repro_torch.kernels.ops` decides whether a tensor goes through a
 kernel or through its plain PyTorch version (``*_plain``, the codec of
 :mod:`repro_torch.core.tilecodec`). ``LAUNCHES`` counts the launches of
@@ -35,7 +37,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core import scale_codec, tilecodec
+from repro_torch.core import rotation, scale_codec, tilecodec
 from repro_torch.core.quant import EPS, meta_dtype_of
 
 SOURCE = "wire.cu"
@@ -95,10 +97,6 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_cfg(cfg) -> None:
-    if cfg.rotation:
-        raise NotImplementedError(
-            "the CUDA wire kernels have no rotation mode yet; use the "
-            "plain codec (backend='ref') for a rotating config")
     if cfg.framed:
         raise NotImplementedError("the port writes no framed wire yet")
     if cfg.group not in KERNEL_GROUPS:
@@ -130,24 +128,26 @@ def _params(cfg, rows: int, n: int, out_kind: int = 0):
                   lay.spike_vals.offset if lay.spike_vals else 0,
                   lay.spike_idx.offset if lay.spike_idx else 0,
                   int(cfg.spike), int(cfg.scale_int), cfg.theta,
-                  int(meta == torch.float16), out_kind], dtype=np.int64)
+                  int(meta == torch.float16), out_kind, int(cfg.rotation),
+                  rotation.sign_seed(cfg.group)], dtype=np.int64)
     assert 2 <= cfg.theta <= _MAX_THETA, cfg.theta
     thr = np.zeros(_MAX_THETA, np.uint32)
     thr[:cfg.theta - 1] = scale_codec.mant_thresholds(cfg.theta)
     frac = np.zeros(_MAX_THETA, np.float32)
     frac[:cfg.theta] = scale_codec.frac_table(cfg.theta)
-    eps = np.array([EPS, scale_codec.MAG_MIN], np.float32)
-    return a, thr, frac, eps
+    f = np.array([EPS, scale_codec.MAG_MIN, rotation.hadamard_scale(
+        cfg.group)], np.float32)
+    return a, thr, frac, f
 
 
 def _launch(name: str, src: torch.Tensor, dst: torch.Tensor, cfg,
             rows: int, n: int, out_kind: int = 0) -> None:
-    a, thr, frac, eps = _params(cfg, rows, n, out_kind)
+    a, thr, frac, f = _params(cfg, rows, n, out_kind)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     with torch.cuda.device(src.device):
         rc = getattr(_lib(), name)(
             src.data_ptr(), dst.data_ptr(), a.ctypes.data, thr.ctypes.data,
-            frac.ctypes.data, eps.ctypes.data, stream)
+            frac.ctypes.data, f.ctypes.data, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
@@ -206,3 +206,13 @@ def bound_bytes(kernel: str, cfg, rows: int, n: int,
     if kernel == "decode_reduce":
         return rows * wb + n * 4
     raise KeyError(kernel)
+
+
+def bound_flops(kernel: str, cfg, rows: int, n: int) -> int:
+    """f32 operations a kernel must do beyond moving bytes: a rotating
+    config's ``group`` products and ``group`` sums for each value (each
+    row of decode_reduce is rotated back); none otherwise."""
+    if not cfg.rotation:
+        return 0
+    assert kernel in LAUNCHES, kernel
+    return rows * n * 2 * cfg.group

@@ -16,12 +16,14 @@ import torch
 
 from repro.core import codec as jcodec
 from repro.core import quant as jquant
+from repro.core import rotation as jrotation
 from repro.core import scale_codec as jscale
 from repro.core import spike as jspike
 from repro.core import wordpack as jwordpack
 from repro.core.comm_config import CommConfig as JConfig
 from repro.core.comm_config import _wire_layout as j_wire_layout
-from repro_torch.core import codec, quant, scale_codec, spike, wordpack
+from repro_torch.core import (codec, quant, rotation, scale_codec, spike,
+                              wordpack)
 from repro_torch.core.comm_config import CommConfig, _wire_layout
 from repro_torch.kernels import ops, wire
 
@@ -251,6 +253,47 @@ def test_golden_encode_and_decode(key):
     else:
         np.testing.assert_array_equal(buf, GOLDEN[key])
         np.testing.assert_array_equal(_bits(dec), _bits(jdec))
+
+
+def _ordered_rotate_np(xg, s, h):
+    """The documented order, in numpy f32: out_j = sum_i (x_i s_i) h_ij,
+    i increasing from +0.0, each product rounded before the add."""
+    xs = (xg * s).astype(np.float32)
+    acc = np.zeros_like(xs)
+    for i in range(xg.shape[-1]):
+        acc = (acc + (xs[..., i:i + 1] * h[i]).astype(np.float32)).astype(
+            np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("bits", range(2, 9))
+def test_rotation_fixed_order_keeps_golden_bound(bits):
+    """rotate/unrotate sum in one fixed order (the CUDA kernels' order):
+    bit for bit the numpy loop of that order; within a few f32 roundings
+    of JAX's (g, g) matrix product; and the ``_rot`` goldens encoded
+    through it stay within test_golden_encode_and_decode's bound (at most
+    1% of bytes differ, decode within 1e-5)."""
+    key = f"int{bits}_rot"
+    cfg, jc, x = _golden(key)
+    g = cfg.group
+    xt = _t(x)
+    s = rotation.signs(g).numpy()
+    h = rotation.hadamard(g).numpy()
+    xg = x.reshape(x.shape[0], -1, g)
+    np.testing.assert_array_equal(
+        _bits(rotation.rotate(xt, g).numpy()),
+        _bits(_ordered_rotate_np(xg, s, h).reshape(x.shape)))
+    jr = np.asarray(jrotation.rotate(jnp.asarray(x), g))
+    np.testing.assert_allclose(rotation.rotate(xt, g).numpy(), jr,
+                               rtol=0, atol=1e-5 * np.abs(x).max())
+    back = rotation.unrotate(rotation.rotate(xt, g), g).numpy()
+    np.testing.assert_allclose(back, x, rtol=0, atol=1e-5 * np.abs(x).max())
+    buf = codec.encode(xt, cfg).numpy()
+    assert np.mean(buf != GOLDEN[key]) <= 0.01
+    np.testing.assert_allclose(
+        codec.decode(_t(GOLDEN[key]), cfg, x.shape[-1]).numpy(),
+        np.asarray(jcodec.decode(jnp.asarray(GOLDEN[key]), jc,
+                                 x.shape[-1])), rtol=0, atol=1e-5)
 
 
 SCALE_INT_GRID = [(bits, 32 if bits <= 4 else 128, sp, 10)
