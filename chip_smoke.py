@@ -47,11 +47,32 @@ Phases, each printing its lines; any failure exits non-zero:
              the first generated token
              (``repro_torch.launch.serve.prefill_decode_agreement``; the
              run without the codec to CACHE_REL_TOL).
+6. a2a    -- the peer-push All2All kernel (fc_a2a) in a loopback world of
+             tp ranks on the card, tp in A2A_TPS, at moonshot's dispatch
+             shapes with ep = tp (m = (E / tp) * capacity rows of d_model
+             a rank and peer, at prefill and at decode), bf16 payload (and
+             f32 for the paper config at the smallest tp), for A2A_CONFIGS: A2A_CALLS back-to-back calls with fresh inputs in
+             one world, each output bit-equal to the plain version's and
+             the last call's receive buffers byte-equal, with exact launch
+             counts; then its time at tp = A2A_TIME_TP at both shapes.
+7. moe    -- moonshot-v1-16b-a3b at full width (48 layers: 1 dense, 47
+             MoE with 64 experts, top-6), weights from seed SEED with the
+             zero-initialised output projections (attention, MLP and
+             experts) filled. For each policy the prefill's hidden states
+             and DECODE_CHECK_STEPS decode steps' logits through the CUDA
+             kernels equal those through the plain codec, bit for bit;
+             then it serves BATCH x PROMPT_LEN + GEN tokens under the
+             policies of phase serve, with exact launch counts (50 TP
+             sites and 47 dispatch sites a forward), and prints TTFT,
+             ms/step and the routes dropped over capacity. Prefill and
+             decode route with different capacities, so their agreement
+             is not checked here (the CPU tests hold both against JAX).
 
 The line before the last is a JSON object with one entry per kernel
-(``launches``: the wire kernels' from the serve path, the stage kernels'
-from their entry points; ``serve_launches``: from the serve path); the
-last line is ``{"ok": true, "device": {...}}``.
+(``launches``: the wire kernels' from the serve and moe paths, the stage
+kernels' from their entry points, the All2All's from phase a2a;
+``serve_launches`` and ``moe_launches``: from those paths); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -67,7 +88,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "wire_vectors.npz")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-PHASES = ("build", "codec", "stage", "time", "serve")
+PHASES = ("build", "codec", "stage", "time", "serve", "a2a", "moe")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -76,7 +97,8 @@ REPLACES = {"encode_wire": "src/repro/kernels/wire.py:58",
             "decode_reduce": "src/repro/kernels/emulate.py:110",
             "quant_pack": "src/repro/kernels/quant_pack.py:54",
             "dequant_unpack": "src/repro/kernels/dequant_unpack.py:42",
-            "spike_pack": "src/repro/kernels/spike_reserve.py:46"}
+            "spike_pack": "src/repro/kernels/spike_reserve.py:46",
+            "a2a": "src/repro/kernels/rdma_all2all.py:75"}
 # (bits, group): SWEEP of tests/test_kernels.py, and its spike configs
 STAGE_SWEEP = ((8, 128), (6, 128), (5, 128), (4, 32), (3, 32), (2, 32),
                (7, 128))
@@ -91,7 +113,15 @@ RUNS = (("paper/two_step", "paper", None),
 BASELINE = ("bf16", "bf16", None)
 CACHE_REL_TOL = 0.1
 ARCH = "qwen3-14b"
+MOE_ARCH = "moonshot-v1-16b-a3b"
 BATCH, PROMPT_LEN, GEN, SEED = 4, 128, 16, 0
+A2A_TPS = (2, 4, 8)
+A2A_CALLS = 10
+A2A_TIME_TP = 4
+A2A_CONFIGS = (("paper int4 g32", dict(bits=4, group=32)),
+               ("aggressive int4 g32 scale_int", dict(bits=4, group=32,
+                                                      scale_int=True)),
+               ("int2 g32 spike", dict(bits=2, group=32, spike=True)))
 DECODE_CHECK_STEPS = 4
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
@@ -129,13 +159,15 @@ def phase_build(torch):
     card = smi.stdout.strip().splitlines()[0]
     print(f"[build] card: {card}", flush=True)
     print(card, flush=True)
-    from repro_torch.kernels import build, stage, wire
+    from repro_torch.kernels import build, rdma, stage, wire
     t0 = time.perf_counter()
-    paths = build.build_all([wire.SOURCE, stage.SOURCE], verbose=True)
+    paths = build.build_all([wire.SOURCE, stage.SOURCE, rdma.SOURCE],
+                            verbose=True)
     print(f"[build] {', '.join(p.name for p in paths)} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     wire._lib()
     stage._lib()
+    rdma._lib()
     return card
 
 
@@ -155,8 +187,8 @@ def _bits_equal(torch, a, b) -> bool:
 
 def _edge_input(np, rows: int, n: int, seed: int):
     """Gaussian rows with outliers plus the codec's edge cases: a NaN
-    group, a single-NaN group, a two-NaN group, inf, a constant group and
-    duplicated extremes."""
+    group, a single-NaN group, a two-NaN group, inf, a constant group,
+    duplicated extremes and signed zeros at a group's min or max."""
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((rows, n)) * 3).astype(np.float32)
     x[0, 5] = 45.0
@@ -168,6 +200,14 @@ def _edge_input(np, rows: int, n: int, seed: int):
     x[3, 520] = x[3, 530] = np.nan           # two NaNs in one group
     x[3, 700] = np.inf
     x[3, 800] = -np.inf
+    # groups whose min or max is a zero of either sign (-0.0 orders below
+    # +0.0, as in JAX)
+    x[1, 256:288] = np.abs(x[1, 256:288])
+    x[1, 260], x[1, 270] = -0.0, 0.0
+    x[1, 320:352] = -np.abs(x[1, 320:352])
+    x[1, 330], x[1, 340] = 0.0, -0.0
+    x[2, 384:416] = 0.0
+    x[2, 400] = -0.0
     return x
 
 
@@ -422,7 +462,7 @@ def _max_abs_err(torch, a, b) -> float:
     return max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
 
 
-def _time_row(torch, name, label, n, kern, plain, nbytes, flops, card):
+def _time_row(torch, name, label, shape, kern, plain, nbytes, flops, card):
     """Time a kernel beside its plain version; the row of the record."""
     err = _max_abs_err(torch, kern(), plain())
     call_ms, plain_call_ms = _time_ms(torch, kern), _time_ms(torch, plain)
@@ -435,14 +475,15 @@ def _time_row(torch, name, label, n, kern, plain, nbytes, flops, card):
     src = "device" if dev_ms is not None else "no device trace: per call"
     psrc = "device" if plain_dev_ms is not None else \
         "no device trace: per call"
-    print(f"[time] {name:14s} {label:18s} (1, {n}): kernel {ms:.4f} ms "
+    print(f"[time] {name:14s} {label:18s} {shape}: kernel {ms:.4f} ms "
           f"({src}; {call_ms:.4f} ms per call)  plain {plain_ms:.4f} ms "
           f"({psrc}; {plain_call_ms:.4f} ms per call)  bound {bound:.6f} ms "
           f"({bound_by}; bytes {byte_ms:.6f}, f32 ops {flop_ms:.6f})  "
           f"max_abs_err {err}  [{card}]", flush=True)
-    check(err == 0.0, f"{name} {label} (1, {n}): kernel differs from plain")
-    return {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "max_abs_err": err, "call_ms": call_ms,
+    check(err == 0.0, f"{name} {label} {shape}: kernel differs from plain")
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": err,
+            "call_ms": call_ms,
             "plain_call_ms": plain_call_ms,
             "device_time": dev_ms is not None,
             "plain_device_time": plain_dev_ms is not None}
@@ -476,7 +517,7 @@ def phase_time(torch, np, card: str):
             }
             for name, (kern, plain) in fns.items():
                 rows.setdefault(shape, {}).setdefault(label, {})[name] = \
-                    _time_row(torch, name, label, n, kern, plain,
+                    _time_row(torch, name, label, (1, n), kern, plain,
                               wire.bound_bytes(name, cfg, 1, n),
                               wire.bound_flops(name, cfg, 1, n), card)
         for label, name, bits, group in STAGE_TIME:
@@ -494,7 +535,7 @@ def phase_time(torch, np, card: str):
                     lambda: ref.spike_pack_ref(x, bits, group)),
             }[name]
             rows.setdefault(shape, {}).setdefault(label, {})[name] = \
-                _time_row(torch, name, label, n, kern, plain,
+                _time_row(torch, name, label, (1, n), kern, plain,
                           stage.bound_bytes(name, bits, group, 1, n), 0, card)
     return rows
 
@@ -504,21 +545,22 @@ def phase_time(torch, np, card: str):
 # ---------------------------------------------------------------------------
 
 def _fill_output_projections(torch, cfg, plan, params, seed: int):
-    """Fill the zero-initialised attention and MLP output projections
-    from a fan-in normal (std 1/sqrt(fan_in)), so that every TP site of
-    every layer carries data."""
+    """Fill the zero-initialised output projections (attention, MLP and
+    experts) of every block from a fan-in normal (std 1/sqrt(fan_in)),
+    one stack slice at a time, so that every TP and dispatch site of
+    every layer carries data and every expert's output is non-zero."""
     from repro_torch.models.model import param_groups
-    names = [n for n, sp in param_groups(cfg, plan)["pattern"][1].items()
-             if sp.init == "zeros"]
-    t0 = params["pattern"][names[0]]
+    names = [(g, n) for g, (_, specs) in sorted(param_groups(
+        cfg, plan).items()) for n, sp in specs.items() if sp.init == "zeros"]
+    t0 = params[names[0][0]][names[0][1]]
     gen = torch.Generator(device=t0.device)
     gen.manual_seed(seed)
-    for name in names:
-        t = params["pattern"][name]
+    for g, name in names:
+        t = params[g][name]
         for i in range(t.shape[0]):
             t[i] = (torch.randn(t.shape[1:], generator=gen, device=t.device)
                     / t.shape[-2] ** 0.5).to(t.dtype)
-    return names
+    return [f"{g}/{n}" for g, n in names]
 
 
 def phase_serve(torch, np):
@@ -639,6 +681,210 @@ def phase_serve(torch, np):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the peer-push All2All in a loopback world
+# ---------------------------------------------------------------------------
+
+def _a2a_rows(tp: int):
+    """Rows a rank sends each peer at moonshot's dispatch with ep = tp:
+    (E / tp) experts of capacity(tokens) slots, at prefill and decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    cfg = get_config(MOE_ARCH)
+    e_loc = cfg.moe.n_experts // tp
+    return (cfg.d_model,
+            {"prefill": e_loc * capacity(BATCH * PROMPT_LEN, cfg),
+             "decode": e_loc * capacity(BATCH, cfg)})
+
+
+def _a2a_payload(torch, gen, tp: int, m: int, d: int, dev,
+                 dtype=None):
+    x = torch.randn((tp, tp, m, d), generator=gen, device=dev) * 2
+    x[:, :, 0, 5] = 40.0                       # an outlier in every block
+    return x.to(dtype or torch.bfloat16)
+
+
+def phase_a2a(torch, card: str):
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.kernels import ops, rdma
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    rdma.reset_launches()                       # the a2a path starts here
+    want = 0
+    for tp in A2A_TPS:
+        d, rows = _a2a_rows(tp)
+        wb_max = max(CommConfig(**kw).wire_bytes(d) for _, kw in A2A_CONFIGS)
+        world = rdma.PeerWorld.loopback(tp, rows["prefill"] * wb_max, dev)
+        # the dispatch payload is bf16; f32 (the kernel's other payload
+        # type) for the paper config at the smallest world
+        runs = [(label, kw, torch.bfloat16) for label, kw in A2A_CONFIGS]
+        if tp == A2A_TPS[0]:
+            runs.append((A2A_CONFIGS[0][0] + " f32", A2A_CONFIGS[0][1],
+                         torch.float32))
+        for label, kw, dtype in runs:
+            cfg = CommConfig(**kw)
+            for shape, m in rows.items():
+                xs = [_a2a_payload(torch, gen, tp, m, d, dev, dtype)
+                      for _ in range(A2A_CALLS)]
+                outs = [ops.fused_all_to_all(x, cfg, world)
+                        for x in xs]            # back to back, no sync
+                want += A2A_CALLS
+                torch.cuda.synchronize()
+                for i, (x, out) in enumerate(zip(xs, outs)):
+                    ref, recv = rdma.fused_all_to_all_rdma_plain(x, cfg)
+                    check(_bits_equal(torch, out, ref),
+                          f"a2a tp={tp} {label} {shape} call {i}: output "
+                          f"differs from the plain version's")
+                wb = cfg.wire_bytes(d)
+                for r in range(tp):
+                    check(torch.equal(world.recv_rows(r)[:, :m * wb],
+                                      recv[r]),
+                          f"a2a tp={tp} {label} {shape}: rank {r}'s receive "
+                          f"buffer differs from the plain version's")
+                del xs, outs
+        pads = [world.signal_pad(r).tolist() for r in range(tp)]
+        bpr = world.blocks_per_rank
+        print(f"[a2a] tp={tp} (rows a peer: {rows}, d {d}, "
+              f"{bpr} blocks a rank): {[r[0] for r in runs]} x "
+              f"{len(rows)} shapes x {A2A_CALLS} back-to-back calls, "
+              f"outputs bit-equal and last receive buffers byte-equal to "
+              f"the plain version; epoch {world.epoch}, signal pad of rank "
+              f"0 {pads[0]}", flush=True)
+        n = world.epoch
+        for r in range(tp):
+            check(pads[r] == [n * bpr * (tp - 1)] + [n * bpr] * tp,
+                  f"a2a tp={tp}: rank {r}'s signal pad {pads[r]} after "
+                  f"{n} calls")
+        del world
+    launches = dict(rdma.LAUNCHES)              # read right after the path
+    check(launches == {"a2a": want}, f"a2a launches {launches} != {want}")
+    print(f"[a2a] launches {launches} exact", flush=True)
+
+    # time at tp = A2A_TIME_TP, both shapes, paper int4 g32
+    tp = A2A_TIME_TP
+    d, rows = _a2a_rows(tp)
+    cfg = CommConfig(**A2A_CONFIGS[0][1])
+    world = rdma.PeerWorld.loopback(tp, rows["prefill"] * cfg.wire_bytes(d),
+                                    dev)
+    timed = {}
+    for shape, m in rows.items():
+        x = _a2a_payload(torch, gen, tp, m, d, dev)
+        timed[shape] = _time_row(
+            torch, "a2a", A2A_CONFIGS[0][0], tuple(x.shape),
+            lambda: rdma.fused_all_to_all_rdma(x, cfg, world),
+            lambda: rdma.fused_all_to_all_rdma_plain(x, cfg)[0],
+            rdma.bound_bytes(cfg, tp, m, d, x.element_size()), 0, card)
+    print(f"[a2a] bound: all {tp} ranks' bytes (payload read, wire written "
+          f"and read, output written) over {HBM_BYTES_PER_S / 1e12} TB/s: "
+          f"device memory time on one card, not link time", flush=True)
+    return launches, timed
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serve moonshot-v1-16b-a3b at full width
+# ---------------------------------------------------------------------------
+
+def phase_moe(torch, np):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rdma, stage, wire
+    from repro_torch.launch.serve import build_policy, serve
+    from repro_torch.models.model import forward
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.parallel.shardings import init_params
+    from repro_torch.train.data import DataConfig, make_dataset
+    from repro_torch.train.serve_step import (make_cache_init,
+                                              make_decode_step)
+    torch.set_grad_enabled(False)
+    torch.cuda.empty_cache()                   # the dense model is gone
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH)
+    plan = make_plan(cfg, tp=1)
+    t0 = time.perf_counter()
+    params = init_params(cfg, plan, SEED, dev, torch.bfloat16)
+    filled = _fill_output_projections(torch, cfg, plan, params, SEED + 1)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for g in params.values()
+                 for t in g.values())
+    print(f"[moe] {MOE_ARCH} full width, {cfg.n_layers} layers "
+          f"({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}): "
+          f"{nbytes / 1e9:.2f} GB bf16 weights from seed {SEED} ({filled} "
+          f"filled) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    prompts = torch.from_numpy(make_dataset(DataConfig(
+        vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH,
+        seed=SEED)).batch(0)["tokens"]).to(dev)
+    for label, pol, scheme in RUNS:
+        pols = [build_policy(pol, backend=b, scheme=scheme)
+                for b in ("cuda", "ref")]
+        h_cuda, h_plain = (forward(params, prompts, cfg, plan, p,
+                                   dtype=torch.bfloat16)[0] for p in pols)
+        check(bool(torch.isfinite(h_cuda).all()),
+              f"moe prefill {label}: hidden states not finite")
+        check(_bits_equal(torch, h_cuda, h_plain),
+              f"moe prefill {label}: hidden states through the CUDA codec "
+              f"differ from the plain codec's")
+        steps = [make_decode_step(cfg, plan, p) for p in pols]
+        caches = [make_cache_init(cfg, plan, BATCH, DECODE_CHECK_STEPS,
+                                  dev)() for _ in pols]
+        for i in range(DECODE_CHECK_STEPS):
+            (lc, caches[0]), (lr, caches[1]) = (
+                st(params, c, prompts[:, i:i + 1])
+                for st, c in zip(steps, caches))
+            check(_bits_equal(torch, lc, lr),
+                  f"moe decode {label} step {i}: logits through the CUDA "
+                  f"codec differ from the plain codec's")
+        del caches
+    print(f"[moe] full width: prefill hidden states and "
+          f"{DECODE_CHECK_STEPS} decode steps' logits through the CUDA "
+          f"codec equal the plain codec's bit for bit "
+          f"({', '.join(r[0] for r in RUNS)})", flush=True)
+
+    kinds = cfg.layer_kinds
+    tp_sites = 1 + sum(2 if k == "dense" else 1 for k in kinds)
+    a2a_sites = kinds.count("moe")
+    forwards = 1 + PROMPT_LEN + GEN - 1
+    wire.reset_launches()                  # the moe path starts here
+    stage.reset_launches()
+    rdma.reset_launches()
+    results = {}
+    for label, pol, scheme in RUNS + (BASELINE,):
+        before = dict(wire.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
+                    batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN, device=dev,
+                    seed=SEED, label=f" moe {label}")
+        got = {k: wire.LAUNCHES[k] - before[k] for k in wire.LAUNCHES}
+        fused = scheme == "fused"
+        # a TP site: 2 encodes, 2 decodes (fused: 1 decode + 1
+        # decode_reduce); a dispatch site: 1 encode, 1 decode
+        per_fwd = {"encode_wire": 2 * tp_sites + a2a_sites,
+                   "decode_wire": (1 if fused else 2) * tp_sites + a2a_sites,
+                   "decode_reduce": tp_sites if fused else 0}
+        want = {k: 0 if label == BASELINE[0] else v * forwards
+                for k, v in per_fwd.items()}
+        print(f"[moe {label}] launches {got} (expected {want}; {tp_sites} "
+              f"TP and {a2a_sites} dispatch sites a forward, {forwards} "
+              f"forwards); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        check(got == want, f"moe {label}: launches {got} != {want}")
+        check(res["agreement"] is None, f"moe {label}: agreement checked")
+        results[label] = res
+    launches = dict(wire.LAUNCHES)         # read right after the moe path
+    stage_launches = dict(stage.LAUNCHES)
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} never launched on the moe path")
+    check(set(stage_launches.values()) == {0} and rdma.LAUNCHES["a2a"] == 0,
+          f"stage or a2a kernels launched on the moe path: "
+          f"{stage_launches} {rdma.LAUNCHES}")
+    check(np.array_equal(results["paper/two_step"]["generated"],
+                         results["paper/fused"]["generated"]),
+          "moe: fused and two_step generated different tokens")
+    print("[moe] paper/fused generated the same tokens as paper/two_step",
+          flush=True)
+    return launches, results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -670,31 +916,48 @@ def main(argv=None) -> int:
     launches, served = {}, {}
     if "serve" in phases:
         launches, served = phase_serve(torch, np)
+    a2a_launches, a2a_timed = {}, {}
+    if "a2a" in phases:
+        a2a_launches, a2a_timed = phase_a2a(torch, card)
+    moe_launches, moe_served = {}, {}
+    if "moe" in phases:
+        moe_launches, moe_served = phase_moe(torch, np)
 
     main_cfg = {name: "int2 g32 spike" if name == "spike_pack"
                 else "int8 g128" for name in REPLACES}
     kernels = []
-    for name in WIRE_KERNELS + STAGE_KERNELS:
-        t = timing.get("prefill", {}).get(main_cfg[name], {}).get(name, {})
-        errs = [r[name]["max_abs_err"] for by_cfg in timing.values()
-                for r in by_cfg.values() if name in r]
+    for name in WIRE_KERNELS + STAGE_KERNELS + ("a2a",):
+        if name == "a2a":
+            t = a2a_timed.get("prefill", {})
+            errs = [r["max_abs_err"] for r in a2a_timed.values()]
+            source, n = "rdma.cu", a2a_launches.get(name, 0)
+        else:
+            t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
+                name, {})
+            errs = [r[name]["max_abs_err"] for by_cfg in timing.values()
+                    for r in by_cfg.values() if name in r]
+            source = "wire.cu" if name in WIRE_KERNELS else "stage.cu"
+            n = (launches.get(name, 0) + moe_launches.get(name, 0)
+                 if name in WIRE_KERNELS else stage_launches.get(name, 0))
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": CSRC + ("wire.cu" if name in WIRE_KERNELS
-                              else "stage.cu"),
-            "replaces": REPLACES[name],
-            "launches": (launches.get(name, 0) if name in WIRE_KERNELS
-                         else stage_launches.get(name, 0)),
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": REPLACES[name], "launches": n,
             "serve_launches": launches.get(name, 0),
-            "max_abs_err": max(errs, default=None),
+            "moe_launches": moe_launches.get(name, 0),
+            "max_abs_err": max([e for e in errs if e is not None],
+                               default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": None})
+    def numbers(runs):
+        return {k: {m: v for m, v in r.items()
+                    if isinstance(v, (int, float, bool, dict))}
+                for k, r in runs.items()}
+
     record = {"card": card, "timing": timing, "launches": launches,
-              "stage_launches": stage_launches,
-              "serve": {k: {m: v for m, v in r.items()
-                            if isinstance(v, (int, float, bool, dict))}
-                        for k, r in served.items()}}
+              "stage_launches": stage_launches, "a2a": a2a_timed,
+              "a2a_launches": a2a_launches, "moe_launches": moe_launches,
+              "serve": numbers(served), "moe": numbers(moe_served)}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,4 +1,4 @@
-"""Quantized AllReduce over a ``torch.distributed`` process group.
+"""Quantized AllReduce and All2All over a ``torch.distributed`` group.
 
 The paper's Flash two-step AllReduce: chunk + quantize + all-to-all +
 dequantize + local reduce, then re-quantize + all-gather + dequantize.
@@ -12,6 +12,9 @@ kernels of :mod:`repro_torch.kernels.emulate` (one flat vector). The
 hierarchical schemes reduce to the two-step on one axis, as in the JAX
 package; ``"hier_pp"`` feeds its microchunks through one batched
 two-step.
+
+The All2All (:func:`quantized_all_to_all`) quantizes the MoE dispatch
+payload; the combine stays exact, as in the paper.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch.distributed as dist
 
 from repro_torch.core import codec
 from repro_torch.core.comm_config import CommConfig
+from repro_torch.kernels import ops
 from repro_torch.kernels.emulate import (all_gather_rows, all_to_all_rows,
                                          fused_all_reduce_emulated,
                                          group_size)
@@ -104,3 +108,33 @@ def compressed_psum(x: torch.Tensor, cfg: CommConfig,
     xf = _pad_to(x.reshape(-1), mult)
     out = _flat_all_reduce(xf.to(torch.float32), cfg, group)
     return out[:n].reshape(x.shape).to(x.dtype)
+
+
+def quantized_all_to_all(x: torch.Tensor, cfg: CommConfig,
+                         group=None) -> torch.Tensor:
+    """Quantized All2All for MoE dispatch: ``x`` is (tp, ..., d), block
+    ``p`` for peer ``p``; block ``j`` of the result came from peer ``j``.
+
+    A last axis that is not a group multiple is zero-padded before encode
+    and sliced back after decode. ``cfg.enabled`` false or scheme
+    ``"nccl"`` is the exact all-to-all; ``"fused"`` runs
+    :func:`repro_torch.kernels.ops.fused_all_to_all`; any other scheme
+    runs the codec around a library all-to-all, decoding straight into
+    the payload dtype.
+    """
+    if not cfg.enabled or cfg.scheme == "nccl":
+        return all_to_all_rows(x, group)
+    d = x.shape[-1]
+    xp = _pad_to(x, cfg.group)
+    if cfg.scheme == "fused":
+        return ops.fused_all_to_all(xp, cfg, group)[..., :d]
+    recv = all_to_all_rows(codec.encode(xp, cfg), group)
+    return codec.decode(recv, cfg, xp.shape[-1], out_dtype=x.dtype)[..., :d]
+
+
+def dispatch_all_to_all(x: torch.Tensor, cfg: CommConfig,
+                        group=None) -> torch.Tensor:
+    """The MoE dispatch All2All (quantized payload), forward only: the
+    JAX package's backward, an exact all-to-all in the combine direction
+    (straight-through quantization), comes with the training path."""
+    return quantized_all_to_all(x, cfg, group)

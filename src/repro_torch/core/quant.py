@@ -6,9 +6,10 @@ the wire's meta dtype first, and the codes are computed with those stored
 values, so encode and decode agree on them.
 
 Float details follow the JAX package exactly: ``torch.round`` rounds half
-to even as ``jnp.round`` does, min/max propagate NaN, a NaN code becomes
-0, and a NaN rounded to the meta dtype keeps the bits ``jnp.astype``
-keeps (see :func:`to_meta`), except a NaN scale, which the codec makes by
+to even as ``jnp.round`` does, min/max propagate NaN and order -0.0 below
++0.0 (as XLA's minimum and maximum do), a NaN code becomes 0, and a NaN
+rounded to the meta dtype keeps the bits ``jnp.astype`` keeps (see
+:func:`to_meta`), except a NaN scale, which the codec makes by
 arithmetic and writes canonical (see :func:`scale_zero`).
 """
 from __future__ import annotations
@@ -80,13 +81,31 @@ def group_unreshape(xg: torch.Tensor) -> torch.Tensor:
     return xg.reshape(*xg.shape[:-2], xg.shape[-2] * xg.shape[-1])
 
 
+def zmin(t: torch.Tensor) -> torch.Tensor:
+    """``amin`` over the last axis with -0.0 below +0.0: a zero minimum
+    is -0.0 when the axis holds a -0.0 (PyTorch's own keeps whichever
+    zero its order meets first)."""
+    m = torch.amin(t, dim=-1)
+    neg = ((t == 0) & torch.signbit(t)).any(-1)
+    zero = torch.zeros_like(m)
+    return torch.where(m == 0, torch.where(neg, -zero, zero), m)
+
+
+def zmax(t: torch.Tensor) -> torch.Tensor:
+    """``amax`` over the last axis with +0.0 above -0.0."""
+    m = torch.amax(t, dim=-1)
+    pos = ((t == 0) & ~torch.signbit(t)).any(-1)
+    zero = torch.zeros_like(m)
+    return torch.where(m == 0, torch.where(pos, zero, -zero), m)
+
+
 def group_min_max(xg: torch.Tensor):
     """(..., group) -> NaN-propagating (min, max) over the last axis.
 
     In a group holding NaN both are its first NaN, with that element's
     bits: PyTorch's reductions return a NaN of their own on the CPU.
     """
-    mn, mx = torch.amin(xg, dim=-1), torch.amax(xg, dim=-1)
+    mn, mx = zmin(xg), zmax(xg)
     nan = torch.isnan(xg)
     first = torch.gather(xg, -1, nan.to(torch.uint8).argmax(-1, keepdim=True))
     has_nan = nan.any(-1)

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core.quant import (cast_out, group_min_max, group_reshape,
                                     group_unreshape, scale_zero, to_code,
-                                    to_meta)
+                                    to_meta, zmax, zmin)
 
 
 class SpikeQuant(NamedTuple):
@@ -66,8 +66,8 @@ def spike_quantize(x: torch.Tensor, bits: int, group: int,
     max_mask = pos == imax[..., None]
 
     inf = float("inf")
-    mn = torch.amin(torch.where(min_mask | nan, inf, xg), dim=-1)
-    mx = torch.amax(torch.where(max_mask | nan, -inf, xg), dim=-1)
+    mn = zmin(torch.where(min_mask | nan, inf, xg))
+    mx = zmax(torch.where(max_mask | nan, -inf, xg))
     all_dropped = (mn == inf) & (mx == -inf)
     mn = torch.where(all_dropped, torch.nan, mn)
     mx = torch.where(all_dropped, torch.nan, mx)

@@ -1,16 +1,22 @@
-// Device functions shared by the codec kernels (wire.cu, stage.cu).
+// Device functions shared by the codec kernels (wire.cu, stage.cu,
+// rdma.cu): the group quantizer, and the wire format's per-group encode
+// and decode (encode_group, decode_group), so that every kernel that
+// writes or reads a wire row writes and reads the same bytes.
 //
 // Numerics follow the JAX reference exactly (and the plain PyTorch
 // version in repro_torch/core): IEEE division (__fdiv_rn), round half to
 // even (rintf), NaN-propagating min/max written by hand, scale and zero
 // rounded to the meta dtype before use, NaN codes -> 0, and dequantize as
 // two roundings (__fmul_rn, __fadd_rn) so no FMA contraction changes a
-// value. A NaN converted to bf16/fp16 keeps the bits jnp.astype keeps
+// value. Min and max order -0.0 below +0.0, as XLA's minimum and maximum
+// do (so a group of mixed signed zeros keeps the zero JAX keeps). A NaN
+// converted to bf16/fp16 keeps the bits jnp.astype keeps
 // (bf16: its sign; fp16: its sign and top 9 payload bits, quieted); a NaN
 // scale, which the codec makes by arithmetic, is written canonical.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
 
@@ -22,12 +28,23 @@ __device__ __forceinline__ bool isnan_(float a) { return a != a; }
 
 __device__ __forceinline__ float inf_() { return __int_as_float(0x7f800000); }
 
+// min and max of two numbers (no NaN) with -0.0 < +0.0: equal operands
+// differ at most in the sign of a zero, which OR (min) or AND (max) of
+// the bits settles
+__device__ __forceinline__ float zmin(float a, float b) {
+  return a == b ? __int_as_float(__float_as_int(a) | __float_as_int(b)) : fminf(a, b);
+}
+
+__device__ __forceinline__ float zmax(float a, float b) {
+  return a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : fmaxf(a, b);
+}
+
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return isnan_(a) ? a : (isnan_(b) ? b : fminf(a, b));
+  return isnan_(a) ? a : (isnan_(b) ? b : zmin(a, b));
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return isnan_(a) ? a : (isnan_(b) ? b : fmaxf(a, b));
+  return isnan_(a) ? a : (isnan_(b) ? b : zmax(a, b));
 }
 
 __device__ __forceinline__ float canonical_nan(float a) {
@@ -177,8 +194,8 @@ __device__ __forceinline__ Range group_range(const float (&v)[NV], const int (&p
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     if (!isnan_(v[k])) {
-      if (pos[k] != r.imin) lo = fminf(lo, v[k]);
-      if (pos[k] != r.imax) hi = fmaxf(hi, v[k]);
+      if (pos[k] != r.imin) lo = zmin(lo, v[k]);
+      if (pos[k] != r.imax) hi = zmax(hi, v[k]);
     }
   }
   lo = seg_nan_min<W>(lo);
@@ -232,11 +249,303 @@ __device__ __forceinline__ unsigned long long pack8(unsigned long long codes8, i
   return word;
 }
 
+// Byte loads of a wire row: plain, or through L2 only (ld.global.cg) for
+// a row that other SMs or peers wrote, so no stale L1 line is read.
+struct LoadPlain {
+  __device__ __forceinline__ unsigned operator()(const uint8_t* a) const { return *a; }
+};
+
+struct LoadL2 {
+  __device__ __forceinline__ unsigned operator()(const uint8_t* a) const { return __ldcg(a); }
+};
+
 // Code bits of element e from one unit-u plane, shifted into place.
+template <typename Ld = LoadPlain>
 __device__ __forceinline__ unsigned plane_field(const uint8_t* plane, long long e, int u, int shift) {
   const int per = 8 / u;
-  const unsigned byte = plane[(e * u) / 8];
+  const unsigned byte = Ld()(plane + (e * u) / 8);
   return ((byte >> ((int)(e % per) * u)) & ((1u << u) - 1u)) << shift;
+}
+
+// ---- the wire format: one row's layout and codec parameters ---------------
+
+constexpr int kMaxTheta = 20;
+
+struct WireParams {
+  long long rows, n, wb, groups;          // groups per row
+  int group, bits, n_planes;
+  int unit[3];
+  long long plane_off[3];
+  long long scale_off, zero_off, sv_off, si_off;
+  int spike, scale_int, theta, meta_f16, out_kind;   // out: 0 f32 1 bf16 2 f16
+  int rotation;
+  unsigned sign_seed;                     // rotation: the sign hash's seed
+  float hscale;                           // rotation: 1 / sqrt(group) in f32
+  int n_thr;
+  unsigned thr[kMaxTheta];
+  float frac[kMaxTheta];
+  float eps, mag_min;
+};
+
+// params: int64 array in the order below (repro_torch/kernels/wire.py
+// _params); thr: theta thresholds (uint32), frac: 2^(r/theta) table, f:
+// {eps, mag_min, hscale}.
+inline WireParams fill_params(const long long* a, const unsigned* thr, const float* frac,
+                              const float* f) {
+  WireParams p;
+  p.rows = a[0]; p.n = a[1]; p.wb = a[2]; p.group = (int)a[3]; p.bits = (int)a[4];
+  p.groups = p.n / p.group;
+  p.n_planes = (int)a[5];
+  for (int i = 0; i < 3; ++i) { p.unit[i] = (int)a[6 + i]; p.plane_off[i] = a[9 + i]; }
+  p.scale_off = a[12]; p.zero_off = a[13]; p.sv_off = a[14]; p.si_off = a[15];
+  p.spike = (int)a[16]; p.scale_int = (int)a[17]; p.theta = (int)a[18];
+  p.meta_f16 = (int)a[19]; p.out_kind = (int)a[20];
+  p.rotation = (int)a[21]; p.sign_seed = (unsigned)a[22];
+  p.n_thr = p.theta - 1;
+  for (int k = 0; k < kMaxTheta; ++k) {
+    p.thr[k] = k < p.n_thr ? thr[k] : 0xffffffffu;
+    p.frac[k] = k < p.theta ? frac[k] : 0.f;
+  }
+  p.eps = f[0];
+  p.mag_min = f[1];
+  p.hscale = f[2];
+  return p;
+}
+
+// ---- Eq. 1 integer-log codec (exponent arithmetic, no log2/exp2) --------
+
+__device__ __forceinline__ int floor_log2_theta(float s, const WireParams& p) {
+  unsigned u = __float_as_uint(s);
+  int e = (int)(u >> 23) - 127;
+  unsigned mant = u & 0x7fffffu;
+  int r = 0;
+  for (int k = 0; k < p.n_thr; ++k) r += (mant >= p.thr[k]) ? 1 : 0;
+  return e * p.theta + r;
+}
+
+__device__ __forceinline__ float exp2_div_theta(int v, const WireParams& p) {
+  int off = ((128 + p.theta - 1) / p.theta) * p.theta;
+  int w = v + off;
+  int q = w / p.theta - off / p.theta;
+  int r = w - (w / p.theta) * p.theta;
+  return __fmul_rn(p.frac[r], __int_as_float((q + 127) << 23));
+}
+
+__device__ __forceinline__ unsigned char encode_scale(float s, const WireParams& p) {
+  s = isnan_(s) ? s : fmaxf(s, p.mag_min);
+  int c = floor_log2_theta(s, p);
+  c = c < -128 ? -128 : (c > 127 ? 127 : c);
+  return (unsigned char)(signed char)c;
+}
+
+__device__ __forceinline__ unsigned char encode_signed(float z, const WireParams& p) {
+  unsigned sign = z < 0.f ? 1u : 0u;
+  float mag = fabsf(z);
+  mag = isnan_(mag) ? mag : fmaxf(mag, p.mag_min);
+  int ic = floor_log2_theta(mag, p) + 64;
+  int c = ic < 1 ? 0 : (ic > 127 ? 127 : ic);
+  return (unsigned char)((sign << 7) | (unsigned)c);
+}
+
+__device__ __forceinline__ float decode_scale(unsigned char b, const WireParams& p) {
+  return exp2_div_theta((int)(signed char)b, p);
+}
+
+__device__ __forceinline__ float decode_signed(unsigned char b, const WireParams& p) {
+  int mc = b & 0x7f;
+  float mag = mc == 0 ? 0.f : exp2_div_theta(mc - 64, p);
+  return (b >> 7) ? -mag : mag;
+}
+
+template <typename Ld = LoadPlain>
+__device__ __forceinline__ unsigned short rd16(const uint8_t* w, long long off) {
+  return (unsigned short)(Ld()(w + off) | (Ld()(w + off + 1) << 8));
+}
+
+__device__ __forceinline__ void wr16(uint8_t* w, long long off, unsigned short v) {
+  w[off] = (uint8_t)(v & 0xff);
+  w[off + 1] = (uint8_t)(v >> 8);
+}
+
+// ---- rotation -------------------------------------------------------------
+
+// The fixed sign of in-group position j (repro_torch/core/rotation.py).
+__device__ __forceinline__ float rot_sign(int j, unsigned seed) {
+  unsigned u = (unsigned)j + seed;
+  u = (u ^ (u >> 16)) * 0x7feb352du;
+  u = (u ^ (u >> 15)) * 0x846ca68bu;
+  u ^= u >> 16;
+  return (u & 1u) ? -1.f : 1.f;
+}
+
+// In place: lane value k is position k * 32 + lane of the warp's group.
+// out_j = sum_i x_i * H[i][j], i increasing, from +0.0; H is symmetric,
+// so the same sum is the rotation and its transpose.
+template <int VPL>
+__device__ __forceinline__ void hadamard_warp(float (&v)[VPL], int lane, float h) {
+  float acc[VPL];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) acc[k] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < VPL; ++kk) {
+    for (int l = 0; l < 32; ++l) {
+      const float xi = __shfl_sync(kFull, v[kk], l);
+      const int i = kk * 32 + l;
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        const float hij = (__popc(i & (k * 32 + lane)) & 1) ? -h : h;
+        acc[k] = __fadd_rn(acc[k], __fmul_rn(xi, hij));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) v[k] = acc[k];
+}
+
+template <int VPL>
+__device__ __forceinline__ void rotate_warp(float (&v)[VPL], int lane, const WireParams& p) {
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) v[k] = __fmul_rn(v[k], rot_sign(k * 32 + lane, p.sign_seed));
+  hadamard_warp<VPL>(v, lane, p.hscale);
+}
+
+template <int VPL>
+__device__ __forceinline__ void unrotate_warp(float (&v)[VPL], int lane, const WireParams& p) {
+  hadamard_warp<VPL>(v, lane, p.hscale);
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) v[k] = __fmul_rn(v[k], rot_sign(k * 32 + lane, p.sign_seed));
+}
+
+// ---- one group of a wire row, a warp at a time ----------------------------
+
+// Payload element -> float32 (exact for bf16).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The warp encodes group g of one row: xg points at the group's G = 32 *
+// VPL values, w at the row's wire bytes; codes is the warp's G bytes of
+// shared memory. Lane l < G / 8 packs codes 8l .. 8l+7 into u whole bytes
+// of each unit-u plane, so no two warps write one byte.
+template <int VPL, typename T>
+__device__ __forceinline__ void encode_group(const T* __restrict__ xg, uint8_t* __restrict__ w,
+                                             long long g, int lane, uint8_t* codes,
+                                             const WireParams& p) {
+  const int G = VPL * 32;
+  const float qmax = (float)((1 << p.bits) - 1);
+  float v[VPL];
+  int pos[VPL];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    pos[k] = k * 32 + lane;
+    v[k] = to_f32(xg[pos[k]]);
+  }
+  if (p.rotation) rotate_warp<VPL>(v, lane, p);
+  const Range r = group_range<VPL, 32>(v, pos, G, p.spike);
+  const Meta m = rtn_meta(r.mn, r.mx, qmax, p.eps, p.meta_f16);
+  const unsigned char code_mn = quant_code(r.mn, m.z, m.s, qmax);
+
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    unsigned char c = quant_code(v[k], m.z, m.s, qmax);
+    if (p.spike && (pos[k] == r.imin || pos[k] == r.imax)) c = code_mn;
+    codes[pos[k]] = c;
+  }
+  __syncwarp();
+
+  if (lane < G / 8) {
+    const unsigned long long codes8 = *reinterpret_cast<const unsigned long long*>(&codes[8 * lane]);
+    int shift = 0;
+    for (int i = 0; i < p.n_planes; ++i) {
+      const int u = p.unit[i];
+      const unsigned long long word = pack8(codes8, u, shift);
+      uint8_t* dst = w + p.plane_off[i] + (g * G + 8 * lane) * u / 8;
+      for (int b = 0; b < u; ++b) dst[b] = (uint8_t)(word >> (8 * b));
+      shift += u;
+    }
+  }
+  __syncwarp();                         // codes is reused by the warp's next group
+
+  if (lane == 0) {
+    if (p.scale_int) {
+      w[p.scale_off + g] = encode_scale(m.s, p);
+      w[p.zero_off + g] = encode_signed(m.z, p);
+    } else {
+      wr16(w, p.scale_off + 2 * g, m.sbits);
+      wr16(w, p.zero_off + 2 * g, m.zbits);
+    }
+    if (p.spike) {
+      wr16(w, p.sv_off + 4 * g, to_meta(r.vmin, p.meta_f16));
+      wr16(w, p.sv_off + 4 * g + 2, to_meta(r.vmax, p.meta_f16));
+      if (p.scale_int) {
+        w[p.si_off + 2 * g] = (uint8_t)r.imin;
+        w[p.si_off + 2 * g + 1] = (uint8_t)r.imax;
+      } else {
+        wr16(w, p.si_off + 4 * g, to_meta((float)r.imin, p.meta_f16));
+        wr16(w, p.si_off + 4 * g + 2, to_meta((float)r.imax, p.meta_f16));
+      }
+    }
+  }
+}
+
+// One group's metadata, read once per warp.
+struct GroupMeta {
+  float s, z, sv0, sv1;
+  int si0, si1;
+};
+
+template <typename Ld>
+__device__ __forceinline__ GroupMeta read_meta(const uint8_t* w, long long g, const WireParams& p) {
+  GroupMeta m;
+  if (p.scale_int) {
+    m.s = decode_scale((unsigned char)Ld()(w + p.scale_off + g), p);
+    m.z = decode_signed((unsigned char)Ld()(w + p.zero_off + g), p);
+  } else {
+    m.s = from_meta(rd16<Ld>(w, p.scale_off + 2 * g), p.meta_f16);
+    m.z = from_meta(rd16<Ld>(w, p.zero_off + 2 * g), p.meta_f16);
+  }
+  m.sv0 = m.sv1 = 0.f;
+  m.si0 = m.si1 = -1;
+  if (p.spike) {
+    m.sv0 = from_meta(rd16<Ld>(w, p.sv_off + 4 * g), p.meta_f16);
+    m.sv1 = from_meta(rd16<Ld>(w, p.sv_off + 4 * g + 2), p.meta_f16);
+    if (p.scale_int) {
+      m.si0 = (int)(signed char)Ld()(w + p.si_off + 2 * g);
+      m.si1 = (int)(signed char)Ld()(w + p.si_off + 2 * g + 1);
+    } else {
+      m.si0 = (int)(signed char)(int)from_meta(rd16<Ld>(w, p.si_off + 4 * g), p.meta_f16);
+      m.si1 = (int)(signed char)(int)from_meta(rd16<Ld>(w, p.si_off + 4 * g + 2), p.meta_f16);
+    }
+  }
+  return m;
+}
+
+template <typename Ld>
+__device__ __forceinline__ float decode_value(const uint8_t* w, long long g, int pos,
+                                              const GroupMeta& m, const WireParams& p) {
+  const long long e = g * p.group + pos;          // element index in the row
+  unsigned code = 0;
+  int shift = 0;
+  for (int i = 0; i < p.n_planes; ++i) {
+    code |= plane_field<Ld>(w + p.plane_off[i], e, p.unit[i], shift);
+    shift += p.unit[i];
+  }
+  float val = dequant(code & 0xffu, m.s, m.z);
+  if (p.spike) {
+    if (pos == m.si1) val = m.sv1;
+    else if (pos == m.si0) val = m.sv0;
+  }
+  return val;
+}
+
+// The warp's group g of the wire row w, decoded (and rotated back) into
+// v: lane value k is position k * 32 + lane.
+template <int VPL, typename Ld = LoadPlain>
+__device__ __forceinline__ void decode_group(const uint8_t* w, long long g, int lane,
+                                             const WireParams& p, float (&v)[VPL]) {
+  const GroupMeta m = read_meta<Ld>(w, g, p);
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) v[k] = decode_value<Ld>(w, g, k * 32 + lane, m, p);
+  if (p.rotation) unrotate_warp<VPL>(v, lane, p);
 }
 
 }  // namespace fc

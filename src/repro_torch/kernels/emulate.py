@@ -1,11 +1,14 @@
-"""The fused two-step AllReduce with the hop over a process group.
+"""The fused two-step AllReduce and the fused All2All, with the hop over
+a process group.
 
-The JAX package runs the codec phases of its fused AllReduce as kernels
+The JAX package runs the codec phases of its fused collectives as kernels
 and pushes wire rows to peers by RDMA from inside the kernel. Here the
 phases are the CUDA kernels of :mod:`repro_torch.kernels.wire` and the hop
 is ``torch.distributed`` on the uint8 wire (``all_to_all_single`` for the
-scatter phase, ``all_gather_into_tensor`` for the gather phase). With one
-rank there is no hop: the wire rows a rank sends are the rows it receives.
+scatter phase and the All2All, ``all_gather_into_tensor`` for the gather
+phase). With one rank there is no hop: the wire rows a rank sends are the
+rows it receives. (The All2All with the push inside the kernel is
+:mod:`repro_torch.kernels.rdma`.)
 """
 from __future__ import annotations
 
@@ -83,3 +86,24 @@ def fused_all_reduce_emulated(x: torch.Tensor, cfg: CommConfig,
     allw = all_gather_rows(wire2[0], group)                  # (tp, wb)
     full = decode_rows(allw, cfg, chunk)                     # (tp, chunk)
     return full.reshape(n).to(x.dtype)
+
+
+def fused_all_to_all_emulated(x: torch.Tensor, cfg: CommConfig,
+                              group=None) -> torch.Tensor:
+    """Fused quantized All2All of a (tp, ..., d) block tensor.
+
+    One kernel encodes all ``tp * m`` payload rows (``d`` a group
+    multiple: the collectives layer pads), block ``p`` goes to peer
+    ``p``, and one kernel decodes the received rows straight into the
+    payload dtype. Block ``j`` of the result is what peer ``j`` sent.
+    """
+    tp = group_size(group)
+    assert x.shape[0] == tp, (x.shape, tp)
+    d = x.shape[-1]
+    assert d % cfg.group == 0, (d, cfg.group)
+    rows = x.numel() // d
+    wb = cfg.wire_bytes(d)
+    wire = encode_rows(x.reshape(rows, d), cfg)              # (tp*m, wb)
+    recv = all_to_all_rows(wire.reshape(tp, rows // tp, wb), group)
+    out = decode_rows(recv.reshape(rows, wb), cfg, d, out_dtype=x.dtype)
+    return out.reshape(x.shape)

@@ -12,6 +12,11 @@ version for a CPU one, ``True`` the kernel (a CPU tensor raises),
 ``False`` the plain version. The kernels take any number of rows, so
 there is no row padding.
 
+The fused All2All (:func:`fused_all_to_all`) goes by its ``world``
+argument: a :class:`~repro_torch.kernels.rdma.PeerWorld` launches the
+peer-push kernel, a process group or ``None`` runs the emulated schedule
+(the wire kernels around a library all-to-all).
+
 This is the only place that decides; the kernel wrappers take CUDA
 tensors only.
 """
@@ -19,8 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import dequant_unpack, quant_pack, ref, spike_reserve
-from repro_torch.kernels import wire
+from repro_torch.kernels import (dequant_unpack, quant_pack, rdma, ref,
+                                 spike_reserve, wire)
 
 
 def use_kernel(cfg, t: torch.Tensor) -> bool:
@@ -53,6 +58,22 @@ def fused_decode_reduce(buf: torch.Tensor, cfg, n: int) -> torch.Tensor:
     if use_kernel(cfg, buf):
         return wire.decode_reduce(buf.contiguous(), cfg, n)
     return wire.decode_reduce_plain(buf, cfg, n)
+
+
+def fused_all_to_all(x: torch.Tensor, cfg, world=None) -> torch.Tensor:
+    """The fused quantized All2All; ``d`` a group multiple.
+
+    ``world`` a :class:`~repro_torch.kernels.rdma.PeerWorld`: ``x`` is
+    ``(world.local_ranks, tp, m, d)``, every local rank's blocks, and the
+    peer-push kernel runs. A process group or ``None``: ``x`` is this
+    rank's ``(tp, ..., d)`` blocks, and the emulated schedule runs (what
+    the JAX package does for ``tp == 1`` and for ``axis_index_groups``).
+    Block ``j`` of a rank's result is what rank ``j`` sent it.
+    """
+    if isinstance(world, rdma.PeerWorld):
+        return rdma.fused_all_to_all_rdma(x, cfg, world)
+    from repro_torch.kernels import emulate    # emulate imports this module
+    return emulate.fused_all_to_all_emulated(x, cfg, world)
 
 
 # ---------------------------------------------------------------------------

@@ -122,13 +122,19 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
 
     Checks that decode's first generated token agrees with prefill's
     prediction (:func:`prefill_decode_agreement`): a mismatch means the
-    cache was seeded or rolled wrong.
+    cache was seeded or rolled wrong. Not for an MoE model: there the two
+    paths route with different capacities (``capacity(B * S)`` against
+    ``capacity(B)``, which at decode drops routes that prefill keeps), so
+    their logits differ by design; the routes dropped at prefill and at
+    decode are counted instead.
     """
     ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
                                  global_batch=batch, seed=seed))
     prompts = torch.from_numpy(ds.batch(0)["tokens"]).to(device)
 
-    prefill = make_prefill(cfg, plan, policy)
+    moe = cfg.moe is not None
+    pstats, dstats = {}, {}
+    prefill = make_prefill(cfg, plan, policy, stats=pstats)
     _sync(device)
     t0 = time.perf_counter()
     prefill_logits = prefill(params, prompts)
@@ -139,7 +145,7 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
         f"{ttft * 1000:.1f} ms")
 
     caches = make_cache_init(cfg, plan, batch, prompt_len + gen, device)()
-    step = make_decode_step(cfg, plan, policy)
+    step = make_decode_step(cfg, plan, policy, stats=dstats)
     out, agree = [], None
     tok = prompts[:, :1]
     step_ms = []
@@ -154,7 +160,7 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
         if i + 1 < prompt_len:
             tok = prompts[:, i + 1:i + 2]          # teacher-forced prompt
         else:
-            if agree is None:
+            if agree is None and not moe:
                 agree = prefill_decode_agreement(prefill_logits, logits,
                                                  first, nt, cfg.vocab)
             tok = nt[:, None]
@@ -170,12 +176,22 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
             f"{agree['rel_divergence']}; first generated token matches "
             f"prefill in the {agree['rows_held']} of {batch} rows held "
             f"(top-2 margins {agree['margin']})")
+    routes = {}
+    if moe:
+        routes = {f"{k}_{ph}": int(st.get(k, 0)) for ph, st in
+                  (("prefill", pstats), ("decode", dstats))
+                  for k in ("routes", "dropped")}
+        log(f"[serve{label}] MoE routes dropped over capacity: prefill "
+            f"{routes['dropped_prefill']} of {routes['routes_prefill']}, "
+            f"decode {routes['dropped_decode']} of "
+            f"{routes['routes_decode']} (no prefill/decode agreement "
+            f"check: the capacities differ)")
     assert np.all((gen_toks >= 0) & (gen_toks < cfg.vocab))
     log(f"[serve{label}] generated tokens (first row): {gen_toks[0][:16]}")
     return {"ttft_ms": ttft * 1000, "first_step_ms": step_ms[0],
             "step_ms_median": med, "step_ms_p90": p90, "decode_steps": steps,
             "first_tokens": first.cpu().numpy(), "generated": gen_toks,
-            "agreement": agree}
+            "agreement": agree, **routes}
 
 
 def main(argv=None) -> Dict:

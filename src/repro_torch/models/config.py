@@ -2,7 +2,8 @@
 
 A model is a sequence of blocks: ``prefix + pattern * pattern_repeats +
 suffix``. This package runs the ``dense`` block (causal self-attention +
-dense MLP); the other kinds are named so that configs validate the same
+dense MLP) and the ``moe`` block (causal self-attention + mixture of
+experts); the other kinds are named so that configs validate the same
 way, and :func:`repro_torch.models.model.forward` raises for them.
 """
 from __future__ import annotations
@@ -12,6 +13,15 @@ from typing import Optional, Tuple
 
 BLOCK_KINDS = ("dense", "local", "moe", "xattn", "enc", "dec", "rec",
                "mlstm", "slstm")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                    # per-expert hidden width
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01   # load-balance loss weight
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +43,7 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: Optional[float] = 10000.0
     logit_softcap: Optional[float] = None
+    moe: Optional[MoEConfig] = None
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     source: str = ""

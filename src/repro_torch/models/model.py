@@ -1,4 +1,5 @@
-"""Dense decoder: parameter layout, forward, decode caches, greedy next.
+"""Decoder of dense and MoE blocks: parameter layout, forward, decode
+caches, greedy next.
 
 Parameters are ``params[group][name]`` tensors of shape
 ``(n_stack, *local_shape)`` (see :mod:`repro_torch.parallel.shardings`),
@@ -6,7 +7,8 @@ grouped as in the JAX package: ``embed`` (``tok``), ``out`` (``nf_gain``,
 ``unemb``) and ``pattern`` (the repeated blocks, names prefixed ``L{j}_``),
 plus ``pre{i}_{kind}`` / ``suf{i}_{kind}`` for unrepeated blocks. Every
 activation crossing the TP ranks goes through the quantized AllReduce
-site, resolved per ``(site, global block index)``.
+site, and an MoE block's dispatch through the quantized All2All site,
+each resolved per ``(site, global block index)``.
 """
 from __future__ import annotations
 
@@ -16,13 +18,14 @@ import torch
 
 from repro_torch.core.policy import CommPolicy
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_lookup, mlp_apply, rms_norm,
                                        vocab_parallel_logits)
 from repro_torch.parallel.plan import ShardingPlan
 from repro_torch.parallel.shardings import ParamSpec, Params
 
-SUPPORTED_KINDS = ("dense",)
+SUPPORTED_KINDS = ("dense", "moe")
 
 
 def _norm_specs(cfg: ModelConfig, name: str) -> Dict[str, ParamSpec]:
@@ -52,7 +55,8 @@ def block_specs(kind: str, cfg: ModelConfig,
     s = dict(_norm_specs(cfg, "n1_"))
     s.update(attn.attn_specs(cfg, plan))
     s.update(_norm_specs(cfg, "n2_"))
-    s.update(_mlp_specs(cfg, plan))
+    s.update(moe_mod.moe_specs(cfg, plan) if kind == "moe"
+             else _mlp_specs(cfg, plan))
     return s
 
 
@@ -104,8 +108,11 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
                 cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
                 cache: Optional[Dict], pos: int = 0,
                 layer: Optional[int] = None, group=None,
-                rank: int = 0) -> torch.Tensor:
-    """The dense block: x + attn(norm(x)); x + mlp(norm(x))."""
+                rank: int = 0, stats: Optional[Dict] = None):
+    """x + attn(norm(x)), then x + mlp(norm(x)) (dense) or
+    x + moe(norm(x)) (moe) -> (x, aux_loss); aux is 0.0 for a dense
+    block. ``stats`` gathers the MoE routing counts
+    (:func:`repro_torch.models.moe.moe_apply`)."""
     if kind not in SUPPORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     h = rms_norm(x, p["n1_gain"])
@@ -114,15 +121,22 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
                                group=group, rank=rank)
     x = x + a
     h = rms_norm(x, p["n2_gain"])
+    if kind == "moe":
+        f, aux = moe_mod.moe_apply(p, h, cfg, plan, policy, layer=layer,
+                                   group=group, rank=rank, stats=stats)
+        return x + f, aux
     return x + mlp_apply(p, h, cfg.act, policy, cfg.use_bias, layer=layer,
-                         group=group)
+                         group=group), 0.0
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             plan: ShardingPlan, policy: CommPolicy, *,
             caches: Optional[Dict] = None, dtype=torch.bfloat16,
-            group=None, rank: int = 0):
-    """tokens (B, S) -> (hidden (B, S, d), unemb, caches).
+            group=None, rank: int = 0, stats: Optional[Dict] = None):
+    """tokens (B, S) -> (hidden (B, S, d), unemb, aux_loss, caches).
+
+    ``aux_loss`` is the MoE blocks' load-balance loss, summed (serving
+    ignores it).
 
     caches=None: full sequence (prefill). caches given: S must be 1, the
     token sits at ``caches["pos"]``, and the caches are updated in place
@@ -135,18 +149,20 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     pos = caches["pos"] if decode else 0
     positions = None if decode else torch.arange(tokens.shape[1],
                                                  device=tokens.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, (kind, p) in enumerate(layer_params(params, cfg)):
-        x = apply_block(kind, p, x, positions=positions, cfg=cfg, plan=plan,
-                        policy=policy,
-                        cache=caches["layers"][layer] if decode else None,
-                        pos=pos, layer=layer, group=group, rank=rank)
+        x, aux = apply_block(
+            kind, p, x, positions=positions, cfg=cfg, plan=plan,
+            policy=policy, cache=caches["layers"][layer] if decode else None,
+            pos=pos, layer=layer, group=group, rank=rank, stats=stats)
+        aux_total = aux_total + aux
     if decode:
         caches["pos"] = pos + 1
     po = params["out"]
     x = rms_norm(x, po["nf_gain"][0])
     unemb = (po["unemb"] if not cfg.tie_embeddings
              else params["embed"]["tok"])[0]
-    return x, unemb, caches
+    return x, unemb, aux_total, caches
 
 
 def init_caches(cfg: ModelConfig, plan: ShardingPlan, batch: int,

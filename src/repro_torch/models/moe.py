@@ -1,0 +1,176 @@
+"""Mixture of experts with the quantized expert-parallel dispatch.
+
+The port of the JAX package's ``repro.models.moe``. The TP axis factorises
+``tp = ep * etp`` (see :class:`repro_torch.parallel.plan.MoEPlan`): rank
+``m = ep_idx * etp + tp_idx`` owns ``e_loc = E / ep`` experts, each with
+its hidden sharded ``etp`` ways. Routing is capacity based and sort-free
+(one-hot cumsum positions); the dispatch All2All's payload goes through
+the paper's wire codec (the ``a2a`` site), the combine stays exact, and
+the within-expert partial sums take the quantized TP AllReduce when
+``etp > 1``.
+
+Process groups: ``group`` is the TP group. With ``etp == 1`` the dispatch
+runs over it; with ``ep == 1`` the within-expert AllReduce does. A plan
+with both above 1 needs subgroups, which this package does not build.
+
+One difference from the JAX package, in the sign of a zero only: JAX
+builds the dispatch buffer by adding every route into it, a dropped route
+as a zero into slot ``cap - 1`` of its expert, which turns a kept -0.0
+there into +0.0. The port writes only the kept routes, each into a slot of
+its own (deterministic on the card, where an accumulating scatter is
+not), so such an element keeps -0.0.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.core.collectives import compressed_psum, dispatch_all_to_all
+from repro_torch.core.comm_config import NO_COMPRESSION
+from repro_torch.core.policy import CommPolicy
+from repro_torch.kernels.emulate import all_gather_rows, all_to_all_rows
+from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.plan import ShardingPlan
+from repro_torch.parallel.shardings import ParamSpec
+
+
+def moe_specs(cfg: ModelConfig, plan: ShardingPlan,
+              prefix: str = "moe_") -> Dict[str, ParamSpec]:
+    m = cfg.moe
+    d = cfg.d_model
+    s = {
+        prefix + "router": ParamSpec((d, m.n_experts)),
+        prefix + "w1": ParamSpec((m.n_experts, d, m.d_ff), moe_fold="in"),
+        prefix + "w2": ParamSpec((m.n_experts, m.d_ff, d), moe_fold="out",
+                                 init="zeros"),
+    }
+    if cfg.act in ("swiglu", "geglu"):
+        s[prefix + "w3"] = ParamSpec((m.n_experts, d, m.d_ff),
+                                     moe_fold="in")
+    return s
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``tokens`` tokens: a multiple of 8 from 8 up,
+    else at least 1 (at decode a floor of 8 would inflate the All2All)."""
+    m = cfg.moe
+    c = -(-int(tokens * m.top_k * m.capacity_factor) // m.n_experts)
+    if c >= 8:
+        return -(-c // 8) * 8
+    return max(1, c)
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """(T, d) tokens -> (topi, topv, pos, keep, aux), in float32: the top-k
+    experts of each token and their renormalised weights, each route's
+    position in its expert's queue (token order, one-hot cumsum), whether
+    it fits the capacity, and the load-balance loss
+    ``E * sum_e f_e * p_e``. Routes are token-major: route ``i`` is token
+    ``i // top_k``."""
+    m = cfg.moe
+    logits = xt.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.topk(probs, m.top_k, dim=-1)
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    route_frac = F.one_hot(topi, m.n_experts).to(torch.float32).mean((0, 1))
+    aux = m.n_experts * torch.sum(route_frac * probs.mean(0))
+    re = topi.reshape(-1)
+    onehot = F.one_hot(re, m.n_experts).to(torch.int32)
+    pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, re[:, None])[:, 0]
+    keep = pos < capacity(xt.shape[0], cfg)
+    return topi, topv, pos, keep, aux
+
+
+def _groups(plan: ShardingPlan, group):
+    """(dispatch group, within-expert group) for the TP group."""
+    mp = plan.moe
+    if mp.etp == 1:
+        return group, None
+    if mp.ep == 1:
+        return None, group
+    raise NotImplementedError(f"ep={mp.ep} x etp={mp.etp}: both above 1 "
+                              f"need subgroups")
+
+
+def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+              plan: ShardingPlan, policy: CommPolicy,
+              prefix: str = "moe_", layer: Optional[int] = None,
+              group=None, rank: int = 0,
+              stats: Optional[Dict] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d), the same on every TP rank -> (out, aux_loss).
+
+    ``layer`` is the global block index: the dispatch and the
+    within-expert AllReduce resolve their configs at ``(site, layer)``.
+    ``stats``, if given, gathers ``routes`` and ``dropped`` (routes over
+    capacity, a device tensor) across calls.
+    """
+    a2a_cfg = policy.resolve("a2a", layer) or NO_COMPRESSION
+    tp_cfg = policy.resolve("tp", layer) or NO_COMPRESSION
+    m = cfg.moe
+    mp = plan.moe
+    ep_group, etp_group = _groups(plan, group)
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+
+    # EP token slicing: each ep rank dispatches 1/ep of the tokens, and
+    # the outputs are gathered after the combine
+    ep_slice = policy.ep_slice and mp.ep > 1
+    t_orig = t
+    if ep_slice:
+        ts = -(-t // mp.ep)
+        xt = F.pad(xt, (0, 0, 0, ts * mp.ep - t))
+        ep_idx = rank // mp.etp
+        xt = xt[ep_idx * ts:(ep_idx + 1) * ts]
+        t = ts
+
+    topi, topv, pos, keep, aux = route(xt, p[prefix + "router"], cfg)
+    if stats is not None:
+        stats["routes"] = stats.get("routes", 0) + keep.numel()
+        stats["dropped"] = stats.get("dropped", 0) + (~keep).sum()
+
+    # dispatch buffer (E, cap, d): each kept route in its own slot; the
+    # dropped ones land in a spare row that is cut off
+    cap = capacity(t, cfg)
+    re = topi.reshape(-1)
+    rw = topv.reshape(-1)
+    tok_idx = torch.arange(re.shape[0], device=x.device) // m.top_k
+    slot = torch.where(keep, re * cap + pos,
+                       torch.full_like(pos, m.n_experts * cap))
+    buf = torch.zeros((m.n_experts * cap + 1, d), dtype=x.dtype,
+                      device=x.device)
+    buf[slot] = xt[tok_idx]
+    buf = buf[:-1].reshape(mp.ep, mp.e_loc * cap, d)
+    recv = dispatch_all_to_all(buf, a2a_cfg, ep_group)
+
+    # expert FFN: my e_loc experts, etp-sharded hidden
+    tok = recv.reshape(mp.ep, mp.e_loc, cap, d).transpose(0, 1)
+    tok = tok.reshape(mp.e_loc, mp.ep * cap, d)
+    h = torch.bmm(tok, p[prefix + "w1"])
+    if cfg.act in ("swiglu", "geglu"):
+        act = (F.silu(h) if cfg.act == "swiglu"
+               else F.gelu(h, approximate="tanh"))
+        h = act * torch.bmm(tok, p[prefix + "w3"])
+    else:
+        h = F.gelu(h, approximate="tanh")
+    y = torch.bmm(h, p[prefix + "w2"])
+    if mp.etp > 1:
+        y = compressed_psum(y, tp_cfg, etp_group)
+
+    # combine: exact, back to the tokens' ranks, weighted sum over top-k
+    y = y.reshape(mp.e_loc, mp.ep, cap, d).transpose(0, 1)
+    back = all_to_all_rows(y.reshape(mp.ep, mp.e_loc * cap, d), ep_group)
+    back = back.reshape(m.n_experts * cap, d)
+    out_r = back[torch.clamp(re * cap + pos, 0, m.n_experts * cap - 1)]
+    out_r = out_r * (rw * keep)[:, None].to(x.dtype)
+    out = torch.sum(out_r.reshape(t, m.top_k, d), dim=1)
+    if ep_slice:
+        out = all_gather_rows(out, ep_group).reshape(-1, d)[:t_orig]
+        # the slice's aux estimates the whole; average over the TP group
+        dist.all_reduce(aux, group=group)
+        aux = aux / plan.tp
+    return out.reshape(b, s, d), aux

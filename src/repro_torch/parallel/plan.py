@@ -1,13 +1,18 @@
-"""ShardingPlan: how a dense model maps onto tensor-parallel ranks.
+"""ShardingPlan: how a model maps onto tensor-parallel ranks.
 
-The port's copy of the JAX package's plan, for the dense block:
+The port's copy of the JAX package's plan, for the dense and MoE blocks:
 
 * q heads are sharded over ``tp`` ranks, padded up to a multiple of
   ``tp`` (padded heads are masked, exact no-ops);
 * kv heads are sharded when ``n_kv % tp == 0`` ("shard"), otherwise
   replicated per rank ("replicate");
 * the FFN hidden and the vocabulary are padded to ``tp`` multiples and
-  sharded.
+  sharded;
+* experts (EP): the axis factorises ``tp = ep * etp`` (ep-major), with
+  ``ep = gcd(n_experts, tp)``: rank ``m = ep_idx * etp + tp_idx`` owns
+  experts ``[ep_idx * e_loc, (ep_idx + 1) * e_loc)``, each with its hidden
+  sharded ``etp`` ways. The dispatch All2All runs within an ``ep_groups``
+  group, the within-expert AllReduce within an ``etp_groups`` group.
 
 The flat parameter store pads each rank's values to an
 ``fsdp * FLAT_QUANT_GROUP`` multiple, so that a store built by the JAX
@@ -16,6 +21,8 @@ package unflattens here with the same offsets.
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional, Tuple
 
 from repro_torch.models.config import ModelConfig
 
@@ -25,6 +32,27 @@ FLAT_QUANT_GROUP = 128
 
 def pad_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEPlan:
+    ep: int                       # expert-parallel ways (groups of ranks)
+    etp: int                      # tensor-parallel ways within an expert
+    e_loc: int                    # experts owned per rank
+    ef_loc: int                   # expert d_ff per rank
+    ep_groups: Tuple[Tuple[int, ...], ...]   # A2A groups (size ep each)
+    etp_groups: Tuple[Tuple[int, ...], ...]  # psum groups (size etp each)
+
+
+def make_moe_plan(n_experts: int, d_ff: int, tp: int) -> MoEPlan:
+    ep = math.gcd(n_experts, tp)  # largest expert-parallel ways dividing tp
+    etp = tp // ep
+    ep_groups = tuple(tuple(ei * etp + ti for ei in range(ep))
+                      for ti in range(etp))
+    etp_groups = tuple(tuple(ei * etp + ti for ti in range(etp))
+                       for ei in range(ep))
+    return MoEPlan(ep, etp, n_experts // ep, pad_to(d_ff, etp) // etp,
+                   ep_groups, etp_groups)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +66,7 @@ class ShardingPlan:
     f_loc: int                    # dense FFN hidden per rank
     vocab_pad: int
     v_loc: int
+    moe: Optional[MoEPlan] = None
 
 
 def make_plan(cfg: ModelConfig, tp: int, fsdp: int = 1) -> ShardingPlan:
@@ -51,10 +80,12 @@ def make_plan(cfg: ModelConfig, tp: int, fsdp: int = 1) -> ShardingPlan:
         kv_mode, kv_loc = "replicate", cfg.n_kv_heads
     f_pad = pad_to(cfg.d_ff, tp)
     vocab_pad = pad_to(cfg.vocab, tp)
+    moe = (make_moe_plan(cfg.moe.n_experts, cfg.moe.d_ff, tp)
+           if cfg.moe is not None else None)
     return ShardingPlan(tp=tp, fsdp=fsdp, hq_pad=hq_pad,
                         hq_loc=hq_pad // tp, kv_mode=kv_mode, kv_loc=kv_loc,
                         f_loc=f_pad // tp, vocab_pad=vocab_pad,
-                        v_loc=vocab_pad // tp)
+                        v_loc=vocab_pad // tp, moe=moe)
 
 
 def flat_store_len(numel_loc: int, fsdp: int) -> int:

@@ -32,8 +32,18 @@ class ParamSpec:
     shape: Tuple[int, ...]
     tp_dim: Optional[int] = None      # dim sharded over the TP ranks
     init: str = "fan_in"              # fan_in | zeros | ones
+    # experts: "in" = (E, d, F) with F over etp; "out" = (E, F, d).
+    # E is sharded over ep; rank m = ep_idx*etp + tp_idx.
+    moe_fold: Optional[str] = None
 
     def local_shape(self, plan: ShardingPlan) -> Tuple[int, ...]:
+        if self.moe_fold is not None:
+            m = plan.moe
+            if self.moe_fold == "in":
+                e, d, f = self.shape
+                return (m.e_loc, d, f // m.etp)
+            e, f, d = self.shape
+            return (m.e_loc, f // m.etp, d)
         if self.tp_dim is None:
             return self.shape
         s = list(self.shape)
@@ -62,7 +72,10 @@ def init_params(cfg, plan: ShardingPlan, seed: int, device,
     projections) zeros, ``ones`` specs (norm gains) ones. Each tensor has
     its own generator, seeded by a crc32 of (seed, group, name, stack
     index, rank), so the weights are the same in every process.
-    Replicated parameters draw the same values on every rank.
+    Replicated parameters draw the same values on every rank; sliced ones
+    (``tp_dim`` or ``moe_fold``) fold the rank in. A stack is drawn one
+    slice at a time, so the float32 temporary is one slice (738 MB for
+    a (64, 2048, 1408) expert slice), never the whole stack.
     """
     from repro_torch.models.model import param_groups
     out: Params = {}
@@ -78,7 +91,8 @@ def init_params(cfg, plan: ShardingPlan, seed: int, device,
             else:
                 fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
                 std = 1.0 / math.sqrt(max(fan_in, 1))
-                r = rank if spec.tp_dim is not None else 0
+                r = rank if (spec.tp_dim is not None
+                            or spec.moe_fold is not None) else 0
                 for i in range(n_stack):
                     gen = torch.Generator(device=device)
                     gen.manual_seed(_seed(seed, gname, name, i, r))

@@ -1,10 +1,15 @@
 """Serving: prefill (full-sequence forward) and single-token decode.
 
 The TP AllReduces inside the forward run through the paper's quantized
-two-step (the TTFT site of the paper's Fig. 2). This package serves at
-tp = 1 (``group=None``): each site still runs the full codec schedule.
+two-step (the TTFT site of the paper's Fig. 2), an MoE block's dispatch
+through the quantized All2All. This package serves at tp = 1
+(``group=None``): each site still runs the full codec schedule.
+``stats``, if given, gathers the MoE routing counts of every call
+(:func:`repro_torch.models.moe.moe_apply`).
 """
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import torch
 
@@ -20,7 +25,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def make_prefill(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
-                 group=None):
+                 group=None, stats: Optional[Dict] = None):
     """prefill(params, tokens (B, S)) -> (B, v_loc) f32 logits of the
     next token; :func:`repro_torch.models.model.greedy_next_token` picks
     it."""
@@ -28,24 +33,26 @@ def make_prefill(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
 
     @torch.no_grad()
     def prefill(params, tokens):
-        hidden, unemb, _ = forward(params, tokens, cfg, plan, policy,
-                                   dtype=dtype, group=group)
+        hidden, unemb, _, _ = forward(params, tokens, cfg, plan, policy,
+                                      dtype=dtype, group=group, stats=stats)
         return next_token_logits(hidden, unemb, cfg, plan)
 
     return prefill
 
 
 def make_decode_step(cfg: ModelConfig, plan: ShardingPlan,
-                     policy: CommPolicy, group=None):
+                     policy: CommPolicy, group=None,
+                     stats: Optional[Dict] = None):
     """step(params, caches, tokens (B, 1)) -> ((B, v_loc) f32 logits of
     the next token, caches); the caches are updated in place."""
     dtype = _dtype(cfg)
 
     @torch.no_grad()
     def step(params, caches, tokens):
-        hidden, unemb, caches = forward(params, tokens, cfg, plan, policy,
-                                        caches=caches, dtype=dtype,
-                                        group=group)
+        hidden, unemb, _, caches = forward(params, tokens, cfg, plan,
+                                           policy, caches=caches,
+                                           dtype=dtype, group=group,
+                                           stats=stats)
         return next_token_logits(hidden, unemb, cfg, plan), caches
 
     return step

@@ -402,3 +402,35 @@ def test_qdq_wire_round_trip():
     np.testing.assert_array_equal(
         codec.qdq_wire(_t(x), cfg).numpy(),
         np.asarray(jcodec.qdq_wire(jnp.asarray(x), jc)))
+
+
+def _signed_zero_x() -> np.ndarray:
+    """Groups of 32 whose min or max is a zero of either sign, in every
+    order: -0 before +0, +0 before -0, only -0, zeros beside positives
+    (the min a zero) and beside negatives (the max a zero)."""
+    z, nz = 0.0, -0.0
+    rows = []
+    for lo, hi in ((nz, z), (z, nz)):
+        rows.append([lo, hi] + [1.0 + i for i in range(30)])
+        rows.append([-1.0 - i for i in range(30)] + [lo, hi])
+        rows.append([lo, hi] * 16)
+        rows.append([3.0, lo, 2.0, hi] + [0.5] * 28)
+        rows.append([-3.0, lo, -2.0, hi] + [-0.5] * 28)
+    rows.append([nz] * 32)
+    rows.append([z] * 31 + [nz])
+    return np.array(rows, np.float32).reshape(1, -1)
+
+
+@pytest.mark.parametrize("scale_int", [False, True])
+@pytest.mark.parametrize("sp", [False, True])
+def test_signed_zero_groups_match_jax(sp, scale_int):
+    """A group's min and max order -0.0 below +0.0, as XLA's minimum and
+    maximum do: the zero meta and the spike values carry the sign JAX
+    gives them, whatever the order of the zeros in the group."""
+    x = _signed_zero_x()
+    for bits in (2, 4, 8):
+        kw = dict(bits=bits, group=32, spike=sp, scale_int=scale_int)
+        got = codec.encode(_t(x), CommConfig(**kw)).numpy()
+        want = np.asarray(jcodec.encode(jnp.asarray(x),
+                                        JConfig(backend="ref", **kw)))
+        np.testing.assert_array_equal(got, want, err_msg=str(kw))

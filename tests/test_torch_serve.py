@@ -108,8 +108,8 @@ def test_prefill_hidden_and_next_token(setup, pol):
     want_h = np.asarray(jax.jit(jh)(s["jstore"], jnp.asarray(s["prompts"])))
     toks = torch.from_numpy(s["prompts"])
     with torch.no_grad():
-        h, unemb, _ = forward(s["params"], toks, s["cfg"], s["plan"],
-                              tpol(), dtype=torch.float32)
+        h, unemb, _, _ = forward(s["params"], toks, s["cfg"], s["plan"],
+                                 tpol(), dtype=torch.float32)
     hmax = np.abs(want_h).max()
     diff = np.abs(h.numpy() - want_h)
     if pol == "bf16":
