@@ -68,11 +68,38 @@ Phases, each printing its lines; any failure exits non-zero:
              decode route with different capacities, so their agreement
              is not checked here (the CPU tests hold both against JAX).
 
+8. ar     -- the fused AllReduce's phase kernels (fc_ar_scatter +
+             fc_ar_gather, "fc_ar") in loopback worlds of tp ranks on the
+             card, tp in AR_TPS, at qwen3-14b's TP-site shapes per rank
+             (n = BATCH*PROMPT_LEN*d_model and BATCH*d_model), for
+             AR_CONFIGS: AR_CALLS back-to-back calls with fresh inputs in
+             one world, each output bit-equal to the plain version's, the
+             last call's receive rows of both phases byte-equal, the
+             signal pads and the launch counts exact; then its time at
+             tp = AR_TIME_TP at both shapes.
+9. tp     -- qwen3-14b at full width at --mesh 1,TP, one rank a process
+             (started with subprocess; all TP ranks share the one card and
+             a gloo group, and their kernels take turns on it). Each rank:
+             fc_ar (TP_PROBE_CALLS back-to-back calls at the decode shape,
+             timed) and fc_a2a (moonshot's decode dispatch) through
+             PeerWorld.from_group (CUDA IPC), bit-equal to the plain
+             versions of all ranks' inputs, with exact pads; weights from
+             seed SEED (init_params(rank=r), output projections filled);
+             paper/fused's prefill hidden states and DECODE_CHECK_STEPS
+             decode logits bit-equal to paper/two_step's; then it serves
+             BATCH x PROMPT_LEN + GEN tokens under paper/fused (every TP
+             site through fc_ar), paper/two_step (the wire kernels around
+             the host-staged gloo hop) and bf16, with exact launch counts
+             (fused: fc_ar's two kernels 81 times a forward, no wire
+             kernel) and prefill/decode agreement. Rank 0 prints TTFT and
+             ms/step; a failed rank fails the phase.
+
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the wire kernels' from the serve and moe paths, the stage
-kernels' from their entry points, the All2All's from phase a2a;
-``serve_launches`` and ``moe_launches``: from those paths); the last line
-is ``{"ok": true, "device": {...}}``.
+kernels' from their entry points, the All2All's from phase a2a, fc_ar's
+from phase tp's served runs on rank 0; ``serve_launches``,
+``moe_launches`` and ``tp_launches``: from those paths); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -88,7 +115,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "wire_vectors.npz")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-PHASES = ("build", "codec", "stage", "time", "serve", "a2a", "moe")
+PHASES = ("build", "codec", "stage", "time", "serve", "a2a", "moe", "ar",
+          "tp")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -98,7 +126,8 @@ REPLACES = {"encode_wire": "src/repro/kernels/wire.py:58",
             "quant_pack": "src/repro/kernels/quant_pack.py:54",
             "dequant_unpack": "src/repro/kernels/dequant_unpack.py:42",
             "spike_pack": "src/repro/kernels/spike_reserve.py:46",
-            "a2a": "src/repro/kernels/rdma_all2all.py:75"}
+            "a2a": "src/repro/kernels/rdma_all2all.py:75",
+            "ar": "src/repro/kernels/rdma_allreduce.py:154"}
 # (bits, group): SWEEP of tests/test_kernels.py, and its spike configs
 STAGE_SWEEP = ((8, 128), (6, 128), (5, 128), (4, 32), (3, 32), (2, 32),
                (7, 128))
@@ -122,6 +151,20 @@ A2A_CONFIGS = (("paper int4 g32", dict(bits=4, group=32)),
                ("aggressive int4 g32 scale_int", dict(bits=4, group=32,
                                                       scale_int=True)),
                ("int2 g32 spike", dict(bits=2, group=32, spike=True)))
+AR_TPS = (2, 4, 8)
+AR_CALLS = 10
+AR_TIME_TP = 4
+AR_CONFIGS = (("paper int8 g128", dict(bits=8, group=128)),
+              ("aggressive int5 g128 scale_int", dict(bits=5, group=128,
+                                                      scale_int=True)),
+              ("int2 g32 spike", dict(bits=2, group=32, spike=True)))
+AR_SCATTER, AR_GATHER, A2A_COLLECTIVE = 0, 1, 2   # kernels/protocol.py ids
+TP = 2                             # phase tp: --mesh 1,TP
+TP_PROBE_CALLS = 100
+TP_RUNS = (("paper/fused", "paper", "fused"),
+           ("paper/two_step", "paper", None),
+           BASELINE)
+TP_TIMEOUT_S = 900
 DECODE_CHECK_STEPS = 4
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
@@ -161,13 +204,14 @@ def phase_build(torch):
     print(card, flush=True)
     from repro_torch.kernels import build, rdma, stage, wire
     t0 = time.perf_counter()
-    paths = build.build_all([wire.SOURCE, stage.SOURCE, rdma.SOURCE],
-                            verbose=True)
+    paths = build.build_all([wire.SOURCE, stage.SOURCE, rdma.SOURCE,
+                             rdma.AR_SOURCE], verbose=True)
     print(f"[build] {', '.join(p.name for p in paths)} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     wire._lib()
     stage._lib()
     rdma._lib()
+    rdma._ar_lib()
     return card
 
 
@@ -544,17 +588,20 @@ def phase_time(torch, np, card: str):
 # phase 5: serve qwen3-14b at full width
 # ---------------------------------------------------------------------------
 
-def _fill_output_projections(torch, cfg, plan, params, seed: int):
+def _fill_output_projections(torch, cfg, plan, params, seed: int,
+                             rank: int = 0):
     """Fill the zero-initialised output projections (attention, MLP and
     experts) of every block from a fan-in normal (std 1/sqrt(fan_in)),
     one stack slice at a time, so that every TP and dispatch site of
-    every layer carries data and every expert's output is non-zero."""
+    every layer carries data and every expert's output is non-zero. A TP
+    rank ``rank`` folds its index into the seed, so that the ranks'
+    shards differ."""
     from repro_torch.models.model import param_groups
     names = [(g, n) for g, (_, specs) in sorted(param_groups(
         cfg, plan).items()) for n, sp in specs.items() if sp.init == "zeros"]
     t0 = params[names[0][0]][names[0][1]]
     gen = torch.Generator(device=t0.device)
-    gen.manual_seed(seed)
+    gen.manual_seed(seed + 1000003 * rank)
     for g, name in names:
         t = params[g][name]
         for i in range(t.shape[0]):
@@ -707,6 +754,8 @@ def _a2a_payload(torch, gen, tp: int, m: int, d: int, dev,
 def phase_a2a(torch, card: str):
     from repro_torch.core.comm_config import CommConfig
     from repro_torch.kernels import ops, rdma
+    from repro_torch.kernels.protocol import (A2A_COLLECTIVE_ID,
+                                              all2all_protocol)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
@@ -715,7 +764,9 @@ def phase_a2a(torch, card: str):
     for tp in A2A_TPS:
         d, rows = _a2a_rows(tp)
         wb_max = max(CommConfig(**kw).wire_bytes(d) for _, kw in A2A_CONFIGS)
-        world = rdma.PeerWorld.loopback(tp, rows["prefill"] * wb_max, dev)
+        world = rdma.PeerWorld.loopback(
+            tp, rows["prefill"] * wb_max, dev,
+            protocols=(all2all_protocol(tp),))
         # the dispatch payload is bf16; f32 (the kernel's other payload
         # type) for the paper config at the smallest world
         runs = [(label, kw, torch.bfloat16) for label, kw in A2A_CONFIGS]
@@ -744,21 +795,22 @@ def phase_a2a(torch, card: str):
                           f"buffer differs from the plain version's")
                 del xs, outs
         pads = [world.signal_pad(r).tolist() for r in range(tp)]
-        bpr = world.blocks_per_rank
+        bpr = world.blocks[A2A_COLLECTIVE_ID]
         print(f"[a2a] tp={tp} (rows a peer: {rows}, d {d}, "
               f"{bpr} blocks a rank): {[r[0] for r in runs]} x "
               f"{len(rows)} shapes x {A2A_CALLS} back-to-back calls, "
               f"outputs bit-equal and last receive buffers byte-equal to "
-              f"the plain version; epoch {world.epoch}, signal pad of rank "
-              f"0 {pads[0]}", flush=True)
-        n = world.epoch
+              f"the plain version; epoch {world.epochs[A2A_COLLECTIVE_ID]}, "
+              f"signal pad of rank 0 {pads[0]}", flush=True)
+        n = world.epochs[A2A_COLLECTIVE_ID]
         for r in range(tp):
             check(pads[r] == [n * bpr * (tp - 1)] + [n * bpr] * tp,
                   f"a2a tp={tp}: rank {r}'s signal pad {pads[r]} after "
                   f"{n} calls")
         del world
     launches = dict(rdma.LAUNCHES)              # read right after the path
-    check(launches == {"a2a": want}, f"a2a launches {launches} != {want}")
+    check(launches == {"a2a": want, "ar_scatter": 0, "ar_gather": 0},
+          f"a2a launches {launches} != {want}")
     print(f"[a2a] launches {launches} exact", flush=True)
 
     # time at tp = A2A_TIME_TP, both shapes, paper int4 g32
@@ -766,7 +818,7 @@ def phase_a2a(torch, card: str):
     d, rows = _a2a_rows(tp)
     cfg = CommConfig(**A2A_CONFIGS[0][1])
     world = rdma.PeerWorld.loopback(tp, rows["prefill"] * cfg.wire_bytes(d),
-                                    dev)
+                                    dev, protocols=(all2all_protocol(tp),))
     timed = {}
     for shape, m in rows.items():
         x = _a2a_payload(torch, gen, tp, m, d, dev)
@@ -885,11 +937,358 @@ def phase_moe(torch, np):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the fused AllReduce's phase kernels in loopback worlds
+# ---------------------------------------------------------------------------
+
+def _ar_shapes():
+    """n per rank at qwen3-14b's TP sites: the prefill's B*S*d_model and
+    the decode step's B*d_model."""
+    from repro_torch.configs import get_config
+    d = get_config(ARCH).d_model
+    return {"prefill": BATCH * PROMPT_LEN * d, "decode": BATCH * d}
+
+
+def _ar_input(torch, gen, tp: int, n: int, dev):
+    """Every rank's vector, (tp, n) f32, an outlier in each."""
+    x = torch.randn((tp, n), generator=gen, device=dev) * 2
+    x[:, 5] = 40.0
+    return x
+
+
+def _ar_pads_ok(world, rank: int) -> bool:
+    """Rank ``rank``'s two AllReduce pads hold exactly their calls'
+    counts: the barrier every peer block's signal of every call, each
+    receive slot and the local slot every block's."""
+    for cid in (AR_SCATTER, AR_GATHER):
+        n, bpr, tp = world.epochs[cid], world.blocks[cid], world.tp
+        if world.signal_pad(rank, cid).tolist() != \
+                [n * bpr * (tp - 1)] + [n * bpr] * tp:
+            return False
+    return True
+
+
+def phase_ar(torch, card: str):
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.kernels import ops, rdma
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    shapes = _ar_shapes()
+    rdma.reset_launches()                       # the ar path starts here
+    want = 0
+    for tp in AR_TPS:
+        row = max(CommConfig(**kw).wire_bytes(n // tp)
+                  for n in shapes.values() for _, kw in AR_CONFIGS)
+        world = rdma.PeerWorld.loopback(tp, row, dev,
+                                        protocols=rdma.ar_protocols(tp))
+        for label, kw in AR_CONFIGS:
+            cfg = CommConfig(**kw)
+            for shape, n in shapes.items():
+                xs = [_ar_input(torch, gen, tp, n, dev)
+                      for _ in range(AR_CALLS)]
+                outs = [ops.fused_all_reduce(x, cfg, world)
+                        for x in xs]            # back to back, no sync
+                want += AR_CALLS
+                torch.cuda.synchronize()
+                for i, (x, out) in enumerate(zip(xs, outs)):
+                    ref, scat, gath = rdma.fused_all_reduce_rdma_plain(x, cfg)
+                    check(_bits_equal(torch, out, ref),
+                          f"ar tp={tp} {label} {shape} call {i}: output "
+                          f"differs from the plain version's")
+                wb = cfg.wire_bytes(n // tp)
+                for r in range(tp):
+                    for cid, plain in ((AR_SCATTER, scat), (AR_GATHER, gath)):
+                        check(torch.equal(world.recv_rows(r, cid)[:, :wb],
+                                          plain[r]),
+                              f"ar tp={tp} {label} {shape}: rank {r}'s "
+                              f"receive rows of protocol {cid} differ from "
+                              f"the plain version's")
+                del xs, outs
+        for r in range(tp):
+            check(_ar_pads_ok(world, r), f"ar tp={tp}: rank {r}'s signal "
+                  f"pads {[world.signal_pad(r, c).tolist() for c in (AR_SCATTER, AR_GATHER)]} "
+                  f"after {world.epochs} calls")
+        print(f"[ar] tp={tp} (n {shapes}, {world.blocks[AR_SCATTER]} blocks "
+              f"a rank): {[c[0] for c in AR_CONFIGS]} x {len(shapes)} shapes "
+              f"x {AR_CALLS} back-to-back calls, outputs bit-equal and last "
+              f"receive rows of both phases byte-equal to the plain version; "
+              f"epochs {world.epochs}, scatter pad of rank 0 "
+              f"{world.signal_pad(0, AR_SCATTER).tolist()}", flush=True)
+        del world
+    launches = dict(rdma.LAUNCHES)              # read right after the path
+    check(launches == {"a2a": 0, "ar_scatter": want, "ar_gather": want},
+          f"ar launches {launches} != {want} each")
+    print(f"[ar] launches {launches} exact", flush=True)
+
+    # time at tp = AR_TIME_TP, both shapes, the paper's int8 g128
+    tp = AR_TIME_TP
+    cfg = CommConfig(**AR_CONFIGS[0][1])
+    world = rdma.PeerWorld.loopback(
+        tp, cfg.wire_bytes(shapes["prefill"] // tp), dev,
+        protocols=rdma.ar_protocols(tp))
+    timed = {}
+    for shape, n in shapes.items():
+        x = _ar_input(torch, gen, tp, n, dev)
+        timed[shape] = _time_row(
+            torch, "ar", AR_CONFIGS[0][0], tuple(x.shape),
+            lambda: rdma.fused_all_reduce_rdma(x, cfg, world),
+            lambda: rdma.fused_all_reduce_rdma_plain(x, cfg)[0],
+            tp * rdma.bound_bytes_ar(cfg, tp, n), 0, card)
+    print(f"[ar] bound: all {tp} ranks' bytes (input read, wire written and "
+          f"read in both phases, partial written and read, output written) "
+          f"over {HBM_BYTES_PER_S / 1e12} TB/s: device memory time on one "
+          f"card, not link time", flush=True)
+    return launches, timed
+
+
+# ---------------------------------------------------------------------------
+# phase 9: qwen3-14b at --mesh 1,TP, one rank a process
+# ---------------------------------------------------------------------------
+
+def _tp_world_checks(torch, axis, dev) -> dict:
+    """fc_ar and fc_a2a through this rank's world of processes. Every rank
+    draws every rank's inputs from one seed, so it can run the plain
+    version of all ranks and hold its own slice to it bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.kernels import ops, rdma
+    from repro_torch.launch import mesh
+    from repro_torch.models.moe import capacity
+    world, rank, tp = axis.world, axis.rank, axis.size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    n = _ar_shapes()["decode"]
+    cfg = CommConfig(**AR_CONFIGS[0][1])
+    xs = [_ar_input(torch, gen, tp, n, dev) for _ in range(TP_PROBE_CALLS)]
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(TP_PROBE_CALLS + 1)]
+    mesh.barrier(axis)
+    ev[0].record()
+    outs = []
+    for i, x in enumerate(xs):                    # back to back, no sync
+        outs.append(ops.fused_all_reduce(x[rank], cfg, world))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    per_call = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    for i, (x, out) in enumerate(zip(xs, outs)):
+        ref, scat, gath = rdma.fused_all_reduce_rdma_plain(x, cfg)
+        check(_bits_equal(torch, out, ref[rank]),
+              f"tp rank {rank}: fc_ar call {i} through the world of "
+              f"processes differs from the plain version")
+    wb = cfg.wire_bytes(n // tp)
+    check(torch.equal(world.recv_rows(rank, AR_SCATTER)[:, :wb], scat[rank])
+          and torch.equal(world.recv_rows(rank, AR_GATHER)[:, :wb],
+                          gath[rank]),
+          f"tp rank {rank}: fc_ar's receive rows differ from the plain "
+          f"version's")
+
+    # fc_a2a at moonshot's decode dispatch with ep = tp, then fc_ar again:
+    # each protocol counts its own calls on its own pad
+    mcfg = get_config(MOE_ARCH)
+    m = mcfg.moe.n_experts // tp * capacity(BATCH, mcfg)
+    d = mcfg.d_model
+    acfg = CommConfig(**A2A_CONFIGS[0][1])
+    for i in range(A2A_CALLS):
+        xa = _a2a_payload(torch, gen, tp, m, d, dev)
+        out = ops.fused_all_to_all(xa[rank:rank + 1].contiguous(), acfg,
+                                   world)
+        ref, _ = rdma.fused_all_to_all_rdma_plain(xa, acfg)
+        check(_bits_equal(torch, out[0], ref[rank]),
+              f"tp rank {rank}: fc_a2a call {i} through the world of "
+              f"processes differs from the plain version")
+        x = _ar_input(torch, gen, tp, n, dev)
+        out = ops.fused_all_reduce(x[rank], cfg, world)
+        check(_bits_equal(torch, out,
+                          rdma.fused_all_reduce_rdma_plain(x, cfg)[0][rank]),
+              f"tp rank {rank}: fc_ar after fc_a2a call {i} differs")
+    torch.cuda.synchronize()
+    n_a2a = world.epochs[A2A_COLLECTIVE]
+    bpr = world.blocks[A2A_COLLECTIVE]
+    check(_ar_pads_ok(world, rank) and
+          world.signal_pad(rank, A2A_COLLECTIVE).tolist() ==
+          [n_a2a * bpr * (tp - 1)] + [n_a2a * bpr] * tp,
+          f"tp rank {rank}: signal pads off after {world.epochs} calls")
+    return {"ar_n": n, "ar_calls": TP_PROBE_CALLS + A2A_CALLS,
+            "a2a_rows": m, "a2a_calls": A2A_CALLS, "epochs": world.epochs,
+            "blocks": world.blocks, "probe_ms": per_call}
+
+
+def _tp_counts():
+    from repro_torch.kernels import rdma, stage, wire
+    return {**wire.LAUNCHES, **stage.LAUNCHES, **rdma.LAUNCHES}
+
+
+def _tp_serve(torch, axis, dev) -> dict:
+    """qwen3-14b at full width on this rank: weights from SEED, fused ==
+    two_step bit for bit, then the served runs with exact counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import rdma, stage, wire
+    from repro_torch.launch import mesh
+    from repro_torch.launch.serve import build_policy, serve
+    from repro_torch.models.model import forward
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.parallel.shardings import init_params
+    from repro_torch.train.data import DataConfig, make_dataset
+    from repro_torch.train.serve_step import (make_cache_init,
+                                              make_decode_step)
+    rank = axis.rank
+    log = print if rank == 0 else (lambda *a, **k: None)
+    cfg = get_config(ARCH)
+    plan = make_plan(cfg, tp=TP)
+    t0 = time.perf_counter()
+    params = init_params(cfg, plan, SEED, dev, torch.bfloat16, rank=rank)
+    filled = _fill_output_projections(torch, cfg, plan, params, SEED + 1,
+                                      rank)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for g in params.values()
+                 for t in g.values())
+    log(f"[tp] {ARCH} full width at --mesh 1,{TP}, {cfg.n_layers} layers: "
+        f"{nbytes / 1e9:.2f} GB bf16 weights a rank from seed {SEED} "
+        f"({filled} filled) in {time.perf_counter() - t0:.1f} s",
+        flush=True)
+
+    # paper/fused (every TP site through fc_ar) against paper/two_step
+    # (the wire kernels around the gloo hop), bit for bit on this rank
+    prompts = torch.from_numpy(make_dataset(DataConfig(
+        vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH,
+        seed=SEED)).batch(0)["tokens"]).to(dev)
+    pols = [build_policy("paper", scheme=s) for s in ("fused", "two_step")]
+    mesh.barrier(axis)
+    hf, ht = (forward(params, prompts, cfg, plan, p, dtype=torch.bfloat16,
+                      group=axis)[0] for p in pols)
+    check(_bits_equal(torch, hf, ht), f"tp rank {rank}: prefill hidden "
+          f"states under paper/fused differ from paper/two_step")
+    steps = [make_decode_step(cfg, plan, p, group=axis) for p in pols]
+    caches = [make_cache_init(cfg, plan, BATCH, DECODE_CHECK_STEPS, dev)()
+              for _ in pols]
+    for i in range(DECODE_CHECK_STEPS):
+        (lf, caches[0]), (lt, caches[1]) = (
+            st(params, c, prompts[:, i:i + 1])
+            for st, c in zip(steps, caches))
+        check(_bits_equal(torch, lf, lt), f"tp rank {rank}: decode step {i} "
+              f"logits under paper/fused differ from paper/two_step")
+    del caches, hf, ht
+    log(f"[tp] every rank: prefill hidden states and {DECODE_CHECK_STEPS} "
+        f"decode steps' logits under paper/fused (fc_ar) equal "
+        f"paper/two_step's bit for bit", flush=True)
+
+    sites = 1 + 2 * cfg.n_layers
+    forwards = 1 + PROMPT_LEN + GEN - 1
+    wire.reset_launches()                  # the tp path starts here
+    stage.reset_launches()
+    rdma.reset_launches()
+    runs, launches = {}, {}
+    for label, pol, scheme in TP_RUNS:
+        before = _tp_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
+                    batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN, device=dev,
+                    seed=SEED, label=f" tp={TP} {label}", log=log,
+                    group=axis)
+        got = {k: v - before[k] for k, v in _tp_counts().items()}
+        want = dict.fromkeys(got, 0)
+        if scheme == "fused":
+            want["ar_scatter"] = want["ar_gather"] = sites * forwards
+        elif pol != "bf16":
+            want["encode_wire"] = want["decode_wire"] = 2 * sites * forwards
+        log(f"[tp {label}] rank {rank} launches {got} (expected: {sites} TP "
+            f"sites x {forwards} forwards); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        check(got == want, f"tp rank {rank} {label}: launches {got} != "
+              f"{want}")
+        check(res["agreement"] is not None,
+              f"tp {label}: no prefill/decode check")
+        runs[label] = res
+    launches = _tp_counts()                # read right after the tp path
+    check(launches["ar_scatter"] > 0 and launches["ar_gather"] > 0,
+          "fc_ar never launched on the tp path")
+    check(bool((runs["paper/fused"]["generated"] ==
+                runs["paper/two_step"]["generated"]).all()),
+          f"tp rank {rank}: fused and two_step generated different tokens")
+    return {"launches": launches, "runs": {
+        k: {m: (v.tolist() if hasattr(v, "tolist") else v)
+            for m, v in r.items()} for k, r in runs.items()}}
+
+
+def tp_rank_main(rank: int, rendezvous: str, out_dir: str) -> int:
+    """One rank process of phase tp (``chip_smoke.py --tp-rank``)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    dev = mesh.rank_device(rank, torch.device("cuda"))
+    cfg = get_config(ARCH)
+    axis = mesh.init_model_axis(
+        TP, rank, rendezvous, dev,
+        mesh.site_row_bytes(cfg.d_model, BATCH, PROMPT_LEN, TP))
+    try:
+        res = {"rank": rank, "device": str(dev),
+               "backend": str(torch.distributed.get_backend(axis.pg))}
+        res["world"] = _tp_world_checks(torch, axis, dev)
+        res.update(_tp_serve(torch, axis, dev))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        mesh.close_model_axis(axis)
+    return 0
+
+
+def phase_tp(torch, card: str):
+    from repro_torch.launch import mesh
+    torch.cuda.empty_cache()                   # the earlier models are gone
+    out_dir = os.path.join(ROOT, "chiprun_out", "tp")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.unlink(os.path.join(out_dir, f))
+    t0 = time.perf_counter()
+    mesh.run_ranks(lambda r, store: [
+        sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+        "--rendezvous", store, "--out", out_dir], TP, timeout=TP_TIMEOUT_S)
+    ranks = []
+    for r in range(TP):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for res in ranks:
+        w = res["world"]
+        probe = sorted(w["probe_ms"])
+        print(f"[tp] rank {res['rank']} on {res['device']} "
+              f"({res['backend']} group): fc_ar x {w['ar_calls']} (decode "
+              f"n {w['ar_n']}) and fc_a2a x {w['a2a_calls']} ({w['a2a_rows']} "
+              f"rows a peer) through PeerWorld.from_group bit-equal to the "
+              f"plain versions, pads exact (epochs {w['epochs']}, blocks "
+              f"{w['blocks']}); {TP_PROBE_CALLS} back-to-back fc_ar calls: "
+              f"median {statistics.median(probe):.4f} ms, min "
+              f"{probe[0]:.4f}, max {probe[-1]:.4f} ms a call (ranks taking "
+              f"turns on one card)  [{card}]", flush=True)
+    for label, _, _ in TP_RUNS:
+        r0 = ranks[0]["runs"][label]
+        check(all(r["runs"][label]["generated"] == r0["generated"]
+                  for r in ranks), f"tp {label}: ranks generated different "
+              f"tokens")
+        print(f"[tp {label}] TTFT {r0['ttft_ms']:.1f} ms, decode median "
+              f"{r0['step_ms_median']:.2f} ms/step, p90 "
+              f"{r0['step_ms_p90']:.2f} (rank 0; {TP} ranks taking turns on "
+              f"one card, not NVLink time)  [{card}]", flush=True)
+    print(f"[tp] {TP} rank processes done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ranks
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    # a rank process of phase tp (started by phase tp itself)
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rendezvous", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank, args.rendezvous, args.out)
     phases = args.phases.split(",")
 
     import numpy as np
@@ -922,15 +1321,24 @@ def main(argv=None) -> int:
     moe_launches, moe_served = {}, {}
     if "moe" in phases:
         moe_launches, moe_served = phase_moe(torch, np)
+    ar_launches, ar_timed = {}, {}
+    if "ar" in phases:
+        ar_launches, ar_timed = phase_ar(torch, card)
+    tp_ranks = phase_tp(torch, card) if "tp" in phases else []
+    tp_launches = tp_ranks[0]["launches"] if tp_ranks else {}
 
     main_cfg = {name: "int2 g32 spike" if name == "spike_pack"
                 else "int8 g128" for name in REPLACES}
     kernels = []
-    for name in WIRE_KERNELS + STAGE_KERNELS + ("a2a",):
+    for name in WIRE_KERNELS + STAGE_KERNELS + ("a2a", "ar"):
         if name == "a2a":
             t = a2a_timed.get("prefill", {})
             errs = [r["max_abs_err"] for r in a2a_timed.values()]
             source, n = "rdma.cu", a2a_launches.get(name, 0)
+        elif name == "ar":
+            t = ar_timed.get("prefill", {})
+            errs = [r["max_abs_err"] for r in ar_timed.values()]
+            source, n = "allreduce.cu", tp_launches.get("ar_scatter", 0)
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
                 name, {})
@@ -944,6 +1352,8 @@ def main(argv=None) -> int:
             "replaces": REPLACES[name], "launches": n,
             "serve_launches": launches.get(name, 0),
             "moe_launches": moe_launches.get(name, 0),
+            "tp_launches": tp_launches.get(
+                "ar_scatter" if name == "ar" else name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -957,7 +1367,8 @@ def main(argv=None) -> int:
     record = {"card": card, "timing": timing, "launches": launches,
               "stage_launches": stage_launches, "a2a": a2a_timed,
               "a2a_launches": a2a_launches, "moe_launches": moe_launches,
-              "serve": numbers(served), "moe": numbers(moe_served)}
+              "serve": numbers(served), "moe": numbers(moe_served),
+              "ar": ar_timed, "ar_launches": ar_launches, "tp": tp_ranks}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -3,12 +3,18 @@
 The paper's Flash two-step AllReduce: chunk + quantize + all-to-all +
 dequantize + local reduce, then re-quantize + all-gather + dequantize.
 The wire that crosses the link is the uint8 buffer of
-:mod:`repro_torch.core.codec`. A ``group`` of ``None`` is one rank: the
-schedule runs in full (both phases encode and decode), with no hop.
+:mod:`repro_torch.core.codec`. A ``group`` is a process group, a
+:class:`~repro_torch.parallel.axis.ModelAxis`, or ``None``: one rank, the
+schedule run in full (both phases encode and decode), with no hop. This
+module is where a group is taken apart: the kernel layer gets its process
+group (the hops of :mod:`repro_torch.kernels.emulate`) or its peer world.
 
 Schemes: ``"nccl"`` is the exact all-reduce; ``"two_step"`` runs the codec
-around library collectives; ``"fused"`` runs the phases as the fused
-kernels of :mod:`repro_torch.kernels.emulate` (one flat vector). The
+around library collectives; ``"fused"`` runs the fused AllReduce of
+:func:`repro_torch.kernels.ops.fused_all_reduce` on one flat vector: the
+peer-push phase kernels through the axis's peer world when it has one,
+else (on the CPU, or one rank) the fused phases around the library hops;
+a CUDA tensor over more than one rank without a peer world raises. The
 hierarchical schemes reduce to the two-step on one axis, as in the JAX
 package; ``"hier_pp"`` feeds its microchunks through one batched
 two-step.
@@ -19,14 +25,49 @@ payload; the combine stays exact, as in the paper.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import codec
 from repro_torch.core.comm_config import CommConfig
-from repro_torch.kernels import ops
-from repro_torch.kernels.emulate import (all_gather_rows, all_to_all_rows,
-                                         fused_all_reduce_emulated,
-                                         group_size)
+from repro_torch.kernels import emulate, ops
+from repro_torch.kernels.rdma import PeerWorld
+from repro_torch.parallel.axis import axis_parts
+
+
+def group_size(group) -> int:
+    """The number of ranks of ``group``."""
+    return emulate.group_size(axis_parts(group)[0])
+
+
+def all_to_all_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Exact all-to-all of (tp, ...) rows: row p goes to peer p, row p of
+    the result came from peer p."""
+    return emulate.all_to_all_rows(x, axis_parts(group)[0])
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(...) -> (tp, ...): every rank's tensor, in rank order."""
+    return emulate.all_gather_rows(x, axis_parts(group)[0])
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The exact sum of ``x`` over the ranks (a new tensor)."""
+    return emulate.all_reduce_sum(x, axis_parts(group)[0])
+
+
+def _fused_target(x: torch.Tensor, group, what: str):
+    """Where a ``fused`` collective of ``x`` over ``group`` runs: the peer
+    world, or the process group (``None``: one rank) of the emulated
+    schedule. On the card more than one rank needs the world: the
+    kernels are never bypassed for the host-staged hops."""
+    pg, _, world = axis_parts(group)
+    if world is not None:
+        return world
+    if x.device.type == "cuda" and emulate.group_size(pg) > 1:
+        raise ValueError(f"fused {what} of a CUDA tensor over "
+                         f"{emulate.group_size(pg)} ranks needs the model "
+                         f"axis's peer world (repro_torch.launch.mesh."
+                         f"init_model_axis)")
+    return pg
 
 
 def _pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
@@ -53,7 +94,8 @@ def quantized_all_reduce(x: torch.Tensor, cfg: CommConfig,
     ``n`` must be a multiple of tp * group.
     """
     if cfg.scheme == "fused":
-        out = fused_all_reduce_emulated(x.reshape(-1), cfg, group)
+        out = ops.fused_all_reduce(x.reshape(-1), cfg,
+                                   _fused_target(x, group, "AllReduce"))
         return out.reshape(x.shape).to(x.dtype)
     tp = group_size(group)
     n = x.shape[-1]
@@ -97,11 +139,7 @@ def compressed_psum(x: torch.Tensor, cfg: CommConfig,
     ``cfg.enabled`` false or scheme ``"nccl"`` is the exact all-reduce.
     """
     if not cfg.enabled or cfg.scheme == "nccl":
-        if group_size(group) == 1:
-            return x
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return all_reduce_sum(x, group)
     chunks = cfg.pipeline_chunks if cfg.scheme == "hier_pp" else 1
     mult = group_size(group) * cfg.group * chunks
     n = x.numel()
@@ -127,7 +165,12 @@ def quantized_all_to_all(x: torch.Tensor, cfg: CommConfig,
     d = x.shape[-1]
     xp = _pad_to(x, cfg.group)
     if cfg.scheme == "fused":
-        return ops.fused_all_to_all(xp, cfg, group)[..., :d]
+        target = _fused_target(x, group, "All2All")
+        if isinstance(target, PeerWorld):      # this rank's blocks, one rank
+            out = ops.fused_all_to_all(
+                xp.reshape(1, xp.shape[0], -1, xp.shape[-1]), cfg, target)
+            return out.reshape(xp.shape)[..., :d]
+        return ops.fused_all_to_all(xp, cfg, target)[..., :d]
     recv = all_to_all_rows(codec.encode(xp, cfg), group)
     return codec.decode(recv, cfg, xp.shape[-1], out_dtype=x.dtype)[..., :d]
 

@@ -422,14 +422,20 @@ __device__ __forceinline__ void unrotate_warp(float (&v)[VPL], int lane, const W
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// The warp encodes group g of one row: xg points at the group's G = 32 *
-// VPL values, w at the row's wire bytes; codes is the warp's G bytes of
-// shared memory. Lane l < G / 8 packs codes 8l .. 8l+7 into u whole bytes
-// of each unit-u plane, so no two warps write one byte.
+// A group's quantized form between its quantization and its wire bytes:
+// the meta and the range (spike slots and values); the codes are in the
+// warp's shared bytes.
+struct GroupCode {
+  Meta m;
+  Range r;
+};
+
+// The warp quantizes group g: xg points at the group's G = 32 * VPL
+// values, codes is the warp's G bytes of shared memory, which receive one
+// code a value.
 template <int VPL, typename T>
-__device__ __forceinline__ void encode_group(const T* __restrict__ xg, uint8_t* __restrict__ w,
-                                             long long g, int lane, uint8_t* codes,
-                                             const WireParams& p) {
+__device__ __forceinline__ GroupCode quantize_group(const T* __restrict__ xg, int lane,
+                                                    uint8_t* codes, const WireParams& p) {
   const int G = VPL * 32;
   const float qmax = (float)((1 << p.bits) - 1);
   float v[VPL];
@@ -440,18 +446,30 @@ __device__ __forceinline__ void encode_group(const T* __restrict__ xg, uint8_t* 
     v[k] = to_f32(xg[pos[k]]);
   }
   if (p.rotation) rotate_warp<VPL>(v, lane, p);
-  const Range r = group_range<VPL, 32>(v, pos, G, p.spike);
-  const Meta m = rtn_meta(r.mn, r.mx, qmax, p.eps, p.meta_f16);
-  const unsigned char code_mn = quant_code(r.mn, m.z, m.s, qmax);
+  GroupCode c;
+  c.r = group_range<VPL, 32>(v, pos, G, p.spike);
+  c.m = rtn_meta(c.r.mn, c.r.mx, qmax, p.eps, p.meta_f16);
+  const unsigned char code_mn = quant_code(c.r.mn, c.m.z, c.m.s, qmax);
 
 #pragma unroll
   for (int k = 0; k < VPL; ++k) {
-    unsigned char c = quant_code(v[k], m.z, m.s, qmax);
-    if (p.spike && (pos[k] == r.imin || pos[k] == r.imax)) c = code_mn;
-    codes[pos[k]] = c;
+    unsigned char q = quant_code(v[k], c.m.z, c.m.s, qmax);
+    if (p.spike && (pos[k] == c.r.imin || pos[k] == c.r.imax)) q = code_mn;
+    codes[pos[k]] = q;
   }
   __syncwarp();
+  return c;
+}
 
+// The warp writes quantized group g into the wire row w (its bytes
+// only). Lane l < G / 8 packs codes 8l .. 8l+7 into u whole bytes of each
+// unit-u plane, so no two warps write one byte; the codes are only read,
+// so one quantized group can be written into several rows.
+template <int VPL>
+__device__ __forceinline__ void write_group(uint8_t* __restrict__ w, long long g, int lane,
+                                            const uint8_t* codes, const GroupCode& c,
+                                            const WireParams& p) {
+  const int G = VPL * 32;
   if (lane < G / 8) {
     const unsigned long long codes8 = *reinterpret_cast<const unsigned long long*>(&codes[8 * lane]);
     int shift = 0;
@@ -463,28 +481,37 @@ __device__ __forceinline__ void encode_group(const T* __restrict__ xg, uint8_t* 
       shift += u;
     }
   }
-  __syncwarp();                         // codes is reused by the warp's next group
-
   if (lane == 0) {
     if (p.scale_int) {
-      w[p.scale_off + g] = encode_scale(m.s, p);
-      w[p.zero_off + g] = encode_signed(m.z, p);
+      w[p.scale_off + g] = encode_scale(c.m.s, p);
+      w[p.zero_off + g] = encode_signed(c.m.z, p);
     } else {
-      wr16(w, p.scale_off + 2 * g, m.sbits);
-      wr16(w, p.zero_off + 2 * g, m.zbits);
+      wr16(w, p.scale_off + 2 * g, c.m.sbits);
+      wr16(w, p.zero_off + 2 * g, c.m.zbits);
     }
     if (p.spike) {
-      wr16(w, p.sv_off + 4 * g, to_meta(r.vmin, p.meta_f16));
-      wr16(w, p.sv_off + 4 * g + 2, to_meta(r.vmax, p.meta_f16));
+      wr16(w, p.sv_off + 4 * g, to_meta(c.r.vmin, p.meta_f16));
+      wr16(w, p.sv_off + 4 * g + 2, to_meta(c.r.vmax, p.meta_f16));
       if (p.scale_int) {
-        w[p.si_off + 2 * g] = (uint8_t)r.imin;
-        w[p.si_off + 2 * g + 1] = (uint8_t)r.imax;
+        w[p.si_off + 2 * g] = (uint8_t)c.r.imin;
+        w[p.si_off + 2 * g + 1] = (uint8_t)c.r.imax;
       } else {
-        wr16(w, p.si_off + 4 * g, to_meta((float)r.imin, p.meta_f16));
-        wr16(w, p.si_off + 4 * g + 2, to_meta((float)r.imax, p.meta_f16));
+        wr16(w, p.si_off + 4 * g, to_meta((float)c.r.imin, p.meta_f16));
+        wr16(w, p.si_off + 4 * g + 2, to_meta((float)c.r.imax, p.meta_f16));
       }
     }
   }
+}
+
+// The warp encodes group g of one row: xg points at the group's values,
+// w at the row's wire bytes, codes is the warp's shared bytes.
+template <int VPL, typename T>
+__device__ __forceinline__ void encode_group(const T* __restrict__ xg, uint8_t* __restrict__ w,
+                                             long long g, int lane, uint8_t* codes,
+                                             const WireParams& p) {
+  const GroupCode c = quantize_group<VPL>(xg, lane, codes, p);
+  write_group<VPL>(w, g, lane, codes, c, p);
+  __syncwarp();                         // codes is reused by the warp's next group
 }
 
 // One group's metadata, read once per warp.
@@ -546,6 +573,21 @@ __device__ __forceinline__ void decode_group(const uint8_t* w, long long g, int 
 #pragma unroll
   for (int k = 0; k < VPL; ++k) v[k] = decode_value<Ld>(w, g, k * 32 + lane, m, p);
   if (p.rotation) unrotate_warp<VPL>(v, lane, p);
+}
+
+}  // namespace fc
+
+namespace fc {
+
+// Each kernel library links its own copy of the CUDA runtime (nvcc's
+// static cudart), whose current device is its own: every entry point
+// makes the card that holds its first tensor current before it launches.
+inline int use_device_of(const void* ptr) {
+  cudaPointerAttributes attr;
+  cudaError_t e = cudaPointerGetAttributes(&attr, ptr);
+  if (e != cudaSuccess) return (int)e;
+  if (attr.type != cudaMemoryTypeDevice) return (int)cudaErrorInvalidDevicePointer;
+  return (int)cudaSetDevice(attr.device);
 }
 
 }  // namespace fc

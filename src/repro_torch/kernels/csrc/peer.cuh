@@ -1,6 +1,9 @@
 // Peer-push device code: the ring barrier, the push signals and the waits
 // of the declared choreography (repro_torch/kernels/protocol.py), over a
-// table of peer pointers. Shared by the peer-push kernels (rdma.cu).
+// table of peer pointers. Shared by the peer-push kernels (rdma.cu,
+// allreduce.cu). Each protocol (collective id) has its own receive
+// buffers and signal pads, so the kernels of two protocols never touch
+// each other's counters.
 //
 // Every rank owns a receive buffer that peers write into and a signal pad
 // of u32 counters that peers add to:
@@ -121,6 +124,49 @@ __device__ __forceinline__ void wait_pushes(const PeerTable& t, int my) {
     __threadfence();
   }
   __syncthreads();
+}
+
+// The int64 peer argument of a peer-push kernel (repro_torch/kernels/
+// rdma.py PeerWorld.table):
+//   [tp, local_ranks, rank0, m, row_bytes, epoch, blocks_per_rank, in_kind,
+//    sem_slots, n_signal, wait_count, n_push,
+//    recv[kMaxPeers], signal[kMaxPeers], signal_off[kMaxPeers],
+//    push_dst_off[kMaxPeers], push_recv_slot[kMaxPeers]]
+// m is a kernel's own size argument; in_kind its payload type (0 f32,
+// 1 bf16).
+struct PeerArgs {
+  PeerTable t;
+  long long m;
+  int blocks_per_rank, in_kind;
+};
+
+// False for a table no launch can take.
+inline bool read_peer(const long long* peer, PeerArgs& a) {
+  PeerTable& t = a.t;
+  t.tp = (int)peer[0];
+  t.local_ranks = (int)peer[1];
+  t.rank0 = (int)peer[2];
+  a.m = peer[3];
+  t.row_bytes = peer[4];
+  t.epoch = (unsigned)peer[5];
+  a.blocks_per_rank = (int)peer[6];
+  a.in_kind = (int)peer[7];
+  t.sem_slots = (int)peer[8];
+  t.n_signal = (int)peer[9];
+  t.wait_count = (int)peer[10];
+  t.n_push = (int)peer[11];
+  if (t.tp < 1 || t.tp > kMaxPeers || a.blocks_per_rank < 1 || t.local_ranks < 1 ||
+      t.n_signal > kMaxPeers || t.n_push > kMaxPeers)
+    return false;
+  const long long* tab = peer + 12;
+  for (int i = 0; i < kMaxPeers; ++i) {
+    t.recv[i] = reinterpret_cast<uint8_t*>(tab[i]);
+    t.signal[i] = reinterpret_cast<unsigned*>(tab[kMaxPeers + i]);
+    t.signal_off[i] = (int)tab[2 * kMaxPeers + i];
+    t.push_dst_off[i] = (int)tab[3 * kMaxPeers + i];
+    t.push_recv_slot[i] = (int)tab[4 * kMaxPeers + i];
+  }
+  return true;
 }
 
 }  // namespace fc

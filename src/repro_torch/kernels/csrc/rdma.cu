@@ -28,8 +28,12 @@
 // occupancy of the kernel, all resident at once (a cooperative launch
 // guarantees it), each looping over the rank's groups one warp per group.
 // In the loopback world one launch runs every rank on one card (grid
-// dimension y = local rank); the device code is what a world of cards
-// would run, through the same table of peer pointers.
+// dimension y = local rank); in a world of processes each process
+// launches its own rank (local_ranks = 1, rank0 = its rank) through
+// pointers opened from its peers' IPC handles (fc_peer_* below). The
+// device code is the same, through the same table of peer pointers.
+
+#include <string.h>
 
 #include "codec.cuh"
 #include "peer.cuh"
@@ -119,12 +123,12 @@ int min_occupancy() {
 
 extern "C" {
 
-// Blocks per rank for `local_ranks` ranks on this device: every block of
+// Blocks per rank for `local_ranks` ranks on card `dev`: every block of
 // every rank resident at once, for every group and payload type, so one
 // world keeps one count across calls.
-int fc_a2a_blocks_per_rank(int local_ranks) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+int fc_a2a_blocks_per_rank(int dev, int local_ranks) {
+  int sms = 0;
+  if (cudaSetDevice(dev) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
   const int f = min_occupancy<float>(), b = min_occupancy<__nv_bfloat16>();
   return (f < b ? f : b) * sms / local_ranks;
@@ -132,46 +136,71 @@ int fc_a2a_blocks_per_rank(int local_ranks) {
 
 // x: (local_ranks, tp, m, n) payload (in_kind 0 f32, 1 bf16); out:
 // the same shape, out_kind as in params. params/thr/frac/f: the wire
-// codec's (kernels/wire.py _params, rows = tp * m). peer: int64 array
-//   [tp, local_ranks, rank0, m, row_bytes, epoch, blocks_per_rank, in_kind,
-//    sem_slots, n_signal, wait_count, n_push,
-//    recv[kMaxPeers], signal[kMaxPeers], signal_off[kMaxPeers],
-//    push_dst_off[kMaxPeers], push_recv_slot[kMaxPeers]]
+// codec's (kernels/wire.py _params, rows = tp * m). peer: the table of
+// peer.cuh read_peer, m the rows a rank sends each peer.
 int fc_a2a(const void* x, void* out, const long long* params, const unsigned* thr,
            const float* frac, const float* f, const long long* peer, void* stream) {
   const WireParams p = fill_params(params, thr, frac, f);
-  PeerTable t;
-  t.tp = (int)peer[0];
-  t.local_ranks = (int)peer[1];
-  t.rank0 = (int)peer[2];
-  const long long m = peer[3];
-  t.row_bytes = peer[4];
-  t.epoch = (unsigned)peer[5];
-  const int bpr = (int)peer[6];
-  const int in_kind = (int)peer[7];
-  t.sem_slots = (int)peer[8];
-  t.n_signal = (int)peer[9];
-  t.wait_count = (int)peer[10];
-  t.n_push = (int)peer[11];
-  if (t.tp < 1 || t.tp > kMaxPeers || bpr < 1 || t.n_signal > kMaxPeers || t.n_push > kMaxPeers)
-    return (int)cudaErrorInvalidValue;
-  const long long* tab = peer + 12;
-  for (int i = 0; i < kMaxPeers; ++i) {
-    t.recv[i] = reinterpret_cast<uint8_t*>(tab[i]);
-    t.signal[i] = reinterpret_cast<unsigned*>(tab[kMaxPeers + i]);
-    t.signal_off[i] = (int)tab[2 * kMaxPeers + i];
-    t.push_dst_off[i] = (int)tab[3 * kMaxPeers + i];
-    t.push_recv_slot[i] = (int)tab[4 * kMaxPeers + i];
-  }
+  PeerArgs a;
+  if (!read_peer(peer, a)) return (int)cudaErrorInvalidValue;
+  if (const int rc = use_device_of(x)) return rc;
   const cudaStream_t st = (cudaStream_t)stream;
   int rc;
-  switch (in_kind) {
-    case 0: rc = launch_by_group<float>(x, out, p, t, m, bpr, st); break;
-    case 1: rc = launch_by_group<__nv_bfloat16>(x, out, p, t, m, bpr, st); break;
+  switch (a.in_kind) {
+    case 0: rc = launch_by_group<float>(x, out, p, a.t, a.m, a.blocks_per_rank, st); break;
+    case 1: rc = launch_by_group<__nv_bfloat16>(x, out, p, a.t, a.m, a.blocks_per_rank, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
+
+// ---- a world of processes: receive buffers and pads shared by CUDA IPC ----
+//
+// Each rank allocates its buffers with a plain cudaMalloc (an IPC handle
+// covers a whole allocation, so no block of a caching allocator is
+// exported), zeroed before any kernel can see it, and opens its peers'
+// handles. A process cannot open its own handle: it keeps its pointer.
+
+int fc_peer_alloc(int dev, long long bytes, void** out) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e == cudaSuccess) e = cudaMalloc(out, (size_t)bytes);
+  if (e == cudaSuccess) e = cudaMemset(*out, 0, (size_t)bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+
+// handle: cudaIpcMemHandle_t, 64 bytes
+int fc_peer_export(void* ptr, void* handle) {
+  return (int)cudaIpcGetMemHandle(reinterpret_cast<cudaIpcMemHandle_t*>(handle), ptr);
+}
+
+// Peer access from card dev to card peer_dev (nothing to do on one card).
+int fc_peer_enable(int dev, int peer_dev) {
+  if (dev == peer_dev) return 0;
+  int can = 0;
+  cudaError_t e = cudaSetDevice(dev);
+  if (e == cudaSuccess) e = cudaDeviceCanAccessPeer(&can, dev, peer_dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  e = cudaDeviceEnablePeerAccess(peer_dev, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    return 0;
+  }
+  return (int)e;
+}
+
+int fc_peer_open(int dev, const void* handle, void** out) {
+  cudaError_t e = cudaSetDevice(dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(out, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+int fc_peer_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
+
+int fc_peer_free(void* ptr) { return (int)cudaFree(ptr); }
 
 }  // extern "C"

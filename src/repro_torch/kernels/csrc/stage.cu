@@ -225,6 +225,7 @@ int launch_pack(const void* x, void* payload, void* scale, void* zero, void* sv,
   Stage s = make_stage(rows, n, bits);
   s.in_bf16 = in_bf16;
   if (s.rows * s.chunks == 0) return 0;
+  if (const int rc = use_device_of(x)) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   const void* a0 = x;
   uint8_t* a1 = (uint8_t*)payload;
@@ -264,6 +265,7 @@ int fc_dequant_unpack(const void* payload, const void* scale, const void* zero, 
   Stage s = make_stage(rows, n, bits);
   s.out_kind = out_kind;
   if (s.rows * s.chunks == 0) return 0;
+  if (const int rc = use_device_of(payload)) return rc;
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* a0 = (const uint8_t*)payload;
   const unsigned short *a1 = (const unsigned short*)scale, *a2 = (const unsigned short*)zero;

@@ -116,6 +116,7 @@ int fc_encode_wire(const void* x, void* wire, const long long* params, const uns
   const WireParams p = fill_params(params, thr, frac, f);
   const long long warps = p.rows * p.groups;
   if (warps == 0) return 0;
+  if (const int rc = use_device_of(x)) return rc;
   FC_LAUNCH_BY_GROUP(encode_kernel, blocks_for(warps), (cudaStream_t)stream,
                      (const float*)x, (uint8_t*)wire, p);
   return (int)cudaGetLastError();
@@ -126,6 +127,7 @@ int fc_decode_wire(const void* wire, void* out, const long long* params, const u
   const WireParams p = fill_params(params, thr, frac, f);
   const long long warps = p.rows * p.groups;
   if (warps == 0) return 0;
+  if (const int rc = use_device_of(wire)) return rc;
   FC_LAUNCH_BY_GROUP(decode_kernel, blocks_for(warps), (cudaStream_t)stream,
                      (const uint8_t*)wire, out, p);
   return (int)cudaGetLastError();
@@ -135,6 +137,7 @@ int fc_decode_reduce(const void* wire, void* out, const long long* params, const
                      const float* frac, const float* f, void* stream) {
   const WireParams p = fill_params(params, thr, frac, f);
   if (p.groups == 0) return 0;
+  if (const int rc = use_device_of(wire)) return rc;
   FC_LAUNCH_BY_GROUP(decode_reduce_kernel, blocks_for(p.groups), (cudaStream_t)stream,
                      (const uint8_t*)wire, (float*)out, p);
   return (int)cudaGetLastError();

@@ -1,5 +1,5 @@
 """The fused two-step AllReduce and the fused All2All, with the hop over
-a process group.
+a process group, and the hops themselves.
 
 The JAX package runs the codec phases of its fused collectives as kernels
 and pushes wire rows to peers by RDMA from inside the kernel. Here the
@@ -7,8 +7,14 @@ phases are the CUDA kernels of :mod:`repro_torch.kernels.wire` and the hop
 is ``torch.distributed`` on the uint8 wire (``all_to_all_single`` for the
 scatter phase and the All2All, ``all_gather_into_tensor`` for the gather
 phase). With one rank there is no hop: the wire rows a rank sends are the
-rows it receives. (The All2All with the push inside the kernel is
+rows it receives. (The collectives with the push inside the kernel are
 :mod:`repro_torch.kernels.rdma`.)
+
+A ``group`` here is a process group, or ``None`` for one rank. Over a
+gloo group (ranks that share a card) a CUDA tensor is staged through
+host memory: the hops copy it to the host, run the collective there, and
+copy the result back (:func:`_staged`). An NCCL group takes the CUDA
+tensor as it is.
 """
 from __future__ import annotations
 
@@ -23,11 +29,19 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def _staged(t: torch.Tensor, pg) -> bool:
+    """Whether a hop of ``t`` over ``pg`` goes through host memory: a
+    CUDA tensor over gloo."""
+    return t.device.type == "cuda" and dist.get_backend(pg) == "gloo"
+
+
 def all_to_all_rows(wire: torch.Tensor, group) -> torch.Tensor:
     """(tp, ...) rows -> (tp, ...): row p goes to peer p, row p of the
     result came from peer p."""
     if group_size(group) == 1:
         return wire
+    if _staged(wire, group):
+        return all_to_all_rows(wire.cpu(), group).to(wire.device)
     out = torch.empty_like(wire)
     dist.all_to_all_single(out, wire.contiguous(), group=group)
     return out
@@ -38,11 +52,24 @@ def all_gather_rows(wire: torch.Tensor, group) -> torch.Tensor:
     tp = group_size(group)
     if tp == 1:
         return wire[None]
+    if _staged(wire, group):
+        return all_gather_rows(wire.cpu(), group).to(wire.device)
     flat = wire.reshape(-1)             # gathered as a concatenation
     out = torch.empty((tp * flat.shape[0],), dtype=wire.dtype,
                       device=wire.device)
     dist.all_gather_into_tensor(out, flat.contiguous(), group=group)
     return out.reshape(tp, *wire.shape)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The exact sum of ``x`` over the ranks (a new tensor)."""
+    if group_size(group) == 1:
+        return x
+    if _staged(x, group):
+        return all_reduce_sum(x.cpu(), group).to(x.device)
+    out = x.clone()
+    dist.all_reduce(out, group=group)
+    return out
 
 
 def encode_rows(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:

@@ -12,10 +12,11 @@ version for a CPU one, ``True`` the kernel (a CPU tensor raises),
 ``False`` the plain version. The kernels take any number of rows, so
 there is no row padding.
 
-The fused All2All (:func:`fused_all_to_all`) goes by its ``world``
-argument: a :class:`~repro_torch.kernels.rdma.PeerWorld` launches the
-peer-push kernel, a process group or ``None`` runs the emulated schedule
-(the wire kernels around a library all-to-all).
+The fused collectives (:func:`fused_all_reduce`, :func:`fused_all_to_all`)
+go by their ``world`` argument: a
+:class:`~repro_torch.kernels.rdma.PeerWorld` launches the peer-push
+kernels; a process group or ``None`` runs the emulated schedule (the wire
+kernels around the library hops), as the JAX package does off the TPU.
 
 This is the only place that decides; the kernel wrappers take CUDA
 tensors only.
@@ -58,6 +59,22 @@ def fused_decode_reduce(buf: torch.Tensor, cfg, n: int) -> torch.Tensor:
     if use_kernel(cfg, buf):
         return wire.decode_reduce(buf.contiguous(), cfg, n)
     return wire.decode_reduce_plain(buf, cfg, n)
+
+
+def fused_all_reduce(x: torch.Tensor, cfg, world=None) -> torch.Tensor:
+    """The fused two-step quantized AllReduce; ``n / tp`` a group
+    multiple.
+
+    ``world`` a :class:`~repro_torch.kernels.rdma.PeerWorld`: ``x`` is
+    ``(local_ranks, n)`` (a loopback world) or this rank's ``(n,)`` (a
+    world of processes), and the phase kernels run. A process group or
+    ``None``: ``x`` is this rank's flat ``(n,)``, and the emulated schedule
+    runs.
+    """
+    if isinstance(world, rdma.PeerWorld):
+        return rdma.fused_all_reduce_rdma(x, cfg, world)
+    from repro_torch.kernels import emulate    # emulate imports this module
+    return emulate.fused_all_reduce_emulated(x, cfg, world)
 
 
 def fused_all_to_all(x: torch.Tensor, cfg, world=None) -> torch.Tensor:

@@ -1,57 +1,83 @@
-"""The fused quantized All2All with the push inside the kernel.
+"""The peer-push collectives: the fused quantized All2All and the fused
+two-step quantized AllReduce, with the push inside the kernels.
 
-One CUDA C++ kernel for Hopper (``csrc/rdma.cu`` ``fc_a2a``, device code
-of the choreography in ``csrc/peer.cuh``) replaces the Pallas TPU kernel
-``repro/kernels/rdma_all2all.py:75 fused_all_to_all_rdma`` (its kernel
-``_a2a_kernel``, ``:56``): every rank encodes its ``tp`` per-peer blocks
-straight into the peers' receive buffers, signals them, waits for theirs,
-and decodes what it received into the payload dtype.
+Hand-written CUDA C++ kernels for Hopper (device code of the choreography
+in ``csrc/peer.cuh``) replace the Pallas TPU kernels:
 
-Bound on an H100: bytes. Per rank the payload is read once, the wire
-written once and read once, and the output written once
-(:func:`bound_bytes`). In the loopback world all of it is device memory
-traffic at 3.35 TB/s; across cards the wire would cross NVLink instead.
-What the design does about it: the wire is written once, by the encode,
-into the peer's receive row (no send staging), and read once, by the
-decode; a spin wait must never wait on a block that is not resident, so
-the grid is persistent and launched cooperatively.
+* :func:`fused_all_to_all_rdma`: ``csrc/rdma.cu`` ``fc_a2a``, for
+  ``repro/kernels/rdma_all2all.py:75 fused_all_to_all_rdma``
+  (``_a2a_kernel``);
+* :func:`fused_all_reduce_rdma`: ``csrc/allreduce.cu`` ``fc_ar_scatter``
+  and ``fc_ar_gather``, for ``repro/kernels/rdma_allreduce.py:154
+  fused_all_reduce_rdma`` (``_scatter_reduce_kernel``,
+  ``_gather_kernel``).
+
+Each rank encodes what it sends straight into its peers' receive
+buffers, signals them, waits for theirs, and decodes what it received
+(the AllReduce: one launch for each phase, phase 1 summing the decoded
+rows into the rank's partial, phase 2 pushing the partial's wire row to
+every peer).
+
+Bound on an H100: bytes (:func:`bound_bytes`, :func:`bound_bytes_ar`).
+On one card all of it is device memory traffic at 3.35 TB/s; across
+cards the pushed wire would cross NVLink instead. What the design does
+about it: the wire is written once, by the encode, into the peer's
+receive row (no send staging), and read once, by the decode; a spin wait
+must never wait on a block that is not resident, so the grids are
+persistent and launched cooperatively.
 
 A :class:`PeerWorld` holds the ranks' receive buffers and signal pads,
-sized from :func:`repro_torch.kernels.protocol.all2all_protocol`, and the
-peer table the kernel pushes through. :meth:`PeerWorld.loopback` puts
-``tp`` ranks on one card: their buffers are slices of one allocation, and
-one cooperative launch runs every rank's copy of the kernel (the device
-code a world of cards would run). A world of cards (one rank a device,
-peer pointers from symmetric memory) is not built yet.
+one buffer and one pad a rank for each protocol it serves (its
+``collective_id``: the AllReduce's two phases and the All2All never
+alias), sized from :mod:`repro_torch.kernels.protocol`, and the peer
+table the kernels push through. Two kinds:
 
-The wrapper takes CUDA tensors only and raises for anything else;
-:func:`repro_torch.kernels.ops.fused_all_to_all` decides which path a
-call takes. :func:`fused_all_to_all_rdma_plain` is the plain PyTorch
-version. ``LAUNCHES`` counts the kernel's launches.
+* :meth:`PeerWorld.loopback` puts ``tp`` ranks on one card: their
+  buffers are slices of one allocation, and one cooperative launch runs
+  every rank's copy of a kernel;
+* :meth:`PeerWorld.from_group` is one rank of a world of processes (one
+  rank a process, on a card of its own or sharing one): each rank
+  allocates its buffers with ``cudaMalloc``, exchanges CUDA IPC handles
+  over the process group and opens its peers'; each process launches its
+  own rank.
+
+The device code is the same in both. The wrappers take CUDA tensors only
+and raise for anything else; :mod:`repro_torch.kernels.ops` decides which
+path a call takes. ``*_plain`` are the plain PyTorch versions.
+``LAUNCHES`` counts the kernels' launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import wire
-from repro_torch.kernels.protocol import KernelProtocol, all2all_protocol
+from repro_torch.kernels.protocol import (A2A_COLLECTIVE_ID,
+                                          ALLREDUCE_GATHER_COLLECTIVE_ID,
+                                          ALLREDUCE_SCATTER_COLLECTIVE_ID,
+                                          KernelProtocol,
+                                          allreduce_gather_protocol,
+                                          allreduce_scatter_protocol,
+                                          live_protocols)
 
 SOURCE = "rdma.cu"
+AR_SOURCE = "allreduce.cu"
 MAX_PEERS = 16                    # csrc/peer.cuh kMaxPeers
 _IN_KINDS = {torch.float32: 0, torch.bfloat16: 1}      # the model dtypes
 _ALIGN = 256
+_HANDLE_BYTES = 64                # cudaIpcMemHandle_t
 
-#: launches of the kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"a2a": 0}
+#: launches of each kernel since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {"a2a": 0, "ar_scatter": 0, "ar_gather": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["a2a"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,9 +86,53 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.fc_a2a.argtypes = [ctypes.c_void_p] * 8
     lib.fc_a2a.restype = ctypes.c_int
-    lib.fc_a2a_blocks_per_rank.argtypes = [ctypes.c_int]
+    lib.fc_a2a_blocks_per_rank.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.fc_a2a_blocks_per_rank.restype = ctypes.c_int
+    for name, args in (
+            ("fc_peer_alloc", [ctypes.c_int, ctypes.c_longlong,
+                               ctypes.POINTER(ctypes.c_void_p)]),
+            ("fc_peer_export", [ctypes.c_void_p, ctypes.c_char_p]),
+            ("fc_peer_enable", [ctypes.c_int, ctypes.c_int]),
+            ("fc_peer_open", [ctypes.c_int, ctypes.c_char_p,
+                              ctypes.POINTER(ctypes.c_void_p)]),
+            ("fc_peer_close", [ctypes.c_void_p]),
+            ("fc_peer_free", [ctypes.c_void_p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _ar_lib() -> ctypes.CDLL:
+    from repro_torch.kernels import build
+    lib = build.load(AR_SOURCE)
+    for name in ("fc_ar_scatter", "fc_ar_gather"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 8
+        fn.restype = ctypes.c_int
+    lib.fc_ar_blocks_per_rank.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fc_ar_blocks_per_rank.restype = ctypes.c_int
+    return lib
+
+
+def _blocks_per_rank(cid: int, dev: int, local_ranks: int) -> int:
+    """The grid of a protocol's kernel: blocks per rank, every block of
+    ``local_ranks`` ranks resident on card ``dev`` at once."""
+    if cid == A2A_COLLECTIVE_ID:
+        bpr, name = _lib().fc_a2a_blocks_per_rank(dev, local_ranks), "fc_a2a"
+    else:
+        bpr, name = (_ar_lib().fc_ar_blocks_per_rank(dev, local_ranks),
+                     "fc_ar")
+    if bpr < 1:
+        raise RuntimeError(f"{name}: no resident grid for {local_ranks} "
+                           f"ranks ({bpr})")
+    return bpr
+
+
+def _check_rc(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc}")
 
 
 def signal_words(proto: KernelProtocol) -> int:
@@ -75,73 +145,213 @@ def _align(n: int) -> int:
     return -(-n // _ALIGN) * _ALIGN
 
 
+def ar_protocols(tp: int) -> Tuple[KernelProtocol, KernelProtocol]:
+    """The fused AllReduce's two phases."""
+    return allreduce_scatter_protocol(tp), allreduce_gather_protocol(tp)
+
+
+def rank_layout(protocols: Sequence[KernelProtocol], row_bytes: int
+                ) -> Tuple[Dict[int, Tuple[int, int]], int]:
+    """One rank's region: for each protocol in turn its receive rows, then
+    its signal pad, each aligned -> ({collective_id: (receive offset, pad
+    offset)}, bytes)."""
+    offs, at = {}, 0
+    for proto in protocols:
+        recv = at
+        at += _align(proto.buffer("recv").rows * row_bytes)
+        offs[proto.collective_id] = (recv, at)
+        at += _align(4 * signal_words(proto))
+    return offs, at
+
+
+class _DeviceBytes:
+    """``nbytes`` of device memory at ``ptr``, for ``torch.as_tensor``."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "strides": None, "version": 3}
+
+
 class PeerWorld:
-    """The receive buffers and signal pads of ``tp`` ranks, and the table
-    of peer pointers a kernel pushes through.
+    """The receive buffers and signal pads of ``tp`` ranks, one of each a
+    rank for every protocol served, and the peer tables the kernels push
+    through.
 
     ``local_ranks`` of the ranks, from ``rank0`` on, run in each launch.
-    Rank ``r``'s receive buffer holds ``all2all_protocol(tp)``'s ``recv``
-    rows (one for each sender) of ``row_bytes`` each; its signal pad
-    holds :func:`signal_words` counters, zero at the start and only ever
-    added to. ``epoch`` counts the calls made in the world.
+    ``recv[cid][r]`` is rank ``r``'s receive buffer of protocol ``cid``:
+    the protocol's ``recv`` rows (one for each sender) of ``row_bytes``
+    each; ``signal[cid][r]`` its pad of :func:`signal_words` counters,
+    zero at the start and only ever added to. ``epochs[cid]`` counts the
+    protocol's calls, ``blocks[cid]`` the blocks a rank of its kernel
+    (one count for every call and rank; ``None`` until the first call of
+    a loopback world).
     """
 
     def __init__(self, tp: int, local_ranks: int, rank0: int,
-                 recv: List[int], signal: List[int], row_bytes: int,
-                 storage: torch.Tensor):
+                 protocols: Sequence[KernelProtocol], bases: List[int],
+                 row_bytes: int, device, storage: Optional[torch.Tensor] = None,
+                 owned: Optional[int] = None, opened: Sequence[int] = ()):
         assert 1 <= tp <= MAX_PEERS, tp
         self.tp, self.local_ranks, self.rank0 = tp, local_ranks, rank0
-        self.recv, self.signal = list(recv), list(signal)
         self.row_bytes = row_bytes
-        self.storage = storage
-        self.protocol = all2all_protocol(tp)
-        self.epoch = 0
-        self.blocks_per_rank: Optional[int] = None
+        self.device = torch.device(device)
+        self.protocols = {p.collective_id: p for p in protocols}
+        offs, self.rank_bytes = rank_layout(protocols, row_bytes)
+        self.recv = {c: [b + o[0] for b in bases] for c, o in offs.items()}
+        self.signal = {c: [b + o[1] for b in bases] for c, o in offs.items()}
+        self.epochs: Dict[int, int] = dict.fromkeys(self.protocols, 0)
+        self.blocks: Dict[int, Optional[int]] = dict.fromkeys(self.protocols)
+        self.storage = storage           # a loopback world's one allocation
+        self._owned, self._opened = owned, list(opened)
 
     @classmethod
-    def loopback(cls, tp: int, row_bytes: int, device="cuda") -> "PeerWorld":
-        """``tp`` ranks on one device, in one zeroed allocation: the
-        receive buffers, then the signal pads."""
-        proto = all2all_protocol(tp)
-        recv_stride = _align(proto.buffer("recv").rows * row_bytes)
-        pad_stride = _align(4 * signal_words(proto))
-        storage = torch.zeros(tp * (recv_stride + pad_stride),
-                              dtype=torch.uint8, device=device)
+    def loopback(cls, tp: int, row_bytes: int, device="cuda",
+                 protocols: Optional[Sequence[KernelProtocol]] = None
+                 ) -> "PeerWorld":
+        """``tp`` ranks on one device, in one zeroed allocation, rank after
+        rank; every live protocol unless ``protocols`` is given."""
+        protocols = protocols or live_protocols(tp)
+        _, rank_bytes = rank_layout(protocols, row_bytes)
+        storage = torch.zeros(tp * rank_bytes, dtype=torch.uint8,
+                              device=device)
         base = storage.data_ptr()
-        recv = [base + r * recv_stride for r in range(tp)]
-        signal = [base + tp * recv_stride + r * pad_stride
-                  for r in range(tp)]
-        return cls(tp, tp, 0, recv, signal, row_bytes, storage)
+        return cls(tp, tp, 0, protocols,
+                   [base + r * rank_bytes for r in range(tp)], row_bytes,
+                   storage.device, storage=storage)
 
-    def recv_rows(self, rank: int) -> torch.Tensor:
-        """Rank ``rank``'s receive buffer, (recv rows, row_bytes) uint8
-        (a loopback world's storage holds every rank's)."""
-        rows = self.protocol.buffer("recv").rows
-        off = self.recv[rank] - self.storage.data_ptr()
-        return self.storage[off:off + rows * self.row_bytes].view(
-            rows, self.row_bytes)
+    @classmethod
+    def from_group(cls, group, rank: int, row_bytes: int,
+                   device=None) -> "PeerWorld":
+        """Rank ``rank`` of the world of the process group ``group``, on
+        ``device`` (the current CUDA device by default), serving every
+        live protocol (:func:`~repro_torch.kernels.protocol.
+        live_protocols`: the AllReduce's two phases and the All2All).
 
-    def signal_pad(self, rank: int) -> torch.Tensor:
-        """Rank ``rank``'s signal pad, (signal_words,) int32 view."""
-        off = self.signal[rank] - self.storage.data_ptr()
-        n = signal_words(self.protocol)
-        return self.storage[off:off + 4 * n].view(torch.int32)
+        Builds the kernels first, so that no rank's first launch waits on
+        a peer that is still compiling. Then allocates this rank's region
+        (:func:`rank_layout`) with ``cudaMalloc``, zeroed, exchanges its
+        CUDA IPC handle, card and grid over ``group``, enables peer access
+        to peers on other cards and opens their handles. Every rank
+        launches one block count for each protocol: the least over the
+        ranks. Call :meth:`close` on every rank, after a barrier, when
+        done.
+        """
+        import torch.distributed as dist
+        device = torch.device(device if device is not None else "cuda")
+        if device.type != "cuda":
+            raise ValueError(f"PeerWorld.from_group: expected a CUDA device, "
+                             f"got {device}")
+        tp = dist.get_world_size(group)
+        protocols = live_protocols(tp)
+        dev = device.index if device.index is not None else \
+            torch.cuda.current_device()
+        lib = _lib()
+        _ar_lib()
+        _, rank_bytes = rank_layout(protocols, row_bytes)
+        ptr = ctypes.c_void_p()
+        _check_rc(lib.fc_peer_alloc(dev, rank_bytes, ctypes.byref(ptr)),
+                  "fc_peer_alloc")
+        handle = ctypes.create_string_buffer(_HANDLE_BYTES)
+        _check_rc(lib.fc_peer_export(ptr, handle), "fc_peer_export")
+        blocks = {p.collective_id: _blocks_per_rank(p.collective_id, dev, 1)
+                  for p in protocols}
+        info = {"rank": rank, "device": dev, "handle": handle.raw,
+                "blocks": blocks}
+        infos: List = [None] * tp
+        dist.all_gather_object(infos, info, group=group)
+        if [i["rank"] for i in infos] != list(range(tp)):
+            raise RuntimeError(f"PeerWorld.from_group: ranks "
+                               f"{[i['rank'] for i in infos]} are not the "
+                               f"group's 0..{tp - 1}")
+        bases, opened = [], []
+        for r, peer in enumerate(infos):
+            if r == rank:                    # a process cannot open its own
+                bases.append(ptr.value)
+                continue
+            _check_rc(lib.fc_peer_enable(dev, peer["device"]),
+                      f"peer access from card {dev} to {peer['device']}")
+            p = ctypes.c_void_p()
+            _check_rc(lib.fc_peer_open(dev, peer["handle"], ctypes.byref(p)),
+                      f"opening rank {r}'s IPC handle")
+            bases.append(p.value)
+            opened.append(p.value)
+        world = cls(tp, 1, rank, protocols, bases, row_bytes,
+                    torch.device("cuda", dev), owned=ptr.value, opened=opened)
+        world.blocks = {c: min(i["blocks"][c] for i in infos)
+                        for c in world.protocols}
+        return world
 
-    def table(self, m: int, in_kind: int) -> np.ndarray:
-        """The kernel's int64 peer argument (``csrc/rdma.cu`` fc_a2a)."""
-        proto = self.protocol
+    def close(self) -> None:
+        """Close the peers' handles and free this rank's region (a world
+        of processes; a loopback world's storage is PyTorch's). No kernel
+        of any rank may still run on the world."""
+        if self._owned is None:
+            return
+        lib = _lib()
+        for p in self._opened:
+            _check_rc(lib.fc_peer_close(p), "fc_peer_close")
+        _check_rc(lib.fc_peer_free(self._owned), "fc_peer_free")
+        self._owned, self._opened = None, []
+
+    def _bytes(self, ptr: int, nbytes: int) -> torch.Tensor:
+        if self.storage is not None:
+            off = ptr - self.storage.data_ptr()
+            return self.storage[off:off + nbytes]
+        if ptr < self._owned or ptr + nbytes > self._owned + self.rank_bytes:
+            raise ValueError("a world of processes shows its own rank's "
+                             "buffers only")
+        return torch.as_tensor(_DeviceBytes(ptr, nbytes), device=self.device)
+
+    def recv_rows(self, rank: int,
+                  cid: int = A2A_COLLECTIVE_ID) -> torch.Tensor:
+        """Rank ``rank``'s receive buffer of protocol ``cid``, (recv rows,
+        row_bytes) uint8 (every rank's in a loopback world, the own rank's
+        in a world of processes)."""
+        rows = self.protocols[cid].buffer("recv").rows
+        return self._bytes(self.recv[cid][rank],
+                           rows * self.row_bytes).view(rows, self.row_bytes)
+
+    def signal_pad(self, rank: int, cid: int = A2A_COLLECTIVE_ID
+                   ) -> torch.Tensor:
+        """Rank ``rank``'s signal pad of protocol ``cid``,
+        (signal_words,) int32 view."""
+        n = signal_words(self.protocols[cid])
+        return self._bytes(self.signal[cid][rank], 4 * n).view(torch.int32)
+
+    def _protocol(self, cid: int, what: str) -> KernelProtocol:
+        if cid not in self.protocols:
+            raise ValueError(f"{what}: the world does not serve collective "
+                             f"id {cid} (it serves "
+                             f"{sorted(self.protocols)})")
+        return self.protocols[cid]
+
+    def table(self, cid: int, m: int, in_kind: int) -> np.ndarray:
+        """The kernels' int64 peer argument for protocol ``cid``
+        (``csrc/peer.cuh`` read_peer)."""
+        proto = self.protocols[cid]
         cols = np.zeros((5, MAX_PEERS), np.int64)
-        cols[0, :self.tp] = self.recv
-        cols[1, :self.tp] = self.signal
+        cols[0, :self.tp] = self.recv[cid]
+        cols[1, :self.tp] = self.signal[cid]
         offs = proto.barrier.signal_offsets
         cols[2, :len(offs)] = offs
         cols[3, :len(proto.pushes)] = [s.dst_off for s in proto.pushes]
         cols[4, :len(proto.pushes)] = [s.recv_slot for s in proto.pushes]
         head = [self.tp, self.local_ranks, self.rank0, m, self.row_bytes,
-                self.epoch, self.blocks_per_rank or 0, in_kind,
+                self.epochs[cid], self.blocks[cid] or 0, in_kind,
                 proto.sem_slots,
                 len(offs), proto.barrier.wait_count, len(proto.pushes)]
         return np.concatenate([np.array(head, np.int64), cols.reshape(-1)])
+
+    def next_call(self, cid: int, m: int = 0, in_kind: int = 0
+                  ) -> np.ndarray:
+        """Count one call of protocol ``cid`` (its grid fixed at the first)
+        -> its peer table."""
+        if self.blocks[cid] is None:
+            self.blocks[cid] = _blocks_per_rank(
+                cid, self.device.index or 0, self.local_ranks)
+        self.epochs[cid] += 1
+        return self.table(cid, m, in_kind)
 
 
 def fused_all_to_all_rdma(x: torch.Tensor, cfg,
@@ -164,33 +374,26 @@ def fused_all_to_all_rdma(x: torch.Tensor, cfg,
     if x.device.type != "cuda":
         raise ValueError(f"fused_all_to_all_rdma: expected a CUDA tensor, "
                          f"got {x.device}")
-    if x.device != world.storage.device:
+    if x.device != world.device:
         raise ValueError("fused_all_to_all_rdma: the payload and the world "
                          "are on different devices")
     if m * cfg.wire_bytes(d) > world.row_bytes:
         raise ValueError(f"fused_all_to_all_rdma: {m} rows of "
                          f"{cfg.wire_bytes(d)} wire bytes exceed the "
                          f"world's {world.row_bytes}-byte receive rows")
+    world._protocol(A2A_COLLECTIVE_ID, "fused_all_to_all_rdma")
     out = torch.empty_like(x)
+    if m * d == 0:
+        return out
     with torch.cuda.device(x.device):
-        if world.blocks_per_rank is None:
-            bpr = _lib().fc_a2a_blocks_per_rank(world.local_ranks)
-            if bpr < 1:
-                raise RuntimeError(f"fc_a2a: no resident grid for "
-                                   f"{world.local_ranks} ranks ({bpr})")
-            world.blocks_per_rank = bpr
-        if m * d == 0:
-            return out
-        world.epoch += 1
+        peer = world.next_call(A2A_COLLECTIVE_ID, m, _IN_KINDS[x.dtype])
         a, thr, frac, f = wire._params(cfg, tp * m, d,
                                        wire._OUT_KINDS[x.dtype])
-        peer = world.table(m, _IN_KINDS[x.dtype])
         rc = _lib().fc_a2a(x.data_ptr(), out.data_ptr(), a.ctypes.data,
                            thr.ctypes.data, frac.ctypes.data, f.ctypes.data,
                            peer.ctypes.data,
                            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fc_a2a launch failed: CUDA error {rc}")
+    _check_rc(rc, "fc_a2a launch")
     LAUNCHES["a2a"] += 1
     return out
 
@@ -214,3 +417,103 @@ def bound_bytes(cfg, tp: int, m: int, d: int, itemsize: int) -> int:
     payload and writes its wire once, then reads the wire it received and
     writes its output once."""
     return tp * tp * m * (2 * d * itemsize + 2 * cfg.wire_bytes(d))
+
+
+# ---------------------------------------------------------------------------
+# the fused two-step AllReduce
+# ---------------------------------------------------------------------------
+
+def fused_all_reduce_rdma(x: torch.Tensor, cfg,
+                          world: PeerWorld) -> torch.Tensor:
+    """The fused two-step AllReduce of f32 vectors of ``n`` values,
+    ``n / tp`` a group multiple: ``(local_ranks, n)`` (a loopback world:
+    every local rank's vector) or ``(n,)`` (a world of processes: this
+    rank's) on the card -> the same shape, each rank's row the quantized
+    sum over the ranks. Two launches: ``fc_ar_scatter`` (encode, push,
+    decode-reduce into the rank's partial chunk) and ``fc_ar_gather``
+    (encode the partial, push it to every peer, decode all chunks)."""
+    wire._check_cfg(cfg)
+    if x.dtype != torch.float32:
+        raise TypeError(f"fused_all_reduce_rdma: expected float32, got "
+                        f"{x.dtype}")
+    xs = x[None] if x.dim() == 1 and world.local_ranks == 1 else x
+    if (xs.dim() != 2 or xs.shape[0] != world.local_ranks
+            or not xs.is_contiguous()):
+        raise ValueError(f"fused_all_reduce_rdma: expected a contiguous "
+                         f"({world.local_ranks}, n) tensor"
+                         f"{' or (n,)' if world.local_ranks == 1 else ''}, "
+                         f"got {tuple(x.shape)}")
+    tp, n = world.tp, xs.shape[1]
+    if n % tp or (n // tp) % cfg.group:
+        raise ValueError(f"fused_all_reduce_rdma: chunk n / tp = {n} / {tp} "
+                         f"is not a multiple of the group {cfg.group}")
+    chunk = n // tp
+    if cfg.wire_bytes(chunk) > world.row_bytes:
+        raise ValueError(f"fused_all_reduce_rdma: a wire row of "
+                         f"{cfg.wire_bytes(chunk)} bytes exceeds the "
+                         f"world's {world.row_bytes}-byte receive rows")
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_all_reduce_rdma: expected a CUDA tensor, "
+                         f"got {x.device}")
+    if x.device != world.device:
+        raise ValueError("fused_all_reduce_rdma: the vector and the world "
+                         "are on different devices")
+    for cid in (ALLREDUCE_SCATTER_COLLECTIVE_ID,
+                ALLREDUCE_GATHER_COLLECTIVE_ID):
+        world._protocol(cid, "fused_all_reduce_rdma")
+    out = torch.empty_like(xs)
+    if n == 0:
+        return out.reshape(x.shape)
+    partial = torch.empty((world.local_ranks, chunk), dtype=torch.float32,
+                          device=x.device)
+    lib = _ar_lib()
+    a, thr, frac, f = wire._params(cfg, tp, chunk)
+    args = (a.ctypes.data, thr.ctypes.data, frac.ctypes.data, f.ctypes.data)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        peer = world.next_call(ALLREDUCE_SCATTER_COLLECTIVE_ID)
+        _check_rc(lib.fc_ar_scatter(xs.data_ptr(), partial.data_ptr(), *args,
+                                    peer.ctypes.data, stream),
+                  "fc_ar_scatter launch")
+        LAUNCHES["ar_scatter"] += 1
+        peer = world.next_call(ALLREDUCE_GATHER_COLLECTIVE_ID)
+        _check_rc(lib.fc_ar_gather(partial.data_ptr(), out.data_ptr(), *args,
+                                   peer.ctypes.data, stream),
+                  "fc_ar_gather launch")
+        LAUNCHES["ar_gather"] += 1
+    return out.reshape(x.shape)
+
+
+def fused_all_reduce_rdma_plain(x: torch.Tensor, cfg):
+    """The plain version: (tp, n) f32, every rank's vector -> (out,
+    scatter_recv, gather_recv): ``out`` (tp, n) as the kernels' (every row
+    the same), ``scatter_recv[r]`` / ``gather_recv[r]`` rank ``r``'s
+    receive rows of each phase, (tp, tp, wire_bytes(n / tp)) uint8 (row
+    ``j`` from rank ``j``). Phase 1 sums the decoded rows in row order
+    from +0.0, as ``fc_decode_reduce`` and ``sum_rows`` do."""
+    tp, n = x.shape
+    chunk = n // tp
+    sent = wire.encode_plain(x.reshape(tp * tp, chunk).to(torch.float32),
+                             cfg)
+    wb = sent.shape[1]
+    scatter = sent.reshape(tp, tp, wb).transpose(0, 1).contiguous()
+    parts = wire.decode_plain(scatter.reshape(-1, wb), cfg, chunk
+                              ).reshape(tp, tp, chunk)
+    partial = torch.zeros((tp, chunk), dtype=torch.float32, device=x.device)
+    for j in range(tp):
+        partial = partial + parts[:, j]
+    sent2 = wire.encode_plain(partial, cfg)                  # (tp, wb)
+    gather = sent2[None].expand(tp, tp, wb).contiguous()
+    out = wire.decode_plain(sent2, cfg, chunk).reshape(1, n)
+    return out.expand(tp, n).contiguous(), scatter, gather
+
+
+def bound_bytes_ar(cfg, tp: int, n: int) -> int:
+    """Bytes one rank of the AllReduce must move: phase 1 reads x (4n)
+    once, writes and reads tp wire rows of ``wire_bytes(n / tp)`` once
+    each, and writes the f32 partial (4 n / tp); phase 2 reads the
+    partial, writes and reads tp wire rows once each, and writes the
+    output (4n)."""
+    chunk = n // tp
+    wb = cfg.wire_bytes(chunk)
+    return 2 * (4 * n + 2 * tp * wb + 4 * chunk)

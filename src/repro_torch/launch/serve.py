@@ -5,10 +5,18 @@ rather than run on the CPU. Example (full width, random weights)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --batch 4 --prompt-len 128 --gen 16 --policy paper
+
+``--mesh 1,TP`` serves at tensor parallelism TP, one rank a process: the
+launcher starts TP rank processes (:func:`repro_torch.launch.mesh.
+run_ranks`), each holding its shard of the weights, and fails when one
+fails; rank 0 prints. On the card each rank takes card ``rank %
+device_count``, and the ``fused`` TP sites run through the peer-push
+AllReduce kernels; with ``--device cpu`` the ranks run on gloo.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Dict, Optional
 
@@ -17,11 +25,13 @@ import torch
 
 from repro_torch.configs.registry import ARCH_IDS, get_config, \
     get_smoke_config
+from repro_torch.core.collectives import all_gather_rows
 from repro_torch.core.comm_config import BACKENDS, SCHEMES
 from repro_torch.core.policy import (BF16_POLICY, CommPolicy,
                                      aggressive_policy, describe_policy,
                                      load_policy_file, paper_policy,
                                      with_backend, with_scheme)
+from repro_torch.launch import mesh
 from repro_torch.models.model import greedy_next_token
 from repro_torch.parallel.plan import make_plan
 from repro_torch.parallel.shardings import init_params
@@ -114,11 +124,20 @@ def prefill_decode_agreement(prefill_logits: torch.Tensor,
     return res
 
 
+def _full_logits(logits: torch.Tensor, group) -> torch.Tensor:
+    """(B, v_loc) shards -> (B, tp * v_loc), every rank's in rank order."""
+    shards = all_gather_rows(logits, group)            # (tp, B, v_loc)
+    return shards.transpose(0, 1).reshape(logits.shape[0], -1)
+
+
 def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
           prompt_len: int, gen: int, device: torch.device, seed: int = 0,
-          label: str = "", log=print) -> Dict:
+          label: str = "", log=print, group=None) -> Dict:
     """Prefill a batch of synthetic prompts, then decode: the prompt is
     teacher-forced through the cache, then ``gen`` tokens are generated.
+    ``group`` is the model axis (``params`` this rank's shard); every
+    rank of it calls this, and a host barrier precedes the prefill and
+    the decode loop.
 
     Checks that decode's first generated token agrees with prefill's
     prediction (:func:`prefill_decode_agreement`): a mismatch means the
@@ -134,35 +153,39 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
 
     moe = cfg.moe is not None
     pstats, dstats = {}, {}
-    prefill = make_prefill(cfg, plan, policy, stats=pstats)
+    prefill = make_prefill(cfg, plan, policy, group=group, stats=pstats)
     _sync(device)
+    mesh.barrier(group)
     t0 = time.perf_counter()
     prefill_logits = prefill(params, prompts)
+    first = greedy_next_token(prefill_logits, plan, group)
     _sync(device)
     ttft = time.perf_counter() - t0
-    first = greedy_next_token(prefill_logits, plan)
     log(f"[serve{label}] TTFT (prefill {prompt_len} toks x{batch}): "
         f"{ttft * 1000:.1f} ms")
 
     caches = make_cache_init(cfg, plan, batch, prompt_len + gen, device)()
-    step = make_decode_step(cfg, plan, policy, stats=dstats)
+    step = make_decode_step(cfg, plan, policy, group=group, stats=dstats)
     out, agree = [], None
     tok = prompts[:, :1]
     step_ms = []
     steps = prompt_len + gen - 1
+    _sync(device)
+    mesh.barrier(group)
     for i in range(steps):
         _sync(device)
         t0 = time.perf_counter()
         logits, caches = step(params, caches, tok)
-        nt = greedy_next_token(logits, plan)
+        nt = greedy_next_token(logits, plan, group)
         _sync(device)
         step_ms.append((time.perf_counter() - t0) * 1000)
         if i + 1 < prompt_len:
             tok = prompts[:, i + 1:i + 2]          # teacher-forced prompt
         else:
             if agree is None and not moe:
-                agree = prefill_decode_agreement(prefill_logits, logits,
-                                                 first, nt, cfg.vocab)
+                agree = prefill_decode_agreement(
+                    _full_logits(prefill_logits, group),
+                    _full_logits(logits, group), first, nt, cfg.vocab)
             tok = nt[:, None]
             out.append(nt.cpu().numpy())
     gen_toks = np.stack(out, 1) if out else np.zeros((batch, 0), np.int64)
@@ -214,20 +237,46 @@ def main(argv=None) -> Dict:
                     help="'cuda' (default, raises without a GPU) or 'cpu'")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the prompts")
+    ap.add_argument("--mesh", default="1,1",
+                    help="DATA,MODEL: MODEL > 1 serves one TP rank a "
+                         "process (DATA > 1 is not ported)")
+    # set by the launcher for each rank process it starts
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
+    _, model = mesh.parse_mesh(args.mesh)
     device = resolve_device(args.device)
+    if model > 1 and args.rank is None:
+        argv = list(sys.argv[1:] if argv is None else argv)
+        mesh.run_ranks(lambda r, store: [
+            sys.executable, "-m", "repro_torch.launch.serve", *argv,
+            "--rank", str(r), "--rendezvous", store], model)
+        return {"ranks": model}
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    plan = make_plan(cfg, tp=1)
-    policy = build_policy(args.policy, args.policy_file, args.codec_backend,
-                          args.comm_scheme)
-    print(describe_policy(policy, cfg.n_layers))
-    params = init_params(cfg, plan, args.seed, device, getattr(torch,
-                                                              cfg.dtype))
-    res = serve(params, cfg, plan, policy, batch=args.batch,
-                prompt_len=args.prompt_len, gen=args.gen, device=device,
-                seed=args.seed)
-    print("[serve] OK")
+    rank = args.rank or 0
+    axis = None
+    if model > 1:
+        device = mesh.rank_device(rank, device)
+        axis = mesh.init_model_axis(
+            model, rank, args.rendezvous, device,
+            mesh.site_row_bytes(cfg.d_model, args.batch, args.prompt_len,
+                                model))
+    log = print if rank == 0 else (lambda *a, **k: None)
+    try:
+        plan = make_plan(cfg, tp=model)
+        policy = build_policy(args.policy, args.policy_file,
+                              args.codec_backend, args.comm_scheme)
+        log(describe_policy(policy, cfg.n_layers))
+        params = init_params(cfg, plan, args.seed, device,
+                             getattr(torch, cfg.dtype), rank=rank)
+        res = serve(params, cfg, plan, policy, batch=args.batch,
+                    prompt_len=args.prompt_len, gen=args.gen, device=device,
+                    seed=args.seed, log=log, group=axis)
+    finally:
+        if axis is not None:
+            mesh.close_model_axis(axis)
+    log(f"[serve] OK{f' (rank 0 of {model})' if model > 1 else ''}")
     return res
 
 

@@ -17,11 +17,13 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.policy import CommPolicy
+from repro_torch.core.collectives import all_gather_rows
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_lookup, mlp_apply, rms_norm,
                                        vocab_parallel_logits)
+from repro_torch.parallel.axis import axis_rank
 from repro_torch.parallel.plan import ShardingPlan
 from repro_torch.parallel.shardings import ParamSpec, Params
 
@@ -132,8 +134,9 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             plan: ShardingPlan, policy: CommPolicy, *,
             caches: Optional[Dict] = None, dtype=torch.bfloat16,
-            group=None, rank: int = 0, stats: Optional[Dict] = None):
-    """tokens (B, S) -> (hidden (B, S, d), unemb, aux_loss, caches).
+            group=None, stats: Optional[Dict] = None):
+    """tokens (B, S) -> (hidden (B, S, d), unemb, aux_loss, caches), this
+    rank's shard of the model axis ``group`` (its rank read from it).
 
     ``aux_loss`` is the MoE blocks' load-balance loss, summed (serving
     ignores it).
@@ -143,6 +146,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     (``pos`` advances by one).
     """
     policy = policy.bind(cfg.n_layers)
+    rank = axis_rank(group)
     decode = caches is not None
     x = embed_lookup(tokens, params["embed"]["tok"][0], policy, dtype,
                      group, rank)
@@ -185,11 +189,20 @@ def next_token_logits(hidden: torch.Tensor, unemb: torch.Tensor,
                        torch.full_like(logits, float("-inf")))
 
 
-def greedy_next_token(logits: torch.Tensor,
-                      plan: ShardingPlan) -> torch.Tensor:
-    """(B, v_loc) logits -> (B,) argmax over the vocabulary (first on
-    ties)."""
-    if plan.tp != 1:
-        raise NotImplementedError("greedy decoding over tp > 1 vocab "
-                                  "shards is not ported")
-    return torch.argmax(logits, dim=-1)
+def greedy_next_token(logits: torch.Tensor, plan: ShardingPlan,
+                      group=None) -> torch.Tensor:
+    """(B, v_loc) logits of this rank's vocabulary shard -> (B,) argmax
+    over the whole vocabulary, the same on every rank: each rank's
+    maximum and its index, gathered over ``group`` in one hop (as f64
+    pairs, which hold an f32 logit and a vocabulary index exactly); the
+    first maximum wins (the lowest index on ties, as the JAX package's)."""
+    if plan.tp == 1:
+        return torch.argmax(logits, dim=-1)
+    rank = axis_rank(group)
+    idx = torch.argmax(logits, dim=-1)                    # (B,), first max
+    val = torch.gather(logits, -1, idx[:, None])[:, 0]
+    pair = torch.stack([val.to(torch.float64),
+                        (idx + rank * plan.v_loc).to(torch.float64)])
+    pairs = all_gather_rows(pair, group)                  # (tp, 2, B)
+    best = torch.argmax(pairs[:, 0], dim=0)               # first rank's max
+    return torch.gather(pairs[:, 1], 0, best[None])[0].to(torch.int64)

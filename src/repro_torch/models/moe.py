@@ -25,13 +25,13 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.core.collectives import compressed_psum, dispatch_all_to_all
+from repro_torch.core.collectives import (all_gather_rows, all_reduce_sum,
+                                          all_to_all_rows, compressed_psum,
+                                          dispatch_all_to_all)
 from repro_torch.core.comm_config import NO_COMPRESSION
 from repro_torch.core.policy import CommPolicy
-from repro_torch.kernels.emulate import all_gather_rows, all_to_all_rows
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.plan import ShardingPlan
 from repro_torch.parallel.shardings import ParamSpec
@@ -171,6 +171,6 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     if ep_slice:
         out = all_gather_rows(out, ep_group).reshape(-1, d)[:t_orig]
         # the slice's aux estimates the whole; average over the TP group
-        dist.all_reduce(aux, group=group)
+        aux = all_reduce_sum(aux, group)
         aux = aux / plan.tp
     return out.reshape(b, s, d), aux

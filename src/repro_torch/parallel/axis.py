@@ -1,0 +1,42 @@
+"""The model axis as a rank process sees it.
+
+A model runs its TP sites over a ``group`` argument: ``None`` (one rank),
+a ``torch.distributed`` process group, or a :class:`ModelAxis`, which
+adds the peer world that the fused collectives push through
+(:mod:`repro_torch.launch.mesh` builds it). :func:`axis_parts` reads any
+of the three; :mod:`repro_torch.core.collectives` hands the kernel layer
+the process group or the peer world it picks from them.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Tuple
+
+
+class ModelAxis(NamedTuple):
+    """The TP ranks of one model replica, seen from rank ``rank``.
+
+    ``pg`` is their process group (the library collectives: the
+    ``two_step`` hop, exact sites, greedy decoding's gather); ``world``
+    the :class:`~repro_torch.kernels.rdma.PeerWorld` of the ``fused``
+    sites, or ``None``.
+    """
+    pg: Any
+    rank: int
+    size: int
+    world: Optional[Any] = None
+
+
+def axis_parts(group) -> Tuple[Any, int, Optional[Any]]:
+    """``group`` -> (process group or ``None``, this process's rank in it,
+    peer world or ``None``)."""
+    if group is None:
+        return None, 0, None
+    if isinstance(group, ModelAxis):
+        return group.pg, group.rank, group.world
+    import torch.distributed as dist
+    return group, dist.get_rank(group), None
+
+
+def axis_rank(group) -> int:
+    """This process's rank in ``group``."""
+    return axis_parts(group)[1]

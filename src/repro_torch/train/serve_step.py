@@ -2,8 +2,11 @@
 
 The TP AllReduces inside the forward run through the paper's quantized
 two-step (the TTFT site of the paper's Fig. 2), an MoE block's dispatch
-through the quantized All2All. This package serves at tp = 1
-(``group=None``): each site still runs the full codec schedule.
+through the quantized All2All. ``group`` is the model axis: ``None`` (one
+rank: each site still runs the full codec schedule), a process group, or
+a :class:`~repro_torch.parallel.axis.ModelAxis` whose peer world carries
+the ``fused`` sites (see :mod:`repro_torch.launch.mesh`); the rank is
+read from it.
 ``stats``, if given, gathers the MoE routing counts of every call
 (:func:`repro_torch.models.moe.moe_apply`).
 """
@@ -17,6 +20,7 @@ from repro_torch.core.policy import CommPolicy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (forward, init_caches,
                                       next_token_logits)
+from repro_torch.parallel.axis import axis_rank
 from repro_torch.parallel.plan import ShardingPlan
 
 
@@ -30,12 +34,13 @@ def make_prefill(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
     next token; :func:`repro_torch.models.model.greedy_next_token` picks
     it."""
     dtype = _dtype(cfg)
+    rank = axis_rank(group)
 
     @torch.no_grad()
     def prefill(params, tokens):
         hidden, unemb, _, _ = forward(params, tokens, cfg, plan, policy,
                                       dtype=dtype, group=group, stats=stats)
-        return next_token_logits(hidden, unemb, cfg, plan)
+        return next_token_logits(hidden, unemb, cfg, plan, rank)
 
     return prefill
 
@@ -46,6 +51,7 @@ def make_decode_step(cfg: ModelConfig, plan: ShardingPlan,
     """step(params, caches, tokens (B, 1)) -> ((B, v_loc) f32 logits of
     the next token, caches); the caches are updated in place."""
     dtype = _dtype(cfg)
+    rank = axis_rank(group)
 
     @torch.no_grad()
     def step(params, caches, tokens):
@@ -53,7 +59,7 @@ def make_decode_step(cfg: ModelConfig, plan: ShardingPlan,
                                            policy, caches=caches,
                                            dtype=dtype, group=group,
                                            stats=stats)
-        return next_token_logits(hidden, unemb, cfg, plan), caches
+        return next_token_logits(hidden, unemb, cfg, plan, rank), caches
 
     return step
 

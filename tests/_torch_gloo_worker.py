@@ -14,6 +14,16 @@ tokens (:func:`moe_input`) everywhere: ``moe_apply`` under the paper
 policy with the two_step and the fused dispatch, and with ``ep_slice``.
 Then the same layer with 3 experts, which makes ep = 1 and etp = WORLD:
 each rank holds its slice of every expert's hidden (key ``etp``).
+
+MODE ``serve``: the qwen3-14b smoke config (float32) at tp = WORLD, each
+rank holding its shard of the JAX-initialised weights that
+``OUT_DIR/jax.npz`` holds (``store/GROUP/NAME`` keys, written by
+``tests/test_torch_serve_tp.py``), on a
+:class:`~repro_torch.parallel.axis.ModelAxis` over the gloo group: for
+each run of :data:`SERVE_RUNS`, the prefill's hidden states, its greedy
+next token over the vocabulary shards, and ``serve``'s decode loop (the
+prompt teacher-forced through the cache, then generation). Also the
+greedy choice on :func:`tie_logits`, whose two shards tie.
 """
 import os
 import sys
@@ -111,6 +121,70 @@ def run_moe(rank: int, world: int) -> dict:
     return out
 
 
+SERVE_B, SERVE_S, SERVE_GEN = 2, 12, 3
+SERVE_RUNS = {"paper/two_step": ("paper", None),
+              "paper/fused": ("paper", "fused"),
+              "bf16": ("bf16", None)}
+
+
+def serve_config():
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("qwen3-14b"),
+                               dtype="float32")
+
+
+def tie_logits(rank: int) -> torch.Tensor:
+    """Two ranks' (2, 3) shards: row 0 ties at 5.0 (rank 0's column 1,
+    rank 1's column 0; rank 0 wins: token 1); row 1's maximum is rank 1's
+    column 2 (token 5)."""
+    return torch.tensor([[[0., 5., 5.], [1., 0., 0.]],
+                         [[5., 0., 0.], [0., 0., 2.]]])[rank]
+
+
+def run_serve(rank: int, world: int, out_dir: str) -> dict:
+    import types
+    from repro_torch.launch.serve import build_policy, serve
+    from repro_torch.models.model import forward, greedy_next_token
+    from repro_torch.parallel.axis import ModelAxis
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.parallel.shardings import load_jax_store
+    from repro_torch.train.data import DataConfig, make_dataset
+    from repro_torch.train.serve_step import make_prefill
+    data = np.load(os.path.join(out_dir, "jax.npz"))
+    store = {}
+    for key in data.files:
+        if key.startswith("store/"):
+            _, g, name = key.split("/")
+            store.setdefault(g, {})[name] = data[key]
+    cfg = serve_config()
+    plan = make_plan(cfg, tp=world)
+    params = load_jax_store(store, cfg, plan, "cpu", torch.float32,
+                            rank=rank)
+    axis = ModelAxis(dist.group.WORLD, rank, world)
+    toks = torch.from_numpy(make_dataset(DataConfig(
+        vocab=cfg.vocab, seq_len=SERVE_S,
+        global_batch=SERVE_B)).batch(0)["tokens"])
+    out = {"tie": greedy_next_token(
+        tie_logits(rank), types.SimpleNamespace(tp=world, v_loc=3),
+        axis).numpy()}
+    with torch.no_grad():
+        for name, (pol, scheme) in SERVE_RUNS.items():
+            policy = build_policy(pol, scheme=scheme)
+            out[f"{name}/hidden"] = forward(
+                params, toks, cfg, plan, policy, dtype=torch.float32,
+                group=axis)[0].numpy()
+            out[f"{name}/token"] = greedy_next_token(
+                make_prefill(cfg, plan, policy, group=axis)(params, toks),
+                plan, axis).numpy()
+            res = serve(params, cfg, plan, policy, batch=SERVE_B,
+                        prompt_len=SERVE_S, gen=SERVE_GEN,
+                        device=torch.device("cpu"), log=lambda *a: None,
+                        group=axis)
+            out[f"{name}/generated"] = res["generated"]
+    return out
+
+
 def run_allreduce(rank: int, world: int) -> dict:
     x = torch.from_numpy(inputs(world)[rank])
     out = {}
@@ -129,8 +203,12 @@ def main():
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
-        out = run_moe(rank, world) if mode == "moe" else \
-            run_allreduce(rank, world)
+        if mode == "moe":
+            out = run_moe(rank, world)
+        elif mode == "serve":
+            out = run_serve(rank, world, out_dir)
+        else:
+            out = run_allreduce(rank, world)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

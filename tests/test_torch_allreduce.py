@@ -1,0 +1,236 @@
+"""The fused two-step AllReduce (``repro_torch.kernels.rdma``) on the CPU.
+
+The phase kernels (``csrc/allreduce.cu``) run only on the card
+(``chip_smoke.py`` phases ``ar`` and ``tp`` hold them against the plain
+version there). Here, for tp in {2, 4, 8} and the three configs of phase
+``ar``:
+
+* the plain version equals a replay of the JAX schedule with the JAX
+  package's eager codec: byte for byte in both phases' receive rows, bit
+  for bit in the output;
+* on each of tp gloo ranks it equals the port's ``quantized_all_reduce``
+  under ``two_step`` and under the emulated ``fused``;
+* a :class:`PeerWorld` is sized per protocol, with its pads and epochs
+  kept apart by ``collective_id``;
+* the wrapper's refusals, and the dispatch of ``ops.fused_all_reduce``.
+"""
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import codec as jcodec
+from repro.core.comm_config import CommConfig as JConfig
+from repro_torch.core.comm_config import CommConfig
+from repro_torch.kernels import ops, protocol, rdma
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _torch_gloo_worker as worker  # noqa: E402
+
+CFGS = {"int8 g128": dict(bits=8, group=128),
+        "int5 g128 scale_int": dict(bits=5, group=128, scale_int=True),
+        "int2 g32 spike": dict(bits=2, group=32, spike=True)}
+SCATTER = protocol.ALLREDUCE_SCATTER_COLLECTIVE_ID
+GATHER = protocol.ALLREDUCE_GATHER_COLLECTIVE_ID
+
+
+def _inputs(tp: int, n: int) -> np.ndarray:
+    rng = np.random.default_rng(40 + tp)
+    x = (rng.standard_normal((tp, n)) * 2).astype(np.float32)
+    x[0, 3] = 45.0
+    x[tp - 1, n - 1] = -30.0
+    x[tp // 2, n // 2] = -0.0
+    return x
+
+
+_ROWS = 64          # every replay's rows, zero-padded: one JAX trace a config
+
+
+def _enc(rows: np.ndarray, jc: JConfig) -> np.ndarray:
+    """(R, chunk) -> (R, wb) with the JAX package's eager codec."""
+    pad = np.zeros((_ROWS, rows.shape[1]), np.float32)
+    pad[:len(rows)] = rows
+    return np.asarray(jcodec.encode(jnp.asarray(pad), jc))[:len(rows)]
+
+
+def _dec(rows: np.ndarray, jc: JConfig, chunk: int) -> np.ndarray:
+    pad = np.zeros((_ROWS, rows.shape[1]), np.uint8)
+    pad[:len(rows)] = rows
+    return np.asarray(jcodec.decode(jnp.asarray(pad), jc, chunk))[:len(rows)]
+
+
+def _replay(x: np.ndarray, jc: JConfig):
+    """The JAX schedule over tp ranks in one process, eager JAX codec:
+    encode (tp, chunk) on every rank, transpose, decode, sum in row order
+    from +0.0, re-encode, gather, decode -> (out, scatter_recv,
+    gather_recv)."""
+    tp, n = x.shape
+    chunk = n // tp
+    sent = _enc(x.reshape(tp * tp, chunk), jc).reshape(tp, tp, -1)
+    scatter = sent.transpose(1, 0, 2)                     # [receiver, sender]
+    parts = _dec(scatter.reshape(tp * tp, -1), jc, chunk).reshape(
+        tp, tp, chunk)
+    partial = np.zeros((tp, chunk), np.float32)
+    for j in range(tp):
+        partial = partial + parts[:, j]
+    sent2 = _enc(partial, jc)                             # (tp, wb)
+    gather = np.broadcast_to(sent2[None], (tp,) + sent2.shape)
+    out = _dec(sent2, jc, chunk).reshape(1, n)
+    return np.broadcast_to(out, (tp, n)), scatter, gather
+
+
+@pytest.mark.parametrize("name", list(CFGS))
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_plain_equals_jax_replay(tp, name):
+    x = _inputs(tp, tp * 256)
+    out, scatter, gather = rdma.fused_all_reduce_rdma_plain(
+        torch.from_numpy(x), CommConfig(**CFGS[name]))
+    want_out, want_scatter, want_gather = _replay(
+        x, JConfig(backend="ref", **CFGS[name]))
+    np.testing.assert_array_equal(scatter.numpy(), want_scatter)
+    np.testing.assert_array_equal(gather.numpy(), want_gather)
+    np.testing.assert_array_equal(out.numpy().view(np.uint32),
+                                  want_out.view(np.uint32))
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_plain_equals_gloo_ranks(tp, tmp_path):
+    """tp gloo ranks (``tests/_torch_gloo_worker.py``) all-reduce their
+    rows with ``quantized_all_reduce`` under two_step and the emulated
+    fused; each rank's result is the plain version's, bit for bit."""
+    script = os.path.join(os.path.dirname(__file__), "_torch_gloo_worker.py")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, script, str(r), str(tp),
+                               str(tmp_path / "store"), str(tmp_path)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              env=env)
+             for r in range(tp)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=240)[0].decode())
+        finally:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    x = torch.from_numpy(worker.inputs(tp))
+    for name, kw in worker.CONFIGS.items():
+        want = rdma.fused_all_reduce_rdma_plain(x, CommConfig(**kw))[0]
+        for r in range(tp):
+            res = np.load(tmp_path / f"rank{r}.npz")
+            for scheme in ("two_step", "fused"):
+                np.testing.assert_array_equal(
+                    res[f"{name}_{scheme}"].view(np.uint32),
+                    want[r].numpy().view(np.uint32),
+                    err_msg=f"rank {r} {name} {scheme}")
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_world_sized_per_protocol(tp):
+    """The AllReduce's two phases each get tp receive rows of row_bytes
+    and a pad of tp + 1 counters a rank, apart from each other; each
+    phase's peer table points at its own buffers and pads, and counts its
+    own calls."""
+    protos = rdma.ar_protocols(tp)
+    w = rdma.PeerWorld.loopback(tp, 1000, "cpu", protocols=protos)
+    assert sorted(w.protocols) == [SCATTER, GATHER]
+    offs, rank_bytes = rdma.rank_layout(protos, 1000)
+    assert rank_bytes * tp == w.storage.numel()
+    (r0, p0), (r1, p1) = offs[SCATTER], offs[GATHER]
+    assert r0 + tp * 1000 <= p0 < p0 + 4 * (tp + 1) <= r1
+    assert r1 + tp * 1000 <= p1 < p1 + 4 * (tp + 1) <= rank_bytes
+    for r in range(tp):
+        for cid in (SCATTER, GATHER):
+            assert w.recv_rows(r, cid).shape == (tp, 1000)
+            assert w.signal_pad(r, cid).tolist() == [0] * (tp + 1)
+        assert w.signal[SCATTER][r] != w.signal[GATHER][r]
+    with pytest.raises(KeyError):
+        w.recv_rows(0, protocol.A2A_COLLECTIVE_ID)
+    w.blocks = dict.fromkeys(w.protocols, 3)        # the grid, fixed
+    for _ in range(2):
+        w.next_call(SCATTER)
+    tab = w.next_call(GATHER)
+    assert w.epochs == {SCATTER: 2, GATHER: 1}
+    assert tab[:12].tolist() == [tp, tp, 0, 0, 1000, 1, 3, 0, tp - 1,
+                                 tp - 1, tp - 1, tp - 1]
+    cols = tab[12:].reshape(5, rdma.MAX_PEERS)
+    assert cols[0, :tp].tolist() == w.recv[GATHER]
+    assert cols[1, :tp].tolist() == w.signal[GATHER]
+
+
+def test_wrapper_refuses():
+    cfg = CommConfig(bits=8, group=128)
+    w = rdma.PeerWorld.loopback(2, cfg.wire_bytes(256), "cpu",
+                                protocols=rdma.ar_protocols(2))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rdma.fused_all_reduce_rdma(torch.zeros(2, 512), cfg, w)
+    with pytest.raises(ValueError, match="not a multiple"):
+        rdma.fused_all_reduce_rdma(torch.zeros(2, 384), cfg, w)
+    with pytest.raises(ValueError, match="exceeds"):
+        rdma.fused_all_reduce_rdma(torch.zeros(2, 1024), cfg, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        rdma.fused_all_reduce_rdma(torch.zeros(512), cfg, w)
+    with pytest.raises(TypeError, match="float32"):
+        rdma.fused_all_reduce_rdma(torch.zeros(2, 512, dtype=torch.bfloat16),
+                                   cfg, w)
+    a2a_only = rdma.PeerWorld.loopback(
+        2, cfg.wire_bytes(256), "cpu",
+        protocols=(protocol.all2all_protocol(2),))
+    with pytest.raises(ValueError, match="collective id"):
+        a2a_only._protocol(SCATTER, "fused_all_reduce_rdma")
+    with pytest.raises(ValueError, match="CUDA device"):
+        rdma.PeerWorld.from_group(None, 0, 1000, device="cpu")
+
+
+def test_ops_dispatch():
+    """A world goes to the peer-push wrapper (which refuses a CPU tensor
+    rather than fall back); None runs the emulated schedule, which equals
+    the plain version on one rank."""
+    cfg = CommConfig(bits=5, group=128, scale_int=True)
+    x = torch.from_numpy(_inputs(1, 512))
+    for tp in (1, 2):
+        world = rdma.PeerWorld.loopback(tp, 4096, "cpu")
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            ops.fused_all_reduce(x.expand(tp, 512).contiguous(), cfg, world)
+    want = rdma.fused_all_reduce_rdma_plain(x, cfg)[0][0]
+    got = ops.fused_all_reduce(x[0], cfg, None)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+
+def test_fused_sites_pick_world_or_group(monkeypatch):
+    """``quantized_all_reduce``'s choice for the ``fused`` scheme: a model
+    axis with a peer world sends the site to the kernels; a CPU tensor,
+    or one rank, takes the process group (the emulated schedule); a CUDA
+    tensor over two ranks with no world raises instead of taking the
+    host-staged hops."""
+    import types
+    from repro_torch.core import collectives
+    from repro_torch.parallel.axis import ModelAxis
+    monkeypatch.setattr(collectives.emulate, "group_size",
+                        lambda pg: 1 if pg is None else 2)
+    pg = object()
+    world = rdma.PeerWorld.loopback(2, 4096, "cpu")
+    card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    cpu = torch.zeros(4)
+    pick = collectives._fused_target
+    assert pick(card, ModelAxis(pg, 1, 2, world), "AllReduce") is world
+    assert pick(cpu, ModelAxis(pg, 1, 2), "AllReduce") is pg
+    assert pick(card, None, "AllReduce") is None
+    with pytest.raises(ValueError, match="peer world"):
+        pick(card, ModelAxis(pg, 1, 2), "AllReduce")
+
+
+def test_bound_bytes_ar():
+    """Per rank: x read (4n), tp wire rows written and read in each
+    phase, the partial written and read (4 n / tp each), the output
+    written (4n): 37 MB at qwen3-14b's prefill site at tp = 4, int8
+    g128 (132 wire bytes a group)."""
+    cfg = CommConfig(bits=8, group=128)
+    n = 4 * 128 * 5120
+    assert cfg.wire_bytes(n) == 132 * n // 128 == 2703360
+    assert rdma.bound_bytes_ar(cfg, 4, n) == (
+        4 * n + 2 * 4 * cfg.wire_bytes(n // 4) + 4 * n // 4) * 2 == 37027840

@@ -81,29 +81,43 @@ def test_protocol_equals_jax(tp):
 
 @pytest.mark.parametrize("tp", [1, 2, 4, 8, 16])
 def test_loopback_world_sizing(tp):
-    """Every rank gets the protocol's ``recv`` rows of ``row_bytes`` and a
-    pad of barrier + ``sem_slots`` receive slots + the local slot, all
-    zero, in one allocation; the peer table carries the protocol's
+    """Every rank gets, for each live protocol, the protocol's ``recv``
+    rows of ``row_bytes`` and a pad of barrier + ``sem_slots`` receive
+    slots + the local slot, all zero, in one allocation, no two regions
+    overlapping; the peer table of a protocol carries its buffers, pads,
     barrier offsets and push plan."""
-    proto = protocol.all2all_protocol(tp)
     w = rdma.PeerWorld.loopback(tp, 1000, "cpu")
-    assert rdma.signal_words(proto) == tp + 1
-    for r in range(tp):
-        assert w.recv_rows(r).shape == (proto.buffer("recv").rows, 1000)
-        assert w.signal_pad(r).tolist() == [0] * (tp + 1)
-    assert all(b - a >= proto.buffer("recv").rows * 1000
-               for a, b in zip(w.recv, w.recv[1:] + w.signal[:1]))
+    protos = protocol.live_protocols(tp)
+    assert sorted(w.protocols) == sorted(p.collective_id for p in protos)
+    spans = []
+    for proto in protos:
+        cid = proto.collective_id
+        assert rdma.signal_words(proto) == tp + 1
+        for r in range(tp):
+            assert w.recv_rows(r, cid).shape == (proto.buffer("recv").rows,
+                                                 1000)
+            assert w.signal_pad(r, cid).tolist() == [0] * (tp + 1)
+            spans.append((w.recv[cid][r], proto.buffer("recv").rows * 1000))
+            spans.append((w.signal[cid][r], 4 * (tp + 1)))
+    spans.sort()
+    assert all(a + n <= b for (a, n), (b, _) in zip(spans, spans[1:]))
+    assert spans[-1][0] + spans[-1][1] <= w.storage.data_ptr() + \
+        w.storage.numel()
     assert not w.storage.any()
-    tab = w.table(m=3, in_kind=1)
-    head = tab[:12].tolist()
-    assert head == [tp, tp, 0, 3, 1000, 0, 0, 1, tp - 1, tp - 1, tp - 1,
-                    tp - 1]
-    cols = tab[12:].reshape(5, rdma.MAX_PEERS)
-    assert cols[0, :tp].tolist() == w.recv and cols[1, :tp].tolist() == \
-        w.signal
-    assert cols[2, :tp - 1].tolist() == list(proto.barrier.signal_offsets)
-    assert cols[3, :tp - 1].tolist() == [s.dst_off for s in proto.pushes]
-    assert cols[4, :tp - 1].tolist() == [s.recv_slot for s in proto.pushes]
+    for proto in protos:
+        cid = proto.collective_id
+        tab = w.table(cid, m=3, in_kind=1)
+        head = tab[:12].tolist()
+        assert head == [tp, tp, 0, 3, 1000, 0, 0, 1, tp - 1, tp - 1, tp - 1,
+                        tp - 1]
+        cols = tab[12:].reshape(5, rdma.MAX_PEERS)
+        assert cols[0, :tp].tolist() == w.recv[cid]
+        assert cols[1, :tp].tolist() == w.signal[cid]
+        assert cols[2, :tp - 1].tolist() == list(
+            proto.barrier.signal_offsets)
+        assert cols[3, :tp - 1].tolist() == [s.dst_off for s in proto.pushes]
+        assert cols[4, :tp - 1].tolist() == [s.recv_slot
+                                             for s in proto.pushes]
 
 
 def test_wrapper_refuses():
