@@ -28,7 +28,8 @@ Phases, each printing its lines; any failure exits non-zero:
 4. time   -- at the serving path's two shapes, the prefill's
              (1, BATCH*PROMPT_LEN*d_model) and the decode step's
              (1, BATCH*d_model): each kernel equals its plain version, and
-             its device time from a torch.profiler trace (25 calls) and its
+             its device time from torch.profiler traces (the mean over the
+             launches a trace of 25 calls recorded) and its
              time per call with CUDA events (median of 25 calls after 5
              warm-up calls) stand beside the plain version's and the bound.
 5. serve  -- qwen3-14b at full width (40 layers, bf16 weights from seed
@@ -68,15 +69,18 @@ Phases, each printing its lines; any failure exits non-zero:
              decode route with different capacities, so their agreement
              is not checked here (the CPU tests hold both against JAX).
 
-8. ar     -- the fused AllReduce's phase kernels (fc_ar_scatter +
-             fc_ar_gather, "fc_ar") in loopback worlds of tp ranks on the
-             card, tp in AR_TPS, at qwen3-14b's TP-site shapes per rank
-             (n = BATCH*PROMPT_LEN*d_model and BATCH*d_model), for
+8. ar     -- the fused AllReduce's kernel (fc_ar, one launch a call, its
+             grid sized by the call) in loopback worlds of tp ranks on
+             the card, tp in AR_TPS, at qwen3-14b's TP-site shapes per
+             rank (n = BATCH*PROMPT_LEN*d_model and BATCH*d_model), for
              AR_CONFIGS: AR_CALLS back-to-back calls with fresh inputs in
-             one world, each output bit-equal to the plain version's, the
-             last call's receive rows of both phases byte-equal, the
-             signal pads and the launch counts exact; then its time at
-             tp = AR_TIME_TP at both shapes.
+             one world at each shape, then AR_CALLS that alternate the
+             two shapes (so the grid changes from call to call), none
+             with a sync between them; each output bit-equal to the
+             plain version's, the last call's receive rows of both
+             phases byte-equal, the signal pads at the world's running
+             targets and the launch counts exact; then its time, and its
+             step stamps, at tp = AR_TIME_TP at both shapes.
 9. tp     -- qwen3-14b at full width at --mesh 1,TP, one rank a process
              (started with subprocess; all TP ranks share the one card and
              a gloo group, and their kernels take turns on it). Each rank:
@@ -90,9 +94,9 @@ Phases, each printing its lines; any failure exits non-zero:
              BATCH x PROMPT_LEN + GEN tokens under paper/fused (every TP
              site through fc_ar), paper/two_step (the wire kernels around
              the host-staged gloo hop) and bf16, with exact launch counts
-             (fused: fc_ar's two kernels 81 times a forward, no wire
-             kernel) and prefill/decode agreement. Rank 0 prints TTFT and
-             ms/step; a failed rank fails the phase.
+             (fused: fc_ar 81 times a forward, no wire kernel) and
+             prefill/decode agreement. Rank 0 prints TTFT and ms/step; a
+             failed rank fails the phase.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the wire kernels' from the serve and moe paths, the stage
@@ -353,6 +357,28 @@ def phase_codec(torch, np):
           "int5 scale_int, int2 spike and rotation int2 g32 / int4 g64 / "
           "int8 g128", flush=True)
 
+    # rows whose wire stride is no multiple of 8 (nor of 4 or 2): the
+    # encode's plane and meta stores fall back to bytes where unaligned
+    odd = []
+    for kw in (dict(bits=8, group=32, scale_int=True),
+               dict(bits=8, group=128), dict(bits=3, group=32, spike=True,
+                                             scale_int=True),
+               dict(bits=5, group=64, spike=True),
+               dict(bits=7, group=128, rotation=True)):
+        cfg = CommConfig(**kw)
+        n = 3 * cfg.group
+        xo = torch.from_numpy((rng.standard_normal((5, n)) * 2).astype(
+            np.float32)).to(dev)
+        buf = wire.encode_wire(xo, cfg)
+        check(torch.equal(buf, wire.encode_plain(xo, cfg)),
+              f"CUDA encode != plain for {cfg} at {tuple(xo.shape)}")
+        check(_bits_equal(torch, wire.decode_wire(buf, cfg, n),
+                          wire.decode_plain(buf, cfg, n)),
+              f"CUDA decode != plain for {cfg} at {tuple(xo.shape)}")
+        odd.append(buf.shape[1])
+    print(f"[codec] rows of {odd} wire bytes: CUDA encode byte-equal and "
+          f"decode bit-equal to plain", flush=True)
+
 
 # ---------------------------------------------------------------------------
 # phase 3: the per-stage kernels against their plain versions
@@ -479,24 +505,37 @@ def _time_ms(torch, fn, runs: int = 25, warmup: int = 5) -> float:
 
 
 def _device_ms(torch, fn, runs: int = 25):
-    """Device time of one call: the kernels' own time from a
-    torch.profiler (CUPTI) trace, summed over the call's kernels and
-    averaged over ``runs`` calls; None when the trace has no device
-    time."""
+    """Device time of one call from torch.profiler (CUPTI) traces: each
+    kernel's mean duration over the launches a trace of ``runs`` calls
+    recorded, times its launches in a trace of one call, summed over the
+    call's kernels -> (ms, kernel records in the long trace, records
+    expected); None when no trace has device time. A long trace can lose
+    kernel records (it then reads low as a sum over ``runs`` calls); the
+    mean over the recorded launches does not depend on how many were
+    lost."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):                   # a trace now and then comes back empty
+
+    def trace(n: int) -> dict:
+        fn()
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
+        out = {}
         for ev in prof.key_averages():
-            total_us += getattr(ev, "self_device_time_total",
-                                getattr(ev, "self_cuda_time_total", 0.0))
-        if total_us > 0:
-            return total_us / runs / 1e3
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+            if t > 0 and ev.count:
+                out[ev.key] = (t, ev.count)
+        return out
+
+    for _ in range(2):                   # a trace now and then comes back empty
+        one, many = trace(1), trace(runs)
+        if one and set(one) <= set(many):
+            us = sum(many[k][0] / many[k][1] * c for k, (_, c) in one.items())
+            return (us / 1e3, sum(c for _, c in many.values()),
+                    runs * sum(c for _, c in one.values()))
     return None
 
 
@@ -510,13 +549,15 @@ def _time_row(torch, name, label, shape, kern, plain, nbytes, flops, card):
     """Time a kernel beside its plain version; the row of the record."""
     err = _max_abs_err(torch, kern(), plain())
     call_ms, plain_call_ms = _time_ms(torch, kern), _time_ms(torch, plain)
-    dev_ms, plain_dev_ms = _device_ms(torch, kern), _device_ms(torch, plain)
+    dev, plain_dev = _device_ms(torch, kern), _device_ms(torch, plain)
+    dev_ms, plain_dev_ms = (d[0] if d else None for d in (dev, plain_dev))
     ms = dev_ms if dev_ms is not None else call_ms
     plain_ms = plain_dev_ms if plain_dev_ms is not None else plain_call_ms
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flop_ms = flops / F32_FLOPS_PER_S * 1e3
     bound, bound_by = max((byte_ms, "bytes"), (flop_ms, "operations"))
-    src = "device" if dev_ms is not None else "no device trace: per call"
+    src = (f"device, {dev[1]} of {dev[2]} kernel records" if dev
+           else "no device trace: per call")
     psrc = "device" if plain_dev_ms is not None else \
         "no device trace: per call"
     print(f"[time] {name:14s} {label:18s} {shape}: kernel {ms:.4f} ms "
@@ -530,6 +571,7 @@ def _time_row(torch, name, label, shape, kern, plain, nbytes, flops, card):
             "call_ms": call_ms,
             "plain_call_ms": plain_call_ms,
             "device_time": dev_ms is not None,
+            "device_records": list(dev[1:]) if dev else None,
             "plain_device_time": plain_dev_ms is not None}
 
 
@@ -795,7 +837,7 @@ def phase_a2a(torch, card: str):
                           f"buffer differs from the plain version's")
                 del xs, outs
         pads = [world.signal_pad(r).tolist() for r in range(tp)]
-        bpr = world.blocks[A2A_COLLECTIVE_ID]
+        bpr = world.caps[A2A_COLLECTIVE_ID]
         print(f"[a2a] tp={tp} (rows a peer: {rows}, d {d}, "
               f"{bpr} blocks a rank): {[r[0] for r in runs]} x "
               f"{len(rows)} shapes x {A2A_CALLS} back-to-back calls, "
@@ -809,7 +851,7 @@ def phase_a2a(torch, card: str):
                   f"{n} calls")
         del world
     launches = dict(rdma.LAUNCHES)              # read right after the path
-    check(launches == {"a2a": want, "ar_scatter": 0, "ar_gather": 0},
+    check(launches == {"a2a": want, "ar": 0},
           f"a2a launches {launches} != {want}")
     print(f"[a2a] launches {launches} exact", flush=True)
 
@@ -957,15 +999,50 @@ def _ar_input(torch, gen, tp: int, n: int, dev):
 
 
 def _ar_pads_ok(world, rank: int) -> bool:
-    """Rank ``rank``'s two AllReduce pads hold exactly their calls'
-    counts: the barrier every peer block's signal of every call, each
-    receive slot and the local slot every block's."""
-    for cid in (AR_SCATTER, AR_GATHER):
-        n, bpr, tp = world.epochs[cid], world.blocks[cid], world.tp
-        if world.signal_pad(rank, cid).tolist() != \
-                [n * bpr * (tp - 1)] + [n * bpr] * tp:
-            return False
-    return True
+    """Rank ``rank``'s two AllReduce pads hold exactly the world's running
+    targets: the scatter barrier every peer's signals of every call, the
+    gather barrier none (fc_ar runs only the scatter phase's barrier),
+    each receive slot and the local slot what every call's blocks
+    added."""
+    return all(world.signal_pad(rank, cid).tolist() == world.pad_targets(cid)
+               for cid in (AR_SCATTER, AR_GATHER))
+
+
+def _ar_check_calls(torch, world, cfg, xs, outs, what: str) -> None:
+    """Each output of back-to-back calls bit-equal to the plain version's,
+    and the last call's receive rows of both phases byte-equal."""
+    from repro_torch.kernels import rdma
+    torch.cuda.synchronize()
+    tp = world.tp
+    for i, (x, out) in enumerate(zip(xs, outs)):
+        ref, scat, gath = rdma.fused_all_reduce_rdma_plain(x, cfg)
+        check(_bits_equal(torch, out, ref),
+              f"ar tp={tp} {what} call {i}: output differs from the plain "
+              f"version's")
+    wb = cfg.wire_bytes(xs[-1].shape[1] // tp)
+    for r in range(tp):
+        for cid, plain in ((AR_SCATTER, scat), (AR_GATHER, gath)):
+            check(torch.equal(world.recv_rows(r, cid)[:, :wb], plain[r]),
+                  f"ar tp={tp} {what}: rank {r}'s receive rows of protocol "
+                  f"{cid} differ from the plain version's")
+
+
+def _ar_steps(torch, world, x, cfg, calls: int = 25) -> dict:
+    """Where an fc_ar call's time goes: the kernel's stamps (the card's
+    clock at each step boundary, as block 0 of every rank sees it) over
+    ``calls`` back-to-back calls; each step's median over the calls, then
+    the mean over the ranks, in us."""
+    from repro_torch.kernels import rdma
+    st = torch.zeros((calls, world.local_ranks, len(rdma.AR_STAMPS)),
+                     dtype=torch.int64, device=x.device)
+    for i in range(calls):
+        rdma.fused_all_reduce_rdma(x, cfg, world, stamps=st[i])
+    torch.cuda.synchronize()
+    d = torch.cat([st[:, :, 1:] - st[:, :, :-1],
+                   st[:, :, -1:] - st[:, :, :1]], dim=2).double() / 1e3
+    med = d.median(dim=0).values.mean(dim=0)
+    return dict(zip(rdma.AR_STAMPS[1:] + ("total",),
+                    (round(float(v), 3) for v in med)))
 
 
 def phase_ar(torch, card: str):
@@ -990,36 +1067,39 @@ def phase_ar(torch, card: str):
                 outs = [ops.fused_all_reduce(x, cfg, world)
                         for x in xs]            # back to back, no sync
                 want += AR_CALLS
-                torch.cuda.synchronize()
-                for i, (x, out) in enumerate(zip(xs, outs)):
-                    ref, scat, gath = rdma.fused_all_reduce_rdma_plain(x, cfg)
-                    check(_bits_equal(torch, out, ref),
-                          f"ar tp={tp} {label} {shape} call {i}: output "
-                          f"differs from the plain version's")
-                wb = cfg.wire_bytes(n // tp)
-                for r in range(tp):
-                    for cid, plain in ((AR_SCATTER, scat), (AR_GATHER, gath)):
-                        check(torch.equal(world.recv_rows(r, cid)[:, :wb],
-                                          plain[r]),
-                              f"ar tp={tp} {label} {shape}: rank {r}'s "
-                              f"receive rows of protocol {cid} differ from "
-                              f"the plain version's")
+                _ar_check_calls(torch, world, cfg, xs, outs,
+                                f"{label} {shape}")
                 del xs, outs
+            # the grid changes from call to call: shapes alternate
+            xs = [_ar_input(torch, gen, tp, list(shapes.values())[i % 2],
+                            dev) for i in range(AR_CALLS)]
+            outs = [ops.fused_all_reduce(x, cfg, world) for x in xs]
+            want += AR_CALLS
+            _ar_check_calls(torch, world, cfg, xs, outs, f"{label} mixed")
+            del xs, outs
         for r in range(tp):
+            pads = [world.signal_pad(r, c).tolist()
+                    for c in (AR_SCATTER, AR_GATHER)]
             check(_ar_pads_ok(world, r), f"ar tp={tp}: rank {r}'s signal "
-                  f"pads {[world.signal_pad(r, c).tolist() for c in (AR_SCATTER, AR_GATHER)]} "
-                  f"after {world.epochs} calls")
-        print(f"[ar] tp={tp} (n {shapes}, {world.blocks[AR_SCATTER]} blocks "
-              f"a rank): {[c[0] for c in AR_CONFIGS]} x {len(shapes)} shapes "
-              f"x {AR_CALLS} back-to-back calls, outputs bit-equal and last "
+                  f"pads {pads} after {world.epochs} calls, targets "
+                  f"{[world.pad_targets(c) for c in (AR_SCATTER, AR_GATHER)]}")
+        blocks = {label: {k: world.ar_blocks(n, CommConfig(**kw))
+                          for k, n in shapes.items()}
+                  for label, kw in AR_CONFIGS}
+        print(f"[ar] tp={tp} (n {shapes}, blocks a rank {blocks}, caps "
+              f"{world.caps}): "
+              f"{[c[0] for c in AR_CONFIGS]} "
+              f"x ({len(shapes)} shapes + alternating shapes) x "
+              f"{AR_CALLS} back-to-back calls, outputs bit-equal and last "
               f"receive rows of both phases byte-equal to the plain version; "
-              f"epochs {world.epochs}, scatter pad of rank 0 "
-              f"{world.signal_pad(0, AR_SCATTER).tolist()}", flush=True)
+              f"epochs {world.epochs}, pads of rank 0 at their targets "
+              f"{[world.pad_targets(c) for c in (AR_SCATTER, AR_GATHER)]}",
+              flush=True)
         del world
     launches = dict(rdma.LAUNCHES)              # read right after the path
-    check(launches == {"a2a": 0, "ar_scatter": want, "ar_gather": want},
-          f"ar launches {launches} != {want} each")
-    print(f"[ar] launches {launches} exact", flush=True)
+    check(launches == {"a2a": 0, "ar": want},
+          f"ar launches {launches} != {want}")
+    print(f"[ar] launches {launches} exact (one a call)", flush=True)
 
     # time at tp = AR_TIME_TP, both shapes, the paper's int8 g128
     tp = AR_TIME_TP
@@ -1030,15 +1110,21 @@ def phase_ar(torch, card: str):
     timed = {}
     for shape, n in shapes.items():
         x = _ar_input(torch, gen, tp, n, dev)
-        timed[shape] = _time_row(
+        row = _time_row(
             torch, "ar", AR_CONFIGS[0][0], tuple(x.shape),
             lambda: rdma.fused_all_reduce_rdma(x, cfg, world),
             lambda: rdma.fused_all_reduce_rdma_plain(x, cfg)[0],
             tp * rdma.bound_bytes_ar(cfg, tp, n), 0, card)
+        row["blocks"] = world.ar_blocks(n, cfg)
+        row["steps_us"] = _ar_steps(torch, world, x, cfg)
+        print(f"[ar] {shape}: {row['blocks']} blocks a rank; step times "
+              f"(us, block 0, median of 25 calls, mean over ranks) "
+              f"{row['steps_us']}  [{card}]", flush=True)
+        timed[shape] = row
     print(f"[ar] bound: all {tp} ranks' bytes (input read, wire written and "
-          f"read in both phases, partial written and read, output written) "
-          f"over {HBM_BYTES_PER_S / 1e12} TB/s: device memory time on one "
-          f"card, not link time", flush=True)
+          f"read in both phases, output written) over "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s: device memory time on one card, "
+          f"not link time", flush=True)
     return launches, timed
 
 
@@ -1104,14 +1190,16 @@ def _tp_world_checks(torch, axis, dev) -> dict:
               f"tp rank {rank}: fc_ar after fc_a2a call {i} differs")
     torch.cuda.synchronize()
     n_a2a = world.epochs[A2A_COLLECTIVE]
-    bpr = world.blocks[A2A_COLLECTIVE]
+    bpr = world.caps[A2A_COLLECTIVE]
     check(_ar_pads_ok(world, rank) and
           world.signal_pad(rank, A2A_COLLECTIVE).tolist() ==
           [n_a2a * bpr * (tp - 1)] + [n_a2a * bpr] * tp,
           f"tp rank {rank}: signal pads off after {world.epochs} calls")
     return {"ar_n": n, "ar_calls": TP_PROBE_CALLS + A2A_CALLS,
             "a2a_rows": m, "a2a_calls": A2A_CALLS, "epochs": world.epochs,
-            "blocks": world.blocks, "probe_ms": per_call}
+            "caps": {str(k): v for k, v in world.caps.items()},
+            "ar_blocks": world.ar_blocks(n, cfg),
+            "probe_ms": per_call}
 
 
 def _tp_counts():
@@ -1189,7 +1277,7 @@ def _tp_serve(torch, axis, dev) -> dict:
         got = {k: v - before[k] for k, v in _tp_counts().items()}
         want = dict.fromkeys(got, 0)
         if scheme == "fused":
-            want["ar_scatter"] = want["ar_gather"] = sites * forwards
+            want["ar"] = sites * forwards
         elif pol != "bf16":
             want["encode_wire"] = want["decode_wire"] = 2 * sites * forwards
         log(f"[tp {label}] rank {rank} launches {got} (expected: {sites} TP "
@@ -1201,7 +1289,7 @@ def _tp_serve(torch, axis, dev) -> dict:
               f"tp {label}: no prefill/decode check")
         runs[label] = res
     launches = _tp_counts()                # read right after the tp path
-    check(launches["ar_scatter"] > 0 and launches["ar_gather"] > 0,
+    check(launches["ar"] > 0,
           "fc_ar never launched on the tp path")
     check(bool((runs["paper/fused"]["generated"] ==
                 runs["paper/two_step"]["generated"]).all()),
@@ -1257,8 +1345,9 @@ def phase_tp(torch, card: str):
               f"({res['backend']} group): fc_ar x {w['ar_calls']} (decode "
               f"n {w['ar_n']}) and fc_a2a x {w['a2a_calls']} ({w['a2a_rows']} "
               f"rows a peer) through PeerWorld.from_group bit-equal to the "
-              f"plain versions, pads exact (epochs {w['epochs']}, blocks "
-              f"{w['blocks']}); {TP_PROBE_CALLS} back-to-back fc_ar calls: "
+              f"plain versions, pads exact (epochs {w['epochs']}, caps "
+              f"{w['caps']}, fc_ar {w['ar_blocks']} blocks a call); "
+              f"{TP_PROBE_CALLS} back-to-back fc_ar calls: "
               f"median {statistics.median(probe):.4f} ms, min "
               f"{probe[0]:.4f}, max {probe[-1]:.4f} ms a call (ranks taking "
               f"turns on one card)  [{card}]", flush=True)
@@ -1338,7 +1427,7 @@ def main(argv=None) -> int:
         elif name == "ar":
             t = ar_timed.get("prefill", {})
             errs = [r["max_abs_err"] for r in ar_timed.values()]
-            source, n = "allreduce.cu", tp_launches.get("ar_scatter", 0)
+            source, n = "allreduce.cu", tp_launches.get("ar", 0)
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
                 name, {})
@@ -1352,8 +1441,7 @@ def main(argv=None) -> int:
             "replaces": REPLACES[name], "launches": n,
             "serve_launches": launches.get(name, 0),
             "moe_launches": moe_launches.get(name, 0),
-            "tp_launches": tp_launches.get(
-                "ar_scatter" if name == "ar" else name, 0),
+            "tp_launches": tp_launches.get(name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),

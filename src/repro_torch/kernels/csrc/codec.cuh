@@ -1,7 +1,10 @@
 // Device functions shared by the codec kernels (wire.cu, stage.cu,
-// rdma.cu): the group quantizer, and the wire format's per-group encode
-// and decode (encode_group, decode_group), so that every kernel that
-// writes or reads a wire row writes and reads the same bytes.
+// rdma.cu, allreduce.cu): the group quantizer, and the wire format's
+// per-group encode and decode in two thread mappings -- a warp a group
+// (encode_group, decode_group: fc_decode_wire, fc_decode_reduce, fc_a2a)
+// and eight values a thread (quantize8 / bytes8 / put8 / decode8: fc_encode_wire,
+// fc_ar) -- so that every kernel that writes or reads a wire row writes
+// and reads the same bytes.
 //
 // Numerics follow the JAX reference exactly (and the plain PyTorch
 // version in repro_torch/core): IEEE division (__fdiv_rn), round half to
@@ -574,6 +577,449 @@ __device__ __forceinline__ void decode_group(const uint8_t* w, long long g, int 
   for (int k = 0; k < VPL; ++k) v[k] = decode_value<Ld>(w, g, k * 32 + lane, m, p);
   if (p.rotation) unrotate_warp<VPL>(v, lane, p);
 }
+
+// ---- eight values a thread (fc_encode_wire, fc_ar) ------------------------
+//
+// Thread t of a block owns 8 consecutive values of a row, elements
+// e0 .. e0 + 7 with e0 a multiple of 8, so its codes fill exactly u whole
+// bytes of each unit-u plane (plane_off + e0 / 8 * u): one store (or
+// load) a plane, and no byte shared with another thread. A group of G
+// values lies on W = G / 8 neighbouring lanes (4, 8 or 16); lt is the
+// thread's lane within its group, and in-group position lt * 8 + k holds
+// value k. Group min/max and the spike election are the seg_* shuffles
+// over those W lanes; the meta is written (and read) by the group's
+// first four lanes, one section each. Block sizes are multiples of 32,
+// and every lane of a warp calls these functions (a lane past the end
+// of a row computes on zeros and stores nothing), since they shuffle.
+
+constexpr int kPer = 8;
+
+// nbytes (1, 2, 4 or 8) little-endian bytes of word at dst: one store
+// where dst is nbytes-aligned, else byte by byte (a wire row's stride
+// need not be a multiple of 8).
+__device__ __forceinline__ void store_le(uint8_t* dst, unsigned long long word, int nbytes) {
+  if (((uintptr_t)dst & (uintptr_t)(nbytes - 1)) == 0) {
+    switch (nbytes) {
+      case 8: *reinterpret_cast<unsigned long long*>(dst) = word; return;
+      case 4: *reinterpret_cast<unsigned*>(dst) = (unsigned)word; return;
+      case 2: *reinterpret_cast<unsigned short*>(dst) = (unsigned short)word; return;
+      default: *dst = (uint8_t)word; return;
+    }
+  }
+  for (int b = 0; b < nbytes; ++b) dst[b] = (uint8_t)(word >> (8 * b));
+}
+
+// The inverse, read through L2 only (ld.global.cg): the rows it reads
+// were written by other SMs or peers.
+__device__ __forceinline__ unsigned long long load_le_cg(const uint8_t* src, int nbytes) {
+  if (((uintptr_t)src & (uintptr_t)(nbytes - 1)) == 0) {
+    switch (nbytes) {
+      case 8: return __ldcg(reinterpret_cast<const unsigned long long*>(src));
+      case 4: return __ldcg(reinterpret_cast<const unsigned*>(src));
+      case 2: return __ldcg(reinterpret_cast<const unsigned short*>(src));
+      default: return __ldcg(src);
+    }
+  }
+  unsigned long long w = 0;
+  for (int b = 0; b < nbytes; ++b) w |= (unsigned long long)__ldcg(src + b) << (8 * b);
+  return w;
+}
+
+// Eight f32 values at src (zeros for an inactive thread): two 16-byte
+// loads where src is 16-byte aligned.
+__device__ __forceinline__ void load8(const float* __restrict__ src, bool active, float (&v)[kPer]) {
+  if (!active) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) v[k] = 0.f;
+  } else if (((uintptr_t)src & 15) == 0) {
+    const float4 a = reinterpret_cast<const float4*>(src)[0];
+    const float4 b = reinterpret_cast<const float4*>(src)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) v[k] = src[k];
+  }
+}
+
+// Eight f32 values to dst, 16-byte aligned (an output the wrapper
+// allocated): two 16-byte stores.
+__device__ __forceinline__ void store8(float* __restrict__ dst, const float (&v)[kPer]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The rotation over the group's W lanes, in hadamard_warp's order:
+// out_j = sum_i x_i * H[i][j], i increasing, from +0.0, each product
+// rounded before its add. Value i is broadcast from lane i / 8 of the
+// group (its value i % 8). With i = 8 l + kk and j = 8 lt + k, the sign
+// of H[i][j] (the parity of popcount(i & j)) is parity(l & lt) xor
+// parity(kk & k), the second a constant of the unrolled loops; and
+// x * (-h) rounds to -(x * h). So each x_i is multiplied once, and each
+// output adds or subtracts it: the bits of hadamard_warp's sums (a NaN
+// comes out of the adds canonical either way).
+template <int W>
+__device__ __forceinline__ void hadamard8(float (&v)[kPer], int lt, float h) {
+  float acc[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+  for (int l = 0; l < W; ++l) {
+    const bool flip = __popc(l & lt) & 1;
+#pragma unroll
+    for (int kk = 0; kk < kPer; ++kk) {
+      float xh = __fmul_rn(__shfl_sync(kFull, v[kk], l, W), h);
+      if (flip) xh = -xh;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        acc[k] = (__popc(kk & k) & 1) ? __fsub_rn(acc[k], xh) : __fadd_rn(acc[k], xh);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) v[k] = acc[k];
+}
+
+template <int W>
+__device__ __forceinline__ void rotate8(float (&v)[kPer], int lt, const WireParams& p) {
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) v[k] = __fmul_rn(v[k], rot_sign(lt * kPer + k, p.sign_seed));
+  hadamard8<W>(v, lt, p.hscale);
+}
+
+template <int W>
+__device__ __forceinline__ void unrotate8(float (&v)[kPer], int lt, const WireParams& p) {
+  hadamard8<W>(v, lt, p.hscale);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) v[k] = __fmul_rn(v[k], rot_sign(lt * kPer + k, p.sign_seed));
+}
+
+// A thread's part of a quantized group: its eight codes (byte k is value
+// k's) and the group's meta and range.
+struct Code8 {
+  unsigned long long codes;
+  Meta m;
+  Range r;
+};
+
+// A float's bits as an int that orders like the float, -0.0 below +0.0
+// (zmin / zmax's order; NaNs apart). The map is its own inverse.
+__device__ __forceinline__ int order_key(int bits) { return bits ^ ((bits >> 31) & 0x7fffffff); }
+
+// group_range without spikes, eight values a thread: min and max as
+// integer min / max of order keys (one instruction a value where
+// nan_min / nan_max take several), then group_range's rule for a group
+// holding NaN (its first NaN, bits and all), found by one ballot.
+template <int W>
+__device__ __forceinline__ Range plain_range8(const float (&v)[kPer], const int (&pos)[kPer], int G) {
+  int kmin = 0x7fffffff, kmax = (int)0x80000000;
+  bool nan = false;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int key = order_key(__float_as_int(v[k]));
+    kmin = min(kmin, key);
+    kmax = max(kmax, key);
+    nan |= isnan_(v[k]);
+  }
+  for (int o = W / 2; o > 0; o >>= 1) {
+    kmin = min(kmin, __shfl_xor_sync(kFull, kmin, o));
+    kmax = max(kmax, __shfl_xor_sync(kFull, kmax, o));
+  }
+  Range r;
+  r.vmin = __int_as_float(order_key(kmin));
+  r.vmax = __int_as_float(order_key(kmax));
+  const unsigned nans = __ballot_sync(kFull, nan);
+  if (nans) {                            // uniform: some group of the warp holds NaN
+    const int base = (threadIdx.x & 31) & ~(W - 1);
+    int first = G;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      if (isnan_(v[k])) first = min(first, pos[k]);
+    first = seg_min_int<W>(first);
+    const float fv = seg_value_at<kPer, W>(v, pos, first);
+    if ((nans >> base) & ((1u << W) - 1u)) r.vmin = r.vmax = fv;
+  }
+  r.mn = r.vmin;
+  r.mx = r.vmax;
+  r.imin = r.imax = G;
+  return r;
+}
+
+// group_range with spikes, eight values a thread: its election and its
+// rules (first min, first or second max, single-NaN forfeit, NaNs ignored
+// in the range, all-NaN remainders NaN), with min and max as integer
+// min / max of order keys and the NaN test as one ballot.
+template <int W>
+__device__ __forceinline__ Range spike_range8(const float (&v)[kPer], const int (&pos)[kPer], int G) {
+  Range r = plain_range8<W>(v, pos, G);
+  const int base = (threadIdx.x & 31) & ~(W - 1);
+  const unsigned nans = __ballot_sync(kFull, isnan_(v[0]) || isnan_(v[1]) || isnan_(v[2]) ||
+                                                 isnan_(v[3]) || isnan_(v[4]) || isnan_(v[5]) ||
+                                                 isnan_(v[6]) || isnan_(v[7]));
+  const bool has_nan = (nans >> base) & ((1u << W) - 1u);
+  int pmin = G, t1 = G;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const bool em = has_nan ? isnan_(v[k]) : v[k] == r.vmin;
+    const bool ex = has_nan ? isnan_(v[k]) : v[k] == r.vmax;
+    if (em) pmin = min(pmin, pos[k]);
+    if (ex) t1 = min(t1, pos[k]);
+  }
+  r.imin = seg_min_int<W>(pmin);
+  t1 = seg_min_int<W>(t1);
+  int t2 = G;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const bool ex = has_nan ? isnan_(v[k]) : v[k] == r.vmax;
+    if (ex && pos[k] != t1) t2 = min(t2, pos[k]);
+  }
+  t2 = seg_min_int<W>(t2);
+  r.imax = (t1 == r.imin) ? t2 : t1;
+  if (r.imax == G) r.imax = r.imin;               // single-NaN forfeit
+  int klo = 0x7fffffff, khi = (int)0x80000000;    // no candidate yet
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (isnan_(v[k])) continue;
+    const int key = order_key(__float_as_int(v[k]));
+    if (pos[k] != r.imin) klo = min(klo, key);
+    if (pos[k] != r.imax) khi = max(khi, key);
+  }
+  for (int o = W / 2; o > 0; o >>= 1) {
+    klo = min(klo, __shfl_xor_sync(kFull, klo, o));
+    khi = max(khi, __shfl_xor_sync(kFull, khi, o));
+  }
+  float lo = klo == 0x7fffffff ? inf_() : __int_as_float(order_key(klo));
+  float hi = khi == (int)0x80000000 ? -inf_() : __int_as_float(order_key(khi));
+  if (isinf(lo) && lo > 0.f && isinf(hi) && hi < 0.f) {
+    lo = __int_as_float(0x7fc00000);
+    hi = lo;
+  }
+  r.mn = lo;
+  r.mx = hi;
+  return r;
+}
+
+// quant_code's result with two instructions for its clamp: fmaxf(NaN, 0)
+// is 0, as quant_code's NaN -> 0, and a clamped -0.0 converts to 0 too.
+__device__ __forceinline__ unsigned char quant_code8(float v, float z, float s, float qmax) {
+  return (unsigned char)fminf(fmaxf(rintf(__fdiv_rn(__fsub_rn(v, z), s)), 0.f), qmax);
+}
+
+// Quantize the thread's eight values v (rotated in place first under
+// ROT) as one group of G with its W - 1 neighbours: quantize_group's
+// arithmetic, eight values a thread.
+template <int G, bool SPIKE, bool ROT>
+__device__ __forceinline__ Code8 quantize8(float (&v)[kPer], int lt, const WireParams& p) {
+  constexpr int W = G / kPer;
+  const float qmax = (float)((1 << p.bits) - 1);
+  int pos[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) pos[k] = lt * kPer + k;
+  if (ROT) rotate8<W>(v, lt, p);
+  Code8 c;
+  c.r = SPIKE ? spike_range8<W>(v, pos, G) : plain_range8<W>(v, pos, G);
+  c.m = rtn_meta(c.r.mn, c.r.mx, qmax, p.eps, p.meta_f16);
+  const unsigned char code_mn = quant_code8(c.r.mn, c.m.z, c.m.s, qmax);
+  c.codes = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    unsigned char q = quant_code8(v[k], c.m.z, c.m.s, qmax);
+    if (SPIKE && (pos[k] == c.r.imin || pos[k] == c.r.imax)) q = code_mn;
+    c.codes |= (unsigned long long)q << (8 * k);
+  }
+  return c;
+}
+
+// A thread's bytes of a quantized group in a wire row: its u bytes of
+// each plane (at plane_off + e0 / 8 * u), and on lane lt < 4 of the group
+// one meta section (lane 0 the scale, 1 the zero, 2 the spike values, 3
+// the spike slots): the bytes write_group writes. Packed once, they can
+// be put into several rows.
+struct Bytes8 {
+  unsigned long long plane[3];
+  long long at;                          // e0 / 8
+  unsigned meta;
+  int meta_bytes;                        // 0 on lanes lt >= 4
+  long long meta_off;
+};
+
+template <int G, bool SPIKE>
+__device__ __forceinline__ Bytes8 bytes8(const Code8& c, long long e0, int lt, const WireParams& p) {
+  Bytes8 b;
+  int shift = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    b.plane[i] = 0;
+    if (i >= p.n_planes) continue;
+    b.plane[i] = pack8(c.codes, p.unit[i], shift);
+    shift += p.unit[i];
+  }
+  b.at = e0 >> 3;
+  const long long g = e0 / G;
+  const int mb = p.scale_int ? 1 : 2;    // bytes of a scale or zero
+  b.meta = 0;
+  b.meta_bytes = 0;
+  b.meta_off = 0;
+  if (lt == 0) {
+    b.meta_off = p.scale_off + g * mb;
+    b.meta_bytes = mb;
+    b.meta = p.scale_int ? encode_scale(c.m.s, p) : c.m.sbits;
+  } else if (lt == 1) {
+    b.meta_off = p.zero_off + g * mb;
+    b.meta_bytes = mb;
+    b.meta = p.scale_int ? encode_signed(c.m.z, p) : c.m.zbits;
+  } else if (SPIKE && lt == 2) {
+    b.meta_off = p.sv_off + 4 * g;
+    b.meta_bytes = 4;
+    b.meta = to_meta(c.r.vmin, p.meta_f16) | ((unsigned)to_meta(c.r.vmax, p.meta_f16) << 16);
+  } else if (SPIKE && lt == 3) {
+    b.meta_off = p.si_off + 2 * g * mb;
+    b.meta_bytes = 2 * mb;
+    b.meta = p.scale_int ? (uint8_t)c.r.imin | ((unsigned)(uint8_t)c.r.imax << 8)
+                         : to_meta((float)c.r.imin, p.meta_f16) |
+                               ((unsigned)to_meta((float)c.r.imax, p.meta_f16) << 16);
+  }
+  return b;
+}
+
+// Put a thread's packed bytes into wire row w.
+__device__ __forceinline__ void put8(uint8_t* __restrict__ w, const Bytes8& b, const WireParams& p) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (i >= p.n_planes) break;
+    const int u = p.unit[i];
+    store_le(w + p.plane_off[i] + b.at * u, b.plane[i], u);
+  }
+  if (b.meta_bytes) store_le(w + b.meta_off, b.meta, b.meta_bytes);
+}
+
+// A thread's raw bytes of one wire row, loaded before any of them is
+// used (so that a thread's loads, and several rows' loads, are in flight
+// together): its meta section (lane j < 4 of a group: the scale, the
+// zero, the spike values, the spike slots; up to 4 bytes) and its u
+// bytes of each plane.
+struct Raw8 {
+  unsigned meta;
+  unsigned long long plane[3];
+};
+
+// Load a thread's raw bytes of wire row w (through L2: rows that other
+// SMs or peers wrote). An inactive thread loads nothing.
+template <int G, bool SPIKE>
+__device__ __forceinline__ Raw8 fetch8(const uint8_t* w, long long e0, int lt, bool active,
+                                      const WireParams& p) {
+  Raw8 r;
+  r.meta = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r.plane[i] = 0;
+  if (!active) return r;
+  const long long g = e0 / G;
+  const int mb = p.scale_int ? 1 : 2;                 // bytes of a scale or zero
+  const uint8_t* a = nullptr;
+  int nb = 0;
+  if (lt == 0) { a = w + p.scale_off + g * mb; nb = mb; }
+  else if (lt == 1) { a = w + p.zero_off + g * mb; nb = mb; }
+  else if (SPIKE && lt == 2) { a = w + p.sv_off + 4 * g; nb = 4; }
+  else if (SPIKE && lt == 3) { a = w + p.si_off + 2 * g * mb; nb = 2 * mb; }
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (b < nb) r.meta |= (unsigned)__ldcg(a + b) << (8 * b);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (i == p.n_planes) break;
+    const int u = p.unit[i];
+    r.plane[i] = load_le_cg(w + p.plane_off[i] + (e0 >> 3) * u, u);
+  }
+  return r;
+}
+
+// A thread's eight values from its raw bytes, rotated back under ROT:
+// decode_group's bits. Lane j < 4 of the group decodes meta section j,
+// and the group's lanes take it by shuffle.
+template <int G, bool SPIKE, bool ROT>
+__device__ __forceinline__ void finish8(const Raw8& r, int lt, const WireParams& p,
+                                        float (&v)[kPer]) {
+  constexpr int W = G / kPer;
+  float a = 0.f, b = 0.f;               // lane lt's meta section, decoded
+  if (lt == 0) {
+    a = p.scale_int ? decode_scale((unsigned char)r.meta, p)
+                    : from_meta((unsigned short)r.meta, p.meta_f16);
+  } else if (lt == 1) {
+    a = p.scale_int ? decode_signed((unsigned char)r.meta, p)
+                    : from_meta((unsigned short)r.meta, p.meta_f16);
+  } else if (SPIKE && lt == 2) {
+    a = from_meta((unsigned short)(r.meta & 0xffffu), p.meta_f16);
+    b = from_meta((unsigned short)(r.meta >> 16), p.meta_f16);
+  } else if (SPIKE && lt == 3) {
+    int i0, i1;
+    if (p.scale_int) {
+      i0 = (int)(signed char)(r.meta & 0xffu);
+      i1 = (int)(signed char)((r.meta >> 8) & 0xffu);
+    } else {
+      i0 = (int)(signed char)(int)from_meta((unsigned short)(r.meta & 0xffffu), p.meta_f16);
+      i1 = (int)(signed char)(int)from_meta((unsigned short)(r.meta >> 16), p.meta_f16);
+    }
+    a = __int_as_float(i0);
+    b = __int_as_float(i1);
+  }
+  const float s = __shfl_sync(kFull, a, 0, W);
+  const float z = __shfl_sync(kFull, a, 1, W);
+  float sv0 = 0.f, sv1 = 0.f;
+  int si0 = -1, si1 = -1;
+  if (SPIKE) {
+    sv0 = __shfl_sync(kFull, a, 2, W);
+    sv1 = __shfl_sync(kFull, b, 2, W);
+    si0 = __float_as_int(__shfl_sync(kFull, a, 3, W));
+    si1 = __float_as_int(__shfl_sync(kFull, b, 3, W));
+  }
+  unsigned code[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) code[k] = 0;
+  int shift = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    if (i == p.n_planes) break;
+    const int u = p.unit[i];
+    const unsigned long long mask = (1ull << u) - 1ull;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) code[k] |= (unsigned)((r.plane[i] >> (k * u)) & mask) << shift;
+    shift += u;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    v[k] = dequant(code[k] & 0xffu, s, z);
+    if (SPIKE) {
+      const int pos = lt * kPer + k;
+      if (pos == si1) v[k] = sv1;
+      else if (pos == si0) v[k] = sv0;
+    }
+  }
+  if (ROT) unrotate8<W>(v, lt, p);
+}
+
+// Decode the thread's eight values of wire row w into v (fetch8, then
+// finish8). An inactive thread reads nothing and decodes zeros.
+template <int G, bool SPIKE, bool ROT>
+__device__ __forceinline__ void decode8(const uint8_t* w, long long e0, int lt, bool active,
+                                        const WireParams& p, float (&v)[kPer]) {
+  finish8<G, SPIKE, ROT>(fetch8<G, SPIKE>(w, e0, lt, active, p), lt, p, v);
+}
+
+// CALL(G, SPIKE, ROT) for the config's group and mode (CALL is a macro
+// of the caller: a launch, or an occupancy query of its kernel template);
+// fail for a group the kernels do not take. Rotation and spike never come
+// together (CommConfig refuses them).
+#define FC_BY_MODE(p, CALL, fail)                                               \
+  switch ((p).group * 4 + ((p).spike ? 1 : 0) + ((p).rotation ? 2 : 0)) {      \
+    case 32 * 4: CALL(32, false, false); break;                                \
+    case 32 * 4 + 1: CALL(32, true, false); break;                             \
+    case 32 * 4 + 2: CALL(32, false, true); break;                             \
+    case 64 * 4: CALL(64, false, false); break;                                \
+    case 64 * 4 + 1: CALL(64, true, false); break;                             \
+    case 64 * 4 + 2: CALL(64, false, true); break;                             \
+    case 128 * 4: CALL(128, false, false); break;                              \
+    case 128 * 4 + 1: CALL(128, true, false); break;                           \
+    case 128 * 4 + 2: CALL(128, false, true); break;                           \
+    default: fail;                                                             \
+  }
 
 }  // namespace fc
 

@@ -11,16 +11,33 @@
 //   pad[1 + s]             receive slot s (s < sem_slots): push step i
 //                          (peer my + i) adds to slot i - 1 over there
 //   pad[1 + sem_slots]     the local slot: the rank's own blocks
-// Counters only grow. Every block of a rank signals once per call, so
-// after call number `epoch` (1, 2, ...) a peer's slot holds epoch *
-// blocks_per_rank and the barrier epoch * wait_count * blocks_per_rank:
-// the waits compare against those, and no pad is ever reset.
+// Counters only grow, and no pad is ever reset. The host (rdma.py
+// PeerWorld) keeps, for each protocol, the running sum of what every
+// call adds to each counter, and passes the sums after this call in the
+// table (bar_target, slot_target, local_target): the waits compare
+// against them, so the grid may change from call to call.
+//
+// fc_a2a (ring_barrier, signal_pushes, wait_pushes): every block of a
+// rank signals the barrier of each peer, each push step's slot and the
+// local slot, each signal a red.release.sys after a __threadfence_system
+// (its grid is the card's, fixed).
+//
+// fc_ar (ar_barrier, ar_signal, ar_wait): one fence.acq_rel a block a
+// signal round, at the world's scope (the table's kFlagOneCard: every
+// rank on one card, gpu; else sys), then relaxed adds; a wait polls every
+// counter it needs at once with relaxed loads, then fences once. The
+// barrier's signals are relaxed with no fence: entering a call publishes
+// nothing (the rank's last call has ended, stream order). Every block of
+// a rank signals the barrier of each peer, each push step's slot and the
+// local slot, and waits on the rank's own counters itself: a call of B
+// blocks a rank adds wait_count * B to a barrier and B to a slot
+// (allreduce.cu says why not one leader block a rank).
 //
 // Ordering: a block's stores, then __syncthreads(), then one thread's
-// __threadfence_system() and red.release.sys on the destination's pad;
-// the waiting thread's ld.acquire.sys, then __syncthreads() before the
-// block reads what the signal covers (through L2: LoadL2 in codec.cuh).
-// A wait that outlasts kWaitNs traps, so a fault cannot hang the card.
+// fence and its adds to the destination's pad; the waiting thread's
+// acquire (fc_ar: its fence), then __syncthreads() before the block reads
+// what the signal covers (through L2: __ldcg in codec.cuh). A wait that
+// outlasts kWaitNs traps, so a fault cannot hang the card.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +48,7 @@ namespace fc {
 
 constexpr int kMaxPeers = 16;
 constexpr unsigned long long kWaitNs = 5000000000ull;   // 5 s
+constexpr int kFlagOneCard = 1;            // fc_ar: every rank on this card, gpu-scope fences
 
 struct PeerTable {
   uint8_t* recv[kMaxPeers];        // each rank's receive buffer
@@ -40,11 +58,12 @@ struct PeerTable {
   int sem_slots;
   int n_signal;                    // barrier: signal (my + off) % tp for each off
   int signal_off[kMaxPeers];
-  int wait_count;                  // barrier: signals to wait for (per block of a peer)
+  int wait_count;                  // barrier: peers that signal each rank
   int n_push;                      // push step i: peer (my + dst_off[i]) % tp, its slot recv_slot[i]
   int push_dst_off[kMaxPeers];
   int push_recv_slot[kMaxPeers];
-  unsigned epoch;                  // this call's number, from 1
+  unsigned bar_target, slot_target, local_target;   // the counters after this call
+  int flags;                       // kFlag* (fc_ar)
 };
 
 __device__ __forceinline__ unsigned* barrier_word(const PeerTable& t, int rank) {
@@ -63,9 +82,19 @@ __device__ __forceinline__ void signal_release(unsigned* word) {
   asm volatile("red.release.sys.global.add.u32 [%0], %1;" ::"l"(word), "r"(1u) : "memory");
 }
 
+__device__ __forceinline__ void signal_relaxed(unsigned* word) {
+  asm volatile("red.relaxed.sys.global.add.u32 [%0], %1;" ::"l"(word), "r"(1u) : "memory");
+}
+
 __device__ __forceinline__ unsigned load_acquire(const unsigned* word) {
   unsigned v;
   asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(word) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* word) {
+  unsigned v;
+  asm volatile("ld.relaxed.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(word) : "memory");
   return v;
 }
 
@@ -75,19 +104,24 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
+__device__ __forceinline__ void timed_out(const unsigned* word, unsigned target, int my,
+                                          const char* what) {
+  printf("fc peer wait timed out: rank %d block %d %s at %u < %u\n", my, blockIdx.x, what,
+         load_acquire(word), target);
+  __trap();
+}
+
 // Spin (one thread) until *word has reached target (wrap-safe).
 __device__ __forceinline__ void wait_until(const unsigned* word, unsigned target, int my,
                                            const char* what) {
   const unsigned long long t0 = global_ns();
   while ((int)(load_acquire(word) - target) < 0) {
     __nanosleep(100);
-    if (global_ns() - t0 > kWaitNs) {
-      printf("fc peer wait timed out: rank %d block %d %s at %u < %u\n", my, blockIdx.x, what,
-             load_acquire(word), target);
-      __trap();
-    }
+    if (global_ns() - t0 > kWaitNs) timed_out(word, target, my, what);
   }
 }
+
+// ---- fc_a2a ---------------------------------------------------------------
 
 // The ring barrier: every block of rank my signals the barrier of each
 // peer at (my + off) % tp, then waits until its own barrier has every
@@ -97,8 +131,7 @@ __device__ __forceinline__ void ring_barrier(const PeerTable& t, int my) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < t.n_signal; ++i)
       signal_release(barrier_word(t, (my + t.signal_off[i]) % t.tp));
-    wait_until(barrier_word(t, my), t.epoch * (unsigned)(t.wait_count * gridDim.x), my,
-               "barrier");
+    wait_until(barrier_word(t, my), t.bar_target, my, "barrier");
   }
   __syncthreads();
 }
@@ -118,22 +151,93 @@ __device__ __forceinline__ void signal_pushes(const PeerTable& t, int my) {
 // Wait until every block of every rank has pushed its rows here.
 __device__ __forceinline__ void wait_pushes(const PeerTable& t, int my) {
   if (threadIdx.x == 0) {
-    const unsigned target = t.epoch * gridDim.x;
-    for (int s = 0; s < t.sem_slots; ++s) wait_until(slot_word(t, my, s), target, my, "slot");
-    wait_until(local_word(t, my), target, my, "local");
+    for (int s = 0; s < t.sem_slots; ++s) wait_until(slot_word(t, my, s), t.slot_target, my, "slot");
+    wait_until(local_word(t, my), t.local_target, my, "local");
     __threadfence();
   }
   __syncthreads();
 }
 
+// ---- fc_ar ----------------------------------------------------------------
+
+// fence.acq_rel at the world's scope. Before a signal, with the relaxed
+// add after it: a release of every store the block made before its
+// __syncthreads(). After the relaxed loads of a wait that saw every
+// signal it needs: an acquire of what those signals released.
+__device__ __forceinline__ void fence_world(const PeerTable& t) {
+  if (t.flags & kFlagOneCard) asm volatile("fence.acq_rel.gpu;" ::: "memory");
+  else asm volatile("fence.acq_rel.sys;" ::: "memory");
+}
+
+__device__ __forceinline__ bool reached(const unsigned* word, unsigned target) {
+  return (int)(load_relaxed(word) - target) >= 0;
+}
+
+// Spin (one thread) until the barrier (barrier), or the local slot and
+// every receive slot (!barrier), of rank my have reached this call's
+// targets: each poll loads all of them at once; then one fence.
+__device__ __forceinline__ void ar_poll(const PeerTable& t, int my, bool barrier) {
+  const unsigned long long t0 = global_ns();
+  for (;;) {
+    bool done;
+    if (barrier) {
+      done = reached(barrier_word(t, my), t.bar_target);
+    } else {
+      done = reached(local_word(t, my), t.local_target);
+      for (int s = 0; s < t.sem_slots; ++s) done &= reached(slot_word(t, my, s), t.slot_target);
+    }
+    if (done) break;
+    if (global_ns() - t0 > kWaitNs)
+      timed_out(barrier ? barrier_word(t, my) : local_word(t, my),
+                barrier ? t.bar_target : t.local_target, my, barrier ? "barrier" : "slots");
+  }
+  fence_world(t);
+}
+
+// The ring barrier: every block of rank my signals the barrier of each
+// peer at (my + off) % tp, then waits until its own barrier has every
+// peer's signals of this call. After it, every peer has entered this
+// call, so (stream order) its last call has ended, and with it every
+// read of its receive buffers.
+__device__ __forceinline__ void ar_barrier(const PeerTable& t, int my) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < t.n_signal; ++i)
+      signal_relaxed(barrier_word(t, (my + t.signal_off[i]) % t.tp));
+    ar_poll(t, my, true);
+  }
+  __syncthreads();
+}
+
+// After the block's pushes: one fence, then each push step's slot at its
+// peer and the rank's local slot.
+__device__ __forceinline__ void ar_signal(const PeerTable& t, int my) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    fence_world(t);
+    for (int i = 0; i < t.n_push; ++i)
+      signal_relaxed(slot_word(t, (my + t.push_dst_off[i]) % t.tp, t.push_recv_slot[i]));
+    signal_relaxed(local_word(t, my));
+  }
+}
+
+// Wait until every block of the rank has pushed (the local slot) and
+// every peer has pushed its rows here.
+__device__ __forceinline__ void ar_wait(const PeerTable& t, int my) {
+  if (threadIdx.x == 0) ar_poll(t, my, false);
+  __syncthreads();
+}
+
 // The int64 peer argument of a peer-push kernel (repro_torch/kernels/
 // rdma.py PeerWorld.table):
-//   [tp, local_ranks, rank0, m, row_bytes, epoch, blocks_per_rank, in_kind,
+//   [tp, local_ranks, rank0, m, row_bytes, blocks_per_rank, in_kind,
 //    sem_slots, n_signal, wait_count, n_push,
+//    bar_target, slot_target, local_target, flags,
 //    recv[kMaxPeers], signal[kMaxPeers], signal_off[kMaxPeers],
 //    push_dst_off[kMaxPeers], push_recv_slot[kMaxPeers]]
 // m is a kernel's own size argument; in_kind its payload type (0 f32,
-// 1 bf16).
+// 1 bf16); the targets are u32 counters (mod 2^32).
+constexpr int kPeerHead = 15;
+
 struct PeerArgs {
   PeerTable t;
   long long m;
@@ -148,17 +252,20 @@ inline bool read_peer(const long long* peer, PeerArgs& a) {
   t.rank0 = (int)peer[2];
   a.m = peer[3];
   t.row_bytes = peer[4];
-  t.epoch = (unsigned)peer[5];
-  a.blocks_per_rank = (int)peer[6];
-  a.in_kind = (int)peer[7];
-  t.sem_slots = (int)peer[8];
-  t.n_signal = (int)peer[9];
-  t.wait_count = (int)peer[10];
-  t.n_push = (int)peer[11];
+  a.blocks_per_rank = (int)peer[5];
+  a.in_kind = (int)peer[6];
+  t.sem_slots = (int)peer[7];
+  t.n_signal = (int)peer[8];
+  t.wait_count = (int)peer[9];
+  t.n_push = (int)peer[10];
+  t.bar_target = (unsigned)peer[11];
+  t.slot_target = (unsigned)peer[12];
+  t.local_target = (unsigned)peer[13];
+  t.flags = (int)peer[14];
   if (t.tp < 1 || t.tp > kMaxPeers || a.blocks_per_rank < 1 || t.local_ranks < 1 ||
       t.n_signal > kMaxPeers || t.n_push > kMaxPeers)
     return false;
-  const long long* tab = peer + 12;
+  const long long* tab = peer + kPeerHead;
   for (int i = 0; i < kMaxPeers; ++i) {
     t.recv[i] = reinterpret_cast<uint8_t*>(tab[i]);
     t.signal[i] = reinterpret_cast<unsigned*>(tab[kMaxPeers + i]);

@@ -7,16 +7,16 @@ in ``csrc/peer.cuh``) replace the Pallas TPU kernels:
 * :func:`fused_all_to_all_rdma`: ``csrc/rdma.cu`` ``fc_a2a``, for
   ``repro/kernels/rdma_all2all.py:75 fused_all_to_all_rdma``
   (``_a2a_kernel``);
-* :func:`fused_all_reduce_rdma`: ``csrc/allreduce.cu`` ``fc_ar_scatter``
-  and ``fc_ar_gather``, for ``repro/kernels/rdma_allreduce.py:154
-  fused_all_reduce_rdma`` (``_scatter_reduce_kernel``,
-  ``_gather_kernel``).
+* :func:`fused_all_reduce_rdma`: ``csrc/allreduce.cu`` ``fc_ar``, for
+  ``repro/kernels/rdma_allreduce.py:154 fused_all_reduce_rdma``
+  (``_scatter_reduce_kernel`` and ``_gather_kernel``, both phases in one
+  launch).
 
 Each rank encodes what it sends straight into its peers' receive
 buffers, signals them, waits for theirs, and decodes what it received
-(the AllReduce: one launch for each phase, phase 1 summing the decoded
-rows into the rank's partial, phase 2 pushing the partial's wire row to
-every peer).
+(the AllReduce: phase 1 sums the decoded rows of the rank's chunk, and
+the same threads quantize the sum and push its wire bytes to every peer
+for phase 2).
 
 Bound on an H100: bytes (:func:`bound_bytes`, :func:`bound_bytes_ar`).
 On one card all of it is device memory traffic at 3.35 TB/s; across
@@ -24,7 +24,11 @@ cards the pushed wire would cross NVLink instead. What the design does
 about it: the wire is written once, by the encode, into the peer's
 receive row (no send staging), and read once, by the decode; a spin wait
 must never wait on a block that is not resident, so the grids are
-persistent and launched cooperatively.
+persistent and launched cooperatively. ``fc_a2a``'s grid is the card's
+(``PeerWorld.caps``); ``fc_ar``'s is sized by each call's work
+(:meth:`PeerWorld.ar_blocks`), and the world keeps each pad's running
+target (:meth:`PeerWorld.pad_targets`), since the waits count peer
+blocks.
 
 A :class:`PeerWorld` holds the ranks' receive buffers and signal pads,
 one buffer and one pad a rank for each protocol it serves (its
@@ -67,12 +71,22 @@ from repro_torch.kernels.protocol import (A2A_COLLECTIVE_ID,
 SOURCE = "rdma.cu"
 AR_SOURCE = "allreduce.cu"
 MAX_PEERS = 16                    # csrc/peer.cuh kMaxPeers
+PEER_HEAD = 15                    # csrc/peer.cuh kPeerHead
+AR_TILE = 2048                    # csrc/allreduce.cu kTile: values a tile
+#: csrc/allreduce.cu kStamps: fc_ar's step boundaries, as block 0 of a
+#: rank sees them on the card's clock (:func:`fused_all_reduce_rdma`)
+AR_STAMPS = ("start", "barrier", "encode", "scatter wait", "reduce",
+             "gather wait", "decode")
+#: fc_ar's instantiations: (group, spike, rotation)
+AR_MODES = tuple((g, s, r) for g in (32, 64, 128)
+                 for s, r in ((False, False), (True, False), (False, True)))
+FLAG_ONE_CARD = 1                 # csrc/peer.cuh kFlagOneCard
 _IN_KINDS = {torch.float32: 0, torch.bfloat16: 1}      # the model dtypes
 _ALIGN = 256
 _HANDLE_BYTES = 64                # cudaIpcMemHandle_t
 
 #: launches of each kernel since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"a2a": 0, "ar_scatter": 0, "ar_gather": 0}
+LAUNCHES: Dict[str, int] = {"a2a": 0, "ar": 0}
 
 
 def reset_launches() -> None:
@@ -107,27 +121,43 @@ def _lib() -> ctypes.CDLL:
 def _ar_lib() -> ctypes.CDLL:
     from repro_torch.kernels import build
     lib = build.load(AR_SOURCE)
-    for name in ("fc_ar_scatter", "fc_ar_gather"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 8
-        fn.restype = ctypes.c_int
-    lib.fc_ar_blocks_per_rank.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fc_ar.argtypes = [ctypes.c_void_p] * 10
+    lib.fc_ar.restype = ctypes.c_int
+    lib.fc_ar_blocks_per_rank.argtypes = [ctypes.c_int] * 5
     lib.fc_ar_blocks_per_rank.restype = ctypes.c_int
     return lib
 
 
-def _blocks_per_rank(cid: int, dev: int, local_ranks: int) -> int:
-    """The grid of a protocol's kernel: blocks per rank, every block of
-    ``local_ranks`` ranks resident on card ``dev`` at once."""
-    if cid == A2A_COLLECTIVE_ID:
+def _blocks_per_rank(key, dev: int, local_ranks: int) -> int:
+    """The most blocks a rank of a kernel can run, every block of
+    ``local_ranks`` ranks resident on card ``dev`` at once: ``fc_a2a``'s
+    for ``key`` A2A_COLLECTIVE_ID, ``fc_ar``'s instantiation for ``key``
+    an AR_MODES entry."""
+    if key == A2A_COLLECTIVE_ID:
         bpr, name = _lib().fc_a2a_blocks_per_rank(dev, local_ranks), "fc_a2a"
     else:
-        bpr, name = (_ar_lib().fc_ar_blocks_per_rank(dev, local_ranks),
-                     "fc_ar")
+        group, spike, rot = key
+        bpr, name = (_ar_lib().fc_ar_blocks_per_rank(
+            dev, local_ranks, group, int(spike), int(rot)), f"fc_ar {key}")
     if bpr < 1:
         raise RuntimeError(f"{name}: no resident grid for {local_ranks} "
                            f"ranks ({bpr})")
     return bpr
+
+
+def cap_keys(protocols: Sequence[KernelProtocol]) -> List:
+    """The grids a world serving ``protocols`` needs: fc_a2a's, and one
+    for each of fc_ar's instantiations."""
+    cids = {p.collective_id for p in protocols}
+    keys = [A2A_COLLECTIVE_ID] if A2A_COLLECTIVE_ID in cids else []
+    if ALLREDUCE_SCATTER_COLLECTIVE_ID in cids:
+        keys += list(AR_MODES)
+    return keys
+
+
+def ar_mode(cfg) -> Tuple[int, bool, bool]:
+    """The AR_MODES entry of a config."""
+    return cfg.group, bool(cfg.spike), bool(cfg.rotation)
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -183,9 +213,14 @@ class PeerWorld:
     the protocol's ``recv`` rows (one for each sender) of ``row_bytes``
     each; ``signal[cid][r]`` its pad of :func:`signal_words` counters,
     zero at the start and only ever added to. ``epochs[cid]`` counts the
-    protocol's calls, ``blocks[cid]`` the blocks a rank of its kernel
-    (one count for every call and rank; ``None`` until the first call of
-    a loopback world).
+    protocol's calls (on the host only). ``caps[key]`` is the most blocks a rank of a
+    kernel that are resident at once (:func:`cap_keys`), one count for
+    every rank (a loopback world fills it at first use): ``fc_a2a``'s grid,
+    and the cap of ``fc_ar``'s for each of its instantiations.
+    ``targets[cid]`` holds the running sums that every rank's pad reaches
+    after the calls so far (barrier, each receive slot, local slot;
+    :meth:`pad_targets`). ``one_card`` (a loopback world) lets
+    ``fc_ar``'s fences stay at gpu scope.
     """
 
     def __init__(self, tp: int, local_ranks: int, rank0: int,
@@ -201,7 +236,10 @@ class PeerWorld:
         self.recv = {c: [b + o[0] for b in bases] for c, o in offs.items()}
         self.signal = {c: [b + o[1] for b in bases] for c, o in offs.items()}
         self.epochs: Dict[int, int] = dict.fromkeys(self.protocols, 0)
-        self.blocks: Dict[int, Optional[int]] = dict.fromkeys(self.protocols)
+        self.caps: Dict = {}
+        self.targets: Dict[int, List[int]] = {c: [0, 0, 0]
+                                              for c in self.protocols}
+        self.one_card = storage is not None
         self.storage = storage           # a loopback world's one allocation
         self._owned, self._opened = owned, list(opened)
 
@@ -233,9 +271,9 @@ class PeerWorld:
         (:func:`rank_layout`) with ``cudaMalloc``, zeroed, exchanges its
         CUDA IPC handle, card and grid over ``group``, enables peer access
         to peers on other cards and opens their handles. Every rank
-        launches one block count for each protocol: the least over the
-        ranks. Call :meth:`close` on every rank, after a barrier, when
-        done.
+        takes one cap for each kernel grid (:func:`cap_keys`): the least
+        over the ranks. Call :meth:`close` on every rank, after a barrier,
+        when done.
         """
         import torch.distributed as dist
         device = torch.device(device if device is not None else "cuda")
@@ -254,10 +292,9 @@ class PeerWorld:
                   "fc_peer_alloc")
         handle = ctypes.create_string_buffer(_HANDLE_BYTES)
         _check_rc(lib.fc_peer_export(ptr, handle), "fc_peer_export")
-        blocks = {p.collective_id: _blocks_per_rank(p.collective_id, dev, 1)
-                  for p in protocols}
+        caps = {k: _blocks_per_rank(k, dev, 1) for k in cap_keys(protocols)}
         info = {"rank": rank, "device": dev, "handle": handle.raw,
-                "blocks": blocks}
+                "caps": caps}
         infos: List = [None] * tp
         dist.all_gather_object(infos, info, group=group)
         if [i["rank"] for i in infos] != list(range(tp)):
@@ -278,8 +315,7 @@ class PeerWorld:
             opened.append(p.value)
         world = cls(tp, 1, rank, protocols, bases, row_bytes,
                     torch.device("cuda", dev), owned=ptr.value, opened=opened)
-        world.blocks = {c: min(i["blocks"][c] for i in infos)
-                        for c in world.protocols}
+        world.caps = {k: min(i["caps"][k] for i in infos) for k in caps}
         return world
 
     def close(self) -> None:
@@ -326,9 +362,11 @@ class PeerWorld:
                              f"{sorted(self.protocols)})")
         return self.protocols[cid]
 
-    def table(self, cid: int, m: int, in_kind: int) -> np.ndarray:
+    def table(self, cid: int, m: int = 0, in_kind: int = 0,
+              blocks: int = 0, flags: int = 0) -> np.ndarray:
         """The kernels' int64 peer argument for protocol ``cid``
-        (``csrc/peer.cuh`` read_peer)."""
+        (``csrc/peer.cuh`` read_peer): a launch of ``blocks`` blocks a
+        rank, the pad targets as they stand."""
         proto = self.protocols[cid]
         cols = np.zeros((5, MAX_PEERS), np.int64)
         cols[0, :self.tp] = self.recv[cid]
@@ -338,20 +376,66 @@ class PeerWorld:
         cols[3, :len(proto.pushes)] = [s.dst_off for s in proto.pushes]
         cols[4, :len(proto.pushes)] = [s.recv_slot for s in proto.pushes]
         head = [self.tp, self.local_ranks, self.rank0, m, self.row_bytes,
-                self.epochs[cid], self.blocks[cid] or 0, in_kind,
-                proto.sem_slots,
-                len(offs), proto.barrier.wait_count, len(proto.pushes)]
+                blocks, in_kind, proto.sem_slots,
+                len(offs), proto.barrier.wait_count, len(proto.pushes),
+                *(v % 2 ** 32 for v in self.targets[cid]), flags]
+        assert len(head) == PEER_HEAD
         return np.concatenate([np.array(head, np.int64), cols.reshape(-1)])
+
+    def _cap(self, key) -> int:
+        if key not in self.caps:
+            self.caps[key] = _blocks_per_rank(key, self.device.index or 0,
+                                              self.local_ranks)
+        return self.caps[key]
+
+    def _advance(self, cid: int, blocks: int, barrier: bool) -> None:
+        """Count one call of protocol ``cid`` of ``blocks`` blocks a rank
+        into its pad targets: the ring barrier (if it runs) adds each
+        peer block's signal to a rank's barrier, and every block adds one
+        to each receive slot (its push step's) and one to the local
+        slot."""
+        t = self.targets[cid]
+        if barrier:
+            t[0] += self.protocols[cid].barrier.wait_count * blocks
+        t[1] += blocks
+        t[2] += blocks
+        self.epochs[cid] += 1
+
+    def pad_targets(self, cid: int) -> List[int]:
+        """What every rank's pad of protocol ``cid`` holds once the calls
+        so far have ended: barrier, each receive slot, local slot."""
+        bar, slot, local = self.targets[cid]
+        return [bar] + [slot] * self.protocols[cid].sem_slots + [local]
 
     def next_call(self, cid: int, m: int = 0, in_kind: int = 0
                   ) -> np.ndarray:
-        """Count one call of protocol ``cid`` (its grid fixed at the first)
-        -> its peer table."""
-        if self.blocks[cid] is None:
-            self.blocks[cid] = _blocks_per_rank(
-                cid, self.device.index or 0, self.local_ranks)
-        self.epochs[cid] += 1
-        return self.table(cid, m, in_kind)
+        """Count one ``fc_a2a`` call of protocol ``cid`` on the card's
+        grid -> its peer table."""
+        blocks = self._cap(cid)
+        self._advance(cid, blocks, barrier=True)
+        return self.table(cid, m, in_kind, blocks)
+
+    def ar_blocks(self, n: int, cfg) -> int:
+        """``fc_ar``'s blocks a rank for a call of ``n`` values a rank in
+        config ``cfg``: one for each tile of AR_TILE values of the tp
+        chunk rows, at most the cap of the config's instantiation. The
+        same on every rank for a given (n, tp, cfg) and caps."""
+        tiles = -(-(n // self.tp) // AR_TILE)
+        return max(1, min(self._cap(ar_mode(cfg)), self.tp * tiles))
+
+    def ar_call(self, n: int, cfg) -> Tuple[int, np.ndarray, np.ndarray]:
+        """Count one ``fc_ar`` call of ``n`` values a rank -> (blocks a
+        rank, scatter table, gather table). One grid for both protocols;
+        the gather protocol runs no ring barrier (``csrc/allreduce.cu``
+        says why)."""
+        blocks = self.ar_blocks(n, cfg)
+        flags = FLAG_ONE_CARD if self.one_card else 0
+        tabs = []
+        for cid, barrier in ((ALLREDUCE_SCATTER_COLLECTIVE_ID, True),
+                             (ALLREDUCE_GATHER_COLLECTIVE_ID, False)):
+            self._advance(cid, blocks, barrier)
+            tabs.append(self.table(cid, 0, 0, blocks, flags))
+        return blocks, tabs[0], tabs[1]
 
 
 def fused_all_to_all_rdma(x: torch.Tensor, cfg,
@@ -423,15 +507,22 @@ def bound_bytes(cfg, tp: int, m: int, d: int, itemsize: int) -> int:
 # the fused two-step AllReduce
 # ---------------------------------------------------------------------------
 
-def fused_all_reduce_rdma(x: torch.Tensor, cfg,
-                          world: PeerWorld) -> torch.Tensor:
+def fused_all_reduce_rdma(x: torch.Tensor, cfg, world: PeerWorld,
+                          stamps: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """The fused two-step AllReduce of f32 vectors of ``n`` values,
     ``n / tp`` a group multiple: ``(local_ranks, n)`` (a loopback world:
     every local rank's vector) or ``(n,)`` (a world of processes: this
     rank's) on the card -> the same shape, each rank's row the quantized
-    sum over the ranks. Two launches: ``fc_ar_scatter`` (encode, push,
-    decode-reduce into the rank's partial chunk) and ``fc_ar_gather``
-    (encode the partial, push it to every peer, decode all chunks)."""
+    sum over the ranks. One launch of ``fc_ar`` (encode and push, decode
+    and sum the rank's chunk, quantize the sum and push it to every peer,
+    decode all chunks) of :meth:`PeerWorld.ar_blocks` blocks a rank.
+
+    ``stamps`` is a measurement hook, left None on the serve paths: a
+    ``(local_ranks, len(AR_STAMPS))`` int64 tensor on the card that
+    receives the card's clock (ns) at each of ``AR_STAMPS`` as block 0 of
+    each rank passes it, where a call's time goes (``chip_smoke.py``
+    phase ar)."""
     wire._check_cfg(cfg)
     if x.dtype != torch.float32:
         raise TypeError(f"fused_all_reduce_rdma: expected float32, got "
@@ -461,26 +552,26 @@ def fused_all_reduce_rdma(x: torch.Tensor, cfg,
     for cid in (ALLREDUCE_SCATTER_COLLECTIVE_ID,
                 ALLREDUCE_GATHER_COLLECTIVE_ID):
         world._protocol(cid, "fused_all_reduce_rdma")
+    if stamps is not None and (
+            stamps.shape != (world.local_ranks, len(AR_STAMPS))
+            or stamps.dtype != torch.int64 or stamps.device != x.device
+            or not stamps.is_contiguous()):
+        raise ValueError(f"fused_all_reduce_rdma: stamps must be a "
+                         f"contiguous ({world.local_ranks}, "
+                         f"{len(AR_STAMPS)}) int64 tensor on {x.device}")
     out = torch.empty_like(xs)
     if n == 0:
         return out.reshape(x.shape)
-    partial = torch.empty((world.local_ranks, chunk), dtype=torch.float32,
-                          device=x.device)
-    lib = _ar_lib()
     a, thr, frac, f = wire._params(cfg, tp, chunk)
-    args = (a.ctypes.data, thr.ctypes.data, frac.ctypes.data, f.ctypes.data)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        peer = world.next_call(ALLREDUCE_SCATTER_COLLECTIVE_ID)
-        _check_rc(lib.fc_ar_scatter(xs.data_ptr(), partial.data_ptr(), *args,
-                                    peer.ctypes.data, stream),
-                  "fc_ar_scatter launch")
-        LAUNCHES["ar_scatter"] += 1
-        peer = world.next_call(ALLREDUCE_GATHER_COLLECTIVE_ID)
-        _check_rc(lib.fc_ar_gather(partial.data_ptr(), out.data_ptr(), *args,
-                                   peer.ctypes.data, stream),
-                  "fc_ar_gather launch")
-        LAUNCHES["ar_gather"] += 1
+        _, scatter, gather = world.ar_call(n, cfg)
+        rc = _ar_lib().fc_ar(
+            xs.data_ptr(), out.data_ptr(), a.ctypes.data, thr.ctypes.data,
+            frac.ctypes.data, f.ctypes.data, scatter.ctypes.data,
+            gather.ctypes.data, 0 if stamps is None else stamps.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check_rc(rc, "fc_ar launch")
+    LAUNCHES["ar"] += 1
     return out.reshape(x.shape)
 
 
@@ -509,11 +600,8 @@ def fused_all_reduce_rdma_plain(x: torch.Tensor, cfg):
 
 
 def bound_bytes_ar(cfg, tp: int, n: int) -> int:
-    """Bytes one rank of the AllReduce must move: phase 1 reads x (4n)
-    once, writes and reads tp wire rows of ``wire_bytes(n / tp)`` once
-    each, and writes the f32 partial (4 n / tp); phase 2 reads the
-    partial, writes and reads tp wire rows once each, and writes the
-    output (4n)."""
-    chunk = n // tp
-    wb = cfg.wire_bytes(chunk)
-    return 2 * (4 * n + 2 * tp * wb + 4 * chunk)
+    """Bytes one rank of the AllReduce must move: x read once (4n), tp
+    wire rows of ``wire_bytes(n / tp)`` written and read once in each
+    phase, the output written once (4n). The partial sum stays in
+    registers."""
+    return 8 * n + 4 * tp * cfg.wire_bytes(n // tp)

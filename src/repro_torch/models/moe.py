@@ -13,12 +13,6 @@ Process groups: ``group`` is the TP group. With ``etp == 1`` the dispatch
 runs over it; with ``ep == 1`` the within-expert AllReduce does. A plan
 with both above 1 needs subgroups, which this package does not build.
 
-One difference from the JAX package, in the sign of a zero only: JAX
-builds the dispatch buffer by adding every route into it, a dropped route
-as a zero into slot ``cap - 1`` of its expert, which turns a kept -0.0
-there into +0.0. The port writes only the kept routes, each into a slot of
-its own (deterministic on the card, where an accumulating scatter is
-not), so such an element keeps -0.0.
 """
 from __future__ import annotations
 
@@ -73,7 +67,10 @@ def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     m = cfg.moe
     logits = xt.to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-    topv, topi = torch.topk(probs, m.top_k, dim=-1)
+    # lax.top_k's order: NaN above every number, ties to the lower
+    # expert (a token holding an infinity has all-NaN probabilities)
+    topv, topi = (t[:, :m.top_k] for t in torch.sort(
+        probs, dim=-1, descending=True, stable=True))
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     route_frac = F.one_hot(topi, m.n_experts).to(torch.float32).mean((0, 1))
     aux = m.n_experts * torch.sum(route_frac * probs.mean(0))
@@ -133,18 +130,21 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         stats["routes"] = stats.get("routes", 0) + keep.numel()
         stats["dropped"] = stats.get("dropped", 0) + (~keep).sum()
 
-    # dispatch buffer (E, cap, d): each kept route in its own slot; the
-    # dropped ones land in a spare row that is cut off
+    # dispatch buffer (E, cap, d), built as the JAX package builds it:
+    # every route added into +0.0, a dropped one as x * 0 into slot
+    # cap - 1 of its expert (so a kept -0.0 becomes +0.0, and a dropped
+    # inf or NaN makes that slot NaN). A slot holds at most one kept
+    # route and otherwise zeros, so the sum does not depend on the order
+    # of the adds, but for the payload of a NaN.
     cap = capacity(t, cfg)
     re = topi.reshape(-1)
     rw = topv.reshape(-1)
     tok_idx = torch.arange(re.shape[0], device=x.device) // m.top_k
-    slot = torch.where(keep, re * cap + pos,
-                       torch.full_like(pos, m.n_experts * cap))
-    buf = torch.zeros((m.n_experts * cap + 1, d), dtype=x.dtype,
+    slot = re * cap + torch.where(keep, pos, torch.full_like(pos, cap - 1))
+    buf = torch.zeros((m.n_experts * cap, d), dtype=x.dtype,
                       device=x.device)
-    buf[slot] = xt[tok_idx]
-    buf = buf[:-1].reshape(mp.ep, mp.e_loc * cap, d)
+    buf.index_add_(0, slot, xt[tok_idx] * keep[:, None].to(x.dtype))
+    buf = buf.reshape(mp.ep, mp.e_loc * cap, d)
     recv = dispatch_all_to_all(buf, a2a_cfg, ep_group)
 
     # expert FFN: my e_loc experts, etp-sharded hidden
@@ -166,7 +166,9 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     back = all_to_all_rows(y.reshape(mp.ep, mp.e_loc * cap, d), ep_group)
     back = back.reshape(m.n_experts * cap, d)
     out_r = back[torch.clamp(re * cap + pos, 0, m.n_experts * cap - 1)]
-    out_r = out_r * (rw * keep)[:, None].to(x.dtype)
+    # JAX's rw * keep with a boolean keep is a select: a dropped route
+    # weighs 0 even where its weight is NaN
+    out_r = out_r * torch.where(keep, rw, 0.0)[:, None].to(x.dtype)
     out = torch.sum(out_r.reshape(t, m.top_k, d), dim=1)
     if ep_slice:
         out = all_gather_rows(out, ep_group).reshape(-1, d)[:t_orig]

@@ -11,7 +11,9 @@ version there). Here, for tp in {2, 4, 8} and the three configs of phase
 * on each of tp gloo ranks it equals the port's ``quantized_all_reduce``
   under ``two_step`` and under the emulated ``fused``;
 * a :class:`PeerWorld` is sized per protocol, with its pads and epochs
-  kept apart by ``collective_id``;
+  kept apart by ``collective_id``; ``fc_ar``'s grid is sized by each
+  call's work and agreed by every rank, and the pads' running targets are
+  what the device code adds, call by call;
 * the wrapper's refusals, and the dispatch of ``ops.fused_all_reduce``.
 """
 import os
@@ -133,7 +135,8 @@ def test_world_sized_per_protocol(tp):
     """The AllReduce's two phases each get tp receive rows of row_bytes
     and a pad of tp + 1 counters a rank, apart from each other; each
     phase's peer table points at its own buffers and pads, and counts its
-    own calls."""
+    own calls. One fc_ar call gives both tables the call's grid and
+    each its own targets."""
     protos = rdma.ar_protocols(tp)
     w = rdma.PeerWorld.loopback(tp, 1000, "cpu", protocols=protos)
     assert sorted(w.protocols) == [SCATTER, GATHER]
@@ -149,16 +152,122 @@ def test_world_sized_per_protocol(tp):
         assert w.signal[SCATTER][r] != w.signal[GATHER][r]
     with pytest.raises(KeyError):
         w.recv_rows(0, protocol.A2A_COLLECTIVE_ID)
-    w.blocks = dict.fromkeys(w.protocols, 3)        # the grid, fixed
-    for _ in range(2):
-        w.next_call(SCATTER)
-    tab = w.next_call(GATHER)
-    assert w.epochs == {SCATTER: 2, GATHER: 1}
-    assert tab[:12].tolist() == [tp, tp, 0, 0, 1000, 1, 3, 0, tp - 1,
-                                 tp - 1, tp - 1, tp - 1]
-    cols = tab[12:].reshape(5, rdma.MAX_PEERS)
-    assert cols[0, :tp].tolist() == w.recv[GATHER]
-    assert cols[1, :tp].tolist() == w.signal[GATHER]
+    cfg = CommConfig(**CFGS["int8 g128"])
+    w.caps = dict.fromkeys(rdma.AR_MODES, 3)        # the caps of the grid
+    for n in (tp * 128, tp * 128):                  # 1 tile a chunk
+        blocks, ts, tg = w.ar_call(n, cfg)
+    assert blocks == min(3, tp)
+    assert w.epochs == {SCATTER: 2, GATHER: 2}
+    head = [tp, tp, 0, 0, 1000, blocks, 0, tp - 1, tp - 1, tp - 1, tp - 1]
+    assert ts[:11].tolist() == head and tg[:11].tolist() == head
+    # targets after two calls of `blocks` blocks, every block signalling;
+    # the gather phase runs no barrier; flags: one card (loopback)
+    assert rdma.PEER_HEAD == 15
+    assert ts[11:15].tolist() == [2 * (tp - 1) * blocks, 2 * blocks,
+                                  2 * blocks, rdma.FLAG_ONE_CARD]
+    assert tg[11:15].tolist() == [0, 2 * blocks, 2 * blocks,
+                                  rdma.FLAG_ONE_CARD]
+    for cid, tab in ((SCATTER, ts), (GATHER, tg)):
+        cols = tab[rdma.PEER_HEAD:].reshape(5, rdma.MAX_PEERS)
+        assert cols[0, :tp].tolist() == w.recv[cid]
+        assert cols[1, :tp].tolist() == w.signal[cid]
+
+
+def _rank_world(tp: int, rank: int, caps) -> rdma.PeerWorld:
+    """Rank ``rank``'s view of a world of processes (one rank a process,
+    as ``PeerWorld.from_group`` builds it; addresses only, no memory),
+    with the caps the world agreed on."""
+    w = rdma.PeerWorld(tp, 1, rank, protocol.live_protocols(tp),
+                       [(r + 1) << 20 for r in range(tp)], 4096, "cpu")
+    w.caps = dict(caps)
+    return w
+
+
+QWEN_SHAPES = {"prefill": 4 * 128 * 5120, "decode": 4 * 5120}
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_ar_blocks_sized_by_the_work(tp):
+    """Every rank of a world computes one block count for a call from
+    (n, tp, cfg) and the world's caps, whatever its rank: one block for
+    each tile of AR_TILE values of the tp chunk rows, at most the cap of
+    the config's instantiation. qwen3-14b's decode site takes fewer
+    blocks than its prefill site, which fills the cap."""
+    for scale in (1, 4):
+        caps = {m: scale * (66 if m[2] else 132) for m in rdma.AR_MODES}
+        worlds = [_rank_world(tp, r, caps) for r in range(tp)]
+        for name, kw in CFGS.items():
+            cfg = CommConfig(**kw)
+            cap = caps[rdma.ar_mode(cfg)]
+            for n in (*QWEN_SHAPES.values(), tp * 128, tp * 2048,
+                      tp * 2176):
+                counts = {w.ar_blocks(n, cfg) for w in worlds}
+                tiles = -(-(n // tp) // rdma.AR_TILE)
+                assert counts == {min(cap, tp * tiles)}, (name, n, counts)
+            dec, pre = (worlds[0].ar_blocks(QWEN_SHAPES[k], cfg)
+                        for k in ("decode", "prefill"))
+            assert dec == tp * -(-5120 * 4 // tp // rdma.AR_TILE) < pre == cap
+    rot = CommConfig(bits=2, group=32, rotation=True)
+    assert worlds[0].ar_blocks(QWEN_SHAPES["prefill"], rot) == 4 * 66
+
+
+def _simulated_pads(tp: int, protos, calls):
+    """The counters peer.cuh adds to every rank's pads in ``calls``, each
+    (collective ids with their barrier flag, blocks a rank), every block
+    signalling: barrier signals to each peer at signal_offsets, one push
+    signal to each push step's slot, one local signal."""
+    pads = {cid: [[0] * (tp + 1) for _ in range(tp)] for cid in protos}
+    for phases, blocks in calls:
+        for cid, barrier in phases:
+            proto = protos[cid]
+            for my in range(tp):
+                for _ in range(blocks):
+                    if barrier:
+                        for off in proto.barrier.signal_offsets:
+                            pads[cid][(my + off) % tp][0] += 1
+                    for st in proto.pushes:
+                        dst = (my + st.dst_off) % tp
+                        pads[cid][dst][1 + st.recv_slot] += 1
+                pads[cid][my][1 + proto.sem_slots] += blocks
+    return pads
+
+
+@pytest.mark.parametrize("name", list(CFGS))
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_pad_targets_after_mixed_calls(tp, name):
+    """After fc_ar calls of different sizes (so different grids) with
+    fc_a2a calls between them, each protocol's targets are what the
+    device code adds to every rank's pad, counted call by call; fc_a2a's
+    stay those of its fixed grid (calls x cap, x (tp - 1) at the
+    barrier), as before fc_ar's grid varied."""
+    cap = 40
+    cfg = CommConfig(**CFGS[name])
+    w = _rank_world(tp, tp - 1, {k: cap for k in rdma.cap_keys(
+        protocol.live_protocols(tp))})
+    ar = ((SCATTER, True), (GATHER, False))
+    a2a = ((protocol.A2A_COLLECTIVE_ID, True),)
+    calls = []
+    for n in (QWEN_SHAPES["decode"], QWEN_SHAPES["prefill"], tp * 128,
+              QWEN_SHAPES["decode"], None, QWEN_SHAPES["prefill"], None):
+        if n is None:
+            w.next_call(protocol.A2A_COLLECTIVE_ID)
+            calls.append((a2a, cap))
+        else:
+            blocks, _, _ = w.ar_call(n, cfg)
+            calls.append((ar, blocks))
+    assert len({c[1] for c in calls}) >= 3          # three grid sizes
+    pads = _simulated_pads(tp, w.protocols, calls)
+    for cid in w.protocols:
+        for r in range(tp):
+            assert pads[cid][r] == w.pad_targets(cid), (cid, r)
+    a2a_calls = w.epochs[protocol.A2A_COLLECTIVE_ID]
+    assert w.pad_targets(protocol.A2A_COLLECTIVE_ID) == \
+        [a2a_calls * cap * (tp - 1)] + [a2a_calls * cap] * tp
+    assert w.pad_targets(GATHER)[0] == 0
+    _, ts, tg = w.ar_call(QWEN_SHAPES["decode"], cfg)
+    assert ts[14] == tg[14] == 0                    # not one card
+    assert ts[11:14].tolist() == w.targets[SCATTER]
+    assert tg[11:14].tolist() == w.targets[GATHER]
 
 
 def test_wrapper_refuses():
@@ -226,11 +335,11 @@ def test_fused_sites_pick_world_or_group(monkeypatch):
 
 def test_bound_bytes_ar():
     """Per rank: x read (4n), tp wire rows written and read in each
-    phase, the partial written and read (4 n / tp each), the output
-    written (4n): 37 MB at qwen3-14b's prefill site at tp = 4, int8
-    g128 (132 wire bytes a group)."""
+    phase, the output written (4n); the partial sum stays in registers:
+    32 MB at qwen3-14b's prefill site at tp = 4, int8 g128 (132 wire
+    bytes a group)."""
     cfg = CommConfig(bits=8, group=128)
     n = 4 * 128 * 5120
     assert cfg.wire_bytes(n) == 132 * n // 128 == 2703360
     assert rdma.bound_bytes_ar(cfg, 4, n) == (
-        4 * n + 2 * 4 * cfg.wire_bytes(n // 4) + 4 * n // 4) * 2 == 37027840
+        4 * n + 2 * 4 * cfg.wire_bytes(n // 4)) * 2 == 31784960

@@ -208,6 +208,70 @@ def test_moe_apply_matches_jax(setup, pol):
     assert abs(float(aux) - jaux) <= 2e-4 * abs(jaux)
 
 
+def test_dispatch_buffer_matches_jax_bits(setup, monkeypatch):
+    """The dispatch buffer is built as JAX builds it: every route added
+    into +0.0, a dropped one as x * 0 into slot cap - 1 of its expert. A
+    kept -0.0 becomes +0.0 there, and a dropped route holding +inf and
+    -inf turns its experts' last slots NaN where it holds them. Tokens
+    lean towards experts 0 and 1, so both queues are full before the
+    last token, whose infinities (against router rows signed so that its
+    logits are +inf for experts 0, 1 and -inf for 2, 3) route it to
+    experts 0 and 1 in both packages, with NaN weights that the combine
+    drops (JAX's ``rw * keep`` with a boolean ``keep`` is a select). The
+    dispatch buffer equals JAX's bit for bit (bf16 policy: no codec); the
+    layer output is NaN where JAX's is (the token whose kept route sits
+    in a NaN slot) and elsewhere agrees to 1e-5 of the largest
+    magnitude: XLA and PyTorch sum the expert products in different
+    float32 orders on the CPU (about 1e-6 of it measured)."""
+    s = setup
+    d = s["cfg"].d_model
+    router = s["moe_p"]["moe_router"].numpy().copy()
+    ji, jn = 3, 17                        # the +inf and -inf elements
+    router[ji] = np.abs(router[ji]) * [1, 1, -1, -1]
+    router[jn] = np.abs(router[jn]) * [-1, -1, 1, 1]
+    lean = sum(router[:, e] / np.linalg.norm(router[:, e]) for e in (0, 1))
+    x = _hidden(22, 24, d) + 4 * lean
+    x[0, 0, 5] = -0.0                     # kept: the first token's routes
+    x[0, -1, ji], x[0, -1, jn] = np.inf, -np.inf
+    x = x.astype(np.float32).reshape(2, 12, d)
+    topi, _, pos, keep, _ = _jax_route(jnp.asarray(x), jnp.asarray(router),
+                                       s["jcfg"])
+    assert keep[:2].all() and not keep[-2:].any()
+    assert sorted(topi[-1].tolist()) == [0, 1]
+    p = dict(s["moe_p"], moe_router=torch.from_numpy(router))
+
+    jbufs, tbufs = [], []
+
+    def jax_tap(buf, *a, **k):
+        jax.debug.callback(lambda b: jbufs.append(np.asarray(b)), buf)
+        return jcoll.dispatch_all_to_all(buf, *a, **k)
+
+    def torch_tap(buf, *a, **k):
+        tbufs.append(buf.clone())
+        return collectives.dispatch_all_to_all(buf, *a, **k)
+
+    monkeypatch.setattr(jmoe, "dispatch_all_to_all", jax_tap)
+    monkeypatch.setattr(moe, "dispatch_all_to_all", torch_tap)
+    want, _ = _jax_moe(dict(s, moe_p=p), JBF16, x)
+    with torch.no_grad():
+        got, _ = moe.moe_apply(p, torch.from_numpy(x), s["cfg"], s["plan"],
+                               BF16_POLICY.bind(2), layer=1)
+    jbuf, tbuf = jbufs[-1], tbufs[-1].numpy()
+    cap = jmoe.capacity(24, s["jcfg"])
+    e_slots = jbuf.reshape(4, cap, d)
+    assert np.isnan(e_slots[0, cap - 1, [ji, jn]]).all()
+    assert np.isnan(e_slots[1, cap - 1, [ji, jn]]).all()
+    first = e_slots[topi[0, 0], pos[0]]
+    assert first[5] == 0 and not np.signbit(first[5])
+    np.testing.assert_array_equal(_bits(tbuf), _bits(jbuf))
+    got = got.numpy()
+    nan = np.isnan(want)
+    assert nan.any() and not nan.all()
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_allclose(got[~nan], want[~nan], rtol=0,
+                               atol=1e-5 * np.abs(want[~nan]).max())
+
+
 def _jax_serve(s, pol, clen):
     """(prefill hidden states (B, S, d), [decode logits (B, vocab)] for
     DECODE_STEPS teacher-forced steps) from the JAX package."""

@@ -107,10 +107,10 @@ def test_loopback_world_sizing(tp):
     for proto in protos:
         cid = proto.collective_id
         tab = w.table(cid, m=3, in_kind=1)
-        head = tab[:12].tolist()
-        assert head == [tp, tp, 0, 3, 1000, 0, 0, 1, tp - 1, tp - 1, tp - 1,
-                        tp - 1]
-        cols = tab[12:].reshape(5, rdma.MAX_PEERS)
+        head = tab[:rdma.PEER_HEAD].tolist()
+        assert head == [tp, tp, 0, 3, 1000, 0, 1, tp - 1, tp - 1, tp - 1,
+                        tp - 1, 0, 0, 0, 0]
+        cols = tab[rdma.PEER_HEAD:].reshape(5, rdma.MAX_PEERS)
         assert cols[0, :tp].tolist() == w.recv[cid]
         assert cols[1, :tp].tolist() == w.signal[cid]
         assert cols[2, :tp - 1].tolist() == list(
