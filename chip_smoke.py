@@ -16,7 +16,8 @@ Phases, each printing its lines; any failure exits non-zero:
              on the CPU bit for bit); for scale_int, fp16-meta, rotation
              and edge-case configs the kernels equal their plain PyTorch
              versions on the card (encode bytes, decode bits,
-             decode+reduce bits, on the edge input and at (8, 4096)).
+             decode+reduce bits, on the edge input with NaN payloads in
+             f32, bf16 and fp16 out, and at (1 | 2 | 8 | 9, 4096)).
 3. stage  -- the per-stage kernels (quant_pack, dequant_unpack,
              spike_pack) equal their plain versions byte for byte (payload,
              scale, zero, spike values and indices) and bit for bit
@@ -27,11 +28,14 @@ Phases, each printing its lines; any failure exits non-zero:
              site's shape with the counts zeroed before and read after.
 4. time   -- at the serving path's two shapes, the prefill's
              (1, BATCH*PROMPT_LEN*d_model) and the decode step's
-             (1, BATCH*d_model): each kernel equals its plain version, and
-             its device time from torch.profiler traces (the mean over the
-             launches a trace of 25 calls recorded) and its
-             time per call with CUDA events (median of 25 calls after 5
-             warm-up calls) stand beside the plain version's and the bound.
+             (1, BATCH*d_model), and for the two decodes at the other
+             shapes of _path_time_rows (moonshot's TP sites and dispatch
+             receive, tp = 2's rows, a 4-row decode+reduce): each kernel
+             equals its plain version, and its device time from
+             torch.profiler traces (the mean over the launches a trace of
+             25 calls recorded) and its time per call with CUDA events
+             (median of 25 calls after 5 warm-up calls) stand beside the
+             plain version's and the bound.
 5. serve  -- qwen3-14b at full width (40 layers, bf16 weights from seed
              SEED by the JAX package's init rules, with the zero-initialised
              attention and MLP output projections filled from a fan-in
@@ -176,6 +180,41 @@ TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int2 g32 spike", dict(bits=2, group=32, spike=True)),
                 ("int2 g32 rotation", dict(bits=2, group=32,
                                            rotation=True)))
+
+
+def _path_time_rows(d: int, mcfg):
+    """fc_decode_wire and fc_decode_reduce at the other shapes the serve
+    paths give them, for ARCH's d_model d and MOE_ARCH's config mcfg:
+    (shape label, config label, kernel, rows, n, out dtype, config).
+    Moonshot's TP sites, (1, BATCH*PROMPT_LEN*dm) and (1, BATCH*dm); its
+    dispatch receive, (experts x capacity, dm) bf16 rows at prefill and
+    at decode; tp = 2's two_step rows, (2, n / 2) of ARCH's sites; a
+    decode+reduce of 4 rows."""
+    from repro_torch.models.moe import capacity
+    int8, int4 = dict(bits=8, group=128), dict(bits=4, group=32)
+    int4si = dict(bits=4, group=32, scale_int=True)
+    prefill, decode, dm = BATCH * PROMPT_LEN, BATCH, mcfg.d_model
+    rows = []
+    for name in ("decode_wire", "decode_reduce"):
+        rows += [("moe tp prefill", "int8 g128", name, 1, prefill * dm,
+                  "float32", int8),
+                 ("moe tp decode", "int8 g128", name, 1, decode * dm,
+                  "float32", int8)]
+    for shape, t in (("dispatch prefill", prefill), ("dispatch decode",
+                                                     decode)):
+        r = mcfg.moe.n_experts * capacity(t, mcfg)
+        rows += [(shape, "int4 g32", "decode_wire", r, dm, "bfloat16", int4),
+                 (shape, "int4 g32 scale_int", "decode_wire", r, dm,
+                  "bfloat16", int4si)]
+    return rows + [
+        ("tp2 prefill", "int8 g128", "decode_wire", 2, prefill * d // 2,
+         "float32", int8),
+        ("tp2 decode", "int8 g128", "decode_wire", 2, decode * d // 2,
+         "float32", int8),
+        ("reduce R=4", "int8 g128", "decode_reduce", 4, prefill * d // 4,
+         "float32", int8)]
+
+
 # (label, kernel, bits, group): the stage kernels' timing configs
 STAGE_TIME = (("int8 g128", "quant_pack", 8, 128),
               ("int8 g128", "dequant_unpack", 8, 128),
@@ -302,8 +341,12 @@ def phase_codec(torch, np):
           f"card and on the CPU; skipped {len(skipped)} keys (frame_*: "
           f"framed wire not ported)", flush=True)
 
-    x = torch.from_numpy(_edge_input(np, 4, 1024, 7)).to(dev)
+    x = torch.from_numpy(_stage_input(np, 4, 1024, 7)).to(dev)
     cfgs = []
+    for bits in (3, 8):
+        for group in (32, 64, 128):
+            for spike in (False, True):
+                cfgs.append(CommConfig(bits=bits, group=group, spike=spike))
     for bits in range(1, 9):
         for group in (32, 64, 128):
             for spike in (False, True):
@@ -327,21 +370,26 @@ def phase_codec(torch, np):
         buf = wire.encode_wire(x, cfg)
         check(torch.equal(buf, wire.encode_plain(x, cfg)),
               f"CUDA encode != plain for {cfg}")
-        for out_dtype in (torch.float32, torch.bfloat16):
+        for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
             dec = wire.decode_wire(buf, cfg, x.shape[1], out_dtype)
             check(_bits_equal(torch, dec, wire.decode_plain(
                 buf, cfg, x.shape[1], out_dtype)),
                 f"CUDA decode != plain ({out_dtype}) for {cfg}")
-        check(_bits_equal(torch, wire.decode_reduce(buf, cfg, x.shape[1]),
-                          wire.decode_reduce_plain(buf, cfg, x.shape[1])),
-              f"CUDA decode_reduce != plain for {cfg}")
-    print(f"[codec] {len(cfgs)} scale_int / theta / fp16-meta / rotation "
-          f"({n_rot}) configs with NaN, inf, constant and "
-          f"duplicated-extreme groups: CUDA encode byte-equal, decode "
-          f"(f32, bf16) and decode_reduce bit-equal to plain", flush=True)
+        # all rows, and row 1 alone: its spike values hold -0.0, which
+        # the sum from +0.0 makes +0.0
+        for rows in (buf, buf[1:2].contiguous()):
+            check(_bits_equal(torch, wire.decode_reduce(rows, cfg, x.shape[1]),
+                              wire.decode_reduce_plain(rows, cfg, x.shape[1])),
+                  f"CUDA decode_reduce != plain for {cfg} at {rows.shape[0]} "
+                  f"rows")
+    print(f"[codec] {len(cfgs)} plain / scale_int / theta / fp16-meta / "
+          f"rotation ({n_rot}) configs with NaN (signed, with payloads), "
+          f"inf, constant, signed-zero and duplicated-extreme groups: CUDA "
+          f"encode byte-equal, decode (f32, bf16, fp16) and decode_reduce "
+          f"bit-equal to plain", flush=True)
 
     rng = np.random.default_rng(11)
-    xr = torch.from_numpy((rng.standard_normal((8, 4096)) * 2).astype(
+    xr = torch.from_numpy((rng.standard_normal((9, 4096)) * 2).astype(
         np.float32)).to(dev)
     for cfg in (CommConfig(bits=8, group=128),
                 CommConfig(bits=5, group=128, scale_int=True),
@@ -349,13 +397,15 @@ def phase_codec(torch, np):
                 CommConfig(bits=2, group=32, rotation=True),
                 CommConfig(bits=4, group=64, rotation=True),
                 CommConfig(bits=8, group=128, rotation=True)):
-        buf = wire.encode_wire(xr, cfg)
-        red = wire.decode_reduce(buf, cfg, 4096)
-        check(_bits_equal(torch, red, wire.decode_reduce_plain(
-            buf, cfg, 4096)), f"CUDA decode_reduce != plain for {cfg}")
-    print("[codec] decode_reduce at (8, 4096): bit-equal to plain for int8, "
-          "int5 scale_int, int2 spike and rotation int2 g32 / int4 g64 / "
-          "int8 g128", flush=True)
+        for rows in (1, 2, 8, 9):
+            buf = wire.encode_wire(xr[:rows].contiguous(), cfg)
+            red = wire.decode_reduce(buf, cfg, 4096)
+            check(_bits_equal(torch, red, wire.decode_reduce_plain(
+                buf, cfg, 4096)),
+                f"CUDA decode_reduce != plain for {cfg} at ({rows}, 4096)")
+    print("[codec] decode_reduce at (1 | 2 | 8 | 9, 4096): bit-equal to "
+          "plain for int8, int5 scale_int, int2 spike and rotation int2 g32 "
+          "/ int4 g64 / int8 g128", flush=True)
 
     # rows whose wire stride is no multiple of 8 (nor of 4 or 2): the
     # encode's plane and meta stores fall back to bytes where unaligned
@@ -623,6 +673,23 @@ def phase_time(torch, np, card: str):
             rows.setdefault(shape, {}).setdefault(label, {})[name] = \
                 _time_row(torch, name, label, (1, n), kern, plain,
                           stage.bound_bytes(name, bits, group, 1, n), 0, card)
+    for shape, label, name, r, n, out, kw in _path_time_rows(
+            d_model, get_config(MOE_ARCH)):
+        cfg = CommConfig(**kw)
+        out_dtype = getattr(torch, out)
+        x = torch.from_numpy(rng.standard_normal((r, n)).astype(
+            np.float32)).to(dev)
+        buf = wire.encode_wire(x, cfg)
+        if name == "decode_wire":
+            kern = lambda: wire.decode_wire(buf, cfg, n, out_dtype)
+            plain = lambda: wire.decode_plain(buf, cfg, n, out_dtype)
+        else:
+            kern = lambda: wire.decode_reduce(buf, cfg, n)
+            plain = lambda: wire.decode_reduce_plain(buf, cfg, n)
+        rows.setdefault(shape, {}).setdefault(label, {})[name] = _time_row(
+            torch, name, label, (r, n), kern, plain,
+            wire.bound_bytes(name, cfg, r, n, out_dtype.itemsize),
+            wire.bound_flops(name, cfg, r, n), card)
     return rows
 
 

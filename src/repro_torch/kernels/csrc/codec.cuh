@@ -1,10 +1,10 @@
 // Device functions shared by the codec kernels (wire.cu, stage.cu,
 // rdma.cu, allreduce.cu): the group quantizer, and the wire format's
 // per-group encode and decode in two thread mappings -- a warp a group
-// (encode_group, decode_group: fc_decode_wire, fc_decode_reduce, fc_a2a)
-// and eight values a thread (quantize8 / bytes8 / put8 / decode8: fc_encode_wire,
-// fc_ar) -- so that every kernel that writes or reads a wire row writes
-// and reads the same bytes.
+// (encode_group, decode_group: fc_a2a) and eight values a thread
+// (quantize8 / bytes8 / put8 / fetch8 / finish8: fc_encode_wire,
+// fc_decode_wire, fc_decode_reduce, fc_ar) -- so that every kernel that
+// writes or reads a wire row writes and reads the same bytes.
 //
 // Numerics follow the JAX reference exactly (and the plain PyTorch
 // version in repro_torch/core): IEEE division (__fdiv_rn), round half to
@@ -252,14 +252,16 @@ __device__ __forceinline__ unsigned long long pack8(unsigned long long codes8, i
   return word;
 }
 
-// Byte loads of a wire row: plain, or through L2 only (ld.global.cg) for
-// a row that other SMs or peers wrote, so no stale L1 line is read.
+// Loads of a wire row: plain, or through L2 only (ld.global.cg) for a
+// row that other SMs or peers wrote, so no stale L1 line is read.
 struct LoadPlain {
-  __device__ __forceinline__ unsigned operator()(const uint8_t* a) const { return *a; }
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* a) const { return *a; }
 };
 
 struct LoadL2 {
-  __device__ __forceinline__ unsigned operator()(const uint8_t* a) const { return __ldcg(a); }
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* a) const { return __ldcg(a); }
 };
 
 // Code bits of element e from one unit-u plane, shifted into place.
@@ -285,6 +287,7 @@ struct WireParams {
   unsigned sign_seed;                     // rotation: the sign hash's seed
   float hscale;                           // rotation: 1 / sqrt(group) in f32
   int n_thr;
+  int theta_off, theta_q0;                // exp2_div_theta: a multiple of theta >= 128, / theta
   unsigned thr[kMaxTheta];
   float frac[kMaxTheta];
   float eps, mag_min;
@@ -305,6 +308,8 @@ inline WireParams fill_params(const long long* a, const unsigned* thr, const flo
   p.meta_f16 = (int)a[19]; p.out_kind = (int)a[20];
   p.rotation = (int)a[21]; p.sign_seed = (unsigned)a[22];
   p.n_thr = p.theta - 1;
+  p.theta_off = ((128 + p.theta - 1) / p.theta) * p.theta;
+  p.theta_q0 = p.theta_off / p.theta;
   for (int k = 0; k < kMaxTheta; ++k) {
     p.thr[k] = k < p.n_thr ? thr[k] : 0xffffffffu;
     p.frac[k] = k < p.theta ? frac[k] : 0.f;
@@ -326,11 +331,12 @@ __device__ __forceinline__ int floor_log2_theta(float s, const WireParams& p) {
   return e * p.theta + r;
 }
 
+// 2^(v / theta) for a code v >= -128: one unsigned division (w >= 0).
 __device__ __forceinline__ float exp2_div_theta(int v, const WireParams& p) {
-  int off = ((128 + p.theta - 1) / p.theta) * p.theta;
-  int w = v + off;
-  int q = w / p.theta - off / p.theta;
-  int r = w - (w / p.theta) * p.theta;
+  const unsigned w = (unsigned)(v + p.theta_off);
+  const unsigned wq = w / (unsigned)p.theta;
+  const int q = (int)wq - p.theta_q0;
+  const int r = (int)(w - wq * (unsigned)p.theta);
   return __fmul_rn(p.frac[r], __int_as_float((q + 127) << 23));
 }
 
@@ -578,7 +584,7 @@ __device__ __forceinline__ void decode_group(const uint8_t* w, long long g, int 
   if (p.rotation) unrotate_warp<VPL>(v, lane, p);
 }
 
-// ---- eight values a thread (fc_encode_wire, fc_ar) ------------------------
+// ---- eight values a thread (the wire kernels, fc_ar) ----------------------
 //
 // Thread t of a block owns 8 consecutive values of a row, elements
 // e0 .. e0 + 7 with e0 a multiple of 8, so its codes fill exactly u whole
@@ -609,19 +615,20 @@ __device__ __forceinline__ void store_le(uint8_t* dst, unsigned long long word, 
   for (int b = 0; b < nbytes; ++b) dst[b] = (uint8_t)(word >> (8 * b));
 }
 
-// The inverse, read through L2 only (ld.global.cg): the rows it reads
-// were written by other SMs or peers.
-__device__ __forceinline__ unsigned long long load_le_cg(const uint8_t* src, int nbytes) {
+// The inverse, with loader Ld.
+template <typename Ld>
+__device__ __forceinline__ unsigned long long load_le(const uint8_t* src, int nbytes) {
+  const Ld ld{};
   if (((uintptr_t)src & (uintptr_t)(nbytes - 1)) == 0) {
     switch (nbytes) {
-      case 8: return __ldcg(reinterpret_cast<const unsigned long long*>(src));
-      case 4: return __ldcg(reinterpret_cast<const unsigned*>(src));
-      case 2: return __ldcg(reinterpret_cast<const unsigned short*>(src));
-      default: return __ldcg(src);
+      case 8: return ld(reinterpret_cast<const unsigned long long*>(src));
+      case 4: return ld(reinterpret_cast<const unsigned*>(src));
+      case 2: return ld(reinterpret_cast<const unsigned short*>(src));
+      default: return ld(src);
     }
   }
   unsigned long long w = 0;
-  for (int b = 0; b < nbytes; ++b) w |= (unsigned long long)__ldcg(src + b) << (8 * b);
+  for (int b = 0; b < nbytes; ++b) w |= (unsigned long long)ld(src + b) << (8 * b);
   return w;
 }
 
@@ -647,6 +654,54 @@ __device__ __forceinline__ void load8(const float* __restrict__ src, bool active
 __device__ __forceinline__ void store8(float* __restrict__ dst, const float (&v)[kPer]) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Eight values as out kind OUT (0 f32, 1 bf16, 2 fp16) at element i of
+// out: one or two 16-byte stores where that address is 16-byte aligned,
+// else one store a value. The 16-bit kinds convert two values an
+// instruction (round to nearest even, store_out's bits for every number);
+// a thread holding a NaN converts with f2bf / f2h instead, whose NaN bits
+// (store_out's) the paired conversion does not keep.
+template <int OUT>
+__device__ __forceinline__ void store8_out(void* out, long long i, const float (&v)[kPer]) {
+  if (OUT == 0) {
+    float* dst = reinterpret_cast<float*>(out) + i;
+    if (((uintptr_t)dst & 15) == 0) {
+      store8(dst, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) dst[k] = v[k];
+    }
+    return;
+  }
+  bool nan = false;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) nan |= isnan_(v[k]);
+  unsigned w[kPer / 2];
+#pragma unroll
+  for (int j = 0; j < kPer / 2; ++j) {
+    const float a = v[2 * j], b = v[2 * j + 1];
+    if (nan) {
+      w[j] = OUT == 1 ? f2bf(a) | ((unsigned)f2bf(b) << 16) : f2h(a) | ((unsigned)f2h(b) << 16);
+    } else if (OUT == 1) {
+      const __nv_bfloat162 t = __floats2bfloat162_rn(a, b);     // .x = a: the low half
+      w[j] = *reinterpret_cast<const unsigned*>(&t);
+    } else {
+      const __half2 t = __floats2half2_rn(a, b);
+      w[j] = *reinterpret_cast<const unsigned*>(&t);
+    }
+  }
+  unsigned* dst = reinterpret_cast<unsigned*>(reinterpret_cast<unsigned short*>(out) + i);
+  if (((uintptr_t)dst & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+    for (int j = 0; j < kPer / 2; ++j) {
+      d16[2 * j] = (unsigned short)w[j];
+      d16[2 * j + 1] = (unsigned short)(w[j] >> 16);
+    }
+  }
 }
 
 // The rotation over the group's W lanes, in hadamard_warp's order:
@@ -901,11 +956,13 @@ struct Raw8 {
   unsigned long long plane[3];
 };
 
-// Load a thread's raw bytes of wire row w (through L2: rows that other
-// SMs or peers wrote). An inactive thread loads nothing.
-template <int G, bool SPIKE>
+// Load a thread's raw bytes of wire row w with loader Ld (LoadL2, the
+// default, for rows that other SMs or peers wrote). An inactive thread
+// loads nothing.
+template <int G, bool SPIKE, typename Ld = LoadL2>
 __device__ __forceinline__ Raw8 fetch8(const uint8_t* w, long long e0, int lt, bool active,
                                       const WireParams& p) {
+  const Ld ld{};
   Raw8 r;
   r.meta = 0;
 #pragma unroll
@@ -921,12 +978,12 @@ __device__ __forceinline__ Raw8 fetch8(const uint8_t* w, long long e0, int lt, b
   else if (SPIKE && lt == 3) { a = w + p.si_off + 2 * g * mb; nb = 2 * mb; }
 #pragma unroll
   for (int b = 0; b < 4; ++b)
-    if (b < nb) r.meta |= (unsigned)__ldcg(a + b) << (8 * b);
+    if (b < nb) r.meta |= (unsigned)ld(a + b) << (8 * b);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     if (i == p.n_planes) break;
     const int u = p.unit[i];
-    r.plane[i] = load_le_cg(w + p.plane_off[i] + (e0 >> 3) * u, u);
+    r.plane[i] = load_le<Ld>(w + p.plane_off[i] + (e0 >> 3) * u, u);
   }
   return r;
 }
@@ -995,12 +1052,13 @@ __device__ __forceinline__ void finish8(const Raw8& r, int lt, const WireParams&
   if (ROT) unrotate8<W>(v, lt, p);
 }
 
-// Decode the thread's eight values of wire row w into v (fetch8, then
-// finish8). An inactive thread reads nothing and decodes zeros.
-template <int G, bool SPIKE, bool ROT>
+// Decode the thread's eight values of wire row w into v (fetch8 with
+// loader Ld, then finish8). An inactive thread reads nothing and decodes
+// zeros.
+template <int G, bool SPIKE, bool ROT, typename Ld = LoadL2>
 __device__ __forceinline__ void decode8(const uint8_t* w, long long e0, int lt, bool active,
                                         const WireParams& p, float (&v)[kPer]) {
-  finish8<G, SPIKE, ROT>(fetch8<G, SPIKE>(w, e0, lt, active, p), lt, p, v);
+  finish8<G, SPIKE, ROT>(fetch8<G, SPIKE, Ld>(w, e0, lt, active, p), lt, p, v);
 }
 
 // CALL(G, SPIKE, ROT) for the config's group and mode (CALL is a macro

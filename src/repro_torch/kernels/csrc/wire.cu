@@ -7,13 +7,14 @@
 //   src/repro/kernels/emulate.py  decode_reduce_rows            -> fc_decode_reduce
 //
 // Bound on an H100: all three are memory-bound. The least time is
-// (bytes read + bytes written) / 3.35 TB/s: 4n + wire bytes for encode and
-// decode (f32 side), R * wire bytes + 4 * chunk for decode+reduce.
+// (bytes read + bytes written) / 3.35 TB/s: 4n + wire bytes for encode,
+// R * (wire bytes + n * out itemsize) for decode, R * wire bytes + 4n for
+// decode+reduce.
 //
-// Design. On the serving path a site has one row (tp = 1) of ~10^6..10^7
-// values, so the kernels parallelise over quantization groups, not rows.
-// A group fills whole bytes of every plane, so no two groups share a
-// byte:
+// Design. On the serving path a TP site has one row (tp = 1) of
+// ~10^6..10^7 values, so the kernels parallelise over the values of a
+// row, eight a thread, not over rows. A group fills whole bytes of every
+// plane, so no two groups share a byte:
 //   plane bytes  plane_off + g * group * unit / 8
 //   scale, zero  scale_off + g * meta_bytes, zero_off + g * meta_bytes
 //   spikes       sv_off + 4 g,  si_off + 2 g * idx_bytes
@@ -29,17 +30,32 @@
 // threads compute on zeros and store nothing (group divides n). Its mode
 // (spike, rotation) is a template argument, so the plain RTN path carries
 // no spike or rotation registers.
-// Decode and decode+reduce: one warp a group of 32, 64 or 128 values (1,
-// 2 or 4 per lane, lane-strided so that loads and stores coalesce),
-// group min/max and the spike election as warp shuffles (codec.cuh
-// decode_group).
+// Decode (fc_decode_wire) and decode+reduce (fc_decode_reduce): the same
+// eight values a thread (codec.cuh fetch8 / finish8, shared with fc_ar)
+// on one flat grid over the call's rows x n / 8 items, so that a short
+// row (a dispatch row of 2048 values) leaves no thread of a block idle.
+// n is a multiple of the group, so a thread's eight values never cross a
+// row or a group, and a group's G / 8 lanes never cross a warp. A thread
+// issues one load of u bytes a plane (bytes where the row's stride leaves
+// the address unaligned), its group's first four lanes one meta section
+// each, passed to the others by shuffle; it stores its eight outputs as
+// one aligned vector store a 16 bytes (two at f32, one at bf16 / fp16).
+// The output kind (f32, bf16, fp16) and the mode (group, spike,
+// rotation) are template arguments. Decode+reduce gives each thread
+// eight values of the one output row: it issues the loads of up to
+// kRowsInFlight rows before it decodes any of them (one where the call
+// has one row, so that a thread keeps about the decode's registers),
+// then adds the rows' values in row order from +0.0. Loads are plain
+// (the rows were written on the same stream): on an H100 they ran 3-9%
+// faster than L2-only loads on some configs and level on the rest
+// (PERF.md).
 //
 // Rotation (CommConfig.rotation): each group is rotated before it is
 // quantized, x -> (x * s) @ H / sqrt(g), and rotated back after it is
 // dequantized, as repro_torch/core/rotation.py does, in its fixed order:
 // output j is a sum over i in increasing order from +0.0 of products
-// rounded before the add. Value i is broadcast by __shfl_sync (over the
-// warp in the decodes, over the group's lanes in the encode);
+// rounded before the add. Value i is broadcast by __shfl_sync over the
+// group's G / 8 lanes (codec.cuh hadamard8);
 // H[i][j] = +-1/sqrt(g) by the parity of popcount(i & j), and the signs s
 // come from the lowbias32 hash of the position. That is 2g flops a value
 // (64 at g = 32): at the card's 67 TFLOP/s of f32 about as long as moving
@@ -52,9 +68,6 @@
 namespace {
 
 using namespace fc;
-
-constexpr int kWarps = 8;                 // warps (groups) per block
-constexpr int kThreads = kWarps * 32;
 
 // ---- encode ---------------------------------------------------------------
 
@@ -81,44 +94,61 @@ __global__ void __launch_bounds__(kEncThreads) encode_kernel(const float* __rest
 
 // ---- decode ---------------------------------------------------------------
 
-template <int VPL>
-__global__ void __launch_bounds__(kThreads) decode_kernel(const uint8_t* __restrict__ wire,
-                                                          void* __restrict__ out,
-                                                          const WireParams p) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long gid = (long long)blockIdx.x * kWarps + warp;
-  if (gid >= p.rows * p.groups) return;
-  const long long row = gid / p.groups, g = gid % p.groups;
-  float v[VPL];
-  decode_group<VPL>(wire + row * p.wb, g, lane, p, v);
-#pragma unroll
-  for (int k = 0; k < VPL; ++k)
-    store_out(out, row * p.n + g * p.group + k * 32 + lane, v[k], p.out_kind);
+constexpr int kRowsInFlight = 4;          // decode+reduce of several rows: loaded before they are summed
+
+// Thread it of the grid decodes the eight values of item it: row
+// it / (n / 8), elements e0 .. e0 + 7 of that row. The wrapper sizes the
+// grid so that the item index fits in 32 bits.
+template <int G, bool SPIKE, bool ROT, int OUT>
+__global__ void __launch_bounds__(kEncThreads) decode_kernel(const uint8_t* __restrict__ wire,
+                                                             void* __restrict__ out,
+                                                             const WireParams p) {
+  const unsigned per_row = (unsigned)(p.n / kPer);
+  const unsigned it = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned row = it / per_row;
+  const long long e0 = (long long)(it - row * per_row) * kPer;
+  const bool active = row < p.rows;
+  float v[kPer];
+  decode8<G, SPIKE, ROT, LoadPlain>(wire + row * p.wb, e0, threadIdx.x % (G / kPer), active, p, v);
+  if (active) store8_out<OUT>(out, row * p.n + e0, v);
 }
 
 // Dequantize rows 0..R-1 of one chunk and sum them in that order (from
-// +0.0, as a reduction with initial value 0 does) into one f32 row.
-template <int VPL>
-__global__ void __launch_bounds__(kThreads) decode_reduce_kernel(const uint8_t* __restrict__ wire,
-                                                                 float* __restrict__ out,
-                                                                 const WireParams p) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long g = (long long)blockIdx.x * kWarps + warp;
-  if (g >= p.groups) return;
-  float acc[VPL];
+// +0.0, as a reduction with initial value 0 does) into one f32 row,
+// loading RF rows before it decodes them. A row's raw bytes take 7
+// registers: RF = kRowsInFlight holds a thread at 64, two blocks of 512
+// an SM; RF = 1 is launched for a call of one row (as on every serve
+// path), whose row count it then knows at compile time: 30-32
+// registers, 48 rotating, where a loop over a row count it did not know
+// took 96-117 (0.0 + v is still added).
+template <int G, bool SPIKE, bool ROT, int RF>
+__global__ void __launch_bounds__(kEncThreads, RF == 1 ? 1 : 2)
+    decode_reduce_kernel(const uint8_t* __restrict__ wire, float* __restrict__ out,
+                         const WireParams p) {
+  const long long e0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kPer;
+  const bool active = e0 < p.n;
+  const int lt = threadIdx.x % (G / kPer);
+  const long long rows = RF == 1 ? 1 : p.rows;
+  float acc[kPer];
 #pragma unroll
-  for (int k = 0; k < VPL; ++k) acc[k] = 0.f;
-  for (long long r = 0; r < p.rows; ++r) {
-    float v[VPL];
-    decode_group<VPL>(wire + r * p.wb, g, lane, p, v);
+  for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+  for (long long r0 = 0; r0 < rows; r0 += RF) {
+    Raw8 raw[RF];
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
+    for (int j = 0; j < RF; ++j)
+      if (r0 + j < rows) raw[j] = fetch8<G, SPIKE, LoadPlain>(wire + (r0 + j) * p.wb, e0, lt, active, p);
+#pragma unroll
+    for (int j = 0; j < RF; ++j) {
+      if (r0 + j < rows) {
+        float v[kPer];
+        finish8<G, SPIKE, ROT>(raw[j], lt, p, v);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
+      }
+    }
   }
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) out[g * p.group + k * 32 + lane] = acc[k];
+  if (active) store8(out + e0, acc);
 }
-
-unsigned blocks_for(long long warps) { return (unsigned)((warps + kWarps - 1) / kWarps); }
 
 // SMs of the current card (cached a card).
 int sm_count() {
@@ -129,14 +159,11 @@ int sm_count() {
   return sms[dev];
 }
 
-// One launch of kernel K<VPL> for the config's group (32, 64 or 128).
-#define FC_LAUNCH_BY_GROUP(K, blocks, st, ...)                                 \
-  switch (p.group) {                                                          \
-    case 32: K<1><<<(blocks), kThreads, 0, (st)>>>(__VA_ARGS__); break;       \
-    case 64: K<2><<<(blocks), kThreads, 0, (st)>>>(__VA_ARGS__); break;       \
-    case 128: K<4><<<(blocks), kThreads, 0, (st)>>>(__VA_ARGS__); break;      \
-    default: return (int)cudaErrorInvalidValue;                               \
-  }
+// Threads a block for a call of `items` threads' work: the paper's block,
+// or a quarter of it where that leaves SMs idle.
+int block_threads(long long items) {
+  return (items + kEncThreads - 1) / kEncThreads < sm_count() ? kEncSmall : kEncThreads;
+}
 
 }  // namespace
 
@@ -147,9 +174,8 @@ int fc_encode_wire(const void* x, void* wire, const long long* params, const uns
   const WireParams p = fill_params(params, thr, frac, f);
   if (p.rows * p.n == 0) return 0;
   if (const int rc = use_device_of(x)) return rc;
-  // the paper's block, or a quarter of it where that leaves SMs idle
   const long long chunk = (long long)kEncThreads * kPer;
-  const int threads = p.rows * ((p.n + chunk - 1) / chunk) < sm_count() ? kEncSmall : kEncThreads;
+  const int threads = block_threads(p.rows * ((p.n + chunk - 1) / chunk) * kEncThreads);
   const long long blocks = p.rows * ((p.n + threads * kPer - 1) / (threads * kPer));
   const cudaStream_t st = (cudaStream_t)stream;
   const float* xs = (const float*)x;
@@ -163,21 +189,47 @@ int fc_encode_wire(const void* x, void* wire, const long long* params, const uns
 int fc_decode_wire(const void* wire, void* out, const long long* params, const unsigned* thr,
                    const float* frac, const float* f, void* stream) {
   const WireParams p = fill_params(params, thr, frac, f);
-  const long long warps = p.rows * p.groups;
-  if (warps == 0) return 0;
+  const long long items = p.rows * (p.n / kPer);
+  if (items == 0) return 0;
+  if (items > 0xffffffffLL - kEncThreads) return (int)cudaErrorInvalidValue;   // 32-bit items
   if (const int rc = use_device_of(wire)) return rc;
-  FC_LAUNCH_BY_GROUP(decode_kernel, blocks_for(warps), (cudaStream_t)stream,
-                     (const uint8_t*)wire, out, p);
+  const int threads = block_threads(items);
+  const unsigned blocks = (unsigned)((items + threads - 1) / threads);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* w = (const uint8_t*)wire;
+#define FC_DECODE_AS(G, S, R, O) decode_kernel<G, S, R, O><<<blocks, threads, 0, st>>>(w, out, p)
+#define FC_DECODE(G, S, R)                                    \
+  switch (p.out_kind) {                                       \
+    case 0: FC_DECODE_AS(G, S, R, 0); break;                  \
+    case 1: FC_DECODE_AS(G, S, R, 1); break;                  \
+    case 2: FC_DECODE_AS(G, S, R, 2); break;                  \
+    default: return (int)cudaErrorInvalidValue;               \
+  }
+  FC_BY_MODE(p, FC_DECODE, return (int)cudaErrorInvalidValue)
+#undef FC_DECODE
+#undef FC_DECODE_AS
   return (int)cudaGetLastError();
 }
 
 int fc_decode_reduce(const void* wire, void* out, const long long* params, const unsigned* thr,
                      const float* frac, const float* f, void* stream) {
   const WireParams p = fill_params(params, thr, frac, f);
-  if (p.groups == 0) return 0;
+  const long long items = p.n / kPer;
+  if (items == 0) return 0;
   if (const int rc = use_device_of(wire)) return rc;
-  FC_LAUNCH_BY_GROUP(decode_reduce_kernel, blocks_for(p.groups), (cudaStream_t)stream,
-                     (const uint8_t*)wire, (float*)out, p);
+  const int threads = block_threads(items);
+  const long long blocks = (items + threads - 1) / threads;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* w = (const uint8_t*)wire;
+  float* o = (float*)out;
+#define FC_REDUCE_RF(G, S, R, RF) \
+  decode_reduce_kernel<G, S, R, RF><<<(unsigned)blocks, threads, 0, st>>>(w, o, p)
+#define FC_REDUCE(G, S, R)                                    \
+  if (p.rows == 1) FC_REDUCE_RF(G, S, R, 1);                  \
+  else FC_REDUCE_RF(G, S, R, kRowsInFlight)
+  FC_BY_MODE(p, FC_REDUCE, return (int)cudaErrorInvalidValue)
+#undef FC_REDUCE
+#undef FC_REDUCE_RF
   return (int)cudaGetLastError();
 }
 

@@ -17,10 +17,11 @@ wrapper              TPU kernel replaced                              bound (H10
 All three are memory-bound: the least time is the bytes read plus the
 bytes written over 3.35 TB/s (:func:`bound_bytes`); a rotating config
 adds ``2 * group`` f32 operations a value (:func:`bound_flops`).
-``fc_encode_wire`` gives eight consecutive values to a thread (the
-paper's block of 512 threads over 4096 values, as ``fc_ar``'s encode);
-the two decodes give one warp to one quantization group (see the
-source's header).
+All three give eight consecutive values of a row to a thread, as
+``fc_ar`` does: ``fc_encode_wire`` in the paper's block of 512 threads
+over 4096 values, the two decodes on one flat grid over the call's
+rows x n / 8 items, each thread with one load a bit plane and one
+aligned vector store (see the source's header).
 
 Each wrapper launches its kernel on a CUDA tensor, or raises: for a
 tensor elsewhere, and for what the kernel does not take (a group other

@@ -22,6 +22,7 @@ from repro.core import spike as jspike
 from repro.core import wordpack as jwordpack
 from repro.core.comm_config import CommConfig as JConfig
 from repro.core.comm_config import _wire_layout as j_wire_layout
+from repro.kernels import emulate as jemulate
 from repro_torch.core import (codec, quant, rotation, scale_codec, spike,
                               wordpack)
 from repro_torch.core.comm_config import CommConfig, _wire_layout
@@ -318,20 +319,25 @@ def test_scale_int_matches_jax(bits, group, sp, theta):
         _bits(jcodec.decode(jnp.asarray(jbuf), jc, 512)))
 
 
-def _assert_within_fma_rounding(td, jd, group):
+def _assert_within_fma_rounding(td, jd, group, out_ulp=(0.0, 0.0)):
     """JAX's jitted decode (its "pallas" backend, kernels interpreted
     under jit) lets XLA's CPU backend contract ``codes * s + z`` into one
     FMA; the port, like JAX's eager ``"ref"`` decode, rounds the product
     first (and so do the CUDA kernels). The two differ by at most one
     rounding of the product: |d| <= ulp(codes*s) <= 2^-23 |codes*s|, and
     |codes*s| <= |value| + |z| <= |value| + max |value| of its group
-    (z is the value of code 0). Twice that bound is asserted."""
+    (z is the value of code 0). Twice that bound is asserted. Decoded
+    into a narrower type, the two f32 values then round to neighbours at
+    most: ``out_ulp`` = (relative, absolute) spacing of that type is
+    added (bf16 (2^-7, 0); fp16 (2^-10, 2^-24), its subnormals')."""
+    td, jd = np.asarray(td, np.float32), np.asarray(jd, np.float32)
     assert np.array_equal(np.isnan(td), np.isnan(jd))
     ok = np.isfinite(td) & np.isfinite(jd)
     np.testing.assert_array_equal(td[~ok], jd[~ok])
     a = np.abs(np.where(ok, jd, 0.0)).reshape(*jd.shape[:-1], -1, group)
     gmax = np.repeat(a.max(-1), group, axis=-1).reshape(jd.shape)
     bound = 2.0 ** -22 * (np.abs(jd) + gmax)
+    bound = bound + out_ulp[0] * a.reshape(jd.shape) + out_ulp[1]
     assert np.all(np.abs(td[ok] - jd[ok]) <= bound[ok])
 
 
@@ -434,3 +440,81 @@ def test_signed_zero_groups_match_jax(sp, scale_int):
         want = np.asarray(jcodec.encode(jnp.asarray(x),
                                         JConfig(backend="ref", **kw)))
         np.testing.assert_array_equal(got, want, err_msg=str(kw))
+
+
+# the wire kernels' timing configs (chip_smoke.py TIME_CONFIGS) and the
+# dispatch's int4 g32
+ROWS_CFGS = [dict(bits=8, group=128), dict(bits=5, group=128, scale_int=True),
+             dict(bits=2, group=32, spike=True),
+             dict(bits=2, group=32, rotation=True), dict(bits=4, group=32)]
+OUT_ULP = {"float32": (0.0, 0.0), "bfloat16": (2.0 ** -7, 0.0),
+           "float16": (2.0 ** -10, 2.0 ** -24)}
+
+
+def _rows_x(rows: int, seed: int) -> np.ndarray:
+    """(rows, 512): every row's first group of 32 positive but for a -0.0
+    (its min: a spike that holds -0.0), and a NaN in the last row."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, 512)) * 3).astype(np.float32)
+    x[:, :32] = np.abs(x[:, :32])
+    x[:, 5] = -0.0
+    x[-1, 200] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("kw", ROWS_CFGS, ids=lambda kw: "-".join(
+    f"{k}{v}" for k, v in kw.items()))
+def test_plain_decodes_match_jax_rows(kw, rows):
+    """The plain versions that the CUDA decodes are held to on the card,
+    against the JAX kernels (interpret mode, as the JAX package's tests
+    run them) on JAX's wire bytes of several rows.
+
+    ``decode_plain`` against ``emulate.decode_rows`` in f32, bf16 and
+    fp16: within one rounding of the product (the jitted decode's FMA,
+    :func:`_assert_within_fma_rounding`), plus a step of the output type.
+
+    ``decode_reduce_plain`` against ``emulate.decode_reduce_rows``: the
+    port sums the decoded rows in row order from +0.0. JAX's jitted
+    decode+reduce is XLA's ``jnp.sum(axis=0)`` fused with the decode:
+    each term within one rounding of the product as above, and the R - 1
+    adds of a reduction in another order, or of other terms, round apart
+    by at most 2^-24 of a partial sum each, <= 2^-24 sum_r |v_r|. So
+    |d| <= sum_r 2^-23 (|v_r| + gmax_r) + 2 (R - 1) 2^-24 sum_r |v_r|
+    <= 2^-23 R sum_r (|v_r| + gmax_r); twice that is asserted. One
+    difference is in the sign of a zero: for R = 1 XLA returns the row
+    itself (the reduce of a size-1 axis is dropped), so a -0.0 stays
+    -0.0 where the port's 0.0 + (-0.0) is +0.0 (ROADMAP Queue C)."""
+    group = kw["group"]
+    x = _rows_x(rows, seed=rows * 31 + kw["bits"])
+    jc = JConfig(backend="ref", **kw)
+    cfg = CommConfig(**kw)
+    jbuf = jemulate.encode_rows(jnp.asarray(x), jc)
+    tbuf = torch.from_numpy(np.array(jbuf))
+    for out in ("float32", "bfloat16", "float16"):
+        td = wire.decode_plain(tbuf, cfg, 512, getattr(torch, out))
+        jd = jemulate.decode_rows(jbuf, jc, 512, out_dtype=jnp.dtype(out))
+        assert td.shape == jd.shape == (rows, 512)
+        _assert_within_fma_rounding(td.float().numpy(), jd, group,
+                                    OUT_ULP[out])
+    dec = wire.decode_plain(tbuf, cfg, 512).numpy()
+    v = np.where(np.isfinite(dec), np.abs(dec), 0.0)
+    gmax = np.repeat(v.reshape(rows, -1, group).max(-1), group, axis=-1)
+    bound = 2.0 ** -22 * rows * (v + gmax).sum(0, keepdims=True)
+    tr = wire.decode_reduce_plain(tbuf, cfg, 512).numpy()
+    jr = np.asarray(jemulate.decode_reduce_rows(jbuf, jc, 512))
+    assert tr.shape == jr.shape == (1, 512)
+    # the last row's NaN, but for an Eq.-1 scale (a NaN scale has no code)
+    assert np.isnan(tr).any() == (not cfg.scale_int)
+    assert np.array_equal(np.isnan(tr), np.isnan(jr))
+    ok = np.isfinite(tr)
+    assert np.all(np.abs(tr[ok] - jr[ok]) <= bound[ok])
+    # the port's sum starts at +0.0: no -0.0 comes out of it
+    assert not np.signbit(tr[tr == 0]).any()
+    # a spike restores position 5's -0.0 in every row; JAX's reduce of
+    # one row keeps it, a sum of several makes it +0.0 in both packages
+    if cfg.spike:
+        neg = ((dec == 0) & np.signbit(dec)).all(0, keepdims=True)
+        assert neg[0, 5]
+        assert np.signbit(jr[neg]).all() == (rows == 1)
+        assert np.signbit(jr[neg]).any() == (rows == 1)

@@ -37,6 +37,7 @@ from repro.core.policy import paper_policy as jpaper
 from repro.core.policy import with_backend as jwith_backend
 from repro.core.policy import with_scheme as jwith_scheme
 from repro.launch.mesh import make_test_mesh
+from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro.models import moe as jmoe
 from repro.parallel import shardings as jshard
@@ -47,6 +48,7 @@ from repro_torch.core import collectives
 from repro_torch.core.comm_config import CommConfig
 from repro_torch.core.policy import (BF16_POLICY, aggressive_policy,
                                      paper_policy, with_scheme)
+from repro_torch.models import layers as tlayers
 from repro_torch.models import moe
 from repro_torch.models.model import forward, layer_params
 from repro_torch.parallel.plan import make_plan
@@ -341,6 +343,129 @@ def test_prefill_and_decode_match_jax(setup, pol):
             enumerate(zip(got_logits, want_logits))]:
         np.testing.assert_allclose(got, want, rtol=0, err_msg=name,
                                    atol=2e-4 * np.abs(want).max())
+
+
+# Moonshot's routing at the smoke widths: 64 experts, top-6 and the
+# capacity rule of the full config, 2 MoE layers after the dense one; a
+# batch of 4 x 64 tokens makes 1536 routes a layer for 64 slots x 32.
+WIDE_B, WIDE_S = 4, 64
+
+
+@pytest.fixture(scope="module")
+def wide():
+    def widen(c):
+        return dataclasses.replace(
+            c, dtype="float32", pattern_repeats=2,
+            moe=dataclasses.replace(c.moe, n_experts=64, top_k=6))
+    jcfg, cfg = widen(jax_smoke_config(ARCH)), widen(get_smoke_config(ARCH))
+    full = get_config(ARCH).moe
+    assert (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.capacity_factor) == (
+        full.n_experts, full.top_k, full.capacity_factor)
+    jplan = jmake_plan(jcfg, tp=1, fsdp=1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jshard, "hash", lambda s: zlib.crc32(s.encode()),
+                   raising=False)
+        store = jshard.build_store(jmodel.param_groups(jcfg, jplan), jplan,
+                                   jax.random.PRNGKey(1), jnp.float32)
+    rng = np.random.default_rng(8)
+    store_np = {g: {name: np.array(a) if np.any(a) else (
+        rng.standard_normal(a.shape) * 0.05).astype(np.float32)
+        for name, a in arrs.items()} for g, arrs in store.items()}
+    plan = make_plan(cfg, tp=1)
+    return dict(jcfg=jcfg, cfg=cfg, jplan=jplan, plan=plan,
+                jstore=jax.tree_util.tree_map(jnp.asarray, store_np),
+                params=load_jax_store(store_np, cfg, plan, "cpu",
+                                      torch.float32),
+                prompts=np.random.default_rng(4).integers(
+                    0, cfg.vocab, (WIDE_B, WIDE_S)))
+
+
+@pytest.mark.parametrize("pol", ["paper/two_step", "aggressive"])
+def test_routing_drops_at_width_match_jax(wide, pol, monkeypatch):
+    """The prefill's dropped routes, layer by layer, under the paper and
+    aggressive policies, on the same weights in both packages.
+
+    - Every TP site of the port with bf16 scales (paper), given JAX's
+      input at that site, returns JAX's output bit for bit: the codec
+      adds no difference of its own. (With Eq.-1 f32 scales, aggressive,
+      JAX's jitted decode contracts the product into an FMA, which
+      ``tests/test_torch_codec.py`` bounds: Queue C.)
+    - The port's ``stats`` (routes, dropped) equal the drops of JAX's
+      routing (:func:`_jax_route`) on the port's MoE input: exact.
+    - Against the drops of JAX's routing on JAX's own MoE input: the two
+      forwards' inputs differ by float32 order (attention, matmuls), and
+      an int8 site turns a value within that of a code boundary into a
+      code step (Queue C, "measured agreement bounds"), which moves some
+      tokens' top-k. Each route that moves to another expert changes each
+      of two queues by one, so the drops differ by at most the number of
+      routes that moved (on these weights: paper one route in 1536 at
+      the first MoE layer, from routes of 3 tokens; aggressive none)."""
+    s = wide
+    jpol, tpol = POLICIES[pol]
+    jins, tins, tdrops, jsites, tsites = [], [], [], [], []
+    jorig, torig = jmoe.moe_apply, moe.moe_apply
+    jpsum, tpsum = jlayers.compressed_psum, tlayers.compressed_psum
+
+    def jax_tap(p, x, *a, **k):
+        # the repeated layers run in a scan: one trace, a callback a layer
+        jax.debug.callback(lambda v, r: jins.append(
+            (np.asarray(v), np.asarray(r))), x, p["moe_router"])
+        return jorig(p, x, *a, **k)
+
+    def jax_site(x, *a, **k):
+        y = jpsum(x, *a, **k)
+        jax.debug.callback(lambda u, v: jsites.append(
+            (np.asarray(u), np.asarray(v))), x, y)
+        return y
+
+    def torch_tap(p, x, *a, stats=None, **k):
+        st = {}
+        out = torig(p, x, *a, stats=st, **k)
+        tins.append(x.reshape(-1, x.shape[-1]).numpy().copy())
+        tdrops.append((int(st["routes"]), int(st["dropped"])))
+        stats["routes"] = stats.get("routes", 0) + st["routes"]
+        stats["dropped"] = stats.get("dropped", 0) + st["dropped"]
+        return out
+
+    def torch_site(x, cfg, *a, **k):
+        tsites.append(cfg)
+        return tpsum(x, cfg, *a, **k)
+
+    monkeypatch.setattr(jmoe, "moe_apply", jax_tap)
+    monkeypatch.setattr(moe, "moe_apply", torch_tap)
+    monkeypatch.setattr(jlayers, "compressed_psum", jax_site)
+    monkeypatch.setattr(tlayers, "compressed_psum", torch_site)
+    sspec = jshard.store_spec(s["jplan"])
+    jax.jit(compat.shard_map(
+        lambda st, t: jmodel.forward(st, t, s["jcfg"], s["jplan"], jpol(),
+                                     dtype=jnp.float32)[0],
+        mesh=make_test_mesh(1, 1), in_specs=(sspec, P()), out_specs=P(),
+        check_vma=False))(s["jstore"], jnp.asarray(s["prompts"]))
+    stats = {}
+    with torch.no_grad():
+        forward(s["params"], torch.from_numpy(s["prompts"]), s["cfg"],
+                s["plan"], tpol(), dtype=torch.float32, stats=stats)
+        assert len(jsites) == len(tsites) > 0
+        for i, ((x, y), cfg) in enumerate(zip(jsites, tsites)):
+            if cfg.scale_int:
+                continue                  # Eq.-1 scales: see the docstring
+            got = tpsum(torch.from_numpy(np.array(x)), cfg).numpy()
+            np.testing.assert_array_equal(_bits(got), _bits(y),
+                                          err_msg=f"TP site {i}")
+    assert len(jins) == len(tins) == len(tdrops) == 2
+    k = s["cfg"].moe.top_k
+    routes = WIDE_B * WIDE_S * k
+    router = [jnp.asarray(r) for _, r in jins]
+    for layer, ((jx, _), tx, got) in enumerate(zip(jins, tins, tdrops)):
+        ti, _, _, tkeep, _ = _jax_route(jnp.asarray(tx), router[layer],
+                                        s["jcfg"])
+        assert tkeep.size == routes and not tkeep.all(), layer
+        assert got == (routes, int((~tkeep).sum())), layer
+        ji, _, _, jkeep, _ = _jax_route(jnp.asarray(jx), router[layer],
+                                        s["jcfg"])
+        moved = sum(k - len(set(a) & set(b)) for a, b in zip(ji, ti))
+        assert abs(int((~jkeep).sum()) - got[1]) <= moved, layer
+    assert int(stats["dropped"]) == sum(d for _, d in tdrops)
 
 
 A2A_CFGS = [dict(bits=4, group=32), dict(bits=4, group=32, scale_int=True),
