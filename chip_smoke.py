@@ -52,14 +52,20 @@ Phases, each printing its lines; any failure exits non-zero:
              the first generated token
              (``repro_torch.launch.serve.prefill_decode_agreement``; the
              run without the codec to CACHE_REL_TOL).
-6. a2a    -- the peer-push All2All kernel (fc_a2a) in a loopback world of
-             tp ranks on the card, tp in A2A_TPS, at moonshot's dispatch
-             shapes with ep = tp (m = (E / tp) * capacity rows of d_model
-             a rank and peer, at prefill and at decode), bf16 payload (and
-             f32 for the paper config at the smallest tp), for A2A_CONFIGS: A2A_CALLS back-to-back calls with fresh inputs in
-             one world, each output bit-equal to the plain version's and
-             the last call's receive buffers byte-equal, with exact launch
-             counts; then its time at tp = A2A_TIME_TP at both shapes.
+6. a2a    -- the peer-push All2All kernel (fc_a2a, one launch a call, its
+             grid sized by the call) in a loopback world of tp ranks on
+             the card, tp in A2A_TPS, at moonshot's dispatch shapes with
+             ep = tp (m = (E / tp) * capacity rows of d_model a rank and
+             peer, at prefill and at decode), bf16 payload (and f32 for
+             the paper config at the smallest tp), for A2A_CONFIGS
+             (rotation included): A2A_CALLS back-to-back calls with fresh
+             inputs in one world at each shape, then A2A_CALLS that
+             alternate the two shapes (so the grid changes from call to
+             call), none with a sync between them; each output bit-equal
+             to the plain version's, the last call's receive buffers
+             byte-equal, the signal pads at the world's running targets
+             and the launch counts exact; then its time at both shapes,
+             at tp = A2A_TIME_TP and at the serve path's tp = TP.
 7. moe    -- moonshot-v1-16b-a3b at full width (48 layers: 1 dense, 47
              MoE with 64 experts, top-6), weights from seed SEED with the
              zero-initialised output projections (attention, MLP and
@@ -85,29 +91,38 @@ Phases, each printing its lines; any failure exits non-zero:
              phases byte-equal, the signal pads at the world's running
              targets and the launch counts exact; then its time, and its
              step stamps, at tp = AR_TIME_TP at both shapes.
-9. tp     -- qwen3-14b at full width at --mesh 1,TP, one rank a process
-             (started with subprocess; all TP ranks share the one card and
-             a gloo group, and their kernels take turns on it). Each rank:
-             fc_ar (TP_PROBE_CALLS back-to-back calls at the decode shape,
-             timed) and fc_a2a (moonshot's decode dispatch) through
-             PeerWorld.from_group (CUDA IPC), bit-equal to the plain
-             versions of all ranks' inputs, with exact pads; weights from
-             seed SEED (init_params(rank=r), output projections filled);
-             paper/fused's prefill hidden states and DECODE_CHECK_STEPS
-             decode logits bit-equal to paper/two_step's; then it serves
-             BATCH x PROMPT_LEN + GEN tokens under paper/fused (every TP
-             site through fc_ar), paper/two_step (the wire kernels around
-             the host-staged gloo hop) and bf16, with exact launch counts
-             (fused: fc_ar 81 times a forward, no wire kernel) and
-             prefill/decode agreement. Rank 0 prints TTFT and ms/step; a
-             failed rank fails the phase.
+9. tp     -- --mesh 1,TP, one rank a process (started with subprocess;
+             all TP ranks share the one card and a gloo group, and their
+             kernels take turns on it), the peer world's receive rows
+             sized for both models' sites (launch/mesh.py
+             site_row_bytes). Each rank: fc_ar (TP_PROBE_CALLS
+             back-to-back calls at the decode shape) and fc_a2a
+             (moonshot's prefill and decode dispatch, A2A_CALLS each)
+             through PeerWorld.from_group (CUDA IPC), each call timed
+             between the processes, bit-equal to the plain versions of all
+             ranks' inputs, with exact pads. Then qwen3-14b and, its
+             weights freed, moonshot-v1-16b-a3b (ep = TP) at full width,
+             weights from seed SEED (init_params(rank=r), output
+             projections filled): paper/fused's prefill hidden states and
+             DECODE_CHECK_STEPS decode logits bit-equal to
+             paper/two_step's; then it serves BATCH x PROMPT_LEN + GEN
+             tokens under TP_RUNS (qwen3-14b) and MOE_TP_RUNS (moonshot):
+             paper/fused (every TP site through fc_ar, every dispatch
+             through fc_a2a), paper/two_step (the wire kernels around the
+             host-staged gloo hop) and bf16, with exact launch counts
+             (fused: fc_ar 81 times a forward for qwen3-14b; 50 and fc_a2a
+             47 for moonshot; no wire kernel), the dense runs'
+             prefill/decode agreement and moonshot's dropped routes. Rank 0
+             prints TTFT and ms/step, every rank its peak memory; a failed
+             rank fails the phase.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the wire kernels' from the serve and moe paths, the stage
-kernels' from their entry points, the All2All's from phase a2a, fc_ar's
-from phase tp's served runs on rank 0; ``serve_launches``,
-``moe_launches`` and ``tp_launches``: from those paths); the last line is
-``{"ok": true, "device": {...}}``.
+kernels' from their entry points, fc_a2a's from phase tp's moonshot runs
+on rank 0, fc_ar's from phase tp's served runs of both models on rank 0;
+``serve_launches``, ``moe_launches``, ``tp_launches`` and
+``moe_tp_launches``: from those paths); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -158,7 +173,9 @@ A2A_TIME_TP = 4
 A2A_CONFIGS = (("paper int4 g32", dict(bits=4, group=32)),
                ("aggressive int4 g32 scale_int", dict(bits=4, group=32,
                                                       scale_int=True)),
-               ("int2 g32 spike", dict(bits=2, group=32, spike=True)))
+               ("int2 g32 spike", dict(bits=2, group=32, spike=True)),
+               ("int2 g32 rotation", dict(bits=2, group=32,
+                                          rotation=True)))
 AR_TPS = (2, 4, 8)
 AR_CALLS = 10
 AR_TIME_TP = 4
@@ -172,6 +189,7 @@ TP_PROBE_CALLS = 100
 TP_RUNS = (("paper/fused", "paper", "fused"),
            ("paper/two_step", "paper", None),
            BASELINE)
+MOE_TP_RUNS = TP_RUNS[:2]          # phase tp's moonshot runs
 TP_TIMEOUT_S = 900
 DECODE_CHECK_STEPS = 4
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
@@ -860,11 +878,18 @@ def _a2a_payload(torch, gen, tp: int, m: int, d: int, dev,
     return x.to(dtype or torch.bfloat16)
 
 
+def _a2a_blocks_and_out(world, fn):
+    """Run one fc_a2a call -> (its output, its blocks a rank: what the
+    call added to the world's local-slot target)."""
+    before = world.targets[A2A_COLLECTIVE][2]
+    out = fn()
+    return out, world.targets[A2A_COLLECTIVE][2] - before
+
+
 def phase_a2a(torch, card: str):
     from repro_torch.core.comm_config import CommConfig
     from repro_torch.kernels import ops, rdma
-    from repro_torch.kernels.protocol import (A2A_COLLECTIVE_ID,
-                                              all2all_protocol)
+    from repro_torch.kernels.protocol import all2all_protocol
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
@@ -882,14 +907,21 @@ def phase_a2a(torch, card: str):
         if tp == A2A_TPS[0]:
             runs.append((A2A_CONFIGS[0][0] + " f32", A2A_CONFIGS[0][1],
                          torch.float32))
+        # each shape, then the two alternating: the grid changes from
+        # call to call
+        sizes = [(shape, [m] * A2A_CALLS) for shape, m in rows.items()]
+        sizes.append(("alternating", [list(rows.values())[i % 2]
+                                      for i in range(A2A_CALLS)]))
+        blocks = {}
         for label, kw, dtype in runs:
             cfg = CommConfig(**kw)
-            for shape, m in rows.items():
+            for shape, ms in sizes:
                 xs = [_a2a_payload(torch, gen, tp, m, d, dev, dtype)
-                      for _ in range(A2A_CALLS)]
-                outs = [ops.fused_all_to_all(x, cfg, world)
-                        for x in xs]            # back to back, no sync
-                want += A2A_CALLS
+                      for m in ms]
+                outs, grid = zip(*(_a2a_blocks_and_out(
+                    world, lambda x=x: ops.fused_all_to_all(
+                        x, cfg, world)) for x in xs))   # back to back, no sync
+                want += len(xs)
                 torch.cuda.synchronize()
                 for i, (x, out) in enumerate(zip(xs, outs)):
                     ref, recv = rdma.fused_all_to_all_rdma_plain(x, cfg)
@@ -898,46 +930,54 @@ def phase_a2a(torch, card: str):
                           f"differs from the plain version's")
                 wb = cfg.wire_bytes(d)
                 for r in range(tp):
-                    check(torch.equal(world.recv_rows(r)[:, :m * wb],
+                    check(torch.equal(world.recv_rows(r)[:, :ms[-1] * wb],
                                       recv[r]),
                           f"a2a tp={tp} {label} {shape}: rank {r}'s receive "
                           f"buffer differs from the plain version's")
+                blocks.setdefault(label, {})[shape] = sorted(set(grid))
                 del xs, outs
         pads = [world.signal_pad(r).tolist() for r in range(tp)]
-        bpr = world.caps[A2A_COLLECTIVE_ID]
-        print(f"[a2a] tp={tp} (rows a peer: {rows}, d {d}, "
-              f"{bpr} blocks a rank): {[r[0] for r in runs]} x "
-              f"{len(rows)} shapes x {A2A_CALLS} back-to-back calls, "
-              f"outputs bit-equal and last receive buffers byte-equal to "
-              f"the plain version; epoch {world.epochs[A2A_COLLECTIVE_ID]}, "
-              f"signal pad of rank 0 {pads[0]}", flush=True)
-        n = world.epochs[A2A_COLLECTIVE_ID]
         for r in range(tp):
-            check(pads[r] == [n * bpr * (tp - 1)] + [n * bpr] * tp,
+            check(pads[r] == world.pad_targets(A2A_COLLECTIVE),
                   f"a2a tp={tp}: rank {r}'s signal pad {pads[r]} after "
-                  f"{n} calls")
+                  f"{world.epochs[A2A_COLLECTIVE]} calls, targets "
+                  f"{world.pad_targets(A2A_COLLECTIVE)}")
+        print(f"[a2a] tp={tp} (rows a peer: {rows}, d {d}; blocks a rank "
+              f"{blocks}): {[r[0] for r in runs]} x ({len(rows)} shapes + "
+              f"alternating shapes) x {A2A_CALLS} back-to-back calls, "
+              f"outputs bit-equal and last receive buffers byte-equal to "
+              f"the plain version; epoch {world.epochs[A2A_COLLECTIVE]}, "
+              f"signal pads at their targets {pads[0]}", flush=True)
         del world
     launches = dict(rdma.LAUNCHES)              # read right after the path
     check(launches == {"a2a": want, "ar": 0},
           f"a2a launches {launches} != {want}")
-    print(f"[a2a] launches {launches} exact", flush=True)
+    print(f"[a2a] launches {launches} exact (one a call)", flush=True)
 
-    # time at tp = A2A_TIME_TP, both shapes, paper int4 g32
-    tp = A2A_TIME_TP
-    d, rows = _a2a_rows(tp)
+    # time at tp = A2A_TIME_TP and at the serve path's tp = TP, both
+    # shapes, paper int4 g32
     cfg = CommConfig(**A2A_CONFIGS[0][1])
-    world = rdma.PeerWorld.loopback(tp, rows["prefill"] * cfg.wire_bytes(d),
-                                    dev, protocols=(all2all_protocol(tp),))
     timed = {}
-    for shape, m in rows.items():
-        x = _a2a_payload(torch, gen, tp, m, d, dev)
-        timed[shape] = _time_row(
-            torch, "a2a", A2A_CONFIGS[0][0], tuple(x.shape),
-            lambda: rdma.fused_all_to_all_rdma(x, cfg, world),
-            lambda: rdma.fused_all_to_all_rdma_plain(x, cfg)[0],
-            rdma.bound_bytes(cfg, tp, m, d, x.element_size()), 0, card)
-    print(f"[a2a] bound: all {tp} ranks' bytes (payload read, wire written "
-          f"and read, output written) over {HBM_BYTES_PER_S / 1e12} TB/s: "
+    for tp in (A2A_TIME_TP, TP):
+        d, rows = _a2a_rows(tp)
+        world = rdma.PeerWorld.loopback(
+            tp, rows["prefill"] * cfg.wire_bytes(d), dev,
+            protocols=(all2all_protocol(tp),))
+        for shape, m in rows.items():
+            x = _a2a_payload(torch, gen, tp, m, d, dev)
+            row = _time_row(
+                torch, "a2a", A2A_CONFIGS[0][0], tuple(x.shape),
+                lambda: rdma.fused_all_to_all_rdma(x, cfg, world),
+                lambda: rdma.fused_all_to_all_rdma_plain(x, cfg)[0],
+                rdma.bound_bytes(cfg, tp, m, d, x.element_size()), 0, card)
+            row["blocks"] = _a2a_blocks_and_out(
+                world, lambda: rdma.fused_all_to_all_rdma(x, cfg, world))[1]
+            print(f"[a2a] tp={tp} {shape}: {row['blocks']} blocks a rank",
+                  flush=True)
+            timed.setdefault(tp, {})[shape] = row
+        del world
+    print(f"[a2a] bound: all ranks' bytes (payload read, wire written and "
+          f"read, output written) over {HBM_BYTES_PER_S / 1e12} TB/s: "
           f"device memory time on one card, not link time", flush=True)
     return launches, timed
 
@@ -1203,27 +1243,33 @@ def _tp_world_checks(torch, axis, dev) -> dict:
     """fc_ar and fc_a2a through this rank's world of processes. Every rank
     draws every rank's inputs from one seed, so it can run the plain
     version of all ranks and hold its own slice to it bit for bit."""
-    from repro_torch.configs import get_config
     from repro_torch.core.comm_config import CommConfig
     from repro_torch.kernels import ops, rdma
     from repro_torch.launch import mesh
-    from repro_torch.models.moe import capacity
     world, rank, tp = axis.world, axis.rank, axis.size
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 11)
+
+    def timed(calls):
+        """Run ``calls`` back to back after a host barrier of the ranks,
+        no sync between them -> (outputs, ms of each call)."""
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(calls) + 1)]
+        mesh.barrier(axis)
+        ev[0].record()
+        outs = []
+        for i, call in enumerate(calls):
+            outs.append(call())
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return outs, [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
     n = _ar_shapes()["decode"]
     cfg = CommConfig(**AR_CONFIGS[0][1])
     xs = [_ar_input(torch, gen, tp, n, dev) for _ in range(TP_PROBE_CALLS)]
-    ev = [torch.cuda.Event(enable_timing=True)
-          for _ in range(TP_PROBE_CALLS + 1)]
-    mesh.barrier(axis)
-    ev[0].record()
-    outs = []
-    for i, x in enumerate(xs):                    # back to back, no sync
-        outs.append(ops.fused_all_reduce(x[rank], cfg, world))
-        ev[i + 1].record()
-    torch.cuda.synchronize()
-    per_call = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    outs, per_call = timed([lambda x=x: ops.fused_all_reduce(x[rank], cfg,
+                                                            world)
+                            for x in xs])
     for i, (x, out) in enumerate(zip(xs, outs)):
         ref, scat, gath = rdma.fused_all_reduce_rdma_plain(x, cfg)
         check(_bits_equal(torch, out, ref[rank]),
@@ -1236,37 +1282,50 @@ def _tp_world_checks(torch, axis, dev) -> dict:
           f"tp rank {rank}: fc_ar's receive rows differ from the plain "
           f"version's")
 
-    # fc_a2a at moonshot's decode dispatch with ep = tp, then fc_ar again:
-    # each protocol counts its own calls on its own pad
-    mcfg = get_config(MOE_ARCH)
-    m = mcfg.moe.n_experts // tp * capacity(BATCH, mcfg)
-    d = mcfg.d_model
+    # fc_a2a at moonshot's dispatch with ep = tp, its prefill and decode
+    # rows: A2A_CALLS back to back at each, timed between the processes
+    d, rows = _a2a_rows(tp)
     acfg = CommConfig(**A2A_CONFIGS[0][1])
+    a2a_ms, a2a_blocks = {}, {}
+    for shape, m in rows.items():
+        xa = [_a2a_payload(torch, gen, tp, m, d, dev)
+              for _ in range(A2A_CALLS)]
+        mine = [x[rank:rank + 1].contiguous() for x in xa]
+        outs, a2a_ms[shape] = timed([lambda x=x: ops.fused_all_to_all(
+            x, acfg, world) for x in mine])
+        for i, (x, out) in enumerate(zip(xa, outs)):
+            ref, _ = rdma.fused_all_to_all_rdma_plain(x, acfg)
+            check(_bits_equal(torch, out[0], ref[rank]),
+                  f"tp rank {rank}: fc_a2a {shape} call {i} through the "
+                  f"world of processes differs from the plain version")
+        a2a_blocks[shape] = world.a2a_blocks(m, d, acfg, torch.bfloat16)
+        del xa, mine, outs
+    # then fc_a2a (decode rows) and fc_ar alternating: each protocol
+    # counts its own calls on its own pad
     for i in range(A2A_CALLS):
-        xa = _a2a_payload(torch, gen, tp, m, d, dev)
+        xa = _a2a_payload(torch, gen, tp, rows["decode"], d, dev)
         out = ops.fused_all_to_all(xa[rank:rank + 1].contiguous(), acfg,
                                    world)
         ref, _ = rdma.fused_all_to_all_rdma_plain(xa, acfg)
         check(_bits_equal(torch, out[0], ref[rank]),
-              f"tp rank {rank}: fc_a2a call {i} through the world of "
-              f"processes differs from the plain version")
+              f"tp rank {rank}: fc_a2a call {i} after fc_ar differs from "
+              f"the plain version")
         x = _ar_input(torch, gen, tp, n, dev)
         out = ops.fused_all_reduce(x[rank], cfg, world)
         check(_bits_equal(torch, out,
                           rdma.fused_all_reduce_rdma_plain(x, cfg)[0][rank]),
               f"tp rank {rank}: fc_ar after fc_a2a call {i} differs")
     torch.cuda.synchronize()
-    n_a2a = world.epochs[A2A_COLLECTIVE]
-    bpr = world.caps[A2A_COLLECTIVE]
     check(_ar_pads_ok(world, rank) and
           world.signal_pad(rank, A2A_COLLECTIVE).tolist() ==
-          [n_a2a * bpr * (tp - 1)] + [n_a2a * bpr] * tp,
+          world.pad_targets(A2A_COLLECTIVE),
           f"tp rank {rank}: signal pads off after {world.epochs} calls")
     return {"ar_n": n, "ar_calls": TP_PROBE_CALLS + A2A_CALLS,
-            "a2a_rows": m, "a2a_calls": A2A_CALLS, "epochs": world.epochs,
+            "a2a_rows": rows, "a2a_calls": len(rows) * A2A_CALLS + A2A_CALLS,
+            "epochs": world.epochs,
             "caps": {str(k): v for k, v in world.caps.items()},
-            "ar_blocks": world.ar_blocks(n, cfg),
-            "probe_ms": per_call}
+            "ar_blocks": world.ar_blocks(n, cfg), "a2a_blocks": a2a_blocks,
+            "probe_ms": per_call, "a2a_ms": a2a_ms}
 
 
 def _tp_counts():
@@ -1274,9 +1333,14 @@ def _tp_counts():
     return {**wire.LAUNCHES, **stage.LAUNCHES, **rdma.LAUNCHES}
 
 
-def _tp_serve(torch, axis, dev) -> dict:
-    """qwen3-14b at full width on this rank: weights from SEED, fused ==
-    two_step bit for bit, then the served runs with exact counts."""
+def _tp_serve(torch, axis, dev, arch: str, runs) -> dict:
+    """``arch`` at full width on this rank: weights from SEED (output
+    projections filled), paper/fused == paper/two_step bit for bit (the
+    prefill's hidden states, DECODE_CHECK_STEPS decode steps' logits),
+    then the served ``runs`` with exact counts: fused, every TP site
+    through fc_ar and every dispatch through fc_a2a, no wire kernel;
+    two_step, two encodes and two decodes a TP site (around the gloo
+    hop), one of each a dispatch site; bf16, none."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import rdma, stage, wire
     from repro_torch.launch import mesh
@@ -1289,7 +1353,9 @@ def _tp_serve(torch, axis, dev) -> dict:
                                               make_decode_step)
     rank = axis.rank
     log = print if rank == 0 else (lambda *a, **k: None)
-    cfg = get_config(ARCH)
+    tag = "tp" if arch == ARCH else "moe tp"
+    cfg = get_config(arch)
+    moe = cfg.moe is not None
     plan = make_plan(cfg, tp=TP)
     t0 = time.perf_counter()
     params = init_params(cfg, plan, SEED, dev, torch.bfloat16, rank=rank)
@@ -1298,13 +1364,16 @@ def _tp_serve(torch, axis, dev) -> dict:
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size() for g in params.values()
                  for t in g.values())
-    log(f"[tp] {ARCH} full width at --mesh 1,{TP}, {cfg.n_layers} layers: "
+    experts = (f" (ep {plan.moe.ep}, {plan.moe.e_loc} experts a rank)"
+               if moe else "")
+    log(f"[{tag}] {arch} full width at --mesh 1,{TP}, {cfg.n_layers} "
+        f"layers{experts}: "
         f"{nbytes / 1e9:.2f} GB bf16 weights a rank from seed {SEED} "
         f"({filled} filled) in {time.perf_counter() - t0:.1f} s",
         flush=True)
 
-    # paper/fused (every TP site through fc_ar) against paper/two_step
-    # (the wire kernels around the gloo hop), bit for bit on this rank
+    # paper/fused (the peer-push kernels) against paper/two_step (the
+    # wire kernels around the gloo hop), bit for bit on this rank
     prompts = torch.from_numpy(make_dataset(DataConfig(
         vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH,
         seed=SEED)).batch(0)["tokens"]).to(dev)
@@ -1312,7 +1381,9 @@ def _tp_serve(torch, axis, dev) -> dict:
     mesh.barrier(axis)
     hf, ht = (forward(params, prompts, cfg, plan, p, dtype=torch.bfloat16,
                       group=axis)[0] for p in pols)
-    check(_bits_equal(torch, hf, ht), f"tp rank {rank}: prefill hidden "
+    check(bool(torch.isfinite(hf).all()),
+          f"{tag} rank {rank}: prefill hidden states not finite")
+    check(_bits_equal(torch, hf, ht), f"{tag} rank {rank}: prefill hidden "
           f"states under paper/fused differ from paper/two_step")
     steps = [make_decode_step(cfg, plan, p, group=axis) for p in pols]
     caches = [make_cache_init(cfg, plan, BATCH, DECODE_CHECK_STEPS, dev)()
@@ -1321,68 +1392,78 @@ def _tp_serve(torch, axis, dev) -> dict:
         (lf, caches[0]), (lt, caches[1]) = (
             st(params, c, prompts[:, i:i + 1])
             for st, c in zip(steps, caches))
-        check(_bits_equal(torch, lf, lt), f"tp rank {rank}: decode step {i} "
-              f"logits under paper/fused differ from paper/two_step")
+        check(_bits_equal(torch, lf, lt), f"{tag} rank {rank}: decode step "
+              f"{i} logits under paper/fused differ from paper/two_step")
     del caches, hf, ht
-    log(f"[tp] every rank: prefill hidden states and {DECODE_CHECK_STEPS} "
-        f"decode steps' logits under paper/fused (fc_ar) equal "
-        f"paper/two_step's bit for bit", flush=True)
+    log(f"[{tag}] every rank: prefill hidden states and {DECODE_CHECK_STEPS} "
+        f"decode steps' logits under paper/fused (fc_ar"
+        f"{', fc_a2a' if moe else ''}) equal paper/two_step's bit for bit",
+        flush=True)
 
-    sites = 1 + 2 * cfg.n_layers
+    kinds = cfg.layer_kinds
+    tp_sites = 1 + sum(2 if k == "dense" else 1 for k in kinds)
+    a2a_sites = kinds.count("moe")
     forwards = 1 + PROMPT_LEN + GEN - 1
     wire.reset_launches()                  # the tp path starts here
     stage.reset_launches()
     rdma.reset_launches()
-    runs, launches = {}, {}
-    for label, pol, scheme in TP_RUNS:
+    served, peaks = {}, {}
+    for label, pol, scheme in runs:
         before = _tp_counts()
         torch.cuda.reset_peak_memory_stats()
         res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
                     batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN, device=dev,
-                    seed=SEED, label=f" tp={TP} {label}", log=log,
+                    seed=SEED, label=f" {tag}={TP} {label}", log=log,
                     group=axis)
         got = {k: v - before[k] for k, v in _tp_counts().items()}
         want = dict.fromkeys(got, 0)
         if scheme == "fused":
-            want["ar"] = sites * forwards
+            want["ar"] = tp_sites * forwards
+            want["a2a"] = a2a_sites * forwards
         elif pol != "bf16":
-            want["encode_wire"] = want["decode_wire"] = 2 * sites * forwards
-        log(f"[tp {label}] rank {rank} launches {got} (expected: {sites} TP "
-            f"sites x {forwards} forwards); peak memory "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-        check(got == want, f"tp rank {rank} {label}: launches {got} != "
+            want["encode_wire"] = want["decode_wire"] = \
+                (2 * tp_sites + a2a_sites) * forwards
+        peaks[label] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[{tag} {label}] rank {rank} launches {got} (expected: "
+            f"{tp_sites} TP and {a2a_sites} dispatch sites x {forwards} "
+            f"forwards)", flush=True)
+        check(got == want, f"{tag} rank {rank} {label}: launches {got} != "
               f"{want}")
-        check(res["agreement"] is not None,
-              f"tp {label}: no prefill/decode check")
-        runs[label] = res
+        check((res["agreement"] is None) == moe,
+              f"{tag} {label}: prefill/decode check {res['agreement']}")
+        served[label] = res
     launches = _tp_counts()                # read right after the tp path
-    check(launches["ar"] > 0,
-          "fc_ar never launched on the tp path")
-    check(bool((runs["paper/fused"]["generated"] ==
-                runs["paper/two_step"]["generated"]).all()),
-          f"tp rank {rank}: fused and two_step generated different tokens")
-    return {"launches": launches, "runs": {
+    for k in ("ar", "a2a") if moe else ("ar",):
+        check(launches[k] > 0, f"{k} never launched on the {tag} path")
+    check(bool((served["paper/fused"]["generated"] ==
+                served["paper/two_step"]["generated"]).all()),
+          f"{tag} rank {rank}: fused and two_step generated different tokens")
+    return {"arch": arch, "launches": launches, "peak_gb": peaks, "runs": {
         k: {m: (v.tolist() if hasattr(v, "tolist") else v)
-            for m, v in r.items()} for k, r in runs.items()}}
+            for m, v in r.items()} for k, r in served.items()}}
 
 
 def tp_rank_main(rank: int, rendezvous: str, out_dir: str) -> int:
-    """One rank process of phase tp (``chip_smoke.py --tp-rank``)."""
+    """One rank process of phase tp (``chip_smoke.py --tp-rank``): the
+    world checks, then ARCH, then (its weights freed) MOE_ARCH."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh
+    from repro_torch.parallel.plan import make_plan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_grad_enabled(False)
     dev = mesh.rank_device(rank, torch.device("cuda"))
-    cfg = get_config(ARCH)
-    axis = mesh.init_model_axis(
-        TP, rank, rendezvous, dev,
-        mesh.site_row_bytes(cfg.d_model, BATCH, PROMPT_LEN, TP))
+    row_bytes = max(mesh.site_row_bytes(cfg, make_plan(cfg, tp=TP), BATCH,
+                                        PROMPT_LEN)
+                    for cfg in map(get_config, (ARCH, MOE_ARCH)))
+    axis = mesh.init_model_axis(TP, rank, rendezvous, dev, row_bytes)
     try:
-        res = {"rank": rank, "device": str(dev),
+        res = {"rank": rank, "device": str(dev), "row_bytes": row_bytes,
                "backend": str(torch.distributed.get_backend(axis.pg))}
         res["world"] = _tp_world_checks(torch, axis, dev)
-        res.update(_tp_serve(torch, axis, dev))
+        res["dense"] = _tp_serve(torch, axis, dev, ARCH, TP_RUNS)
+        torch.cuda.empty_cache()               # the dense model is gone
+        res["moe"] = _tp_serve(torch, axis, dev, MOE_ARCH, MOE_TP_RUNS)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -1405,32 +1486,50 @@ def phase_tp(torch, card: str):
     for r in range(TP):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+    def ms(calls):
+        c = sorted(calls)
+        return (f"median {statistics.median(c):.4f}, min {c[0]:.4f}, max "
+                f"{c[-1]:.4f} ms a call")
+
     for res in ranks:
         w = res["world"]
-        probe = sorted(w["probe_ms"])
+        caps = {k: sorted({v for c, v in w["caps"].items()
+                           if ("a2a" in c) == (k == "fc_a2a")})
+                for k in ("fc_a2a", "fc_ar")}
         print(f"[tp] rank {res['rank']} on {res['device']} "
-              f"({res['backend']} group): fc_ar x {w['ar_calls']} (decode "
-              f"n {w['ar_n']}) and fc_a2a x {w['a2a_calls']} ({w['a2a_rows']} "
-              f"rows a peer) through PeerWorld.from_group bit-equal to the "
-              f"plain versions, pads exact (epochs {w['epochs']}, caps "
-              f"{w['caps']}, fc_ar {w['ar_blocks']} blocks a call); "
-              f"{TP_PROBE_CALLS} back-to-back fc_ar calls: "
-              f"median {statistics.median(probe):.4f} ms, min "
-              f"{probe[0]:.4f}, max {probe[-1]:.4f} ms a call (ranks taking "
-              f"turns on one card)  [{card}]", flush=True)
-    for label, _, _ in TP_RUNS:
-        r0 = ranks[0]["runs"][label]
-        check(all(r["runs"][label]["generated"] == r0["generated"]
-                  for r in ranks), f"tp {label}: ranks generated different "
-              f"tokens")
-        print(f"[tp {label}] TTFT {r0['ttft_ms']:.1f} ms, decode median "
-              f"{r0['step_ms_median']:.2f} ms/step, p90 "
-              f"{r0['step_ms_p90']:.2f} (rank 0; {TP} ranks taking turns on "
-              f"one card, not NVLink time)  [{card}]", flush=True)
+              f"({res['backend']} group, receive rows of {res['row_bytes']} "
+              f"bytes): fc_ar x {w['ar_calls']} (decode n {w['ar_n']}) and "
+              f"fc_a2a x {w['a2a_calls']} ({w['a2a_rows']} rows a peer) "
+              f"through PeerWorld.from_group bit-equal to the plain "
+              f"versions, pads exact (epochs {w['epochs']}, caps {caps}, "
+              f"fc_ar {w['ar_blocks']} and fc_a2a {w['a2a_blocks']} blocks "
+              f"a call); back to back, between the processes: fc_ar x "
+              f"{TP_PROBE_CALLS} {ms(w['probe_ms'])}; "
+              + "; ".join(f"fc_a2a {shape} x {len(v)} {ms(v)}"
+                          for shape, v in w["a2a_ms"].items())
+              + f" (ranks taking turns on one card)  [{card}]", flush=True)
+    for part, runs in (("dense", TP_RUNS), ("moe", MOE_TP_RUNS)):
+        tag = "tp" if part == "dense" else "moe tp"
+        for label, _, _ in runs:
+            r0 = ranks[0][part]["runs"][label]
+            check(all(r[part]["runs"][label]["generated"] == r0["generated"]
+                      for r in ranks), f"{tag} {label}: ranks generated "
+                  f"different tokens")
+            routes = (f"; routes dropped prefill {r0['dropped_prefill']} of "
+                      f"{r0['routes_prefill']}, decode {r0['dropped_decode']} "
+                      f"of {r0['routes_decode']} (rank 0)"
+                      if "dropped_prefill" in r0 else "")
+            peaks = ", ".join(f"rank {r['rank']} {r[part]['peak_gb'][label]:.2f}"
+                              for r in ranks)
+            print(f"[{tag} {label}] {ranks[0][part]['arch']}: TTFT "
+                  f"{r0['ttft_ms']:.1f} ms, decode median "
+                  f"{r0['step_ms_median']:.2f} ms/step, p90 "
+                  f"{r0['step_ms_p90']:.2f} (rank 0; {TP} ranks taking turns "
+                  f"on one card, not NVLink time){routes}; peak memory "
+                  f"{peaks} GB  [{card}]", flush=True)
     print(f"[tp] {TP} rank processes done in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return ranks
-
 
 
 def main(argv=None) -> int:
@@ -1481,20 +1580,23 @@ def main(argv=None) -> int:
     if "ar" in phases:
         ar_launches, ar_timed = phase_ar(torch, card)
     tp_ranks = phase_tp(torch, card) if "tp" in phases else []
-    tp_launches = tp_ranks[0]["launches"] if tp_ranks else {}
+    tp_launches = tp_ranks[0]["dense"]["launches"] if tp_ranks else {}
+    moe_tp_launches = tp_ranks[0]["moe"]["launches"] if tp_ranks else {}
 
     main_cfg = {name: "int2 g32 spike" if name == "spike_pack"
                 else "int8 g128" for name in REPLACES}
     kernels = []
     for name in WIRE_KERNELS + STAGE_KERNELS + ("a2a", "ar"):
         if name == "a2a":
-            t = a2a_timed.get("prefill", {})
-            errs = [r["max_abs_err"] for r in a2a_timed.values()]
-            source, n = "rdma.cu", a2a_launches.get(name, 0)
+            t = a2a_timed.get(A2A_TIME_TP, {}).get("prefill", {})
+            errs = [r["max_abs_err"] for by_shape in a2a_timed.values()
+                    for r in by_shape.values()]
+            source, n = "rdma.cu", moe_tp_launches.get(name, 0)
         elif name == "ar":
             t = ar_timed.get("prefill", {})
             errs = [r["max_abs_err"] for r in ar_timed.values()]
-            source, n = "allreduce.cu", tp_launches.get("ar", 0)
+            source = "allreduce.cu"
+            n = tp_launches.get(name, 0) + moe_tp_launches.get(name, 0)
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
                 name, {})
@@ -1509,11 +1611,13 @@ def main(argv=None) -> int:
             "serve_launches": launches.get(name, 0),
             "moe_launches": moe_launches.get(name, 0),
             "tp_launches": tp_launches.get(name, 0),
+            "moe_tp_launches": moe_tp_launches.get(name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": None})
+
     def numbers(runs):
         return {k: {m: v for m, v in r.items()
                     if isinstance(v, (int, float, bool, dict))}

@@ -122,7 +122,7 @@ __global__ void __launch_bounds__(kThreads, ROT ? 1 : 3) ar_kernel(const float* 
   const float* xr = x + (long long)lr * tp * chunk;
 
   stamp(stamps, lr, 0);
-  ar_barrier(ts, my);
+  peer_barrier(ts, my);
   stamp(stamps, lr, 1);
 
   for (long long it = blockIdx.x; it < tp * tiles; it += gridDim.x) {   // uniform per block
@@ -135,8 +135,8 @@ __global__ void __launch_bounds__(kThreads, ROT ? 1 : 3) ar_kernel(const float* 
   }
 
   stamp(stamps, lr, 2);
-  ar_signal(ts, my);
-  ar_wait(ts, my);
+  peer_signal(ts, my);
+  peer_wait(ts, my);
   stamp(stamps, lr, 3);
 
   const uint8_t* rs = ts.recv[my];
@@ -197,8 +197,8 @@ __global__ void __launch_bounds__(kThreads, ROT ? 1 : 3) ar_kernel(const float* 
   }
 
   stamp(stamps, lr, 4);
-  ar_signal(tg, my);
-  ar_wait(tg, my);
+  peer_signal(tg, my);
+  peer_wait(tg, my);
   stamp(stamps, lr, 5);
 
   const uint8_t* rg = tg.recv[my];

@@ -1,10 +1,9 @@
 // Device functions shared by the codec kernels (wire.cu, stage.cu,
 // rdma.cu, allreduce.cu): the group quantizer, and the wire format's
-// per-group encode and decode in two thread mappings -- a warp a group
-// (encode_group, decode_group: fc_a2a) and eight values a thread
-// (quantize8 / bytes8 / put8 / fetch8 / finish8: fc_encode_wire,
-// fc_decode_wire, fc_decode_reduce, fc_ar) -- so that every kernel that
-// writes or reads a wire row writes and reads the same bytes.
+// per-group encode and decode, eight values a thread (quantize8 / bytes8
+// / put8 / fetch8 / finish8: fc_encode_wire, fc_decode_wire,
+// fc_decode_reduce, fc_ar, fc_a2a), so that every kernel that writes or
+// reads a wire row writes and reads the same bytes.
 //
 // Numerics follow the JAX reference exactly (and the plain PyTorch
 // version in repro_torch/core): IEEE division (__fdiv_rn), round half to
@@ -76,13 +75,6 @@ __device__ __forceinline__ unsigned short to_meta(float f, int f16) {
 
 __device__ __forceinline__ float from_meta(unsigned short b, int f16) {
   return f16 ? __half2float(__ushort_as_half(b)) : __uint_as_float((unsigned)b << 16);
-}
-
-// out: 0 f32, 1 bf16, 2 f16
-__device__ __forceinline__ void store_out(void* out, long long i, float v, int kind) {
-  if (kind == 0) reinterpret_cast<float*>(out)[i] = v;
-  else if (kind == 1) reinterpret_cast<unsigned short*>(out)[i] = f2bf(v);
-  else reinterpret_cast<unsigned short*>(out)[i] = f2h(v);
 }
 
 // ---- reductions over the W lanes that share a group (W divides 32) ------
@@ -264,14 +256,6 @@ struct LoadL2 {
   __device__ __forceinline__ T operator()(const T* a) const { return __ldcg(a); }
 };
 
-// Code bits of element e from one unit-u plane, shifted into place.
-template <typename Ld = LoadPlain>
-__device__ __forceinline__ unsigned plane_field(const uint8_t* plane, long long e, int u, int shift) {
-  const int per = 8 / u;
-  const unsigned byte = Ld()(plane + (e * u) / 8);
-  return ((byte >> ((int)(e % per) * u)) & ((1u << u) - 1u)) << shift;
-}
-
 // ---- the wire format: one row's layout and codec parameters ---------------
 
 constexpr int kMaxTheta = 20;
@@ -366,16 +350,6 @@ __device__ __forceinline__ float decode_signed(unsigned char b, const WireParams
   return (b >> 7) ? -mag : mag;
 }
 
-template <typename Ld = LoadPlain>
-__device__ __forceinline__ unsigned short rd16(const uint8_t* w, long long off) {
-  return (unsigned short)(Ld()(w + off) | (Ld()(w + off + 1) << 8));
-}
-
-__device__ __forceinline__ void wr16(uint8_t* w, long long off, unsigned short v) {
-  w[off] = (uint8_t)(v & 0xff);
-  w[off + 1] = (uint8_t)(v >> 8);
-}
-
 // ---- rotation -------------------------------------------------------------
 
 // The fixed sign of in-group position j (repro_torch/core/rotation.py).
@@ -387,204 +361,7 @@ __device__ __forceinline__ float rot_sign(int j, unsigned seed) {
   return (u & 1u) ? -1.f : 1.f;
 }
 
-// In place: lane value k is position k * 32 + lane of the warp's group.
-// out_j = sum_i x_i * H[i][j], i increasing, from +0.0; H is symmetric,
-// so the same sum is the rotation and its transpose.
-template <int VPL>
-__device__ __forceinline__ void hadamard_warp(float (&v)[VPL], int lane, float h) {
-  float acc[VPL];
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) acc[k] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < VPL; ++kk) {
-    for (int l = 0; l < 32; ++l) {
-      const float xi = __shfl_sync(kFull, v[kk], l);
-      const int i = kk * 32 + l;
-#pragma unroll
-      for (int k = 0; k < VPL; ++k) {
-        const float hij = (__popc(i & (k * 32 + lane)) & 1) ? -h : h;
-        acc[k] = __fadd_rn(acc[k], __fmul_rn(xi, hij));
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) v[k] = acc[k];
-}
-
-template <int VPL>
-__device__ __forceinline__ void rotate_warp(float (&v)[VPL], int lane, const WireParams& p) {
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) v[k] = __fmul_rn(v[k], rot_sign(k * 32 + lane, p.sign_seed));
-  hadamard_warp<VPL>(v, lane, p.hscale);
-}
-
-template <int VPL>
-__device__ __forceinline__ void unrotate_warp(float (&v)[VPL], int lane, const WireParams& p) {
-  hadamard_warp<VPL>(v, lane, p.hscale);
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) v[k] = __fmul_rn(v[k], rot_sign(k * 32 + lane, p.sign_seed));
-}
-
-// ---- one group of a wire row, a warp at a time ----------------------------
-
-// Payload element -> float32 (exact for bf16).
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// A group's quantized form between its quantization and its wire bytes:
-// the meta and the range (spike slots and values); the codes are in the
-// warp's shared bytes.
-struct GroupCode {
-  Meta m;
-  Range r;
-};
-
-// The warp quantizes group g: xg points at the group's G = 32 * VPL
-// values, codes is the warp's G bytes of shared memory, which receive one
-// code a value.
-template <int VPL, typename T>
-__device__ __forceinline__ GroupCode quantize_group(const T* __restrict__ xg, int lane,
-                                                    uint8_t* codes, const WireParams& p) {
-  const int G = VPL * 32;
-  const float qmax = (float)((1 << p.bits) - 1);
-  float v[VPL];
-  int pos[VPL];
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) {
-    pos[k] = k * 32 + lane;
-    v[k] = to_f32(xg[pos[k]]);
-  }
-  if (p.rotation) rotate_warp<VPL>(v, lane, p);
-  GroupCode c;
-  c.r = group_range<VPL, 32>(v, pos, G, p.spike);
-  c.m = rtn_meta(c.r.mn, c.r.mx, qmax, p.eps, p.meta_f16);
-  const unsigned char code_mn = quant_code(c.r.mn, c.m.z, c.m.s, qmax);
-
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) {
-    unsigned char q = quant_code(v[k], c.m.z, c.m.s, qmax);
-    if (p.spike && (pos[k] == c.r.imin || pos[k] == c.r.imax)) q = code_mn;
-    codes[pos[k]] = q;
-  }
-  __syncwarp();
-  return c;
-}
-
-// The warp writes quantized group g into the wire row w (its bytes
-// only). Lane l < G / 8 packs codes 8l .. 8l+7 into u whole bytes of each
-// unit-u plane, so no two warps write one byte; the codes are only read,
-// so one quantized group can be written into several rows.
-template <int VPL>
-__device__ __forceinline__ void write_group(uint8_t* __restrict__ w, long long g, int lane,
-                                            const uint8_t* codes, const GroupCode& c,
-                                            const WireParams& p) {
-  const int G = VPL * 32;
-  if (lane < G / 8) {
-    const unsigned long long codes8 = *reinterpret_cast<const unsigned long long*>(&codes[8 * lane]);
-    int shift = 0;
-    for (int i = 0; i < p.n_planes; ++i) {
-      const int u = p.unit[i];
-      const unsigned long long word = pack8(codes8, u, shift);
-      uint8_t* dst = w + p.plane_off[i] + (g * G + 8 * lane) * u / 8;
-      for (int b = 0; b < u; ++b) dst[b] = (uint8_t)(word >> (8 * b));
-      shift += u;
-    }
-  }
-  if (lane == 0) {
-    if (p.scale_int) {
-      w[p.scale_off + g] = encode_scale(c.m.s, p);
-      w[p.zero_off + g] = encode_signed(c.m.z, p);
-    } else {
-      wr16(w, p.scale_off + 2 * g, c.m.sbits);
-      wr16(w, p.zero_off + 2 * g, c.m.zbits);
-    }
-    if (p.spike) {
-      wr16(w, p.sv_off + 4 * g, to_meta(c.r.vmin, p.meta_f16));
-      wr16(w, p.sv_off + 4 * g + 2, to_meta(c.r.vmax, p.meta_f16));
-      if (p.scale_int) {
-        w[p.si_off + 2 * g] = (uint8_t)c.r.imin;
-        w[p.si_off + 2 * g + 1] = (uint8_t)c.r.imax;
-      } else {
-        wr16(w, p.si_off + 4 * g, to_meta((float)c.r.imin, p.meta_f16));
-        wr16(w, p.si_off + 4 * g + 2, to_meta((float)c.r.imax, p.meta_f16));
-      }
-    }
-  }
-}
-
-// The warp encodes group g of one row: xg points at the group's values,
-// w at the row's wire bytes, codes is the warp's shared bytes.
-template <int VPL, typename T>
-__device__ __forceinline__ void encode_group(const T* __restrict__ xg, uint8_t* __restrict__ w,
-                                             long long g, int lane, uint8_t* codes,
-                                             const WireParams& p) {
-  const GroupCode c = quantize_group<VPL>(xg, lane, codes, p);
-  write_group<VPL>(w, g, lane, codes, c, p);
-  __syncwarp();                         // codes is reused by the warp's next group
-}
-
-// One group's metadata, read once per warp.
-struct GroupMeta {
-  float s, z, sv0, sv1;
-  int si0, si1;
-};
-
-template <typename Ld>
-__device__ __forceinline__ GroupMeta read_meta(const uint8_t* w, long long g, const WireParams& p) {
-  GroupMeta m;
-  if (p.scale_int) {
-    m.s = decode_scale((unsigned char)Ld()(w + p.scale_off + g), p);
-    m.z = decode_signed((unsigned char)Ld()(w + p.zero_off + g), p);
-  } else {
-    m.s = from_meta(rd16<Ld>(w, p.scale_off + 2 * g), p.meta_f16);
-    m.z = from_meta(rd16<Ld>(w, p.zero_off + 2 * g), p.meta_f16);
-  }
-  m.sv0 = m.sv1 = 0.f;
-  m.si0 = m.si1 = -1;
-  if (p.spike) {
-    m.sv0 = from_meta(rd16<Ld>(w, p.sv_off + 4 * g), p.meta_f16);
-    m.sv1 = from_meta(rd16<Ld>(w, p.sv_off + 4 * g + 2), p.meta_f16);
-    if (p.scale_int) {
-      m.si0 = (int)(signed char)Ld()(w + p.si_off + 2 * g);
-      m.si1 = (int)(signed char)Ld()(w + p.si_off + 2 * g + 1);
-    } else {
-      m.si0 = (int)(signed char)(int)from_meta(rd16<Ld>(w, p.si_off + 4 * g), p.meta_f16);
-      m.si1 = (int)(signed char)(int)from_meta(rd16<Ld>(w, p.si_off + 4 * g + 2), p.meta_f16);
-    }
-  }
-  return m;
-}
-
-template <typename Ld>
-__device__ __forceinline__ float decode_value(const uint8_t* w, long long g, int pos,
-                                              const GroupMeta& m, const WireParams& p) {
-  const long long e = g * p.group + pos;          // element index in the row
-  unsigned code = 0;
-  int shift = 0;
-  for (int i = 0; i < p.n_planes; ++i) {
-    code |= plane_field<Ld>(w + p.plane_off[i], e, p.unit[i], shift);
-    shift += p.unit[i];
-  }
-  float val = dequant(code & 0xffu, m.s, m.z);
-  if (p.spike) {
-    if (pos == m.si1) val = m.sv1;
-    else if (pos == m.si0) val = m.sv0;
-  }
-  return val;
-}
-
-// The warp's group g of the wire row w, decoded (and rotated back) into
-// v: lane value k is position k * 32 + lane.
-template <int VPL, typename Ld = LoadPlain>
-__device__ __forceinline__ void decode_group(const uint8_t* w, long long g, int lane,
-                                             const WireParams& p, float (&v)[VPL]) {
-  const GroupMeta m = read_meta<Ld>(w, g, p);
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) v[k] = decode_value<Ld>(w, g, k * 32 + lane, m, p);
-  if (p.rotation) unrotate_warp<VPL>(v, lane, p);
-}
-
-// ---- eight values a thread (the wire kernels, fc_ar) ----------------------
+// ---- eight values a thread (the wire kernels, fc_ar, fc_a2a) --------------
 //
 // Thread t of a block owns 8 consecutive values of a row, elements
 // e0 .. e0 + 7 with e0 a multiple of 8, so its codes fill exactly u whole
@@ -649,6 +426,29 @@ __device__ __forceinline__ void load8(const float* __restrict__ src, bool active
   }
 }
 
+// Eight bf16 values at src as f32, each cast exactly (its bits above 16
+// zero bits, NaN payloads kept, as torch's .to(float32)), zeros for an
+// inactive thread: one 16-byte load where src is 16-byte aligned.
+__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ src, bool active,
+                                     float (&v)[kPer]) {
+  if (!active) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) v[k] = 0.f;
+  } else if (((uintptr_t)src & 15) == 0) {
+    const uint4 a = *reinterpret_cast<const uint4*>(src);
+    const unsigned w[kPer / 2] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int j = 0; j < kPer / 2; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);             // the low half: value 2j
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) v[k] = __uint_as_float((unsigned)s[k] << 16);
+  }
+}
+
 // Eight f32 values to dst, 16-byte aligned (an output the wrapper
 // allocated): two 16-byte stores.
 __device__ __forceinline__ void store8(float* __restrict__ dst, const float (&v)[kPer]) {
@@ -659,9 +459,9 @@ __device__ __forceinline__ void store8(float* __restrict__ dst, const float (&v)
 // Eight values as out kind OUT (0 f32, 1 bf16, 2 fp16) at element i of
 // out: one or two 16-byte stores where that address is 16-byte aligned,
 // else one store a value. The 16-bit kinds convert two values an
-// instruction (round to nearest even, store_out's bits for every number);
-// a thread holding a NaN converts with f2bf / f2h instead, whose NaN bits
-// (store_out's) the paired conversion does not keep.
+// instruction (round to nearest even, f2bf's and f2h's bits for every
+// number); a thread holding a NaN converts with f2bf / f2h instead, whose
+// NaN bits the paired conversion does not keep.
 template <int OUT>
 __device__ __forceinline__ void store8_out(void* out, long long i, const float (&v)[kPer]) {
   if (OUT == 0) {
@@ -704,15 +504,16 @@ __device__ __forceinline__ void store8_out(void* out, long long i, const float (
   }
 }
 
-// The rotation over the group's W lanes, in hadamard_warp's order:
-// out_j = sum_i x_i * H[i][j], i increasing, from +0.0, each product
-// rounded before its add. Value i is broadcast from lane i / 8 of the
+// The rotation over the group's W lanes, in repro_torch/core/rotation.py's
+// order: out_j = sum_i x_i * H[i][j], i increasing, from +0.0, each
+// product rounded before its add (H is symmetric, so the same sum is the
+// rotation and its transpose). Value i is broadcast from lane i / 8 of the
 // group (its value i % 8). With i = 8 l + kk and j = 8 lt + k, the sign
 // of H[i][j] (the parity of popcount(i & j)) is parity(l & lt) xor
 // parity(kk & k), the second a constant of the unrolled loops; and
 // x * (-h) rounds to -(x * h). So each x_i is multiplied once, and each
-// output adds or subtracts it: the bits of hadamard_warp's sums (a NaN
-// comes out of the adds canonical either way).
+// output adds or subtracts it: the bits of the plain sums (a NaN comes
+// out of the adds canonical either way).
 template <int W>
 __device__ __forceinline__ void hadamard8(float (&v)[kPer], int lt, float h) {
   float acc[kPer];
@@ -859,8 +660,9 @@ __device__ __forceinline__ unsigned char quant_code8(float v, float z, float s, 
 }
 
 // Quantize the thread's eight values v (rotated in place first under
-// ROT) as one group of G with its W - 1 neighbours: quantize_group's
-// arithmetic, eight values a thread.
+// ROT) as one group of G with its W - 1 neighbours: the arithmetic of
+// group_range, rtn_meta and quant_code (the stage kernels' quantizer),
+// eight values a thread.
 template <int G, bool SPIKE, bool ROT>
 __device__ __forceinline__ Code8 quantize8(float (&v)[kPer], int lt, const WireParams& p) {
   constexpr int W = G / kPer;
@@ -886,8 +688,8 @@ __device__ __forceinline__ Code8 quantize8(float (&v)[kPer], int lt, const WireP
 // A thread's bytes of a quantized group in a wire row: its u bytes of
 // each plane (at plane_off + e0 / 8 * u), and on lane lt < 4 of the group
 // one meta section (lane 0 the scale, 1 the zero, 2 the spike values, 3
-// the spike slots): the bytes write_group writes. Packed once, they can
-// be put into several rows.
+// the spike slots): the group's bytes of the wire format (core/
+// tilecodec.py). Packed once, they can be put into several rows.
 struct Bytes8 {
   unsigned long long plane[3];
   long long at;                          // e0 / 8
@@ -989,7 +791,7 @@ __device__ __forceinline__ Raw8 fetch8(const uint8_t* w, long long e0, int lt, b
 }
 
 // A thread's eight values from its raw bytes, rotated back under ROT:
-// decode_group's bits. Lane j < 4 of the group decodes meta section j,
+// the plain decode's bits. Lane j < 4 of the group decodes meta section j,
 // and the group's lanes take it by shuffle.
 template <int G, bool SPIKE, bool ROT>
 __device__ __forceinline__ void finish8(const Raw8& r, int lt, const WireParams& p,

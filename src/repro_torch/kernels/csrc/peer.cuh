@@ -15,29 +15,25 @@
 // PeerWorld) keeps, for each protocol, the running sum of what every
 // call adds to each counter, and passes the sums after this call in the
 // table (bar_target, slot_target, local_target): the waits compare
-// against them, so the grid may change from call to call.
+// against them, so the grid may change from call to call (both kernels
+// size theirs by the call's work).
 //
-// fc_a2a (ring_barrier, signal_pushes, wait_pushes): every block of a
-// rank signals the barrier of each peer, each push step's slot and the
-// local slot, each signal a red.release.sys after a __threadfence_system
-// (its grid is the card's, fixed).
-//
-// fc_ar (ar_barrier, ar_signal, ar_wait): one fence.acq_rel a block a
-// signal round, at the world's scope (the table's kFlagOneCard: every
-// rank on one card, gpu; else sys), then relaxed adds; a wait polls every
-// counter it needs at once with relaxed loads, then fences once. The
-// barrier's signals are relaxed with no fence: entering a call publishes
-// nothing (the rank's last call has ended, stream order). Every block of
-// a rank signals the barrier of each peer, each push step's slot and the
-// local slot, and waits on the rank's own counters itself: a call of B
-// blocks a rank adds wait_count * B to a barrier and B to a slot
-// (allreduce.cu says why not one leader block a rank).
+// Signals (peer_barrier, peer_signal, peer_wait): one fence.acq_rel a
+// block a signal round, at the world's scope (the table's kFlagOneCard:
+// every rank on one card, gpu; else sys), then relaxed adds; a wait polls
+// every counter it needs at once with relaxed loads, then fences once.
+// The barrier's signals are relaxed with no fence: entering a call
+// publishes nothing (the rank's last call has ended, stream order).
+// Every block of a rank signals the barrier of each peer, each push
+// step's slot and the local slot, and waits on the rank's own counters
+// itself: a call of B blocks a rank adds wait_count * B to a barrier and
+// B to a slot (allreduce.cu says why not one leader block a rank).
 //
 // Ordering: a block's stores, then __syncthreads(), then one thread's
 // fence and its adds to the destination's pad; the waiting thread's
-// acquire (fc_ar: its fence), then __syncthreads() before the block reads
-// what the signal covers (through L2: __ldcg in codec.cuh). A wait that
-// outlasts kWaitNs traps, so a fault cannot hang the card.
+// fence after its relaxed loads, then __syncthreads() before the block
+// reads what the signal covers (through L2: __ldcg in codec.cuh). A wait
+// that outlasts kWaitNs traps, so a fault cannot hang the card.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,7 +44,7 @@ namespace fc {
 
 constexpr int kMaxPeers = 16;
 constexpr unsigned long long kWaitNs = 5000000000ull;   // 5 s
-constexpr int kFlagOneCard = 1;            // fc_ar: every rank on this card, gpu-scope fences
+constexpr int kFlagOneCard = 1;            // every rank on this card: gpu-scope fences
 
 struct PeerTable {
   uint8_t* recv[kMaxPeers];        // each rank's receive buffer
@@ -63,7 +59,7 @@ struct PeerTable {
   int push_dst_off[kMaxPeers];
   int push_recv_slot[kMaxPeers];
   unsigned bar_target, slot_target, local_target;   // the counters after this call
-  int flags;                       // kFlag* (fc_ar)
+  int flags;                       // kFlag*
 };
 
 __device__ __forceinline__ unsigned* barrier_word(const PeerTable& t, int rank) {
@@ -78,18 +74,8 @@ __device__ __forceinline__ unsigned* local_word(const PeerTable& t, int rank) {
   return t.signal[rank] + 1 + t.sem_slots;
 }
 
-__device__ __forceinline__ void signal_release(unsigned* word) {
-  asm volatile("red.release.sys.global.add.u32 [%0], %1;" ::"l"(word), "r"(1u) : "memory");
-}
-
 __device__ __forceinline__ void signal_relaxed(unsigned* word) {
   asm volatile("red.relaxed.sys.global.add.u32 [%0], %1;" ::"l"(word), "r"(1u) : "memory");
-}
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* word) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];" : "=r"(v) : "l"(word) : "memory");
-  return v;
 }
 
 __device__ __forceinline__ unsigned load_relaxed(const unsigned* word) {
@@ -107,58 +93,9 @@ __device__ __forceinline__ unsigned long long global_ns() {
 __device__ __forceinline__ void timed_out(const unsigned* word, unsigned target, int my,
                                           const char* what) {
   printf("fc peer wait timed out: rank %d block %d %s at %u < %u\n", my, blockIdx.x, what,
-         load_acquire(word), target);
+         load_relaxed(word), target);
   __trap();
 }
-
-// Spin (one thread) until *word has reached target (wrap-safe).
-__device__ __forceinline__ void wait_until(const unsigned* word, unsigned target, int my,
-                                           const char* what) {
-  const unsigned long long t0 = global_ns();
-  while ((int)(load_acquire(word) - target) < 0) {
-    __nanosleep(100);
-    if (global_ns() - t0 > kWaitNs) timed_out(word, target, my, what);
-  }
-}
-
-// ---- fc_a2a ---------------------------------------------------------------
-
-// The ring barrier: every block of rank my signals the barrier of each
-// peer at (my + off) % tp, then waits until its own barrier has every
-// peer block's signal of this call. After it, every peer has entered this
-// call, so it has finished reading its receive buffer in the last one.
-__device__ __forceinline__ void ring_barrier(const PeerTable& t, int my) {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < t.n_signal; ++i)
-      signal_release(barrier_word(t, (my + t.signal_off[i]) % t.tp));
-    wait_until(barrier_word(t, my), t.bar_target, my, "barrier");
-  }
-  __syncthreads();
-}
-
-// After the block's pushes: signal each push step's slot at its peer, and
-// the rank's local slot (its own block, spliced in locally).
-__device__ __forceinline__ void signal_pushes(const PeerTable& t, int my) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    for (int i = 0; i < t.n_push; ++i)
-      signal_release(slot_word(t, (my + t.push_dst_off[i]) % t.tp, t.push_recv_slot[i]));
-    signal_release(local_word(t, my));
-  }
-}
-
-// Wait until every block of every rank has pushed its rows here.
-__device__ __forceinline__ void wait_pushes(const PeerTable& t, int my) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < t.sem_slots; ++s) wait_until(slot_word(t, my, s), t.slot_target, my, "slot");
-    wait_until(local_word(t, my), t.local_target, my, "local");
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// ---- fc_ar ----------------------------------------------------------------
 
 // fence.acq_rel at the world's scope. Before a signal, with the relaxed
 // add after it: a release of every store the block made before its
@@ -176,7 +113,7 @@ __device__ __forceinline__ bool reached(const unsigned* word, unsigned target) {
 // Spin (one thread) until the barrier (barrier), or the local slot and
 // every receive slot (!barrier), of rank my have reached this call's
 // targets: each poll loads all of them at once; then one fence.
-__device__ __forceinline__ void ar_poll(const PeerTable& t, int my, bool barrier) {
+__device__ __forceinline__ void peer_poll(const PeerTable& t, int my, bool barrier) {
   const unsigned long long t0 = global_ns();
   for (;;) {
     bool done;
@@ -199,18 +136,18 @@ __device__ __forceinline__ void ar_poll(const PeerTable& t, int my, bool barrier
 // peer's signals of this call. After it, every peer has entered this
 // call, so (stream order) its last call has ended, and with it every
 // read of its receive buffers.
-__device__ __forceinline__ void ar_barrier(const PeerTable& t, int my) {
+__device__ __forceinline__ void peer_barrier(const PeerTable& t, int my) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < t.n_signal; ++i)
       signal_relaxed(barrier_word(t, (my + t.signal_off[i]) % t.tp));
-    ar_poll(t, my, true);
+    peer_poll(t, my, true);
   }
   __syncthreads();
 }
 
 // After the block's pushes: one fence, then each push step's slot at its
 // peer and the rank's local slot.
-__device__ __forceinline__ void ar_signal(const PeerTable& t, int my) {
+__device__ __forceinline__ void peer_signal(const PeerTable& t, int my) {
   __syncthreads();
   if (threadIdx.x == 0) {
     fence_world(t);
@@ -222,8 +159,8 @@ __device__ __forceinline__ void ar_signal(const PeerTable& t, int my) {
 
 // Wait until every block of the rank has pushed (the local slot) and
 // every peer has pushed its rows here.
-__device__ __forceinline__ void ar_wait(const PeerTable& t, int my) {
-  if (threadIdx.x == 0) ar_poll(t, my, false);
+__device__ __forceinline__ void peer_wait(const PeerTable& t, int my) {
+  if (threadIdx.x == 0) peer_poll(t, my, false);
   __syncthreads();
 }
 

@@ -8,25 +8,52 @@
 // peer p. The output's block j is what peer j sent (all-to-all order):
 //   out[my][j] = decode(encode(x[j][my])).
 // Every rank runs the declared choreography (protocol.py, peer.cuh):
-//   1. ring barrier: every peer has entered this call;
+//   1. ring barrier: every peer has entered this call, so (stream order)
+//      its last call has ended, and with it that call's decode of its
+//      receive rows: no push of this call lands in a row still being read;
 //   2. encode each row straight into its destination's receive buffer,
 //      row my (block p -> peer p; the own block into the own buffer), so
 //      every wire byte is written once, with no send staging;
-//   3. signal each destination's slot (release, system scope);
-//   4. wait until every sender's slot holds this call's count (acquire);
+//   3. signal each destination's slot and the own local slot;
+//   4. wait until every sender's slot and the local slot hold this call's
+//      targets;
 //   5. decode the tp * m received rows, read through L2, into out[my].
-// The encode and decode are codec.cuh's encode_group / decode_group, so
-// the wire bytes are fc_encode_wire's and the decoded bits fc_decode_wire's.
+// The encode and decode are codec.cuh's quantize8 / bytes8 / put8 and
+// fetch8 / finish8, so the wire bytes are fc_encode_wire's and the
+// decoded bits fc_decode_wire's.
 //
-// Bound on an H100: bytes. Per rank, the payload read once, the wire
-// written once and read once, the output written once; on one card (the
-// loopback world) all of it is HBM traffic, over 3.35 TB/s. Across cards
-// the wire would cross NVLink instead.
+// Bound on an H100: bytes (rdma.py bound_bytes). Per rank, the payload
+// read once, the wire written once and read once, the output written
+// once; on one card (the loopback world, or processes sharing a card)
+// all of it is HBM traffic, over 3.35 TB/s. Across cards the wire would
+// cross NVLink instead.
 //
-// Design. A spin wait on a block that is not resident deadlocks, so the
-// grid is persistent: blocks_per_rank blocks per rank, from the
-// occupancy of the kernel, all resident at once (a cooperative launch
-// guarantees it), each looping over the rank's groups one warp per group.
+// Design. Eight values a thread, as fc_encode_wire and fc_decode_wire
+// (codec.cuh): one flat item space a rank, the tp * m rows x d / 8 items,
+// which the grid's threads walk with a stride of the grid, the encode
+// and then the decode. d is a multiple of the group, so a thread's eight
+// values never cross a group or a row, and a group's G / 8 lanes never
+// cross a warp (blocks and strides are multiples of 32). The encode
+// loads 16 bytes a thread (eight bf16, cast exactly to f32, or two
+// float4), quantizes with the group's lanes by shuffle and stores u
+// bytes a plane; the decode loads u bytes a plane through L2 (the rows
+// were written by other ranks' blocks, on other SMs or from other
+// processes), its group's first four lanes a meta section each, and
+// stores 16 bytes a thread (two bf16 values an instruction). The grid
+// is sized by the call's work: blocks a rank = min(cap, ceil(items /
+// kThreads)) (rdma.py PeerWorld.a2a_blocks), where cap, the most blocks
+// a rank of the instantiation that are resident at once on the card
+// (fc_a2a_blocks_per_rank; a cooperative launch, so no spin wait waits on
+// a block that is not resident), is agreed by the world; the host keeps
+// each pad's running target, since the waits count peer blocks. At the
+// decode dispatch (tp = 4, 16 rows a peer of 2048 values) that is 64
+// blocks of 256 a rank, one item a thread.
+// Signalling is fc_ar's (peer.cuh peer_barrier / peer_signal /
+// peer_wait): one fence a block a round, at gpu scope when every rank is
+// on this card, relaxed adds, every counter of a wait polled at once.
+// The mode (group, spike, rotation) and the payload type T (f32 or bf16,
+// the output's too) are template arguments.
+//
 // In the loopback world one launch runs every rank on one card (grid
 // dimension y = local rank); in a world of processes each process
 // launches its own rank (local_ranks = 1, rank0 = its rank) through
@@ -42,115 +69,128 @@ namespace {
 
 using namespace fc;
 
-constexpr int kWarps = 8;                 // warps per block, one group each at a time
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = 256;             // rdma.py A2A_THREADS
 
-template <int VPL, typename T>
-__global__ void __launch_bounds__(kThreads) a2a_kernel(const T* __restrict__ x, void* __restrict__ out,
-                                                       const WireParams p, const PeerTable t,
-                                                       long long m) {
-  __shared__ __align__(8) uint8_t codes_s[kWarps][VPL * 32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lr = blockIdx.y;              // local rank
+// x: (local_ranks, tp * m, d) payload -> out: the same, as T; p: the wire
+// of a row of d values; t: the protocol's table; m: rows a rank sends
+// each peer. Thread it of the item space handles row it / (d / 8),
+// elements e0 .. e0 + 7 of it; the wrapper keeps the items within 32
+// bits. At least three blocks an SM (at most 85 registers a thread):
+// ptxas gives every mode 56 registers, with no spill, so four fit.
+template <int G, bool SPIKE, bool ROT, typename T>
+__global__ void __launch_bounds__(kThreads, 3) a2a_kernel(const T* __restrict__ x,
+                                                       T* __restrict__ out, const WireParams p,
+                                                       const PeerTable t, unsigned m) {
+  constexpr int OUT = sizeof(T) == 4 ? 0 : 1;       // store8_out's kind: f32, bf16
+  const int lr = blockIdx.y;                         // local rank
   const int my = t.rank0 + lr;
-  const long long rows = (long long)t.tp * m;          // rows a rank sends and receives
-  const long long warps = rows * p.groups;
-  const long long stride = (long long)gridDim.x * kWarps;
-  const long long first = (long long)blockIdx.x * kWarps + warp;
-  const T* xr = x + (long long)lr * rows * p.n;
+  const unsigned per_row = (unsigned)(p.n / kPer);
+  const unsigned items = (unsigned)t.tp * m * per_row;
+  const unsigned stride = gridDim.x * kThreads;
+  const int lt = threadIdx.x % (G / kPer);
+  const long long base = (long long)lr * t.tp * m * p.n;   // this local rank's rows
 
-  ring_barrier(t, my);
+  peer_barrier(t, my);
 
-  for (long long gid = first; gid < warps; gid += stride) {   // uniform per warp
-    const long long row = gid / p.groups, g = gid % p.groups;
-    const long long dst = row / m, r = row % m;
-    uint8_t* w = t.recv[dst] + my * t.row_bytes + r * p.wb;
-    encode_group<VPL>(xr + row * p.n + g * p.group, w, g, lane, codes_s[warp], p);
+  for (unsigned b = blockIdx.x * kThreads; b < items; b += stride) {   // uniform per block
+    const unsigned it = b + threadIdx.x;
+    const bool active = it < items;
+    const unsigned row = active ? it / per_row : 0;
+    const long long e0 = active ? (long long)(it - row * per_row) * kPer : 0;
+    float v[kPer];
+    load8(x + base + (long long)row * p.n + e0, active, v);
+    const Code8 c = quantize8<G, SPIKE, ROT>(v, lt, p);
+    if (active) {
+      const unsigned dst = row / m, r = row - dst * m;
+      put8(t.recv[dst] + my * t.row_bytes + (long long)r * p.wb, bytes8<G, SPIKE>(c, e0, lt, p), p);
+    }
   }
 
-  signal_pushes(t, my);
-  wait_pushes(t, my);
+  peer_signal(t, my);
+  peer_wait(t, my);
 
   const uint8_t* recv = t.recv[my];
-  const long long out0 = (long long)lr * rows * p.n;
-  for (long long gid = first; gid < warps; gid += stride) {
-    const long long row = gid / p.groups, g = gid % p.groups;
-    const long long src = row / m, r = row % m;
-    float v[VPL];
-    decode_group<VPL, LoadL2>(recv + src * t.row_bytes + r * p.wb, g, lane, p, v);
-#pragma unroll
-    for (int k = 0; k < VPL; ++k)
-      store_out(out, out0 + row * p.n + g * p.group + k * 32 + lane, v[k], p.out_kind);
+  for (unsigned b = blockIdx.x * kThreads; b < items; b += stride) {
+    const unsigned it = b + threadIdx.x;
+    const bool active = it < items;
+    const unsigned row = active ? it / per_row : 0;
+    const long long e0 = active ? (long long)(it - row * per_row) * kPer : 0;
+    const unsigned src = row / m, r = row - src * m;
+    float v[kPer];
+    decode8<G, SPIKE, ROT, LoadL2>(recv + src * t.row_bytes + (long long)r * p.wb, e0, lt, active, p, v);
+    if (active) store8_out<OUT>(out, base + (long long)row * p.n + e0, v);
   }
 }
 
-template <int VPL, typename T>
+template <int G, bool SPIKE, bool ROT, typename T>
 int occupancy() {
   int occ = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, a2a_kernel<VPL, T>, kThreads, 0) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, a2a_kernel<G, SPIKE, ROT, T>, kThreads, 0) !=
+      cudaSuccess)
     return 0;
   return occ;
 }
 
-template <int VPL, typename T>
-int launch(const void* x, void* out, const WireParams& p, const PeerTable& t, long long m,
-           int blocks_per_rank, cudaStream_t st) {
+template <int G, bool SPIKE, bool ROT, typename T>
+int launch(const void* x, void* out, const WireParams& p, const PeerArgs& a, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  void* args[] = {(void*)&xt, (void*)&out, (void*)&p, (void*)&t, (void*)&m};
-  return (int)cudaLaunchCooperativeKernel((const void*)a2a_kernel<VPL, T>,
-                                          dim3(blocks_per_rank, t.local_ranks), dim3(kThreads),
+  T* o = static_cast<T*>(out);
+  unsigned m = (unsigned)a.m;
+  void* args[] = {(void*)&xt, (void*)&o, (void*)&p, (void*)&a.t, (void*)&m};
+  return (int)cudaLaunchCooperativeKernel((const void*)a2a_kernel<G, SPIKE, ROT, T>,
+                                          dim3(a.blocks_per_rank, a.t.local_ranks), dim3(kThreads),
                                           args, 0, st);
-}
-
-template <typename T>
-int launch_by_group(const void* x, void* out, const WireParams& p, const PeerTable& t,
-                    long long m, int bpr, cudaStream_t st) {
-  switch (p.group) {
-    case 32: return launch<1, T>(x, out, p, t, m, bpr, st);
-    case 64: return launch<2, T>(x, out, p, t, m, bpr, st);
-    case 128: return launch<4, T>(x, out, p, t, m, bpr, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
-int min_occupancy() {
-  int a = occupancy<1, T>(), b = occupancy<2, T>(), c = occupancy<4, T>();
-  return a < b ? (a < c ? a : c) : (b < c ? b : c);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks per rank for `local_ranks` ranks on card `dev`: every block of
-// every rank resident at once, for every group and payload type, so one
-// world keeps one count across calls.
-int fc_a2a_blocks_per_rank(int dev, int local_ranks) {
+// Blocks a rank of the kernel for (group, spike, rotation, in_kind: 0
+// f32, 1 bf16) that are resident at once for `local_ranks` ranks on card
+// `dev`: the cap of a call's grid (-1 for a mode the kernel does not
+// take).
+int fc_a2a_blocks_per_rank(int dev, int local_ranks, int group, int spike, int rotation,
+                           int in_kind) {
   int sms = 0;
+  if (in_kind != 0 && in_kind != 1) return -1;
   if (cudaSetDevice(dev) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
-  const int f = min_occupancy<float>(), b = min_occupancy<__nv_bfloat16>();
-  return (f < b ? f : b) * sms / local_ranks;
+  WireParams p;
+  p.group = group;
+  p.spike = spike;
+  p.rotation = rotation;
+  int occ = 0;
+#define FC_OCC(G, S, R) \
+  occ = in_kind == 0 ? occupancy<G, S, R, float>() : occupancy<G, S, R, __nv_bfloat16>()
+  FC_BY_MODE(p, FC_OCC, return -1)
+#undef FC_OCC
+  return occ * sms / local_ranks;
 }
 
-// x: (local_ranks, tp, m, n) payload (in_kind 0 f32, 1 bf16); out:
-// the same shape, out_kind as in params. params/thr/frac/f: the wire
-// codec's (kernels/wire.py _params, rows = tp * m). peer: the table of
-// peer.cuh read_peer, m the rows a rank sends each peer.
+// x: (local_ranks, tp, m, n) payload (the table's in_kind: 0 f32, 1
+// bf16); out: the same shape and type (params' out_kind must be that
+// type's). params/thr/frac/f: the wire codec's (kernels/wire.py _params,
+// rows = tp * m). peer: the table of peer.cuh read_peer, m the rows a
+// rank sends each peer, blocks_per_rank this call's grid.
 int fc_a2a(const void* x, void* out, const long long* params, const unsigned* thr,
            const float* frac, const float* f, const long long* peer, void* stream) {
   const WireParams p = fill_params(params, thr, frac, f);
   PeerArgs a;
-  if (!read_peer(peer, a)) return (int)cudaErrorInvalidValue;
+  if (!read_peer(peer, a) || (a.in_kind != 0 && a.in_kind != 1) || p.out_kind != a.in_kind ||
+      p.n % kPer != 0 || a.m < 1)
+    return (int)cudaErrorInvalidValue;
+  // the item space and its grid stride stay within 32 bits
+  if ((long long)a.t.tp * a.m * (p.n / kPer) + (long long)a.blocks_per_rank * kThreads > 0xffffffffLL)
+    return (int)cudaErrorInvalidValue;
   if (const int rc = use_device_of(x)) return rc;
   const cudaStream_t st = (cudaStream_t)stream;
-  int rc;
-  switch (a.in_kind) {
-    case 0: rc = launch_by_group<float>(x, out, p, a.t, a.m, a.blocks_per_rank, st); break;
-    case 1: rc = launch_by_group<__nv_bfloat16>(x, out, p, a.t, a.m, a.blocks_per_rank, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  int rc = 0;
+#define FC_A2A(G, S, R)                                                              \
+  rc = a.in_kind == 0 ? launch<G, S, R, float>(x, out, p, a, st)                     \
+                      : launch<G, S, R, __nv_bfloat16>(x, out, p, a, st)
+  FC_BY_MODE(p, FC_A2A, return (int)cudaErrorInvalidValue)
+#undef FC_A2A
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

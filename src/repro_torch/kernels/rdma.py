@@ -22,11 +22,12 @@ Bound on an H100: bytes (:func:`bound_bytes`, :func:`bound_bytes_ar`).
 On one card all of it is device memory traffic at 3.35 TB/s; across
 cards the pushed wire would cross NVLink instead. What the design does
 about it: the wire is written once, by the encode, into the peer's
-receive row (no send staging), and read once, by the decode; a spin wait
-must never wait on a block that is not resident, so the grids are
-persistent and launched cooperatively. ``fc_a2a``'s grid is the card's
-(``PeerWorld.caps``); ``fc_ar``'s is sized by each call's work
-(:meth:`PeerWorld.ar_blocks`), and the world keeps each pad's running
+receive row (no send staging), and read once, by the decode, eight
+values a thread; a spin wait must never wait on a block that is not
+resident, so the grids are launched cooperatively, and each is sized by
+the call's work (:meth:`PeerWorld.a2a_blocks`,
+:meth:`PeerWorld.ar_blocks`), at most the cap of the kernel's
+instantiation (``PeerWorld.caps``). The world keeps each pad's running
 target (:meth:`PeerWorld.pad_targets`), since the waits count peer
 blocks.
 
@@ -73,6 +74,8 @@ AR_SOURCE = "allreduce.cu"
 MAX_PEERS = 16                    # csrc/peer.cuh kMaxPeers
 PEER_HEAD = 15                    # csrc/peer.cuh kPeerHead
 AR_TILE = 2048                    # csrc/allreduce.cu kTile: values a tile
+A2A_THREADS = 256                 # csrc/rdma.cu kThreads: threads a block
+A2A_PER = 8                       # csrc/codec.cuh kPer: values a thread
 #: csrc/allreduce.cu kStamps: fc_ar's step boundaries, as block 0 of a
 #: rank sees them on the card's clock (:func:`fused_all_reduce_rdma`)
 AR_STAMPS = ("start", "barrier", "encode", "scatter wait", "reduce",
@@ -80,8 +83,11 @@ AR_STAMPS = ("start", "barrier", "encode", "scatter wait", "reduce",
 #: fc_ar's instantiations: (group, spike, rotation)
 AR_MODES = tuple((g, s, r) for g in (32, 64, 128)
                  for s, r in ((False, False), (True, False), (False, True)))
-FLAG_ONE_CARD = 1                 # csrc/peer.cuh kFlagOneCard
 _IN_KINDS = {torch.float32: 0, torch.bfloat16: 1}      # the model dtypes
+#: fc_a2a's instantiations: ("a2a", group, spike, rotation, payload kind
+#: of _IN_KINDS)
+A2A_MODES = tuple(("a2a", *m, k) for m in AR_MODES for k in (0, 1))
+FLAG_ONE_CARD = 1                 # csrc/peer.cuh kFlagOneCard
 _ALIGN = 256
 _HANDLE_BYTES = 64                # cudaIpcMemHandle_t
 
@@ -100,7 +106,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.fc_a2a.argtypes = [ctypes.c_void_p] * 8
     lib.fc_a2a.restype = ctypes.c_int
-    lib.fc_a2a_blocks_per_rank.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.fc_a2a_blocks_per_rank.argtypes = [ctypes.c_int] * 6
     lib.fc_a2a_blocks_per_rank.restype = ctypes.c_int
     for name, args in (
             ("fc_peer_alloc", [ctypes.c_int, ctypes.c_longlong,
@@ -131,10 +137,13 @@ def _ar_lib() -> ctypes.CDLL:
 def _blocks_per_rank(key, dev: int, local_ranks: int) -> int:
     """The most blocks a rank of a kernel can run, every block of
     ``local_ranks`` ranks resident on card ``dev`` at once: ``fc_a2a``'s
-    for ``key`` A2A_COLLECTIVE_ID, ``fc_ar``'s instantiation for ``key``
-    an AR_MODES entry."""
-    if key == A2A_COLLECTIVE_ID:
-        bpr, name = _lib().fc_a2a_blocks_per_rank(dev, local_ranks), "fc_a2a"
+    instantiation for ``key`` an A2A_MODES entry, ``fc_ar``'s for an
+    AR_MODES entry."""
+    if key[0] == "a2a":
+        _, group, spike, rot, kind = key
+        bpr, name = (_lib().fc_a2a_blocks_per_rank(
+            dev, local_ranks, group, int(spike), int(rot), kind),
+            f"fc_a2a {key[1:]}")
     else:
         group, spike, rot = key
         bpr, name = (_ar_lib().fc_ar_blocks_per_rank(
@@ -146,10 +155,10 @@ def _blocks_per_rank(key, dev: int, local_ranks: int) -> int:
 
 
 def cap_keys(protocols: Sequence[KernelProtocol]) -> List:
-    """The grids a world serving ``protocols`` needs: fc_a2a's, and one
-    for each of fc_ar's instantiations."""
+    """The grids a world serving ``protocols`` needs: one for each
+    instantiation of fc_a2a and of fc_ar."""
     cids = {p.collective_id for p in protocols}
-    keys = [A2A_COLLECTIVE_ID] if A2A_COLLECTIVE_ID in cids else []
+    keys = list(A2A_MODES) if A2A_COLLECTIVE_ID in cids else []
     if ALLREDUCE_SCATTER_COLLECTIVE_ID in cids:
         keys += list(AR_MODES)
     return keys
@@ -158,6 +167,11 @@ def cap_keys(protocols: Sequence[KernelProtocol]) -> List:
 def ar_mode(cfg) -> Tuple[int, bool, bool]:
     """The AR_MODES entry of a config."""
     return cfg.group, bool(cfg.spike), bool(cfg.rotation)
+
+
+def a2a_mode(cfg, dtype) -> Tuple:
+    """The A2A_MODES entry of a config and payload dtype."""
+    return ("a2a", *ar_mode(cfg), _IN_KINDS[dtype])
 
 
 def _check_rc(rc: int, what: str) -> None:
@@ -213,14 +227,14 @@ class PeerWorld:
     the protocol's ``recv`` rows (one for each sender) of ``row_bytes``
     each; ``signal[cid][r]`` its pad of :func:`signal_words` counters,
     zero at the start and only ever added to. ``epochs[cid]`` counts the
-    protocol's calls (on the host only). ``caps[key]`` is the most blocks a rank of a
-    kernel that are resident at once (:func:`cap_keys`), one count for
-    every rank (a loopback world fills it at first use): ``fc_a2a``'s grid,
-    and the cap of ``fc_ar``'s for each of its instantiations.
+    protocol's calls (on the host only). ``caps[key]`` is the most blocks
+    a rank of a kernel's instantiation that are resident at once
+    (:func:`cap_keys`), one count for every rank (a loopback world fills
+    it at first use): the cap of a call's grid.
     ``targets[cid]`` holds the running sums that every rank's pad reaches
     after the calls so far (barrier, each receive slot, local slot;
-    :meth:`pad_targets`). ``one_card`` (a loopback world) lets
-    ``fc_ar``'s fences stay at gpu scope.
+    :meth:`pad_targets`). ``one_card`` (a loopback world) lets the
+    kernels' fences stay at gpu scope.
     """
 
     def __init__(self, tp: int, local_ranks: int, rank0: int,
@@ -407,13 +421,25 @@ class PeerWorld:
         bar, slot, local = self.targets[cid]
         return [bar] + [slot] * self.protocols[cid].sem_slots + [local]
 
-    def next_call(self, cid: int, m: int = 0, in_kind: int = 0
-                  ) -> np.ndarray:
-        """Count one ``fc_a2a`` call of protocol ``cid`` on the card's
-        grid -> its peer table."""
-        blocks = self._cap(cid)
-        self._advance(cid, blocks, barrier=True)
-        return self.table(cid, m, in_kind, blocks)
+    def a2a_blocks(self, m: int, d: int, cfg, dtype) -> int:
+        """``fc_a2a``'s blocks a rank for a call of ``m`` rows of ``d``
+        values a peer, payload ``dtype``, in config ``cfg``: one for each
+        A2A_THREADS items of A2A_PER values of the rank's tp * m rows, at
+        most the cap of the instantiation. The same on every rank for a
+        given (tp, m, d, cfg, dtype) and caps."""
+        items = self.tp * m * (d // A2A_PER)
+        return max(1, min(self._cap(a2a_mode(cfg, dtype)),
+                          -(-items // A2A_THREADS)))
+
+    def a2a_call(self, m: int, d: int, cfg, dtype
+                 ) -> Tuple[int, np.ndarray]:
+        """Count one ``fc_a2a`` call of ``m`` rows of ``d`` values a peer
+        -> (blocks a rank, its peer table)."""
+        blocks = self.a2a_blocks(m, d, cfg, dtype)
+        self._advance(A2A_COLLECTIVE_ID, blocks, barrier=True)
+        flags = FLAG_ONE_CARD if self.one_card else 0
+        return blocks, self.table(A2A_COLLECTIVE_ID, m, _IN_KINDS[dtype],
+                                  blocks, flags)
 
     def ar_blocks(self, n: int, cfg) -> int:
         """``fc_ar``'s blocks a rank for a call of ``n`` values a rank in
@@ -442,7 +468,8 @@ def fused_all_to_all_rdma(x: torch.Tensor, cfg,
                           world: PeerWorld) -> torch.Tensor:
     """(local_ranks, tp, m, d) payload on the card -> the same shape and
     dtype: ``out[r][j]`` is what rank ``j`` sent rank ``r``, through the
-    wire codec of ``cfg`` (``d`` a group multiple)."""
+    wire codec of ``cfg`` (``d`` a group multiple). One launch of
+    ``fc_a2a`` of :meth:`PeerWorld.a2a_blocks` blocks a rank."""
     wire._check_cfg(cfg)
     if x.dtype not in _IN_KINDS:
         raise TypeError(f"fused_all_to_all_rdma: unsupported dtype {x.dtype}")
@@ -469,10 +496,9 @@ def fused_all_to_all_rdma(x: torch.Tensor, cfg,
     out = torch.empty_like(x)
     if m * d == 0:
         return out
+    a, thr, frac, f = wire._params(cfg, tp * m, d, wire._OUT_KINDS[x.dtype])
     with torch.cuda.device(x.device):
-        peer = world.next_call(A2A_COLLECTIVE_ID, m, _IN_KINDS[x.dtype])
-        a, thr, frac, f = wire._params(cfg, tp * m, d,
-                                       wire._OUT_KINDS[x.dtype])
+        _, peer = world.a2a_call(m, d, cfg, x.dtype)
         rc = _lib().fc_a2a(x.data_ptr(), out.data_ptr(), a.ctypes.data,
                            thr.ctypes.data, frac.ctypes.data, f.ctypes.data,
                            peer.ctypes.data,

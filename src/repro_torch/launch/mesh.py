@@ -14,8 +14,8 @@ ModelAxis`:
 * the rank, on card ``rank % torch.cuda.device_count()``;
 * on the card and with more than one rank, the peer world of the fused
   collectives (:meth:`~repro_torch.kernels.rdma.PeerWorld.from_group`),
-  its receive rows sized from the largest TP site
-  (:func:`site_row_bytes`).
+  its receive rows sized from the largest site it serves, a TP site or
+  an MoE dispatch (:func:`site_row_bytes`).
 
 Data parallelism (``DATA > 1``) is not ported.
 """
@@ -30,11 +30,16 @@ from typing import Callable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.moe import capacity
 from repro_torch.parallel.axis import ModelAxis
 
 #: the largest quantization group the kernels take: the most a TP site's
-#: vector is padded per rank
+#: vector, or a dispatch row, is padded
 _MAX_GROUP = 128
+#: bytes a value of a row no wire of at most 8 bits exceeds (at most 1.375
+#: bytes a value: int8 codes and a spiked group of 32's meta): the f32
+#: payload's at a TP site, the bf16 payload's at a dispatch
+_TP_VALUE_BYTES, _DISPATCH_VALUE_BYTES = 4, 2
 
 
 def parse_mesh(text: str) -> Tuple[int, int]:
@@ -48,14 +53,25 @@ def parse_mesh(text: str) -> Tuple[int, int]:
     return data, model
 
 
-def site_row_bytes(d_model: int, batch: int, seq: int, tp: int) -> int:
-    """Receive-row bytes for the largest TP site, ``batch * seq * d_model``
-    values padded to a ``tp * 128`` multiple: the f32 bytes of a rank's
-    chunk, more than the wire of any config of at most 8 bits (at most
-    1.375 bytes a value: int8 codes and a spiked group of 32's meta)."""
-    n = batch * seq * d_model
-    chunk = -(-n // (tp * _MAX_GROUP)) * _MAX_GROUP
-    return 4 * chunk
+def site_row_bytes(cfg, plan, batch: int, seq: int) -> int:
+    """Receive-row bytes for every site that a peer world serving model
+    ``cfg`` on ``plan`` at ``batch`` x ``seq`` tokens carries, the larger
+    of two, each more than the wire of any config of at most 8 bits:
+
+    * the largest TP site: ``batch * seq * d_model`` values padded to a
+      ``tp * 128`` multiple, the f32 bytes of a rank's chunk;
+    * with experts spread over ranks (ep > 1), the MoE dispatch: the
+      ``e_loc * capacity(batch * seq)`` rows of ``d_model`` values (a
+      128 multiple) that a rank sends a peer, 2 bytes a value. A policy
+      that slices the tokens by ep (``ep_slice``) sends fewer.
+    """
+    tp, n = plan.tp, batch * seq * cfg.d_model
+    rows = _TP_VALUE_BYTES * (-(-n // (tp * _MAX_GROUP)) * _MAX_GROUP)
+    if plan.moe is not None and plan.moe.ep > 1:
+        d = -(-cfg.d_model // _MAX_GROUP) * _MAX_GROUP
+        m = plan.moe.e_loc * capacity(batch * seq, cfg)
+        rows = max(rows, _DISPATCH_VALUE_BYTES * m * d)
+    return rows
 
 
 def rank_device(rank: int, device: torch.device) -> torch.device:

@@ -10,8 +10,14 @@ rather than run on the CPU. Example (full width, random weights)::
 launcher starts TP rank processes (:func:`repro_torch.launch.mesh.
 run_ranks`), each holding its shard of the weights, and fails when one
 fails; rank 0 prints. On the card each rank takes card ``rank %
-device_count``, and the ``fused`` TP sites run through the peer-push
-AllReduce kernels; with ``--device cpu`` the ranks run on gloo.
+device_count``, and the ``fused`` sites run through the peer-push
+kernels: the TP sites through the AllReduce, an MoE model's dispatch
+(experts spread over the ranks) through the All2All; with ``--device
+cpu`` the ranks run on gloo. For example::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch moonshot-v1-16b-a3b --mesh 1,2 --batch 4 --prompt-len 128 \\
+      --gen 16 --comm-scheme fused
 """
 from __future__ import annotations
 
@@ -254,17 +260,16 @@ def main(argv=None) -> Dict:
             "--rank", str(r), "--rendezvous", store], model)
         return {"ranks": model}
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    plan = make_plan(cfg, tp=model)
     rank = args.rank or 0
     axis = None
     if model > 1:
         device = mesh.rank_device(rank, device)
         axis = mesh.init_model_axis(
             model, rank, args.rendezvous, device,
-            mesh.site_row_bytes(cfg.d_model, args.batch, args.prompt_len,
-                                model))
+            mesh.site_row_bytes(cfg, plan, args.batch, args.prompt_len))
     log = print if rank == 0 else (lambda *a, **k: None)
     try:
-        plan = make_plan(cfg, tp=model)
         policy = build_policy(args.policy, args.policy_file,
                               args.codec_backend, args.comm_scheme)
         log(describe_policy(policy, cfg.n_layers))

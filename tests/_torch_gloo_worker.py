@@ -24,6 +24,11 @@ each run of :data:`SERVE_RUNS`, the prefill's hidden states, its greedy
 next token over the vocabulary shards, and ``serve``'s decode loop (the
 prompt teacher-forced through the cache, then generation). Also the
 greedy choice on :func:`tie_logits`, whose two shards tie.
+
+MODE ``serve_moe``: the same for the moonshot smoke config (float32;
+``tests/test_torch_serve_tp_moe.py`` writes its ``jax.npz``), its experts
+spread over the ranks (ep = WORLD), with the routes dropped over
+capacity at prefill and decode.
 """
 import os
 import sys
@@ -127,11 +132,13 @@ SERVE_RUNS = {"paper/two_step": ("paper", None),
               "bf16": ("bf16", None)}
 
 
-def serve_config():
+SERVE_ARCHS = {"serve": "qwen3-14b", "serve_moe": "moonshot-v1-16b-a3b"}
+
+
+def serve_config(arch: str = "qwen3-14b"):
     import dataclasses
     from repro_torch.configs import get_smoke_config
-    return dataclasses.replace(get_smoke_config("qwen3-14b"),
-                               dtype="float32")
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32")
 
 
 def tie_logits(rank: int) -> torch.Tensor:
@@ -142,7 +149,8 @@ def tie_logits(rank: int) -> torch.Tensor:
                          [[5., 0., 0.], [0., 0., 2.]]])[rank]
 
 
-def run_serve(rank: int, world: int, out_dir: str) -> dict:
+def run_serve(rank: int, world: int, out_dir: str,
+              arch: str = "qwen3-14b") -> dict:
     import types
     from repro_torch.launch.serve import build_policy, serve
     from repro_torch.models.model import forward, greedy_next_token
@@ -157,7 +165,7 @@ def run_serve(rank: int, world: int, out_dir: str) -> dict:
         if key.startswith("store/"):
             _, g, name = key.split("/")
             store.setdefault(g, {})[name] = data[key]
-    cfg = serve_config()
+    cfg = serve_config(arch)
     plan = make_plan(cfg, tp=world)
     params = load_jax_store(store, cfg, plan, "cpu", torch.float32,
                             rank=rank)
@@ -182,6 +190,9 @@ def run_serve(rank: int, world: int, out_dir: str) -> dict:
                         device=torch.device("cpu"), log=lambda *a: None,
                         group=axis)
             out[f"{name}/generated"] = res["generated"]
+            if cfg.moe is not None:
+                out[f"{name}/dropped"] = np.array(
+                    [res["dropped_prefill"], res["dropped_decode"]])
     return out
 
 
@@ -205,8 +216,8 @@ def main():
     try:
         if mode == "moe":
             out = run_moe(rank, world)
-        elif mode == "serve":
-            out = run_serve(rank, world, out_dir)
+        elif mode in SERVE_ARCHS:
+            out = run_serve(rank, world, out_dir, SERVE_ARCHS[mode])
         else:
             out = run_allreduce(rank, world)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

@@ -13,7 +13,8 @@ version there). Here, for tp in {2, 4, 8} and the three configs of phase
 * a :class:`PeerWorld` is sized per protocol, with its pads and epochs
   kept apart by ``collective_id``; ``fc_ar``'s grid is sized by each
   call's work and agreed by every rank, and the pads' running targets are
-  what the device code adds, call by call;
+  what the device code adds, call by call, with ``fc_a2a``'s calls
+  between them;
 * the wrapper's refusals, and the dispatch of ``ops.fused_all_reduce``.
 """
 import os
@@ -236,33 +237,36 @@ def _simulated_pads(tp: int, protos, calls):
 @pytest.mark.parametrize("tp", [2, 4, 8])
 def test_pad_targets_after_mixed_calls(tp, name):
     """After fc_ar calls of different sizes (so different grids) with
-    fc_a2a calls between them, each protocol's targets are what the
-    device code adds to every rank's pad, counted call by call; fc_a2a's
-    stay those of its fixed grid (calls x cap, x (tp - 1) at the
-    barrier), as before fc_ar's grid varied."""
+    fc_a2a calls of different sizes between them (grids of their own,
+    also sized by the work), each protocol's targets are what the device
+    code adds to every rank's pad, counted call by call."""
     cap = 40
     cfg = CommConfig(**CFGS[name])
+    acfg = CommConfig(bits=4, group=32)
     w = _rank_world(tp, tp - 1, {k: cap for k in rdma.cap_keys(
         protocol.live_protocols(tp))})
     ar = ((SCATTER, True), (GATHER, False))
     a2a = ((protocol.A2A_COLLECTIVE_ID, True),)
     calls = []
-    for n in (QWEN_SHAPES["decode"], QWEN_SHAPES["prefill"], tp * 128,
-              QWEN_SHAPES["decode"], None, QWEN_SHAPES["prefill"], None):
-        if n is None:
-            w.next_call(protocol.A2A_COLLECTIVE_ID)
-            calls.append((a2a, cap))
+    for kind, size in (("ar", QWEN_SHAPES["decode"]),
+                       ("ar", QWEN_SHAPES["prefill"]), ("ar", tp * 128),
+                       ("a2a", 1), ("ar", QWEN_SHAPES["decode"]),
+                       ("a2a", 1024), ("ar", QWEN_SHAPES["prefill"]),
+                       ("a2a", 4)):
+        if kind == "a2a":             # m rows of moonshot's 2048 a peer
+            blocks, _ = w.a2a_call(size, 2048, acfg, torch.bfloat16)
+            calls.append((a2a, blocks))
         else:
-            blocks, _, _ = w.ar_call(n, cfg)
+            blocks, _, _ = w.ar_call(size, cfg)
             calls.append((ar, blocks))
-    assert len({c[1] for c in calls}) >= 3          # three grid sizes
+    assert len({c[1] for c in calls}) >= 4          # four grid sizes
     pads = _simulated_pads(tp, w.protocols, calls)
     for cid in w.protocols:
         for r in range(tp):
             assert pads[cid][r] == w.pad_targets(cid), (cid, r)
-    a2a_calls = w.epochs[protocol.A2A_COLLECTIVE_ID]
+    a2a_blocks = sum(b for phases, b in calls if phases is a2a)
     assert w.pad_targets(protocol.A2A_COLLECTIVE_ID) == \
-        [a2a_calls * cap * (tp - 1)] + [a2a_calls * cap] * tp
+        [a2a_blocks * (tp - 1)] + [a2a_blocks] * tp
     assert w.pad_targets(GATHER)[0] == 0
     _, ts, tg = w.ar_call(QWEN_SHAPES["decode"], cfg)
     assert ts[14] == tg[14] == 0                    # not one card

@@ -8,6 +8,9 @@ holds it against its plain version there). Here:
   (receive buffers) and bit for bit (outputs);
 * the port's protocol declarations equal the JAX package's, field by
   field, and a loopback world is sized from them;
+* ``fc_a2a``'s grid is sized by each call's work and agreed by every
+  rank, and the pads' running targets are what the device code adds,
+  call by call;
 * the wrapper's refusals, and the dispatch of ``ops.fused_all_to_all``.
 """
 import dataclasses
@@ -118,6 +121,105 @@ def test_loopback_world_sizing(tp):
         assert cols[3, :tp - 1].tolist() == [s.dst_off for s in proto.pushes]
         assert cols[4, :tp - 1].tolist() == [s.recv_slot
                                              for s in proto.pushes]
+
+
+#: the modes of fc_a2a's instantiations (CFGS and the rotating one)
+MODES = {**CFGS, "int2 g32 rotation": dict(bits=2, group=32, rotation=True)}
+A2A = protocol.A2A_COLLECTIVE_ID
+
+
+def _rank_world(tp: int, rank: int, caps) -> rdma.PeerWorld:
+    """Rank ``rank``'s view of a world of processes (one rank a process,
+    as ``PeerWorld.from_group`` builds it; addresses only, no memory),
+    with the caps the world agreed on."""
+    w = rdma.PeerWorld(tp, 1, rank, protocol.live_protocols(tp),
+                       [(r + 1) << 20 for r in range(tp)], 1 << 16, "cpu")
+    w.caps = dict(caps)
+    return w
+
+
+def _moonshot_rows(tp: int):
+    """Rows a rank sends each peer at moonshot's dispatch with ep = tp
+    (batch 4 x prompt 128): (E / tp) experts x capacity 64 at prefill,
+    x capacity 1 at decode."""
+    return {"prefill": 64 // tp * 64, "decode": 64 // tp}
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_a2a_blocks_sized_by_the_work(tp):
+    """Every rank of a world computes one block count for a call from
+    (tp, m, d, cfg, dtype) and the world's caps, whatever its rank: one
+    block for each A2A_THREADS items of eight values of the rank's
+    tp * m rows, at most the cap of the instantiation (mode and payload
+    type). Moonshot's decode dispatch takes 64 blocks of 256 a rank at
+    every tp (16,384 items); its prefill dispatch fills the cap."""
+    for scale in (1, 4):
+        caps = {k: scale * (49 if k[3] else 66 + k[4]) for k in
+                rdma.A2A_MODES}
+        worlds = [_rank_world(tp, r, caps) for r in range(tp)]
+        for name, kw in MODES.items():
+            cfg = CommConfig(**kw)
+            for dtype in (torch.bfloat16, torch.float32):
+                cap = caps[rdma.a2a_mode(cfg, dtype)]
+                for m, d in ((1, 32), (3, 96), (1, 2048), (16, 2048),
+                             (1024, 2048), (7, 4096)):
+                    counts = {w.a2a_blocks(m, d, cfg, dtype) for w in worlds}
+                    items = tp * m * d // rdma.A2A_PER
+                    assert counts == {min(cap, -(-items // rdma.A2A_THREADS))
+                                      }, (name, m, d, counts)
+                rows = _moonshot_rows(tp)
+                dec, pre = (worlds[0].a2a_blocks(rows[k], 2048, cfg, dtype)
+                            for k in ("decode", "prefill"))
+                assert (dec, pre) == (min(64, cap), cap), (name, dec, pre)
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_a2a_pad_targets_after_mixed_calls(tp):
+    """After fc_a2a calls of moonshot's prefill and decode dispatch in
+    every mode and both payload types (so grids of different sizes), the
+    running targets are what the device code adds to every rank's pad:
+    each block of a rank signals the barrier of each peer at the
+    protocol's offsets, its push step's slot at each peer and the rank's
+    local slot. Each call's table carries its grid and the targets after
+    it; a world of processes fences at system scope."""
+    caps = {k: 40 + i for i, k in enumerate(rdma.A2A_MODES)}
+    w = _rank_world(tp, tp - 1, caps)
+    proto = w.protocols[A2A]
+    pads = [[0] * (tp + 1) for _ in range(tp)]
+    grids = []
+    for i, (name, kw) in enumerate(list(MODES.items()) * 2):
+        cfg = CommConfig(**kw)
+        dtype = (torch.bfloat16, torch.float32)[i % 2]
+        for m in _moonshot_rows(tp).values():
+            blocks, tab = w.a2a_call(m, 2048, cfg, dtype)
+            grids.append(blocks)
+            for my in range(tp):
+                for _ in range(blocks):
+                    for off in proto.barrier.signal_offsets:
+                        pads[(my + off) % tp][0] += 1
+                    for st in proto.pushes:
+                        pads[(my + st.dst_off) % tp][1 + st.recv_slot] += 1
+                pads[my][1 + proto.sem_slots] += blocks
+            head = tab[:rdma.PEER_HEAD].tolist()
+            assert head[:7] == [tp, 1, tp - 1, m, 1 << 16, blocks,
+                                int(dtype == torch.bfloat16)]
+            assert head[11:14] == w.targets[A2A] and head[14] == 0
+    assert len(set(grids)) >= 3
+    assert w.epochs[A2A] == len(grids)
+    for r in range(tp):
+        assert pads[r] == w.pad_targets(A2A), r
+    assert w.pad_targets(A2A) == [sum(grids) * (tp - 1)] + \
+        [sum(grids)] * tp
+
+
+def test_a2a_loopback_fences_on_one_card():
+    """A loopback world (every rank on one card) flags its tables so that
+    the kernels fence at gpu scope."""
+    cfg = CommConfig(bits=4, group=32)
+    w = rdma.PeerWorld.loopback(2, 4096, "cpu")
+    w.caps = {k: 8 for k in rdma.cap_keys(w.protocols.values())}
+    blocks, tab = w.a2a_call(3, 64, cfg, torch.bfloat16)
+    assert blocks == 1 and tab[14] == rdma.FLAG_ONE_CARD
 
 
 def test_wrapper_refuses():

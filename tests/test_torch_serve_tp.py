@@ -28,8 +28,10 @@ import _torch_gloo_worker as worker  # noqa: E402
 TP = 2
 
 
-def _jax_reference(out_dir: str) -> None:
-    """The JAX side (run in its own process, see the module docstring)."""
+def _jax_reference(out_dir: str, arch: str = "qwen3-14b") -> None:
+    """The JAX side (run in its own process, see the module docstring),
+    for the smoke config of ``arch``; the fused AllReduce's outputs for
+    qwen3-14b's only."""
     import dataclasses
     import zlib
 
@@ -49,7 +51,7 @@ def _jax_reference(out_dir: str) -> None:
     from repro.train import serve_step
     from repro.train.data import DataConfig, make_dataset
 
-    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     plan = make_plan(cfg, tp=TP, fsdp=1)
     mesh = make_test_mesh(1, TP)
     # a crc32 in place of the per-process salted hash(name) of build_store
@@ -82,7 +84,7 @@ def _jax_reference(out_dir: str) -> None:
                                           worker.SERVE_B)
         out[f"{name}/token"] = np.asarray(prefill(jstore, {"tokens": toks}))
     x = jnp.asarray(worker.inputs(TP))
-    for name, kw in worker.CONFIGS.items():
+    for name, kw in worker.CONFIGS.items() if cfg.moe is None else ():
         jc = CommConfig(scheme="fused", backend="ref", **kw)
         f = compat.shard_map(
             lambda a, jc=jc: compressed_psum(a[0], ("model",), jc)[None],
@@ -224,4 +226,4 @@ def test_serve_cli_mesh_cpu():
 
 if __name__ == "__main__" and sys.argv[1:2] == ["jax"]:
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    _jax_reference(sys.argv[2])
+    _jax_reference(*sys.argv[2:4])
