@@ -17,13 +17,16 @@ Phases, each printing its lines; any failure exits non-zero:
              and edge-case configs the kernels equal their plain PyTorch
              versions on the card (encode bytes, decode bits,
              decode+reduce bits, on the edge input with NaN payloads in
-             f32, bf16 and fp16 out, and at (1 | 2 | 8 | 9, 4096)).
+             f32, bf16 and fp16 out, and at (1 | 2 | 8 | 9, 4096)); each
+             config's encode also on tie input (_tie_input: values whose
+             (v - z) / s is k + 1/2 or one float32 ulp beside it).
 3. stage  -- the per-stage kernels (quant_pack, dequant_unpack,
              spike_pack) equal their plain versions byte for byte (payload,
              scale, zero, spike values and indices) and bit for bit
              (dequantized values) at the serving path's two shapes, at
              (64, 4096) and on the edge input, for STAGE_SWEEP with f32 and
-             bf16 input, with exact launch counts. Then their entry points
+             bf16 input, and the packs on each config's tie input, with
+             exact launch counts. Then their entry points
              (``repro_torch.kernels.fused_*``) are driven at the prefill
              site's shape with the counts zeroed before and read after.
 4. time   -- at the serving path's two shapes, the prefill's
@@ -65,7 +68,8 @@ Phases, each printing its lines; any failure exits non-zero:
              to the plain version's, the last call's receive buffers
              byte-equal, the signal pads at the world's running targets
              and the launch counts exact; then its time at both shapes,
-             at tp = A2A_TIME_TP and at the serve path's tp = TP.
+             at tp = A2A_TIME_TP (the paper config and the spike one) and
+             at the serve path's tp = TP.
 7. moe    -- moonshot-v1-16b-a3b at full width (48 layers: 1 dense, 47
              MoE with 64 experts, top-6), weights from seed SEED with the
              zero-initialised output projections (attention, MLP and
@@ -89,8 +93,9 @@ Phases, each printing its lines; any failure exits non-zero:
              with a sync between them; each output bit-equal to the
              plain version's, the last call's receive rows of both
              phases byte-equal, the signal pads at the world's running
-             targets and the launch counts exact; then its time, and its
-             step stamps, at tp = AR_TIME_TP at both shapes.
+             targets and the launch counts exact; then its time at
+             tp = AR_TIME_TP at both shapes, the paper config (with its
+             step stamps) and the spike one.
 9. tp     -- --mesh 1,TP, one rank a process (started with subprocess;
              all TP ranks share the one card and a gloo group, and their
              kernels take turns on it), the peer world's receive rows
@@ -233,12 +238,16 @@ def _path_time_rows(d: int, mcfg):
          "float32", int8)]
 
 
-# (label, kernel, bits, group): the stage kernels' timing configs
-STAGE_TIME = (("int8 g128", "quant_pack", 8, 128),
-              ("int8 g128", "dequant_unpack", 8, 128),
-              ("int4 g32", "quant_pack", 4, 32),
-              ("int4 g32", "dequant_unpack", 4, 32),
-              ("int2 g32 spike", "spike_pack", 2, 32))
+# (label, kernel, bits, group, input dtype): the stage kernels' timing
+# configs
+STAGE_TIME = (("int8 g128", "quant_pack", 8, 128, "float32"),
+              ("int8 g128", "dequant_unpack", 8, 128, "float32"),
+              ("int4 g32", "quant_pack", 4, 32, "float32"),
+              ("int4 g32", "dequant_unpack", 4, 32, "float32"),
+              ("int2 g32 spike", "spike_pack", 2, 32, "float32"),
+              ("int8 g128 bf16", "quant_pack", 8, 128, "bfloat16"),
+              ("int4 g32 bf16", "quant_pack", 4, 32, "bfloat16"),
+              ("int2 g32 spike bf16", "spike_pack", 2, 32, "bfloat16"))
 
 
 def fail(msg: str) -> None:
@@ -316,6 +325,31 @@ def _edge_input(np, rows: int, n: int, seed: int):
     return x
 
 
+def _tie_input(np, rows: int, n: int, bits: int, group: int, spike: bool,
+               seed: int):
+    """Groups whose (v - z) / s is k + 1/2 exactly or one float32 ulp
+    beside it, where a division that is not correctly rounded, or a wrong
+    half-to-even, shows. Each group has a bf16 scale s (8 significant
+    bits), its min z = j * s (j 0 or a power of two of either sign: a bf16
+    zero) and its max z + qmax * s, so the codec's scale is s and its zero
+    z exactly; every other value is z + (k + 1/2) s, a third of them one
+    ulp down and a third one up. With spike two more values, below and
+    above that range, take the spike slots. Positions are shuffled."""
+    rng = np.random.default_rng(seed)
+    qmax, groups = 2 ** bits - 1, rows * n // group
+    s = rng.integers(128, 256, groups) * np.exp2(rng.integers(-14, -4, groups))
+    z = rng.choice([0.0, 1.0, -1.0, 4.0, -16.0, 64.0], groups) * s
+    x = z[:, None] + (rng.integers(0, qmax, (groups, group)) + 0.5) * s[:, None]
+    x = x.astype(np.float32)
+    step = rng.integers(-1, 2, x.shape)
+    x = np.where(step < 0, np.nextafter(x, np.float32(-np.inf)),
+                 np.where(step > 0, np.nextafter(x, np.float32(np.inf)), x))
+    x[:, 0], x[:, 1] = z, z + qmax * s
+    if spike:
+        x[:, 2], x[:, 3] = z - 2 * qmax * s, z + 3 * qmax * s
+    return rng.permuted(x, axis=1).reshape(rows, n).astype(np.float32)
+
+
 def phase_codec(torch, np):
     from repro_torch.core.comm_config import CommConfig
     from repro_torch.kernels import wire
@@ -384,7 +418,11 @@ def phase_codec(torch, np):
         for group in (32, 64, 128):
             cfgs.append(CommConfig(bits=bits, group=group, rotation=True))
             n_rot += 1
-    for cfg in cfgs:
+    for i, cfg in enumerate(cfgs):
+        xt = torch.from_numpy(_tie_input(np, 4, 1024, cfg.bits, cfg.group,
+                                         cfg.spike, 30 + i)).to(dev)
+        check(torch.equal(wire.encode_wire(xt, cfg), wire.encode_plain(
+            xt, cfg)), f"CUDA encode != plain for {cfg} on ties")
         buf = wire.encode_wire(x, cfg)
         check(torch.equal(buf, wire.encode_plain(x, cfg)),
               f"CUDA encode != plain for {cfg}")
@@ -404,7 +442,8 @@ def phase_codec(torch, np):
           f"rotation ({n_rot}) configs with NaN (signed, with payloads), "
           f"inf, constant, signed-zero and duplicated-extreme groups: CUDA "
           f"encode byte-equal, decode (f32, bf16, fp16) and decode_reduce "
-          f"bit-equal to plain", flush=True)
+          f"bit-equal to plain; encode byte-equal on each config's tie "
+          f"input", flush=True)
 
     rng = np.random.default_rng(11)
     xr = torch.from_numpy((rng.standard_normal((9, 4096)) * 2).astype(
@@ -461,6 +500,12 @@ def _stage_input(np, rows: int, n: int, seed: int):
     bits[1, 300] = 0xFFC00000                # negative NaN
     bits[1, 600] = 0x7FA12345                # NaN with a payload
     bits[0, 900] = 0xFFE54321                # both
+    # zeros of both signs next to a group's min, then next to its max (the
+    # shrunk range keeps -0.0, then +0.0)
+    x[0, 448:480] = np.abs(x[0, 448:480]) + 1.0
+    x[0, 450], x[0, 460], x[0, 470] = -7.0, 0.0, -0.0
+    x[0, 480:512] = -np.abs(x[0, 480:512]) - 1.0
+    x[0, 490], x[0, 500], x[0, 505] = 7.0, -0.0, 0.0
     return x
 
 
@@ -517,13 +562,36 @@ def phase_stage(torch, np):
                     check(_bits_equal(torch, a, b), f"spike_pack {name} != "
                           f"plain: {label} {dtype} int{bits} g{group}")
                 want["spike_pack"] += 1
+    # ties: (v - z) / s on k + 1/2 or one ulp beside it, for each config
+    packs = ((quant_pack.quant_pack, ref.quant_pack_ref, False, STAGE_SWEEP),
+             (spike_reserve.spike_pack, ref.spike_pack_ref, True, STAGE_SPIKE))
+    for pack, plain, spike, sweep in packs:
+        for bits, group in sweep:
+            x32 = torch.from_numpy(_tie_input(np, 8, 4096, bits, group, spike,
+                                              40 + 10 * spike + bits)).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                for name, a, b in zip(names, pack(x, bits, group),
+                                      plain(x, bits, group)):
+                    check(_bits_equal(torch, a, b), f"{pack.__name__} {name} "
+                          f"!= plain on ties: {dtype} int{bits} g{group}")
+                want[pack.__name__] += 1
+    # more rows than a grid's y dimension holds: blocks loop over rows
+    x = torch.from_numpy((np.random.default_rng(23).standard_normal(
+        (65536 + 3, 32)) * 3).astype(np.float32)).to(dev)
+    for (pack, plain, _, _), bits in zip(packs, (4, 2)):
+        for name, a, b in zip(names, pack(x, bits, 32), plain(x, bits, 32)):
+            check(_bits_equal(torch, a, b), f"{pack.__name__} {name} != "
+                  f"plain at {tuple(x.shape)}")
+        want[pack.__name__] += 1
     got_launches = dict(stage.LAUNCHES)
     check(got_launches == want, f"stage launches {got_launches} != {want}")
     print(f"[stage] quant_pack, dequant_unpack (f32, bf16 out) and "
           f"spike_pack equal their plain versions byte for byte at "
           f"{', '.join(f'{k} {tuple(v.shape)}' for k, v in inputs.items())}"
           f", f32 and bf16 input, {len(STAGE_SWEEP)} + {len(STAGE_SPIKE)} "
-          f"configs; launches {got_launches} exact", flush=True)
+          f"configs, and the packs on each config's tie input (8, 4096) and "
+          f"at {tuple(x.shape)}; launches {got_launches} exact", flush=True)
 
     # the entry points, at the prefill site's shape
     x = inputs["prefill"]
@@ -674,23 +742,25 @@ def phase_time(torch, np, card: str):
                     _time_row(torch, name, label, (1, n), kern, plain,
                               wire.bound_bytes(name, cfg, 1, n),
                               wire.bound_flops(name, cfg, 1, n), card)
-        for label, name, bits, group in STAGE_TIME:
-            packed = quant_pack.quant_pack(x, bits, group)
+        for label, name, bits, group, dtype in STAGE_TIME:
+            xs = x.to(getattr(torch, dtype))
+            packed = quant_pack.quant_pack(xs, bits, group)
             kern, plain = {
                 "quant_pack": (
-                    lambda: quant_pack.quant_pack(x, bits, group),
-                    lambda: ref.quant_pack_ref(x, bits, group)),
+                    lambda: quant_pack.quant_pack(xs, bits, group),
+                    lambda: ref.quant_pack_ref(xs, bits, group)),
                 "dequant_unpack": (
                     lambda: dequant_unpack.dequant_unpack(*packed, bits,
                                                           group, n),
                     lambda: ref.dequant_unpack_ref(*packed, bits, group, n)),
                 "spike_pack": (
-                    lambda: spike_reserve.spike_pack(x, bits, group),
-                    lambda: ref.spike_pack_ref(x, bits, group)),
+                    lambda: spike_reserve.spike_pack(xs, bits, group),
+                    lambda: ref.spike_pack_ref(xs, bits, group)),
             }[name]
             rows.setdefault(shape, {}).setdefault(label, {})[name] = \
                 _time_row(torch, name, label, (1, n), kern, plain,
-                          stage.bound_bytes(name, bits, group, 1, n), 0, card)
+                          stage.bound_bytes(name, bits, group, 1, n,
+                                            xs.element_size()), 0, card)
     for shape, label, name, r, n, out, kw in _path_time_rows(
             d_model, get_config(MOE_ARCH)):
         cfg = CommConfig(**kw)
@@ -955,10 +1025,12 @@ def phase_a2a(torch, card: str):
     print(f"[a2a] launches {launches} exact (one a call)", flush=True)
 
     # time at tp = A2A_TIME_TP and at the serve path's tp = TP, both
-    # shapes, paper int4 g32
-    cfg = CommConfig(**A2A_CONFIGS[0][1])
+    # shapes, paper int4 g32; the spike config at tp = A2A_TIME_TP
     timed = {}
-    for tp in (A2A_TIME_TP, TP):
+    for tp, (label, kw) in ((A2A_TIME_TP, A2A_CONFIGS[0]),
+                            (A2A_TIME_TP, A2A_CONFIGS[2]),
+                            (TP, A2A_CONFIGS[0])):
+        cfg = CommConfig(**kw)
         d, rows = _a2a_rows(tp)
         world = rdma.PeerWorld.loopback(
             tp, rows["prefill"] * cfg.wire_bytes(d), dev,
@@ -966,15 +1038,16 @@ def phase_a2a(torch, card: str):
         for shape, m in rows.items():
             x = _a2a_payload(torch, gen, tp, m, d, dev)
             row = _time_row(
-                torch, "a2a", A2A_CONFIGS[0][0], tuple(x.shape),
+                torch, "a2a", label, tuple(x.shape),
                 lambda: rdma.fused_all_to_all_rdma(x, cfg, world),
                 lambda: rdma.fused_all_to_all_rdma_plain(x, cfg)[0],
                 rdma.bound_bytes(cfg, tp, m, d, x.element_size()), 0, card)
             row["blocks"] = _a2a_blocks_and_out(
                 world, lambda: rdma.fused_all_to_all_rdma(x, cfg, world))[1]
-            print(f"[a2a] tp={tp} {shape}: {row['blocks']} blocks a rank",
-                  flush=True)
-            timed.setdefault(tp, {})[shape] = row
+            print(f"[a2a] tp={tp} {label} {shape}: {row['blocks']} blocks a "
+                  f"rank", flush=True)
+            key = shape if label == A2A_CONFIGS[0][0] else f"{shape} {label}"
+            timed.setdefault(tp, {})[key] = row
         del world
     print(f"[a2a] bound: all ranks' bytes (payload read, wire written and "
           f"read, output written) over {HBM_BYTES_PER_S / 1e12} TB/s: "
@@ -1208,26 +1281,32 @@ def phase_ar(torch, card: str):
           f"ar launches {launches} != {want}")
     print(f"[ar] launches {launches} exact (one a call)", flush=True)
 
-    # time at tp = AR_TIME_TP, both shapes, the paper's int8 g128
+    # time at tp = AR_TIME_TP, both shapes, the paper's int8 g128 (with
+    # step times) and the spike config
     tp = AR_TIME_TP
     cfg = CommConfig(**AR_CONFIGS[0][1])
     world = rdma.PeerWorld.loopback(
         tp, cfg.wire_bytes(shapes["prefill"] // tp), dev,
         protocols=rdma.ar_protocols(tp))
     timed = {}
-    for shape, n in shapes.items():
-        x = _ar_input(torch, gen, tp, n, dev)
-        row = _time_row(
-            torch, "ar", AR_CONFIGS[0][0], tuple(x.shape),
-            lambda: rdma.fused_all_reduce_rdma(x, cfg, world),
-            lambda: rdma.fused_all_reduce_rdma_plain(x, cfg)[0],
-            tp * rdma.bound_bytes_ar(cfg, tp, n), 0, card)
-        row["blocks"] = world.ar_blocks(n, cfg)
-        row["steps_us"] = _ar_steps(torch, world, x, cfg)
-        print(f"[ar] {shape}: {row['blocks']} blocks a rank; step times "
-              f"(us, block 0, median of 25 calls, mean over ranks) "
-              f"{row['steps_us']}  [{card}]", flush=True)
-        timed[shape] = row
+    for label, kw in (AR_CONFIGS[0], AR_CONFIGS[2]):
+        cfg = CommConfig(**kw)
+        for shape, n in shapes.items():
+            x = _ar_input(torch, gen, tp, n, dev)
+            row = _time_row(
+                torch, "ar", label, tuple(x.shape),
+                lambda: rdma.fused_all_reduce_rdma(x, cfg, world),
+                lambda: rdma.fused_all_reduce_rdma_plain(x, cfg)[0],
+                tp * rdma.bound_bytes_ar(cfg, tp, n), 0, card)
+            row["blocks"] = world.ar_blocks(n, cfg)
+            if label != AR_CONFIGS[0][0]:
+                timed[f"{shape} {label}"] = row
+                continue
+            row["steps_us"] = _ar_steps(torch, world, x, cfg)
+            print(f"[ar] {shape}: {row['blocks']} blocks a rank; step times "
+                  f"(us, block 0, median of 25 calls, mean over ranks) "
+                  f"{row['steps_us']}  [{card}]", flush=True)
+            timed[shape] = row
     print(f"[ar] bound: all {tp} ranks' bytes (input read, wire written and "
           f"read in both phases, output written) over "
           f"{HBM_BYTES_PER_S / 1e12} TB/s: device memory time on one card, "

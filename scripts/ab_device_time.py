@@ -17,7 +17,11 @@ and for its plain version::
 Each run's output goes to ``chiprun_out/ab/<i>_<tree>.log`` (and its
 record to ``<i>_<tree>.json``) under this checkout; the summary of the
 ``[time]`` and ``[yardstick]`` lines of the named kernels to the standard
-output. Exits non-zero if a run failed. Needs a CUDA card::
+output. With ``--sass REGEX`` each tree's kernels whose name matches are
+disassembled once (``cuobjdump -sass`` of the libraries its run built)
+and their opcodes counted, one ``[sass]`` line a kernel (also in
+``<i>_<tree>.sass``): instructions in the binary, not executed ones.
+Exits non-zero if a run failed. Needs a CUDA card::
 
     git archive <parent> | tar -x -C build/parent   # mkdir -p first
     git add -A && git archive $(git write-tree) | tar -x -C build/final
@@ -27,6 +31,8 @@ output. Exits non-zero if a run failed. Needs a CUDA card::
 from __future__ import annotations
 
 import argparse
+import collections
+import glob
 import os
 import re
 import shutil
@@ -74,12 +80,48 @@ sys.exit(tree.main(["--phases", sys.argv[3]]))
 """
 
 
+def opcode_counts(sass: str, pattern: str):
+    """(kernel, opcode counts) of each function of ``cuobjdump -sass``
+    output whose name (demangled where c++filt is there) matches
+    ``pattern``."""
+    out, name, counts = [], None, None
+    for line in sass.splitlines() + ["Function : "]:
+        m = re.search(r"Function : (\S*)", line)
+        if m:
+            if name and re.search(pattern, name):
+                out.append((name, counts))
+            name, counts = m.group(1), collections.Counter()
+            if name and shutil.which("c++filt"):
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True).stdout.strip()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                      line)
+        if m and counts is not None:
+            counts[m.group(1)] += 1
+    return out
+
+
+def sass_counts(tree: str, pattern: str):
+    """opcode_counts of the libraries the tree's run built."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = []
+    for lib in sorted(glob.glob(os.path.join(tree, "build", "kernels",
+                                             "*.so"))):
+        out += opcode_counts(subprocess.run(
+            [cuobjdump, "-sass", lib], capture_output=True, text=True).stdout,
+            pattern)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="build,time,ar",
                     help="chip_smoke.py phases of every run")
     ap.add_argument("--kernels", default="encode_wire,ar",
                     help="kernels whose rows the summary shows")
+    ap.add_argument("--sass", default=None, metavar="REGEX",
+                    help="count the opcodes of the kernels matching REGEX")
     ap.add_argument("trees", nargs="+", help="roots of checkouts to run, "
                     "in order (a tree may appear more than once)")
     args = ap.parse_args(argv)
@@ -88,7 +130,7 @@ def main(argv=None) -> int:
     yard = os.path.join(ROOT, "chip_smoke.py")
     rows = re.compile(r"^\[(time|yardstick)\] (%s) " % "|".join(
         re.escape(k) for k in args.kernels.split(",")))
-    failed = []
+    failed, disassembled = [], set()
     for i, tree in enumerate(args.trees, 1):
         tree = os.path.abspath(tree)
         tag = f"{i}_{os.path.basename(tree.rstrip('/')) or 'root'}"
@@ -108,6 +150,15 @@ def main(argv=None) -> int:
             for line in f:
                 if rows.match(line) or line.startswith("FAIL"):
                     print("  " + line.rstrip()[:300], flush=True)
+        if args.sass and tree not in disassembled:
+            disassembled.add(tree)
+            with open(os.path.join(out, f"{tag}.sass"), "w") as f:
+                for name, counts in sass_counts(tree, args.sass):
+                    ops = " ".join(f"{k}:{v}" for k, v in counts.most_common())
+                    line = (f"[sass] {os.path.basename(tree)} {name}: "
+                            f"{sum(counts.values())} instructions; {ops}")
+                    f.write(line + "\n")
+                    print("  " + line[:300], flush=True)
         if rc != 0:
             failed.append(i)
     if failed:

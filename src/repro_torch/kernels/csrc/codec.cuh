@@ -1,20 +1,23 @@
 // Device functions shared by the codec kernels (wire.cu, stage.cu,
 // rdma.cu, allreduce.cu): the group quantizer, and the wire format's
 // per-group encode and decode, eight values a thread (quantize8 / bytes8
-// / put8 / fetch8 / finish8: fc_encode_wire, fc_decode_wire,
-// fc_decode_reduce, fc_ar, fc_a2a), so that every kernel that writes or
-// reads a wire row writes and reads the same bytes.
+// / put8 / fetch8 / finish8: fc_quant_pack, fc_spike_pack,
+// fc_encode_wire, fc_decode_wire, fc_decode_reduce, fc_ar, fc_a2a), so
+// that every kernel that quantizes, or writes or reads a wire row, does
+// it with the same arithmetic and bytes.
 //
 // Numerics follow the JAX reference exactly (and the plain PyTorch
-// version in repro_torch/core): IEEE division (__fdiv_rn), round half to
-// even (rintf), NaN-propagating min/max written by hand, scale and zero
-// rounded to the meta dtype before use, NaN codes -> 0, and dequantize as
-// two roundings (__fmul_rn, __fadd_rn) so no FMA contraction changes a
-// value. Min and max order -0.0 below +0.0, as XLA's minimum and maximum
-// do (so a group of mixed signed zeros keeps the zero JAX keeps). A NaN
-// converted to bf16/fp16 keeps the bits jnp.astype keeps
-// (bf16: its sign; fp16: its sign and top 9 payload bits, quieted); a NaN
-// scale, which the codec makes by arithmetic, is written canonical.
+// version in repro_torch/core): IEEE division's quotient (__fdiv_rn, or
+// the group's reciprocal with Markstein's correction, which rounds the
+// same: quant_fast), round half to even, NaN-propagating min/max, scale
+// and zero rounded to the meta dtype before use, NaN codes -> 0, and
+// dequantize as two roundings (__fmul_rn, __fadd_rn) so no FMA
+// contraction changes a value. Min and max order -0.0 below +0.0, as
+// XLA's minimum and maximum do (so a group of mixed signed zeros keeps
+// the zero JAX keeps). A NaN converted to bf16/fp16 keeps the bits
+// jnp.astype keeps (bf16: its sign; fp16: its sign and top 9 payload
+// bits, quieted); a NaN scale, which the codec makes by arithmetic, is
+// written canonical.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,19 +33,10 @@ __device__ __forceinline__ bool isnan_(float a) { return a != a; }
 
 __device__ __forceinline__ float inf_() { return __int_as_float(0x7f800000); }
 
-// min and max of two numbers (no NaN) with -0.0 < +0.0: equal operands
-// differ at most in the sign of a zero, which OR (min) or AND (max) of
-// the bits settles
-__device__ __forceinline__ float zmin(float a, float b) {
-  return a == b ? __int_as_float(__float_as_int(a) | __float_as_int(b)) : fminf(a, b);
-}
-
+// max of two numbers (no NaN) with -0.0 < +0.0: equal operands differ at
+// most in the sign of a zero, which AND of the bits settles
 __device__ __forceinline__ float zmax(float a, float b) {
   return a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return isnan_(a) ? a : (isnan_(b) ? b : zmin(a, b));
 }
 
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -80,18 +74,6 @@ __device__ __forceinline__ float from_meta(unsigned short b, int f16) {
 // ---- reductions over the W lanes that share a group (W divides 32) ------
 
 template <int W>
-__device__ __forceinline__ float seg_nan_min(float v) {
-  for (int o = W / 2; o > 0; o >>= 1) v = nan_min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-template <int W>
-__device__ __forceinline__ float seg_nan_max(float v) {
-  for (int o = W / 2; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-template <int W>
 __device__ __forceinline__ int seg_min_int(int v) {
   for (int o = W / 2; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
   return v;
@@ -119,90 +101,13 @@ __device__ __forceinline__ float seg_value_at(const float (&v)[NV], const int (&
   return c;
 }
 
-// ---- group range: plain RTN, or spike reserving -------------------------
-
+// The group's range: its NaN-propagating min and max (the spikes), the
+// range that is quantized, and the spike slots (G when not spiking).
 struct Range {
-  float vmin, vmax;    // NaN-propagating group min and max (the spikes)
-  float mn, mx;        // the range that is quantized
-  int imin, imax;      // spike slots (G when not spiking)
+  float vmin, vmax;
+  float mn, mx;
+  int imin, imax;
 };
-
-// The NV values v[k] at in-group positions pos[k] of this lane, over the
-// W lanes that hold one group of G values. In a group holding NaN, min
-// and max are its first NaN with that element's bits (the reduction alone
-// would keep whichever NaN its order meets first). With spike, the
-// election of repro_torch/core/spike.py: the first position equal to the
-// min, the
-// first (or, if it is the min's, the second) equal to the max; in a
-// group holding NaN the NaNs are the matches, and a group with exactly
-// one NaN forfeits the max slot. The range is then the min without the
-// min slot and the max without the max slot, NaNs ignored; all-NaN
-// remainders give NaN.
-template <int NV, int W>
-__device__ __forceinline__ Range group_range(const float (&v)[NV], const int (&pos)[NV], int G,
-                                             bool spike) {
-  float vmin = inf_(), vmax = -inf_();
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    vmin = nan_min(vmin, v[k]);
-    vmax = nan_max(vmax, v[k]);
-  }
-  Range r;
-  r.vmin = seg_nan_min<W>(vmin);
-  r.vmax = seg_nan_max<W>(vmax);
-  const bool has_nan = isnan_(r.vmin);
-  if (__any_sync(kFull, has_nan)) {
-    // a group holding NaN: min and max are its first NaN, bits and all
-    int first = G;
-#pragma unroll
-    for (int k = 0; k < NV; ++k)
-      if (isnan_(v[k])) first = min(first, pos[k]);
-    first = seg_min_int<W>(first);
-    const float fv = seg_value_at<NV, W>(v, pos, first);
-    if (has_nan) r.vmin = r.vmax = fv;
-  }
-  r.mn = r.vmin;
-  r.mx = r.vmax;
-  r.imin = r.imax = G;
-  if (!spike) return r;
-
-  int pmin = G, t1 = G;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const bool em = has_nan ? isnan_(v[k]) : v[k] == r.vmin;
-    const bool ex = has_nan ? isnan_(v[k]) : v[k] == r.vmax;
-    if (em) pmin = min(pmin, pos[k]);
-    if (ex) t1 = min(t1, pos[k]);
-  }
-  r.imin = seg_min_int<W>(pmin);
-  t1 = seg_min_int<W>(t1);
-  int t2 = G;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const bool ex = has_nan ? isnan_(v[k]) : v[k] == r.vmax;
-    if (ex && pos[k] != t1) t2 = min(t2, pos[k]);
-  }
-  t2 = seg_min_int<W>(t2);
-  r.imax = (t1 == r.imin) ? t2 : t1;
-  if (r.imax == G) r.imax = r.imin;               // single-NaN forfeit
-  float lo = inf_(), hi = -inf_();
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    if (!isnan_(v[k])) {
-      if (pos[k] != r.imin) lo = zmin(lo, v[k]);
-      if (pos[k] != r.imax) hi = zmax(hi, v[k]);
-    }
-  }
-  lo = seg_nan_min<W>(lo);
-  hi = seg_nan_max<W>(hi);
-  if (isinf(lo) && lo > 0.f && isinf(hi) && hi < 0.f) {
-    lo = __int_as_float(0x7fc00000);
-    hi = lo;
-  }
-  r.mn = lo;
-  r.mx = hi;
-  return r;
-}
 
 // ---- RTN ------------------------------------------------------------------
 
@@ -219,12 +124,6 @@ __device__ __forceinline__ Meta rtn_meta(float mn, float mx, float qmax, float e
   m.s = from_meta(m.sbits, f16);
   m.z = from_meta(m.zbits, f16);
   return m;
-}
-
-__device__ __forceinline__ unsigned char quant_code(float v, float z, float s, float qmax) {
-  float t = rintf(__fdiv_rn(__fsub_rn(v, z), s));
-  t = nan_min(nan_max(t, 0.f), qmax);
-  return isnan_(t) ? (unsigned char)0 : (unsigned char)t;
 }
 
 __device__ __forceinline__ float dequant(unsigned code, float s, float z) {
@@ -361,7 +260,7 @@ __device__ __forceinline__ float rot_sign(int j, unsigned seed) {
   return (u & 1u) ? -1.f : 1.f;
 }
 
-// ---- eight values a thread (the wire kernels, fc_ar, fc_a2a) --------------
+// ---- eight values a thread (the stage packs, the wire kernels, fc_ar, fc_a2a)
 //
 // Thread t of a block owns 8 consecutive values of a row, elements
 // e0 .. e0 + 7 with e0 a multiple of 8, so its codes fill exactly u whole
@@ -369,9 +268,9 @@ __device__ __forceinline__ float rot_sign(int j, unsigned seed) {
 // load) a plane, and no byte shared with another thread. A group of G
 // values lies on W = G / 8 neighbouring lanes (4, 8 or 16); lt is the
 // thread's lane within its group, and in-group position lt * 8 + k holds
-// value k. Group min/max and the spike election are the seg_* shuffles
-// over those W lanes; the meta is written (and read) by the group's
-// first four lanes, one section each. Block sizes are multiples of 32,
+// value k. Group min/max and the spike election are shuffles and
+// ballots over those W lanes; the meta is written (and read) by the
+// group's first four lanes, one section each. Block sizes are multiples of 32,
 // and every lane of a warp calls these functions (a lane past the end
 // of a row computes on zeros and stores nothing), since they shuffle.
 
@@ -557,15 +456,15 @@ struct Code8 {
 };
 
 // A float's bits as an int that orders like the float, -0.0 below +0.0
-// (zmin / zmax's order; NaNs apart). The map is its own inverse.
+// (zmax's order; NaNs apart). The map is its own inverse.
 __device__ __forceinline__ int order_key(int bits) { return bits ^ ((bits >> 31) & 0x7fffffff); }
 
-// group_range without spikes, eight values a thread: min and max as
-// integer min / max of order keys (one instruction a value where
-// nan_min / nan_max take several), then group_range's rule for a group
-// holding NaN (its first NaN, bits and all), found by one ballot.
+// Min and max of a group without spikes, eight values a thread: integer
+// min / max of order keys (one instruction a value), then, in a group
+// holding NaN, its first NaN, bits and all (the reduction alone would
+// keep whichever NaN its order meets first), found by one ballot.
 template <int W>
-__device__ __forceinline__ Range plain_range8(const float (&v)[kPer], const int (&pos)[kPer], int G) {
+__device__ __forceinline__ Range plain_range8(const float (&v)[kPer], int lt, int G) {
   int kmin = 0x7fffffff, kmax = (int)0x80000000;
   bool nan = false;
 #pragma unroll
@@ -585,10 +484,13 @@ __device__ __forceinline__ Range plain_range8(const float (&v)[kPer], const int 
   const unsigned nans = __ballot_sync(kFull, nan);
   if (nans) {                            // uniform: some group of the warp holds NaN
     const int base = (threadIdx.x & 31) & ~(W - 1);
+    int pos[kPer];
     int first = G;
 #pragma unroll
-    for (int k = 0; k < kPer; ++k)
+    for (int k = 0; k < kPer; ++k) {
+      pos[k] = lt * kPer + k;
       if (isnan_(v[k])) first = min(first, pos[k]);
+    }
     first = seg_min_int<W>(first);
     const float fv = seg_value_at<kPer, W>(v, pos, first);
     if ((nans >> base) & ((1u << W) - 1u)) r.vmin = r.vmax = fv;
@@ -599,52 +501,147 @@ __device__ __forceinline__ Range plain_range8(const float (&v)[kPer], const int 
   return r;
 }
 
-// group_range with spikes, eight values a thread: its election and its
-// rules (first min, first or second max, single-NaN forfeit, NaNs ignored
-// in the range, all-NaN remainders NaN), with min and max as integer
-// min / max of order keys and the NaN test as one ballot.
+// Order keys as unsigned numbers with every NaN above every number:
+// lo_key ascends from -inf, hi_key ascends from +inf down. A number's keys
+// are at most kKeyTop.
+constexpr unsigned kKeyNegInf = 0x807fffffu;          // order_key(-inf)
+constexpr unsigned kKeyPosInf = 0x7f800000u;          // order_key(+inf)
+constexpr unsigned kKeyTop = kKeyPosInf - kKeyNegInf;
+
+__device__ __forceinline__ unsigned lo_key(float f) {
+  return (unsigned)order_key(__float_as_int(f)) - kKeyNegInf;
+}
+__device__ __forceinline__ unsigned hi_key(float f) {
+  return kKeyPosInf - (unsigned)order_key(__float_as_int(f));
+}
+__device__ __forceinline__ float lo_value(unsigned k) {
+  return __int_as_float(order_key((int)(k + kKeyNegInf)));
+}
+__device__ __forceinline__ float hi_value(unsigned k) {
+  return __int_as_float(order_key((int)(kKeyPosInf - k)));
+}
+
+// The two least keys of a multiset, a <= b (duplicates count): x joins.
+__device__ __forceinline__ void keep2(unsigned& a, unsigned& b, unsigned x) {
+  b = min(b, max(a, x));
+  a = min(a, x);
+}
+
+// (a1, a2) and (b1, b2), the two least keys of two multisets: their union's.
+__device__ __forceinline__ void merge2(unsigned& a1, unsigned& a2, unsigned b1, unsigned b2) {
+  a2 = min(min(a2, b2), max(a1, b1));
+  a1 = min(a1, b1);
+}
+
+// The election by its rule, for a warp with a group holding NaN, or a
+// zero at or next to its min or max, or whose min equals its max: the
+// slots are the first position equal (==) to the min, and the first
+// equal to the max but the min's (in a group holding NaN, the NaNs; a
+// group with exactly one NaN forfeits the max slot, both slots on its
+// NaN); the shrunk range is the least lo_key and hi_key but the slots'
+// (NaNs lie above every number, so they drop out). Each slot is elected
+// by one ballot over the lanes holding a match and one shuffle of the
+// first such lane's first position.
 template <int W>
-__device__ __forceinline__ Range spike_range8(const float (&v)[kPer], const int (&pos)[kPer], int G) {
-  Range r = plain_range8<W>(v, pos, G);
-  const int base = (threadIdx.x & 31) & ~(W - 1);
-  const unsigned nans = __ballot_sync(kFull, isnan_(v[0]) || isnan_(v[1]) || isnan_(v[2]) ||
-                                                 isnan_(v[3]) || isnan_(v[4]) || isnan_(v[5]) ||
-                                                 isnan_(v[6]) || isnan_(v[7]));
-  const bool has_nan = (nans >> base) & ((1u << W) - 1u);
-  int pmin = G, t1 = G;
+__device__ __forceinline__ void spike_rule8(const float (&v)[kPer], int lt, Range& r, float& lo,
+                                            float& hi) {
+  const unsigned group_lanes = ((1u << W) - 1u) << ((threadIdx.x & 31) & ~(W - 1));
+  unsigned l1 = ~0u, l2 = ~0u, h1 = ~0u, h2 = ~0u;
+  bool nan = false;
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    const bool em = has_nan ? isnan_(v[k]) : v[k] == r.vmin;
-    const bool ex = has_nan ? isnan_(v[k]) : v[k] == r.vmax;
-    if (em) pmin = min(pmin, pos[k]);
-    if (ex) t1 = min(t1, pos[k]);
+    keep2(l1, l2, lo_key(v[k]));
+    keep2(h1, h2, hi_key(v[k]));
+    nan |= isnan_(v[k]);
   }
-  r.imin = seg_min_int<W>(pmin);
-  t1 = seg_min_int<W>(t1);
-  int t2 = G;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const bool ex = has_nan ? isnan_(v[k]) : v[k] == r.vmax;
-    if (ex && pos[k] != t1) t2 = min(t2, pos[k]);
-  }
-  t2 = seg_min_int<W>(t2);
-  r.imax = (t1 == r.imin) ? t2 : t1;
-  if (r.imax == G) r.imax = r.imin;               // single-NaN forfeit
-  int klo = 0x7fffffff, khi = (int)0x80000000;    // no candidate yet
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (isnan_(v[k])) continue;
-    const int key = order_key(__float_as_int(v[k]));
-    if (pos[k] != r.imin) klo = min(klo, key);
-    if (pos[k] != r.imax) khi = max(khi, key);
-  }
+  const bool has_nan = __ballot_sync(kFull, nan) & group_lanes;
   for (int o = W / 2; o > 0; o >>= 1) {
-    klo = min(klo, __shfl_xor_sync(kFull, klo, o));
-    khi = max(khi, __shfl_xor_sync(kFull, khi, o));
+    const unsigned a1 = __shfl_xor_sync(kFull, l1, o), a2 = __shfl_xor_sync(kFull, l2, o);
+    const unsigned b1 = __shfl_xor_sync(kFull, h1, o), b2 = __shfl_xor_sync(kFull, h2, o);
+    merge2(l1, l2, a1, a2);
+    merge2(h1, h2, b1, b2);
   }
-  float lo = klo == 0x7fffffff ? inf_() : __int_as_float(order_key(klo));
-  float hi = khi == (int)0x80000000 ? -inf_() : __int_as_float(order_key(khi));
-  if (isinf(lo) && lo > 0.f && isinf(hi) && hi < 0.f) {
+  r.vmin = lo_value(l1);
+  r.vmax = hi_value(h1);
+  unsigned em = 0, ex = 0;               // this lane's matches of the min and the max
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    em |= (unsigned)(has_nan ? isnan_(v[k]) : v[k] == r.vmin) << k;
+    ex |= (unsigned)(has_nan ? isnan_(v[k]) : v[k] == r.vmax) << k;
+  }
+  const int lmin = __ffs(__ballot_sync(kFull, em != 0) & group_lanes) - 1;
+  r.imin = __shfl_sync(kFull, lt * kPer + __ffs(em) - 1, lmin);
+  if ((r.imin >> 3) == lt) ex &= ~(1u << (r.imin & 7));
+  const unsigned xs = __ballot_sync(kFull, ex != 0) & group_lanes;
+  const int lmax = xs ? __ffs(xs) - 1 : lmin;
+  r.imax = xs ? __shfl_sync(kFull, lt * kPer + __ffs(ex) - 1, lmax) : r.imin;   // forfeit
+  // the slots' values: a zero slot may hold the other zero than the extreme
+  float at_min = 0.f, at_max = 0.f;
+#pragma unroll
+  for (int k = kPer - 1; k >= 0; --k) {
+    if ((em >> k) & 1u) at_min = v[k];
+    if ((ex >> k) & 1u) at_max = v[k];
+  }
+  at_min = __shfl_sync(kFull, at_min, lmin);
+  at_max = __shfl_sync(kFull, at_max, lmax);
+  // the least key but the slot's: the second least where the slot holds the least
+  const unsigned klo = !has_nan && lo_key(at_min) == l1 ? l2 : l1;
+  const unsigned khi = !has_nan && hi_key(at_max) == h1 ? h2 : h1;
+  lo = klo > kKeyTop ? inf_() : lo_value(klo);
+  hi = khi > kKeyTop ? -inf_() : hi_value(khi);
+  if (has_nan) r.vmin = r.vmax = at_min;      // the first NaN, bits and all
+}
+
+// The spike election of repro_torch/core/spike.py, eight values a thread
+// (spike_rule8 states the rule). In a group without NaN whose min and max
+// differ and which has no zero among its two least and two greatest
+// values, float order is the rule's: a value equals the min (max) exactly
+// when no value is below (above) it, and the max slot cannot be the
+// min's. So one pass keeps each lane's two least and two greatest values
+// (fminf / fmaxf) and the first position of its least and of its
+// greatest, merged over the group's W lanes: each slot is the first lane
+// holding the group's extreme (one ballot), at that lane's position (one
+// shuffle), and the shrunk range is the second least and second greatest
+// values. A NaN shows in the sum of the lane's values (as does inf - inf,
+// which only sends its warp to the rule). A warp with any other group
+// takes spike_rule8 for all its groups.
+template <int W>
+__device__ __forceinline__ Range spike_range8(const float (&v)[kPer], int lt) {
+  const unsigned group_lanes = ((1u << W) - 1u) << ((threadIdx.x & 31) & ~(W - 1));
+  float l1 = inf_(), l2 = inf_(), h1 = -inf_(), h2 = -inf_(), sum = 0.f;
+  int pl = 0, ph = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const float x = v[k];
+    l2 = fminf(l2, fmaxf(l1, x));
+    pl = x < l1 ? k : pl;
+    l1 = fminf(l1, x);
+    h2 = fmaxf(h2, fminf(h1, x));
+    ph = x > h1 ? k : ph;
+    h1 = fmaxf(h1, x);
+    sum = __fadd_rn(sum, x);
+  }
+  const bool nan = __ballot_sync(kFull, isnan_(sum)) & group_lanes;
+  float gl1 = l1, gl2 = l2, gh1 = h1, gh2 = h2;
+  for (int o = W / 2; o > 0; o >>= 1) {
+    const float a1 = __shfl_xor_sync(kFull, gl1, o), a2 = __shfl_xor_sync(kFull, gl2, o);
+    const float b1 = __shfl_xor_sync(kFull, gh1, o), b2 = __shfl_xor_sync(kFull, gh2, o);
+    gl2 = fminf(fminf(gl2, a2), fmaxf(gl1, a1));
+    gl1 = fminf(gl1, a1);
+    gh2 = fmaxf(fmaxf(gh2, b2), fminf(gh1, b1));
+    gh1 = fmaxf(gh1, b1);
+  }
+  Range r;
+  r.vmin = gl1;
+  r.vmax = gh1;
+  const int lmin = __ffs(__ballot_sync(kFull, l1 == gl1) & group_lanes) - 1;
+  const int lmax = __ffs(__ballot_sync(kFull, h1 == gh1) & group_lanes) - 1;
+  r.imin = __shfl_sync(kFull, lt * kPer + pl, lmin);
+  r.imax = __shfl_sync(kFull, lt * kPer + ph, lmax);
+  float lo = gl2, hi = gh2;
+  if (__any_sync(kFull, nan || gl1 == gh1 || gl1 == 0.f || gh1 == 0.f || gl2 == 0.f || gh2 == 0.f))
+    spike_rule8<W>(v, lt, r, lo, hi);
+  if (isinf(lo) && lo > 0.f && isinf(hi) && hi < 0.f) {    // all-NaN remainders
     lo = __int_as_float(0x7fc00000);
     hi = lo;
   }
@@ -653,34 +650,89 @@ __device__ __forceinline__ Range spike_range8(const float (&v)[kPer], const int 
   return r;
 }
 
-// quant_code's result with two instructions for its clamp: fmaxf(NaN, 0)
-// is 0, as quant_code's NaN -> 0, and a clamped -0.0 converts to 0 too.
-__device__ __forceinline__ unsigned char quant_code8(float v, float z, float s, float qmax) {
-  return (unsigned char)fminf(fmaxf(rintf(__fdiv_rn(__fsub_rn(v, z), s)), 0.f), qmax);
+// The codes of a group with scale s: rint((v - z) / s) clamped to
+// [0, qmax], a NaN's 0, with IEEE division's quotient. One reciprocal a
+// group replaces a division a value: with y = RN(1 / s) (__frcp_rn),
+// q0 = RN(a * y) and r = a - q0 * s (exact in one FMA), RN(q0 + r * y) is
+// RN(a / s) (Markstein's correction) where every step stays normal and
+// finite. `fast` ensures that: s is a bf16 value (8 significant bits,
+// the case tests/test_torch_group_division.py checks for every pair of
+// significands) in [2^-100, 2^100], and a is first clamped to
+// [0, qmax * s] (qmax * s is exact), where a / s >= 2^-3 keeps every step
+// normal and smaller quotients round to code 0 either way. The clamp
+// gives the clamped code (RN is monotone and RN(qmax * s / s) = qmax),
+// and a NaN 0; the quotient, in [0, qmax], converts with rounding half
+// to even in one instruction. Any other s (fp16 meta, a NaN or infinite
+// scale) divides and clamps after.
+struct Div {
+  float s, y, top;
+  bool fast;
+};
+
+__device__ __forceinline__ Div group_div(float s, float qmax, bool bf16) {
+  Div d;
+  d.s = s;
+  d.y = __frcp_rn(s);
+  d.top = __fmul_rn(s, qmax);
+  d.fast = bf16 && s >= 0x1p-100f && s <= 0x1p100f;
+  return d;
+}
+
+__device__ __forceinline__ unsigned quant_fast(float a, const Div& d) {
+  a = fminf(fmaxf(a, 0.f), d.top);       // fmaxf(NaN, 0) is 0
+  const float q = __fmul_rn(a, d.y);
+  return __float2uint_rn(__fmaf_rn(__fmaf_rn(-q, d.s, a), d.y, q));
+}
+
+// fminf(fmaxf(NaN, 0), qmax) is 0, and a clamped -0.0 converts to 0 too.
+__device__ __forceinline__ unsigned quant_div(float a, const Div& d, float qmax) {
+  return (unsigned)fminf(fmaxf(rintf(__fdiv_rn(a, d.s)), 0.f), qmax);
+}
+
+__device__ __forceinline__ unsigned quant_code8(float v, float z, const Div& d, float qmax) {
+  const float a = __fsub_rn(v, z);
+  return d.fast ? quant_fast(a, d) : quant_div(a, d, qmax);
+}
+
+// The codes of eight values, byte k value k's.
+__device__ __forceinline__ unsigned long long codes8(const float (&v)[kPer], float z, const Div& d,
+                                                     float qmax) {
+  unsigned q[kPer];
+  if (d.fast) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) q[k] = quant_fast(__fsub_rn(v[k], z), d);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) q[k] = quant_div(__fsub_rn(v[k], z), d, qmax);
+  }
+  unsigned long long c = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) c |= (unsigned long long)q[k] << (8 * k);
+  return c;
 }
 
 // Quantize the thread's eight values v (rotated in place first under
-// ROT) as one group of G with its W - 1 neighbours: the arithmetic of
-// group_range, rtn_meta and quant_code (the stage kernels' quantizer),
-// eight values a thread.
+// ROT) as one group of G with its W - 1 neighbours: the group's range
+// (with spikes: their election), its meta (rtn_meta) and the codes, the
+// spike slots holding the code of the shrunk min. Every kernel that
+// quantizes (fc_quant_pack, fc_spike_pack, fc_encode_wire, fc_ar, fc_a2a)
+// runs this.
 template <int G, bool SPIKE, bool ROT>
 __device__ __forceinline__ Code8 quantize8(float (&v)[kPer], int lt, const WireParams& p) {
   constexpr int W = G / kPer;
   const float qmax = (float)((1 << p.bits) - 1);
-  int pos[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) pos[k] = lt * kPer + k;
   if (ROT) rotate8<W>(v, lt, p);
   Code8 c;
-  c.r = SPIKE ? spike_range8<W>(v, pos, G) : plain_range8<W>(v, pos, G);
+  c.r = SPIKE ? spike_range8<W>(v, lt) : plain_range8<W>(v, lt, G);
   c.m = rtn_meta(c.r.mn, c.r.mx, qmax, p.eps, p.meta_f16);
-  const unsigned char code_mn = quant_code8(c.r.mn, c.m.z, c.m.s, qmax);
-  c.codes = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    unsigned char q = quant_code8(v[k], c.m.z, c.m.s, qmax);
-    if (SPIKE && (pos[k] == c.r.imin || pos[k] == c.r.imax)) q = code_mn;
-    c.codes |= (unsigned long long)q << (8 * k);
+  const Div d = group_div(c.m.s, qmax, !p.meta_f16);
+  c.codes = codes8(v, c.m.z, d, qmax);
+  if (SPIKE) {
+    unsigned long long slots = 0;        // the bytes of this lane's spike slots
+    if ((c.r.imin >> 3) == lt) slots |= 0xffull << (8 * (c.r.imin & 7));
+    if ((c.r.imax >> 3) == lt) slots |= 0xffull << (8 * (c.r.imax & 7));
+    const unsigned long long mn = 0x0101010101010101ull * quant_code8(c.r.mn, c.m.z, d, qmax);
+    c.codes = (c.codes & ~slots) | (mn & slots);
   }
   return c;
 }
@@ -884,6 +936,27 @@ __device__ __forceinline__ void decode8(const uint8_t* w, long long e0, int lt, 
 }  // namespace fc
 
 namespace fc {
+
+// The block of the kernels that work eight values a thread over a row:
+// the paper's 512 threads (4096 values), or a quarter of it for a call of
+// fewer such blocks than the card has SMs (the decode step's (1, 20480):
+// 20 blocks in place of 5).
+constexpr int kBlockThreads = 512;
+constexpr int kBlockThreadsSmall = 128;
+
+// SMs of the current card (cached a card).
+inline int sm_count() {
+  static int sms[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+// Threads a block for a call of `items` threads' work.
+inline int block_threads(long long items) {
+  return (items + kBlockThreads - 1) / kBlockThreads < sm_count() ? kBlockThreadsSmall : kBlockThreads;
+}
 
 // Each kernel library links its own copy of the CUDA runtime (nvcc's
 // static cudart), whose current device is its own: every entry point

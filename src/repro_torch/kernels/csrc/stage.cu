@@ -14,18 +14,28 @@
 //
 // Bound on an H100: all three are memory-bound. The least time is
 // (bytes read + bytes written) / 3.35 TB/s: the input values, the
-// payload and the meta, each once.
+// payload and the meta, each once (stage.py bound_bytes).
 //
-// Design: the paper's own CUDA shape. One block of 512 threads owns a
-// chunk of 4096 consecutive values of one row; thread t owns values
-// 8t .. 8t+7 of the chunk, which fill exactly u whole bytes of the
-// unit-u plane, so no two threads share a byte and each writes its bytes
-// with one aligned store. A group of 32, 64 or 128 values lies on
-// 4, 8 or 16 neighbouring lanes, whose min/max and spike election are
-// shuffles over those lanes only (codec.cuh). A row whose n is not a
-// multiple of 4096 ends in a partial chunk: its idle threads compute on
-// zeros and store nothing (groups never straddle the end, since group
-// divides n). Loads and stores of the values are 16-byte vectors.
+// Design. The packs are fc_encode_wire's encode with the stage layout.
+// Block (c, y, z) of 512 threads quantizes chunk c, 4096 consecutive
+// values, of row z * 65535 + y (128 threads over 1024 where a call has
+// fewer 4096-value chunks than the card has SMs), eight values a thread,
+// loaded as two 16-byte vectors (f32) or one (bf16) and quantized by
+// codec.cuh quantize8, the one quantizer of every kernel:
+// min and max as one pass over the values, the spike election by ballots
+// over the group's G / 8 lanes, one reciprocal a group in place of a
+// division a value. Eight codes fill exactly u whole bytes of the unit-u
+// plane, so a thread stores one aligned word a plane, packed with the
+// unit known at compile time (store_planes<BITS>, pack_unit<U>: four
+// codes a multiply or a byte permute), and no two threads share a byte.
+// The group's first lanes store its meta, one section each: scale, zero,
+// the spike values as one (min, max) bf16 pair, the spike slots as one
+// int8 pair. The input type and the mode are template arguments. A row
+// whose n is no multiple of the chunk ends in a partial chunk whose idle
+// threads compute on zeros and store nothing (group divides n).
+// Unpack: one block of 512 threads a chunk of 4096 values, thread t
+// values 8t .. 8t+7: u bytes of each plane in one load, two roundings a
+// value, 16-byte stores.
 
 #include "codec.cuh"
 
@@ -33,23 +43,27 @@ namespace {
 
 using namespace fc;
 
-constexpr int kThreads = 512;
-constexpr int kPer = 8;                   // values a thread
-constexpr int kChunk = kThreads * kPer;   // values a block
+constexpr int kChunk = kBlockThreads * kPer;   // values an unpack block
 constexpr float kEps = 1e-12f;            // repro_torch.core.quant.EPS
+constexpr long long kMaxGridY = 65535;
+
+// BIT_UNITS of repro_torch/core/comm_config.py: unit i of a width's
+// planes, 0 past its last.
+__host__ __device__ constexpr int plane_unit(int bits, int i) {
+  constexpr int units[9][3] = {{0, 0, 0}, {1, 0, 0}, {2, 0, 0}, {2, 1, 0}, {4, 0, 0},
+                               {4, 1, 0}, {4, 2, 0}, {4, 2, 1}, {8, 0, 0}};
+  return units[bits][i];
+}
 
 struct Stage {
   long long rows, n, nbytes, chunks;      // nbytes: payload bytes a row
   int bits, n_planes;
   int unit[3];
   long long plane_off[3];
-  int in_bf16, out_kind;                  // out: 0 f32 1 bf16 2 f16
+  int out_kind;                           // 0 f32 1 bf16 2 f16
 };
 
-// BIT_UNITS of repro_torch/core/comm_config.py: the planes of each width.
 Stage make_stage(long long rows, long long n, int bits) {
-  static const int units[9][3] = {{0, 0, 0}, {1, 0, 0}, {2, 0, 0}, {2, 1, 0}, {4, 0, 0},
-                                  {4, 1, 0}, {4, 2, 0}, {4, 2, 1}, {8, 0, 0}};
   Stage s;
   s.rows = rows;
   s.n = n;
@@ -58,7 +72,7 @@ Stage make_stage(long long rows, long long n, int bits) {
   s.n_planes = 0;
   long long off = 0;
   for (int i = 0; i < 3; ++i) {
-    s.unit[i] = units[bits][i];
+    s.unit[i] = plane_unit(bits, i);
     s.plane_off[i] = off;
     if (s.unit[i]) {
       s.n_planes = i + 1;
@@ -66,7 +80,6 @@ Stage make_stage(long long rows, long long n, int bits) {
     }
   }
   s.nbytes = off;
-  s.in_bf16 = 0;
   s.out_kind = 0;
   return s;
 }
@@ -92,87 +105,91 @@ __device__ __forceinline__ unsigned long long load_bytes(const uint8_t* src, int
 
 __device__ __forceinline__ float bf2f(unsigned short b) { return __uint_as_float((unsigned)b << 16); }
 
-// Quantize + pack (SPIKE: with spike reserving) of one chunk. G: group.
-template <int G, bool SPIKE>
-__global__ void __launch_bounds__(kThreads) pack_kernel(const void* __restrict__ x,
-                                                        uint8_t* __restrict__ payload,
-                                                        unsigned short* __restrict__ scale,
-                                                        unsigned short* __restrict__ zero,
-                                                        unsigned short* __restrict__ spike_vals,
-                                                        int8_t* __restrict__ spike_idx,
-                                                        const Stage s) {
-  constexpr int W = G / kPer;                     // lanes a group
-  const long long row = blockIdx.x / s.chunks, chunk = blockIdx.x % s.chunks;
-  const long long e0 = chunk * kChunk + (long long)threadIdx.x * kPer;   // in the row
-  const bool active = e0 < s.n;
-  const int lt = threadIdx.x % W;
-  const float qmax = (float)((1 << s.bits) - 1);
-
-  float v[kPer];
-  int pos[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    pos[k] = lt * kPer + k;
-    v[k] = 0.f;
-  }
-  if (active) {
-    const long long i0 = row * s.n + e0;
-    if (s.in_bf16) {
-      const uint4 q = *reinterpret_cast<const uint4*>(reinterpret_cast<const unsigned short*>(x) + i0);
-      const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        v[2 * k] = bf2f((unsigned short)(w[k] & 0xffffu));
-        v[2 * k + 1] = bf2f((unsigned short)(w[k] >> 16));
-      }
+// codec.cuh pack8 for a unit U known at compile time: four codes' fields
+// gathered at once, by one multiply whose partial products land in
+// disjoint bits (U = 1, 2), or by one shift and a byte permute (U = 4).
+template <int U>
+__device__ __forceinline__ unsigned long long pack_unit(unsigned long long codes, int shift) {
+  if constexpr (U == 8) {
+    return codes;
+  } else {
+    constexpr unsigned mask = ((1u << U) - 1u) * 0x01010101u;   // U bits of each byte
+    unsigned lo = ((unsigned)codes >> shift) & mask, hi = ((unsigned)(codes >> 32) >> shift) & mask;
+    if constexpr (U == 4) {
+      lo |= lo >> 4;
+      hi |= hi >> 4;
+      return __byte_perm(lo, hi, 0x6420);
     } else {
-      const float4* xf = reinterpret_cast<const float4*>(reinterpret_cast<const float*>(x) + i0);
-      const float4 a = xf[0], b = xf[1];
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+      // field i (at bit 8i) times 2^((8 - U)(3 - i)) lands at bit (8 - U) * 3 + U * i
+      constexpr unsigned mul = U == 2 ? 0x41041u : 0x204081u;
+      constexpr int at = (8 - U) * 3, w = 4 * U;
+      return (((lo * mul) >> at) & ((1u << w) - 1u)) |
+             ((((hi * mul) >> at) & ((1u << w) - 1u)) << w);
     }
   }
+}
 
-  const Range r = group_range<kPer, W>(v, pos, G, SPIKE);
-  const Meta m = rtn_meta(r.mn, r.mx, qmax, kEps, 0);
-  const unsigned char code_mn = quant_code(r.mn, m.z, m.s, qmax);
-  unsigned long long codes8 = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    unsigned char c = quant_code(v[k], m.z, m.s, qmax);
-    if (SPIKE && (pos[k] == r.imin || pos[k] == r.imax)) c = code_mn;
-    codes8 |= (unsigned long long)c << (8 * k);
-  }
+// A thread's codes (byte k value k's) into each plane of a BITS-bit row
+// of n values at prow: one store of u bytes a plane, at e0 / 8 * u.
+template <int BITS>
+__device__ __forceinline__ void store_planes(uint8_t* prow, long long n, long long e0,
+                                             unsigned long long codes) {
+  constexpr int u0 = plane_unit(BITS, 0), u1 = plane_unit(BITS, 1), u2 = plane_unit(BITS, 2);
+  store_bytes(prow + e0 / 8 * u0, pack_unit<u0>(codes, 0), u0);
+  if constexpr (u1 != 0) store_bytes(prow + n * u0 / 8 + e0 / 8 * u1, pack_unit<u1>(codes, u0), u1);
+  if constexpr (u2 != 0)
+    store_bytes(prow + n * (u0 + u1) / 8 + e0 / 8 * u2, pack_unit<u2>(codes, u0 + u1), u2);
+}
+
+// Quantize + pack (SPIKE: with spike reserving): block (c, y, z) packs
+// chunk c, blockDim.x * 8 values, of row z * gridDim.y + y; x is float or
+// bf16. p.wb is a row's payload bytes.
+template <int G, bool SPIKE, typename T>
+__global__ void __launch_bounds__(kBlockThreads) pack_kernel(const T* __restrict__ x,
+                                                             uint8_t* __restrict__ payload,
+                                                             unsigned short* __restrict__ scale,
+                                                             unsigned short* __restrict__ zero,
+                                                             unsigned* __restrict__ spike_vals,
+                                                             unsigned short* __restrict__ spike_idx,
+                                                             const WireParams p) {
+  const long long row = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  if (row >= p.rows) return;                                // the last z's spare rows
+  const long long e0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kPer;
+  const bool active = e0 < p.n;
+  const int lt = threadIdx.x % (G / kPer);
+  float v[kPer];
+  load8(x + row * p.n + e0, active, v);
+  const Code8 c = quantize8<G, SPIKE, false>(v, lt, p);
   if (!active) return;
-
-  uint8_t* prow = payload + row * s.nbytes;
-  int shift = 0;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {             // unrolled: s stays in registers
-    if (i == s.n_planes) break;
-    const int u = s.unit[i];
-    store_bytes(prow + s.plane_off[i] + e0 * u / 8, pack8(codes8, u, shift), u);
-    shift += u;
+  uint8_t* prow = payload + row * p.wb;
+  switch (p.bits) {
+    case 1: store_planes<1>(prow, p.n, e0, c.codes); break;
+    case 2: store_planes<2>(prow, p.n, e0, c.codes); break;
+    case 3: store_planes<3>(prow, p.n, e0, c.codes); break;
+    case 4: store_planes<4>(prow, p.n, e0, c.codes); break;
+    case 5: store_planes<5>(prow, p.n, e0, c.codes); break;
+    case 6: store_planes<6>(prow, p.n, e0, c.codes); break;
+    case 7: store_planes<7>(prow, p.n, e0, c.codes); break;
+    default: store_planes<8>(prow, p.n, e0, c.codes);
   }
+  const long long g = row * p.groups + e0 / G;
   if (lt == 0) {
-    const long long gi = row * (s.n / G) + e0 / G;
-    scale[gi] = m.sbits;
-    zero[gi] = m.zbits;
-    if (SPIKE) {
-      spike_vals[2 * gi] = to_meta(r.vmin, 0);
-      spike_vals[2 * gi + 1] = to_meta(r.vmax, 0);
-      spike_idx[2 * gi] = (int8_t)r.imin;
-      spike_idx[2 * gi + 1] = (int8_t)r.imax;
-    }
+    scale[g] = c.m.sbits;
+  } else if (lt == 1) {
+    zero[g] = c.m.zbits;
+  } else if (SPIKE && lt == 2) {
+    spike_vals[g] = f2bf(c.r.vmin) | ((unsigned)f2bf(c.r.vmax) << 16);
+  } else if (SPIKE && lt == 3) {
+    spike_idx[g] = (unsigned short)((uint8_t)c.r.imin | ((unsigned)(uint8_t)c.r.imax << 8));
   }
 }
 
 // Unpack + dequantize one chunk: codes * scale + zero, two roundings.
 template <int G>
-__global__ void __launch_bounds__(kThreads) unpack_kernel(const uint8_t* __restrict__ payload,
-                                                          const unsigned short* __restrict__ scale,
-                                                          const unsigned short* __restrict__ zero,
-                                                          void* __restrict__ out, const Stage s) {
+__global__ void __launch_bounds__(kBlockThreads) unpack_kernel(const uint8_t* __restrict__ payload,
+                                                               const unsigned short* __restrict__ scale,
+                                                               const unsigned short* __restrict__ zero,
+                                                               void* __restrict__ out, const Stage s) {
   const long long row = blockIdx.x / s.chunks, chunk = blockIdx.x % s.chunks;
   const long long e0 = chunk * kChunk + (long long)threadIdx.x * kPer;
   if (e0 >= s.n) return;
@@ -222,22 +239,38 @@ template <bool SPIKE>
 int launch_pack(const void* x, void* payload, void* scale, void* zero, void* sv, void* si,
                 long long rows, long long n, int bits, int group, int in_bf16, void* stream) {
   if (bits < 1 || bits > 8) return (int)cudaErrorInvalidValue;
-  Stage s = make_stage(rows, n, bits);
-  s.in_bf16 = in_bf16;
-  if (s.rows * s.chunks == 0) return 0;
+  WireParams p{};
+  p.rows = rows;
+  p.n = n;
+  p.groups = n / group;
+  p.bits = bits;
+  p.wb = make_stage(rows, n, bits).nbytes;
+  p.eps = kEps;
+  if (rows * n == 0) return 0;
   if (const int rc = use_device_of(x)) return rc;
-  cudaStream_t st = (cudaStream_t)stream;
-  const void* a0 = x;
+  const long long big = (long long)kBlockThreads * kPer;
+  const int threads = block_threads(rows * ((n + big - 1) / big) * kBlockThreads);
+  const long long ys = rows < kMaxGridY ? rows : kMaxGridY;
+  const dim3 grid((unsigned)((n + threads * kPer - 1) / (threads * kPer)), (unsigned)ys,
+                  (unsigned)((rows + ys - 1) / ys));
+  const cudaStream_t st = (cudaStream_t)stream;
   uint8_t* a1 = (uint8_t*)payload;
   unsigned short *a2 = (unsigned short*)scale, *a3 = (unsigned short*)zero,
-                 *a4 = (unsigned short*)sv;
-  int8_t* a5 = (int8_t*)si;
+                 *a5 = (unsigned short*)si;
+  unsigned* a4 = (unsigned*)sv;
+#define FC_PACK(G, T) \
+  pack_kernel<G, SPIKE, T><<<grid, threads, 0, st>>>((const T*)x, a1, a2, a3, a4, a5, p)
+#define FC_PACK_IN(G)                                  \
+  if (in_bf16) FC_PACK(G, __nv_bfloat16);              \
+  else FC_PACK(G, float)
   switch (group) {
-    case 32: pack_kernel<32, SPIKE><<<blocks_for(s), kThreads, 0, st>>>(a0, a1, a2, a3, a4, a5, s); break;
-    case 64: pack_kernel<64, SPIKE><<<blocks_for(s), kThreads, 0, st>>>(a0, a1, a2, a3, a4, a5, s); break;
-    case 128: pack_kernel<128, SPIKE><<<blocks_for(s), kThreads, 0, st>>>(a0, a1, a2, a3, a4, a5, s); break;
+    case 32: FC_PACK_IN(32); break;
+    case 64: FC_PACK_IN(64); break;
+    case 128: FC_PACK_IN(128); break;
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FC_PACK_IN
+#undef FC_PACK
   return (int)cudaGetLastError();
 }
 
@@ -270,9 +303,9 @@ int fc_dequant_unpack(const void* payload, const void* scale, const void* zero, 
   const uint8_t* a0 = (const uint8_t*)payload;
   const unsigned short *a1 = (const unsigned short*)scale, *a2 = (const unsigned short*)zero;
   switch (group) {
-    case 32: unpack_kernel<32><<<blocks_for(s), kThreads, 0, st>>>(a0, a1, a2, out, s); break;
-    case 64: unpack_kernel<64><<<blocks_for(s), kThreads, 0, st>>>(a0, a1, a2, out, s); break;
-    case 128: unpack_kernel<128><<<blocks_for(s), kThreads, 0, st>>>(a0, a1, a2, out, s); break;
+    case 32: unpack_kernel<32><<<blocks_for(s), kBlockThreads, 0, st>>>(a0, a1, a2, out, s); break;
+    case 64: unpack_kernel<64><<<blocks_for(s), kBlockThreads, 0, st>>>(a0, a1, a2, out, s); break;
+    case 128: unpack_kernel<128><<<blocks_for(s), kBlockThreads, 0, st>>>(a0, a1, a2, out, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

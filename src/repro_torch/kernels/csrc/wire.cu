@@ -71,15 +71,12 @@ using namespace fc;
 
 // ---- encode ---------------------------------------------------------------
 
-constexpr int kEncThreads = 512;          // the paper's block: 4096 values
-constexpr int kEncSmall = 128;            // a call of fewer such chunks than SMs
-
-// A block of blockDim.x threads (kEncThreads or kEncSmall) encodes
+// A block of blockDim.x threads (kBlockThreads or kBlockThreadsSmall) encodes
 // blockDim.x * 8 consecutive values of a row.
 template <int G, bool SPIKE, bool ROT>
-__global__ void __launch_bounds__(kEncThreads) encode_kernel(const float* __restrict__ x,
-                                                             uint8_t* __restrict__ wire,
-                                                             const WireParams p) {
+__global__ void __launch_bounds__(kBlockThreads) encode_kernel(const float* __restrict__ x,
+                                                               uint8_t* __restrict__ wire,
+                                                               const WireParams p) {
   const long long chunk = (long long)blockDim.x * kPer;
   const long long chunks = (p.n + chunk - 1) / chunk;
   const long long row = blockIdx.x / chunks;
@@ -100,9 +97,9 @@ constexpr int kRowsInFlight = 4;          // decode+reduce of several rows: load
 // it / (n / 8), elements e0 .. e0 + 7 of that row. The wrapper sizes the
 // grid so that the item index fits in 32 bits.
 template <int G, bool SPIKE, bool ROT, int OUT>
-__global__ void __launch_bounds__(kEncThreads) decode_kernel(const uint8_t* __restrict__ wire,
-                                                             void* __restrict__ out,
-                                                             const WireParams p) {
+__global__ void __launch_bounds__(kBlockThreads) decode_kernel(const uint8_t* __restrict__ wire,
+                                                               void* __restrict__ out,
+                                                               const WireParams p) {
   const unsigned per_row = (unsigned)(p.n / kPer);
   const unsigned it = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned row = it / per_row;
@@ -122,7 +119,7 @@ __global__ void __launch_bounds__(kEncThreads) decode_kernel(const uint8_t* __re
 // registers, 48 rotating, where a loop over a row count it did not know
 // took 96-117 (0.0 + v is still added).
 template <int G, bool SPIKE, bool ROT, int RF>
-__global__ void __launch_bounds__(kEncThreads, RF == 1 ? 1 : 2)
+__global__ void __launch_bounds__(kBlockThreads, RF == 1 ? 1 : 2)
     decode_reduce_kernel(const uint8_t* __restrict__ wire, float* __restrict__ out,
                          const WireParams p) {
   const long long e0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * kPer;
@@ -150,21 +147,6 @@ __global__ void __launch_bounds__(kEncThreads, RF == 1 ? 1 : 2)
   if (active) store8(out + e0, acc);
 }
 
-// SMs of the current card (cached a card).
-int sm_count() {
-  static int sms[64];
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-  return sms[dev];
-}
-
-// Threads a block for a call of `items` threads' work: the paper's block,
-// or a quarter of it where that leaves SMs idle.
-int block_threads(long long items) {
-  return (items + kEncThreads - 1) / kEncThreads < sm_count() ? kEncSmall : kEncThreads;
-}
-
 }  // namespace
 
 extern "C" {
@@ -174,8 +156,8 @@ int fc_encode_wire(const void* x, void* wire, const long long* params, const uns
   const WireParams p = fill_params(params, thr, frac, f);
   if (p.rows * p.n == 0) return 0;
   if (const int rc = use_device_of(x)) return rc;
-  const long long chunk = (long long)kEncThreads * kPer;
-  const int threads = block_threads(p.rows * ((p.n + chunk - 1) / chunk) * kEncThreads);
+  const long long chunk = (long long)kBlockThreads * kPer;
+  const int threads = block_threads(p.rows * ((p.n + chunk - 1) / chunk) * kBlockThreads);
   const long long blocks = p.rows * ((p.n + threads * kPer - 1) / (threads * kPer));
   const cudaStream_t st = (cudaStream_t)stream;
   const float* xs = (const float*)x;
@@ -191,7 +173,7 @@ int fc_decode_wire(const void* wire, void* out, const long long* params, const u
   const WireParams p = fill_params(params, thr, frac, f);
   const long long items = p.rows * (p.n / kPer);
   if (items == 0) return 0;
-  if (items > 0xffffffffLL - kEncThreads) return (int)cudaErrorInvalidValue;   // 32-bit items
+  if (items > 0xffffffffLL - kBlockThreads) return (int)cudaErrorInvalidValue;   // 32-bit items
   if (const int rc = use_device_of(wire)) return rc;
   const int threads = block_threads(items);
   const unsigned blocks = (unsigned)((items + threads - 1) / threads);

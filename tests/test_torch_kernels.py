@@ -29,6 +29,9 @@ from repro_torch.kernels import (dequant_unpack, fused_dequant_unpack,
                                  quant_pack, ref, spike_reserve, stage)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import _tie_input  # noqa: E402
 from test_torch_codec import _assert_within_fma_rounding  # noqa: E402
 
 # (bits, group) of tests/test_kernels.py
@@ -160,6 +163,36 @@ def test_spike_pack_matches_pallas_interpret(bits, dtype):
     jx, tx = _both(_x(8, 1024, bits + 7), dtype)
     jouts = jspike_pack(jx, bits=bits, group=32, interpret=True)
     _assert_outs_equal(ref.spike_pack_ref(tx, bits, 32), jouts)
+
+
+@pytest.mark.parametrize("bits,group,spike", [(8, 128, False),
+                                              (4, 32, False),
+                                              (2, 32, True)])
+def test_ties_pack_like_jax(bits, group, spike):
+    """chip_smoke.py's tie input: (v - z) / s on k + 1/2 exactly or one
+    float32 ulp beside it (where a division that is not correctly
+    rounded, or a wrong half-to-even, would show). The plain packs equal
+    JAX's reference and its Pallas kernels in interpret mode."""
+    x = _tie_input(np, 4, 1024, bits, group, spike, bits)
+    tx, jx = torch.from_numpy(x), jnp.asarray(x)
+    if spike:
+        touts = ref.spike_pack_ref(tx, bits, group)
+        jrefs = jref.spike_pack_ref(jx, bits, group)
+        jkern = jspike_pack(jx, bits=bits, group=group, interpret=True)
+    else:
+        touts = ref.quant_pack_ref(tx, bits, group)
+        jrefs = jref.quant_pack_ref(jx, bits, group)
+        jkern = jquant_pack(jx, bits=bits, group=group, interpret=True)
+    _assert_outs_equal(touts, jrefs, "ref")
+    _assert_outs_equal(touts, jkern, "pallas")
+    codes = bitsplit.unpack(touts[0], bits, x.shape[1]).numpy().reshape(
+        *touts[1].shape, group)
+    s = touts[1].float().numpy()[..., None]
+    z = touts[2].float().numpy()[..., None]
+    t = (x.reshape(codes.shape) - z) / s            # float32, as the codec
+    assert ((t - np.floor(t)) == 0.5).sum() > 0.2 * x.size   # ties hit
+    mid = (t > 0.5) & (t < 2 ** bits - 1.5)
+    assert (codes[mid] == np.rint(t[mid])).all()
 
 
 # ---------------------------------------------------------------------------
