@@ -121,18 +121,45 @@ Phases, each printing its lines; any failure exits non-zero:
              prints TTFT and ms/step, every rank its peak memory; a failed
              rank fails the phase.
 
+10. train -- llama3-8b trained at full width, its depth cut to
+             TRAIN_REPEATS layers, global batch TRAIN_BATCH x seq
+             TRAIN_SEQ, TRAIN_STEPS steps a run, float32 store and AdamW
+             moments from seed SEED (init_store, the zero-initialised
+             output projections filled). First fc_encode_wire,
+             fc_decode_wire and fc_decode_reduce against their plain
+             versions (bit for bit, the plain versions in TRAIN_PIECE-column
+             pieces) at the embedding gradient leaf (1, 525336576), its
+             two-rank split and a stacked MLP leaf, for TRAIN_LEAF_CONFIGS,
+             and their times. Then --mesh 1,1 in this process: bf16, paper
+             through the CUDA codec, and paper through the plain codec for
+             TRAIN_CHECK_STEPS steps: loss, grad norm and every parameter
+             bit-equal, paper's step-0 loss within TRAIN_LOSS_REL of
+             bf16's. Then TRAIN_MESHES, one rank process a rank on the
+             card: --mesh 1,1,2 (pod = 2): paper/two_step and paper/fused
+             (the grad site through fc_ar in the pod axis's peer world)
+             bit-equal on every rank over TRAIN_CHECK_STEPS steps, then
+             depth (2-bit grad site with error feedback: the residual
+             non-zero); --mesh 2,1 (fsdp = 2): aggressive (the qag gather
+             at int4 scale_int, the qgrad_rs reduce-scatter at int8,
+             tp_bwd). Every run: the launches of every step exact
+             (_train_expected), ms/step (median and p90 of the steps
+             after the first, host clock, synchronised), tokens/s, peak
+             memory.
+
 The line before the last is a JSON object with one entry per kernel
-(``launches``: the wire kernels' from the serve and moe paths, the stage
-kernels' from their entry points, fc_a2a's from phase tp's moonshot runs
-on rank 0, fc_ar's from phase tp's served runs of both models on rank 0;
-``serve_launches``, ``moe_launches``, ``tp_launches`` and
-``moe_tp_launches``: from those paths); the last line is ``{"ok": true,
+(``launches``: the wire kernels' from the serve, moe and train paths,
+the stage kernels' from their entry points, fc_a2a's from phase tp's
+moonshot runs on rank 0, fc_ar's from phase tp's served runs of both
+models and phase train's runs on rank 0; ``serve_launches``,
+``moe_launches``, ``tp_launches``, ``moe_tp_launches`` and
+``train_launches``: from those paths); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -144,7 +171,7 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "wire_vectors.npz")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 PHASES = ("build", "codec", "stage", "time", "serve", "a2a", "moe", "ar",
-          "tp")
+          "tp", "train")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -197,6 +224,26 @@ TP_RUNS = (("paper/fused", "paper", "fused"),
 MOE_TP_RUNS = TP_RUNS[:2]          # phase tp's moonshot runs
 TP_TIMEOUT_S = 900
 DECODE_CHECK_STEPS = 4
+# phase train: llama3-8b at full width, its 32 layers cut to TRAIN_REPEATS
+TRAIN_ARCH = "llama3-8b"
+TRAIN_REPEATS = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
+TRAIN_CHECK_STEPS = 2              # CUDA == plain codec, fused == two_step
+# paper's step-0 loss against bf16's at --mesh 1,1, relative: 9.0e-6 on
+# the H100; 2.0e-4 with every decoded value one code step high (a fault
+# planted in a copy)
+TRAIN_LOSS_REL = 5e-5
+TRAIN_TIMEOUT_S = 600
+TRAIN_PIECE = 1 << 24              # columns of a plain-version piece
+TRAIN_LEAF_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
+                      ("int2 g32 spike", dict(bits=2, group=32, spike=True)),
+                      ("int4 g32 spike scale_int",
+                       dict(bits=4, group=32, spike=True, scale_int=True)))
+#: the multi-rank cells: mesh DATA,MODEL[,POD] -> (label, policy, scheme)
+TRAIN_MESHES = (("1,1,2", (("paper/two_step", "paper", None),
+                           ("paper/fused", "paper", "fused"),
+                           ("depth", "depth", None))),
+                ("2,1", (("aggressive", "aggressive", None),)))
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
                                              scale_int=True)),
@@ -1535,7 +1582,8 @@ def tp_rank_main(rank: int, rendezvous: str, out_dir: str) -> int:
     row_bytes = max(mesh.site_row_bytes(cfg, make_plan(cfg, tp=TP), BATCH,
                                         PROMPT_LEN)
                     for cfg in map(get_config, (ARCH, MOE_ARCH)))
-    axis = mesh.init_model_axis(TP, rank, rendezvous, dev, row_bytes)
+    axes = mesh.init_mesh(1, TP, 0, rank, rendezvous, dev, row_bytes)
+    axis = axes.model
     try:
         res = {"rank": rank, "device": str(dev), "row_bytes": row_bytes,
                "backend": str(torch.distributed.get_backend(axis.pg))}
@@ -1546,7 +1594,7 @@ def tp_rank_main(rank: int, rendezvous: str, out_dir: str) -> int:
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
-        mesh.close_model_axis(axis)
+        mesh.close_mesh(axes)
     return 0
 
 
@@ -1611,6 +1659,446 @@ def phase_tp(torch, card: str):
     return ranks
 
 
+# ---------------------------------------------------------------------------
+# phase train: llama3-8b trained at full width, depth cut
+# ---------------------------------------------------------------------------
+
+def _train_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH),
+                               pattern_repeats=TRAIN_REPEATS)
+
+
+def _sections(lay):
+    """A wire layout's sections in wire order."""
+    secs = [s for _, s in lay.planes] + [lay.scale, lay.zero]
+    return secs + [s for s in (lay.spike_vals, lay.spike_idx) if s]
+
+
+def _wire_piece(torch, wire, cfg, n: int, c0: int, c1: int):
+    """The wire of columns c0..c1 (group and byte aligned) of rows of
+    ``n`` values, cut from their wire: each section holds its values'
+    bytes in column order."""
+    full, part = cfg.wire_layout(n), cfg.wire_layout(c1 - c0)
+    return torch.cat([wire[:, f.offset + c0 * f.nbytes // n:
+                           f.offset + c0 * f.nbytes // n + p.nbytes]
+                      for f, p in zip(_sections(full), _sections(part))],
+                     dim=1)
+
+
+def _train_kernel_checks(torch, card: str) -> dict:
+    """fc_encode_wire, fc_decode_wire and fc_decode_reduce at the training
+    path's largest leaves against their plain versions, bit for bit: the
+    plain versions run in TRAIN_PIECE-column pieces (a group's bytes do
+    not depend on other groups), each piece held against the same columns
+    of the kernel's result. Then each kernel's time (CUDA events) beside
+    its bytes bound."""
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.kernels import wire
+    cfg = _train_cfg()
+    emb = cfg.vocab * cfg.d_model                  # one embedding leaf
+    mlp = cfg.d_model * cfg.d_ff                   # one MLP leaf a layer
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    out = {}
+    for shape_label, rows, n in (("embedding leaf", 1, emb),
+                                 ("embedding leaf / 2", 2, emb // 2),
+                                 ("stacked mlp leaf", TRAIN_REPEATS, mlp)):
+        x = torch.randn((rows, n), generator=gen, device=dev) * 1e-3
+        x[0, 12345] = 0.5                           # an outlier
+        for label, kw in TRAIN_LEAF_CONFIGS:
+            c = CommConfig(**kw)
+            enc = wire.encode_wire(x, c)
+            dec = wire.decode_wire(enc, c, n)
+            red = wire.decode_reduce(enc, c, n)
+            for c0 in range(0, n, TRAIN_PIECE):
+                c1 = min(n, c0 + TRAIN_PIECE)
+                w = wire.encode_plain(x[:, c0:c1].contiguous(), c)
+                check(torch.equal(_wire_piece(torch, enc, c, n, c0, c1), w),
+                      f"encode_wire {label} {shape_label} columns "
+                      f"{c0}:{c1} differ from plain")
+                check(_bits_equal(torch, dec[:, c0:c1],
+                                  wire.decode_plain(w, c, c1 - c0)),
+                      f"decode_wire {label} {shape_label} columns "
+                      f"{c0}:{c1} differ from plain")
+                check(_bits_equal(torch, red[:, c0:c1],
+                                  wire.decode_reduce_plain(w, c, c1 - c0)),
+                      f"decode_reduce {label} {shape_label} columns "
+                      f"{c0}:{c1} differ from plain")
+            row = {}
+            for name, fn in (
+                    ("encode_wire", lambda: wire.encode_wire(x, c)),
+                    ("decode_wire", lambda: wire.decode_wire(enc, c, n)),
+                    ("decode_reduce", lambda: wire.decode_reduce(enc, c, n))):
+                ms = _time_ms(torch, fn, runs=5, warmup=2)
+                bound = wire.bound_bytes(name, c, rows, n) / \
+                    HBM_BYTES_PER_S * 1e3
+                row[name] = {"ms": ms, "bound_ms": bound}
+            print(f"[train] kernels at the {shape_label} ({rows}, {n}) "
+                  f"{label}: encode, decode, decode+reduce bit-equal to "
+                  f"the plain versions (in {TRAIN_PIECE}-column pieces); "
+                  + ", ".join(f"{k} {v['ms']:.4f} ms (bound "
+                              f"{v['bound_ms']:.4f})"
+                              for k, v in row.items())
+                  + f" per call  [{card}]", flush=True)
+            out[f"{shape_label} {label}"] = {"rows": rows, "n": n, **row}
+            del enc, dec, red
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_store(torch, cfg, plan, dev, rank: int = 0, data_rank: int = 0):
+    """This rank's store from SEED (init_store), its zero-initialised
+    output projections filled from a fan-in normal (seeded by SEED + 1 and
+    the TP rank, drawn whole and sharded), so that every TP site carries
+    data from step 0."""
+    from repro_torch.models.model import param_groups
+    from repro_torch.parallel.shardings import init_store
+    store = init_store(cfg, plan, SEED, dev, rank, data_rank)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1 + 1000003 * rank)
+    for g, (_, specs) in sorted(param_groups(cfg, plan).items()):
+        for name, sp in sorted(specs.items()):
+            if sp.init != "zeros":
+                continue
+            t = store[g][name]
+            shape = sp.local_shape(plan)
+            lo = data_rank * t.shape[1]
+            for i in range(t.shape[0]):
+                v = (torch.randn(shape, generator=gen, device=dev)
+                     / shape[-2] ** 0.5).reshape(-1)[lo:lo + t.shape[1]]
+                t[i, :v.shape[0]] = v
+    return store
+
+
+def _train_counts():
+    from repro_torch.kernels import rdma, stage, wire
+    return {**wire.LAUNCHES, **stage.LAUNCHES, **rdma.LAUNCHES}
+
+
+def _world_rows(axis):
+    """The receive-row bytes of an axis's peer world, or None."""
+    return None if axis is None or axis.world is None else \
+        axis.world.row_bytes
+
+
+def _train_expected(cfg, plan, policy, mesh) -> dict:
+    """The launches of each kernel in one train step of ``policy`` on
+    ``mesh``: every TP site of the forward, the checkpointed blocks' sites
+    again as the backward replays them, the tp_bwd sites, the qag gathers
+    (forward and replay), the qgrad_rs reduce-scatters, the pod grad site
+    of every leaf. A two_step site: 2 encodes and 2 decodes; ``fused``
+    over one rank: 2 encodes, a decode+reduce and a decode; ``fused``
+    through an axis's peer world: fc_ar once a piece of its rows."""
+    from repro_torch.core.collectives import group_size
+    from repro_torch.models.model import param_groups
+    from repro_torch.train.train_step import (_qgrad_active, pod_grad_config,
+                                              qgrad_rs_config, wants_grad_ef)
+    want = dict.fromkeys(_train_counts(), 0)
+    pol = policy.bind(cfg.n_layers)
+
+    def pieces(n: int, tp: int, c, rows) -> int:
+        if rows is None or c.wire_bytes(n // tp) <= rows:
+            return 1
+        piece = tp * c.group * (rows // c.wire_bytes(c.group))
+        return -(-n // piece)
+
+    def psum(c, n: int, tp: int, peer_rows, times: int = 1):
+        if c is None or not c.enabled or c.scheme == "nccl":
+            return
+        if c.scheme == "fused" and peer_rows is not None:
+            mult = tp * c.group
+            want["ar"] += times * pieces(-(-n // mult) * mult, tp, c,
+                                         peer_rows)
+        elif c.scheme == "fused":
+            want["encode_wire"] += 2 * times
+            want["decode_reduce"] += times
+            want["decode_wire"] += times
+        else:
+            want["encode_wire"] += 2 * times
+            want["decode_wire"] += 2 * times
+
+    b_loc = TRAIN_BATCH // (group_size(mesh.data) * (
+        group_size(mesh.pod) if mesh.multi_pod else 1))
+    act = b_loc * TRAIN_SEQ * cfg.d_model
+    tp, rows = plan.tp, _world_rows(mesh.model)
+    for layer in [None] + [l for l in range(cfg.n_layers) for _ in (0, 1)]:
+        psum(pol.resolve("tp", layer), act, tp, rows,
+             times=1 if layer is None else 2)      # replayed in backward
+        psum(pol.resolve("tp_bwd", layer), act, tp, rows)
+    groups = param_groups(cfg, plan)
+    qag = pol.resolve("qag")
+    if plan.fsdp > 1 and qag is not None and qag.enabled:
+        for g, (n_stack, specs) in groups.items():
+            k = len(specs) * n_stack * (2 if g == "pattern" else 1)
+            want["encode_wire"] += k
+            want["decode_wire"] += k
+    leaves = [(g, sp) for g, (n_stack, specs) in groups.items()
+              for sp in specs.values()]
+    if _qgrad_active(pol, plan):
+        want["encode_wire"] += len(leaves)
+        want["decode_wire"] += len(leaves) * (2 if pol.grad_ef else 1)
+    if mesh.multi_pod:
+        c, pod = pod_grad_config(pol), group_size(mesh.pod)
+        for g, sp in leaves:
+            n = groups[g][0] * sp.flat_len(plan) // plan.fsdp
+            if wants_grad_ef(pol, mesh) and c.scheme != "fused":
+                want["encode_wire"] += 2
+                want["decode_wire"] += 4
+                continue
+            psum(c, n, pod, _world_rows(mesh.pod))
+            if wants_grad_ef(pol, mesh):      # fused: the local QDQ error
+                want["encode_wire"] += 1
+                want["decode_wire"] += 1
+    return want
+
+
+def _train_one(torch, cfg, plan, mesh, dev, label: str, policy,
+               steps: int, tag: str, log, card: str, expected=None,
+               snapshot: bool = False) -> dict:
+    """Train ``steps`` steps of ``policy`` from the filled SEED store;
+    per-step launch counts (each must equal ``expected``), ms/step
+    (median and p90 of steps 1-3, host clock, synchronised), tokens/s,
+    peak memory; with ``snapshot``, the metrics of the first
+    TRAIN_CHECK_STEPS steps and the store after them, on the host."""
+    from repro_torch.launch.train import train
+    from repro_torch.parallel.axis import axis_rank
+    from repro_torch.train.optim import OptimConfig
+    opt_cfg = OptimConfig(lr=1e-3, warmup_steps=max(steps // 20, 2),
+                          total_steps=steps)
+    store = _train_store(torch, cfg, plan, dev, axis_rank(mesh.model),
+                         axis_rank(mesh.data))
+    counts, snap, metrics = [], {}, []
+    last = [_train_counts()]
+
+    t0 = time.perf_counter()
+
+    def on_step(i, st, opt, m):
+        now = _train_counts()
+        counts.append({k: now[k] - last[0][k] for k in now})
+        last[0] = now
+        metrics.append({k: float(v) for k, v in m.items()})
+        log(f"[{tag} {label}] step {i}: loss {metrics[-1]['loss']:.6f}, "
+            f"{time.perf_counter() - t0:.1f} s since the start, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak",
+            flush=True)
+        if snapshot and i == TRAIN_CHECK_STEPS - 1:
+            snap["store"] = {g: {n: t.to("cpu", copy=True)
+                                 for n, t in gg.items()}
+                             for g, gg in st.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = train(cfg, plan, policy, opt_cfg, mesh, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=steps, device=dev, seed=SEED,
+                log_every=steps, log=lambda *a, **k: None, store=store,
+                on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ef = res["opt"].get("ef")
+    ef_abs = (max(float(t.abs().max()) for gg in ef.values()
+                  for t in gg.values()) if ef is not None else None)
+    step_ms = res["step_ms"]
+    del res, store, ef
+    torch.cuda.empty_cache()
+    for c in counts:
+        check(expected is None or c == expected,
+              f"{tag} {label}: launches a step {c} != {expected}")
+    timed = step_ms[1:] or step_ms
+    med = statistics.median(timed)
+    p90 = float(sorted(timed)[max(0, -(-9 * len(timed) // 10) - 1)])
+    tps = TRAIN_BATCH * TRAIN_SEQ * 1e3 / med
+    losses = [m["loss"] for m in metrics]
+    check(all(math.isfinite(v) for v in losses),
+          f"{tag} {label}: loss not finite: {losses}")
+    log(f"[{tag} {label}] {cfg.name} ({cfg.n_layers} layers, full width), "
+        f"global batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: loss "
+        f"{[round(v, 6) for v in losses]}, grad norm "
+        f"{[round(m['grad_norm'], 4) for m in metrics]}; {len(timed)} "
+        f"steps after the first: median {med:.1f} ms/step, p90 {p90:.1f} "
+        f"(host clock, synchronised), {tps:.0f} tokens/s; peak memory "
+        f"{peak:.2f} GB; launches a step "
+        f"{ {k: v for k, v in counts[0].items() if v} } (expected "
+        f"{ {k: v for k, v in (expected or {}).items() if v} })"
+        + (f"; EF residual max |ef| {ef_abs:.3e}" if ef_abs is not None
+           else "") + (f"  [{card}]" if card else ""), flush=True)
+    return {"label": label, "metrics": metrics, "counts": counts,
+            "expected": expected, "step_ms": step_ms, "median_ms": med,
+            "p90_ms": p90, "tokens_per_s": tps, "peak_gb": peak,
+            "ef_max_abs": ef_abs}, snap
+
+
+def _snap_equal(torch, a: dict, b: dict) -> bool:
+    """Whether two snapshots' metrics and stores are bit-equal."""
+    return all(_bits_equal(torch, a["store"][g][n], b["store"][g][n])
+               for g in a["store"] for n in a["store"][g])
+
+
+def _train_single(torch, card: str, dev=None) -> dict:
+    """--mesh 1,1 in this process: bf16, then paper through the CUDA
+    codec, then paper through the plain codec (2 steps): loss, grad norm
+    and the store after TRAIN_CHECK_STEPS steps bit-equal."""
+    from repro_torch.launch.train import build_policy
+    from repro_torch.parallel.axis import MeshAxes
+    from repro_torch.parallel.plan import make_plan
+    cfg, mesh = _train_cfg(), MeshAxes()
+    dev = dev or torch.device("cuda")
+    plan = make_plan(cfg, tp=1, fsdp=1)
+    runs = {}
+    for label, pol, backend, steps in (
+            ("bf16", "bf16", "auto", TRAIN_STEPS),
+            ("paper", "paper", "auto", TRAIN_STEPS),
+            ("paper/plain codec", "paper", "ref", TRAIN_CHECK_STEPS)):
+        policy = build_policy(pol, backend=backend)
+        expected = _train_expected(cfg, plan, policy, mesh) \
+            if backend != "ref" else dict.fromkeys(_train_counts(), 0)
+        runs[label] = _train_one(torch, cfg, plan, mesh, dev, label, policy,
+                                 steps, "train 1,1", print, card, expected,
+                                 snapshot=pol == "paper")
+    (cuda, snap_c), (plain, snap_p) = runs["paper"], runs["paper/plain codec"]
+    k = TRAIN_CHECK_STEPS
+    check(cuda["metrics"][:k] == plain["metrics"][:k] and
+          _snap_equal(torch, snap_c, snap_p),
+          f"train 1,1: paper through the CUDA codec differs from the plain "
+          f"codec over {k} steps: {cuda['metrics'][:k]} vs "
+          f"{plain['metrics'][:k]}")
+    l0, b0 = cuda["metrics"][0]["loss"], runs["bf16"][0]["metrics"][0]["loss"]
+    check(abs(l0 - b0) <= TRAIN_LOSS_REL * abs(b0),
+          f"train 1,1: paper's step-0 loss {l0} is not within "
+          f"{TRAIN_LOSS_REL} of bf16's {b0}")
+    print(f"[train 1,1] paper through the CUDA codec equals the plain codec "
+          f"over {k} steps (loss, grad norm, every parameter, bit for bit); "
+          f"its step-0 loss {l0:.6f} within {TRAIN_LOSS_REL} x bf16's "
+          f"{b0:.6f}", flush=True)
+    del snap_c, snap_p
+    return {label: r for label, (r, _) in runs.items()}
+
+
+def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
+                    out_dir: str) -> int:
+    """One rank process of phase train (``chip_smoke.py --train-rank``):
+    the runs of TRAIN_MESHES[mesh_spec]; on --mesh 1,1,2, fused equal to
+    two_step over TRAIN_CHECK_STEPS steps, and depth's EF residual
+    non-zero."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.train import build_policy
+    from repro_torch.parallel.plan import make_plan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data, model, pod = mesh_lib.parse_train_mesh(mesh_spec)
+    dev = mesh_lib.rank_device(rank, torch.device("cuda"))
+    cfg = _train_cfg()
+    plan = make_plan(cfg, tp=model, fsdp=data)
+    mesh = mesh_lib.init_mesh(data, model, pod, rank, rendezvous, dev,
+                              mesh_lib.site_row_bytes(cfg, plan, TRAIN_BATCH,
+                                                      TRAIN_SEQ))
+    log = print if rank == 0 else (lambda *a, **k: None)
+    tag = f"train {mesh_spec}"
+    try:
+        runs, snaps = {}, {}
+        for label, pol, scheme in dict(TRAIN_MESHES)[mesh_spec]:
+            policy = build_policy(pol, scheme=scheme)
+            expected = _train_expected(cfg, plan, policy, mesh)
+            runs[label], snap = _train_one(
+                torch, cfg, plan, mesh, dev, label, policy, TRAIN_STEPS, tag,
+                log, "", expected, snapshot=label.startswith("paper/"))
+            if snap:
+                snaps[label] = snap
+        if "paper/fused" in runs:
+            k = TRAIN_CHECK_STEPS
+            a, b = runs["paper/fused"], runs["paper/two_step"]
+            check(a["metrics"][:k] == b["metrics"][:k] and _snap_equal(
+                torch, snaps["paper/fused"], snaps["paper/two_step"]),
+                f"{tag} rank {rank}: paper/fused differs from "
+                f"paper/two_step over {k} steps")
+            log(f"[{tag}] every rank: paper/fused (the grad site through "
+                f"fc_ar) equals paper/two_step over {k} steps (loss, grad "
+                f"norm, every parameter, bit for bit)", flush=True)
+        if "depth" in runs:
+            ef = runs["depth"]["ef_max_abs"]
+            check(ef is not None and ef > 0,
+                  f"{tag} rank {rank}: depth's EF residual is {ef}")
+        res = {"rank": rank, "device": str(dev), "runs": runs}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        mesh_lib.close_mesh(mesh)
+    return 0
+
+
+def _train_ranks(torch, card: str, mesh_spec: str) -> list:
+    """TRAIN_MESHES[mesh_spec] in one rank process a rank (all on the one
+    card, taking turns on it)."""
+    from repro_torch.launch import mesh as mesh_lib
+    data, model, pod = mesh_lib.parse_train_mesh(mesh_spec)
+    world = max(pod, 1) * data * model
+    out_dir = os.path.join(ROOT, "chiprun_out", "train")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.unlink(os.path.join(out_dir, f))
+    t0 = time.perf_counter()
+    mesh_lib.run_ranks(lambda r, store: [
+        sys.executable, os.path.abspath(__file__), "--train-rank", str(r),
+        "--train-mesh", mesh_spec, "--rendezvous", store, "--out", out_dir],
+        world, timeout=TRAIN_TIMEOUT_S)
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for label, _, _ in dict(TRAIN_MESHES)[mesh_spec]:
+        losses = {json.dumps(r["runs"][label]["metrics"]) for r in ranks}
+        check(len(losses) == 1, f"train {mesh_spec} {label}: the ranks "
+              f"report different metrics")
+        r0 = ranks[0]["runs"][label]
+        peaks = ", ".join(f"rank {r['rank']} {r['runs'][label]['peak_gb']:.2f}"
+                          for r in ranks)
+        print(f"[train {mesh_spec} {label}] {world} rank processes on one "
+              f"card: median {r0['median_ms']:.1f} ms/step, p90 "
+              f"{r0['p90_ms']:.1f} (rank 0, host clock; the ranks take turns "
+              f"on the card), {r0['tokens_per_s']:.0f} tokens/s; peak memory "
+              f"{peaks} GB  [{card}]", flush=True)
+    print(f"[train {mesh_spec}] {world} rank processes done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ranks
+
+
+def _train_launches(trained: dict) -> dict:
+    """Each kernel's launches over phase train's runs through the kernels
+    (the --mesh 1,1 runs, and rank 0's of the others), every step's."""
+    total: dict = {}
+    runs = list(trained.get("1,1", {}).values())
+    for spec, _ in TRAIN_MESHES:
+        if trained.get(spec):
+            runs += list(trained[spec][0]["runs"].values())
+    for r in runs:
+        for c in r["counts"]:
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_train(torch, card: str) -> dict:
+    torch.cuda.empty_cache()                   # the earlier models are gone
+    t0 = time.perf_counter()
+    print(f"[train] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+          f"allocated by the earlier phases", flush=True)
+    res = {"kernels": _train_kernel_checks(torch, card),
+           "1,1": _train_single(torch, card)}
+    torch.cuda.empty_cache()
+    # the rank processes share the card: expandable segments keep each
+    # one's free blocks from fragmenting it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    for spec, _ in TRAIN_MESHES:
+        res[spec] = _train_ranks(torch, card, spec)
+    print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1620,9 +2108,17 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rendezvous", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
+    # a rank process of phase train (started by phase train itself)
+    ap.add_argument("--train-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--train-mesh", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.tp_rank is not None:
         return tp_rank_main(args.tp_rank, args.rendezvous, args.out)
+    if args.train_rank is not None:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        return train_rank_main(args.train_rank, args.train_mesh,
+                               args.rendezvous, args.out)
     phases = args.phases.split(",")
 
     import numpy as np
@@ -1659,6 +2155,8 @@ def main(argv=None) -> int:
     if "ar" in phases:
         ar_launches, ar_timed = phase_ar(torch, card)
     tp_ranks = phase_tp(torch, card) if "tp" in phases else []
+    trained = phase_train(torch, card) if "train" in phases else {}
+    train_launches = _train_launches(trained)
     tp_launches = tp_ranks[0]["dense"]["launches"] if tp_ranks else {}
     moe_tp_launches = tp_ranks[0]["moe"]["launches"] if tp_ranks else {}
 
@@ -1675,7 +2173,8 @@ def main(argv=None) -> int:
             t = ar_timed.get("prefill", {})
             errs = [r["max_abs_err"] for r in ar_timed.values()]
             source = "allreduce.cu"
-            n = tp_launches.get(name, 0) + moe_tp_launches.get(name, 0)
+            n = (tp_launches.get(name, 0) + moe_tp_launches.get(name, 0)
+                 + train_launches.get(name, 0))
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
                 name, {})
@@ -1683,6 +2182,7 @@ def main(argv=None) -> int:
                     for r in by_cfg.values() if name in r]
             source = "wire.cu" if name in WIRE_KERNELS else "stage.cu"
             n = (launches.get(name, 0) + moe_launches.get(name, 0)
+                 + train_launches.get(name, 0)
                  if name in WIRE_KERNELS else stage_launches.get(name, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source,
@@ -1691,6 +2191,7 @@ def main(argv=None) -> int:
             "moe_launches": moe_launches.get(name, 0),
             "tp_launches": tp_launches.get(name, 0),
             "moe_tp_launches": moe_tp_launches.get(name, 0),
+            "train_launches": train_launches.get(name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -1706,7 +2207,8 @@ def main(argv=None) -> int:
               "stage_launches": stage_launches, "a2a": a2a_timed,
               "a2a_launches": a2a_launches, "moe_launches": moe_launches,
               "serve": numbers(served), "moe": numbers(moe_served),
-              "ar": ar_timed, "ar_launches": ar_launches, "tp": tp_ranks}
+              "ar": ar_timed, "ar_launches": ar_launches, "tp": tp_ranks,
+              "train": trained}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -210,6 +210,21 @@ def aggressive_policy(backend: str = "auto") -> CommPolicy:
     )
 
 
+def depth_policy(edge_bits: int = 8, mid_bits: int = 4, k: int = 1,
+                 grad_bits: int = 2, backend: str = "auto") -> CommPolicy:
+    """Depth-scheduled paper policy: the first and last ``k`` layers keep
+    ``edge_bits`` TP, the middle drops to ``mid_bits``, and the gradient
+    sync runs at ``grad_bits`` with error feedback."""
+    return CommPolicy(
+        tp=first_last_k(default_comm_config(edge_bits, backend=backend),
+                        default_comm_config(mid_bits, backend=backend),
+                        k=k),
+        a2a=default_comm_config(4, backend=backend),
+        grad=default_comm_config(grad_bits, backend=backend),
+        grad_ef=True,
+    )
+
+
 # ---------------------------------------------------------------------------
 # JSON (the files in configs/policies/)
 # ---------------------------------------------------------------------------

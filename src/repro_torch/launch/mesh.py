@@ -1,23 +1,29 @@
-"""The model axis of one rank process, and the rank processes themselves.
+"""The mesh of one rank process, and the rank processes themselves.
 
 The counterpart of the JAX package's ``launch/mesh.py``: where JAX builds
-one mesh over every device in one process, the port serves ``--mesh
-1,TP`` with one process a rank. :func:`run_ranks` starts the rank
-processes (with ``subprocess``: a process must not fork after CUDA is
-up) and fails when one of them fails; each rank then calls
-:func:`init_model_axis` for its :class:`~repro_torch.parallel.axis.
-ModelAxis`:
+one mesh over every device in one process, the port runs one process a
+rank. :func:`run_ranks` starts the rank processes (with ``subprocess``: a
+process must not fork after CUDA is up) and fails when one of them
+fails; each rank then calls :func:`init_mesh` for its
+:class:`~repro_torch.parallel.axis.MeshAxes`, the mesh ``DATA,MODEL[,POD]``
+seen from rank ``r`` at coordinate ``(pod, data, model)`` in JAX's
+row-major order:
 
-* the process group, over a ``FileStore`` rendezvous: ``nccl`` when every
-  rank has a card of its own, ``gloo`` when ranks share one (NCCL refuses
-  two ranks on one card) or run on the CPU;
-* the rank, on card ``rank % torch.cuda.device_count()``;
-* on the card and with more than one rank, the peer world of the fused
-  collectives (:meth:`~repro_torch.kernels.rdma.PeerWorld.from_group`),
-  its receive rows sized from the largest site it serves, a TP site or
-  an MoE dispatch (:func:`site_row_bytes`).
+* one process group over a ``FileStore`` rendezvous (``nccl`` when every
+  rank has a card of its own, ``gloo`` when ranks share one, as NCCL
+  refuses two ranks on one card, or run on the CPU), and a subgroup for
+  each axis of more than one rank (a :class:`~repro_torch.parallel.axis.
+  ModelAxis`; an axis of one rank is ``None``);
+* the rank on card ``rank % torch.cuda.device_count()``;
+* on the card, for the model and the pod axes, the peer world of their
+  ``fused`` collectives (:meth:`~repro_torch.kernels.rdma.PeerWorld.
+  from_group`): the model axis's receive rows sized from the largest site
+  it serves, a TP site or an MoE dispatch (:func:`site_row_bytes`), the pod
+  axis's :data:`GRAD_ROW_BYTES` (a larger gradient leaf crosses in pieces).
 
-Data parallelism (``DATA > 1``) is not ported.
+Serving takes ``--mesh 1,TP`` (:func:`parse_mesh`: data-parallel serving,
+``DATA > 1``, is not ported); training takes ``--mesh DATA,MODEL[,POD]``
+(:func:`parse_train_mesh`).
 """
 from __future__ import annotations
 
@@ -31,11 +37,15 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.moe import capacity
-from repro_torch.parallel.axis import ModelAxis
+from repro_torch.parallel.axis import MeshAxes, ModelAxis
 
 #: the largest quantization group the kernels take: the most a TP site's
 #: vector, or a dispatch row, is padded
 _MAX_GROUP = 128
+#: receive-row bytes of a pod axis's peer world: a gradient leaf whose
+#: wire chunk is larger crosses in pieces that fit
+#: (:func:`repro_torch.core.collectives.quantized_all_reduce`)
+GRAD_ROW_BYTES = 64 << 20
 #: bytes a value of a row no wire of at most 8 bits exceeds (at most 1.375
 #: bytes a value: int8 codes and a spiked group of 32's meta): the f32
 #: payload's at a TP site, the bf16 payload's at a dispatch
@@ -74,6 +84,98 @@ def site_row_bytes(cfg, plan, batch: int, seq: int) -> int:
     return rows
 
 
+def parse_train_mesh(text: str) -> Tuple[int, int, int]:
+    """``"DATA,MODEL[,POD]"`` -> (data, model, pod); pod 0 means the mesh
+    has no pod axis (no cross-pod gradient sync)."""
+    dims = [int(v) for v in text.split(",")]
+    if len(dims) not in (2, 3) or any(v < 1 for v in dims):
+        raise ValueError(f"--mesh {text}: expected DATA,MODEL[,POD] "
+                         f"positive sizes")
+    return dims[0], dims[1], dims[2] if len(dims) == 3 else 0
+
+
+def mesh_coord(rank: int, data: int, model: int) -> Tuple[int, int, int]:
+    """Rank ``rank``'s (pod, data, model) coordinate, row-major."""
+    return rank // (data * model), rank // model % data, rank % model
+
+
+def init_mesh(data: int, model: int, pod: int, rank: int,
+                    rendezvous: Optional[str], device: torch.device,
+                    row_bytes: int) -> MeshAxes:
+    """Rank ``rank`` of ``max(pod, 1) * data * model`` rank processes on
+    ``device`` joins their process group at the ``FileStore`` file
+    ``rendezvous`` (one process: nothing to join) and builds its axes
+    (the module docstring; every rank creates every subgroup, in one
+    order), the model axis's peer world with receive rows of
+    ``row_bytes``. Call :func:`close_mesh` on every rank when done."""
+    world = max(pod, 1) * data * model
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    if world == 1:
+        return MeshAxes(multi_pod=pod > 0)
+    if not cuda and "OMP_NUM_THREADS" not in os.environ:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    own_cards = cuda and torch.cuda.device_count() >= world
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl" if own_cards else "gloo",
+                            init_method=f"file://{rendezvous}", rank=rank,
+                            world_size=world)
+    sizes = (max(pod, 1), data, model)
+    me = mesh_coord(rank, data, model)
+    axes = []
+    for ax, size in enumerate(sizes):
+        mine = None
+        if size > 1:
+            for other in range(world):        # every line along the axis
+                c = mesh_coord(other, data, model)
+                if c[ax] != 0:
+                    continue
+                ranks = [r for r in range(world)
+                         if all(mesh_coord(r, data, model)[i] == c[i]
+                                for i in range(3) if i != ax)]
+                pg = dist.new_group(ranks)
+                if rank in ranks:
+                    mine = (pg, ranks.index(rank))
+        axes.append(mine)
+    out = []
+    for ax, part in enumerate(axes):
+        if part is None:
+            out.append(None)
+            continue
+        pg, r = part
+        peer = None
+        if cuda and ax != 1:                  # the model and pod axes
+            from repro_torch.kernels.rdma import PeerWorld
+            peer = PeerWorld.from_group(pg, r, row_bytes if ax == 2
+                                        else GRAD_ROW_BYTES, device)
+        out.append(ModelAxis(pg, r, sizes[ax], peer))
+    assert all(a is None or a.rank == me[i] for i, a in enumerate(out))
+    return MeshAxes(model=out[2], data=out[1], pod=out[0],
+                    multi_pod=pod > 0)
+
+
+def barrier_all(mesh: MeshAxes) -> None:
+    """A host barrier over every rank of the mesh (nothing for one)."""
+    if any(a is not None for a in (mesh.model, mesh.data, mesh.pod)):
+        dist.barrier()
+
+
+def close_mesh(mesh: MeshAxes) -> None:
+    """Wait for the card and every rank, close the peer worlds, leave the
+    process group (nothing for one process)."""
+    axes = [a for a in (mesh.model, mesh.data, mesh.pod) if a is not None]
+    if not axes:
+        return
+    worlds = [a.world for a in axes if a.world is not None]
+    if worlds:
+        torch.cuda.synchronize(worlds[0].device)
+    dist.barrier()
+    for w in worlds:
+        w.close()
+    dist.destroy_process_group()
+
+
 def rank_device(rank: int, device: torch.device) -> torch.device:
     """Rank ``rank``'s device: the CPU, or card ``rank % device_count``."""
     if device.type != "cuda":
@@ -81,47 +183,11 @@ def rank_device(rank: int, device: torch.device) -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def init_model_axis(model: int, rank: int, rendezvous: str,
-                    device: torch.device, row_bytes: int) -> ModelAxis:
-    """Join the ``model`` ranks' process group at the ``FileStore`` file
-    ``rendezvous`` as ``rank`` on ``device`` (see the module docstring);
-    on the card, with ``model > 1``, build the peer world, its receive
-    rows of ``row_bytes`` (:func:`site_row_bytes`)."""
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.set_device(device)
-    elif "OMP_NUM_THREADS" not in os.environ:
-        # the host's cores, shared out among the ranks
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // model))
-    own_cards = cuda and torch.cuda.device_count() >= model
-    # the ranks of one host meet over its loopback interface
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    dist.init_process_group("nccl" if own_cards else "gloo",
-                            init_method=f"file://{rendezvous}", rank=rank,
-                            world_size=model)
-    pg = dist.group.WORLD
-    world = None
-    if cuda and model > 1:
-        from repro_torch.kernels.rdma import PeerWorld
-        world = PeerWorld.from_group(pg, rank, row_bytes, device)
-    return ModelAxis(pg, rank, model, world)
-
-
 def barrier(axis: Optional[ModelAxis]) -> None:
     """A host barrier over the ranks (nothing for one rank), so that no
     rank's kernel waits on a peer that is still busy on the host."""
     if axis is not None:
         dist.barrier(group=axis.pg)
-
-
-def close_model_axis(axis: ModelAxis) -> None:
-    """Wait for this rank's card and for every rank, close the peer world,
-    leave the process group."""
-    if axis.world is not None:
-        torch.cuda.synchronize(axis.world.device)
-        barrier(axis)
-        axis.world.close()
-    dist.destroy_process_group()
 
 
 def run_ranks(cmd_of: Callable[[int, str], List[str]], model: int,

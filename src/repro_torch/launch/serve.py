@@ -262,12 +262,12 @@ def main(argv=None) -> Dict:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     plan = make_plan(cfg, tp=model)
     rank = args.rank or 0
-    axis = None
     if model > 1:
         device = mesh.rank_device(rank, device)
-        axis = mesh.init_model_axis(
-            model, rank, args.rendezvous, device,
-            mesh.site_row_bytes(cfg, plan, args.batch, args.prompt_len))
+    axes = mesh.init_mesh(
+        1, model, 0, rank, args.rendezvous, device,
+        mesh.site_row_bytes(cfg, plan, args.batch, args.prompt_len))
+    axis = axes.model
     log = print if rank == 0 else (lambda *a, **k: None)
     try:
         policy = build_policy(args.policy, args.policy_file,
@@ -279,8 +279,7 @@ def main(argv=None) -> Dict:
                     prompt_len=args.prompt_len, gen=args.gen, device=device,
                     seed=args.seed, log=log, group=axis)
     finally:
-        if axis is not None:
-            mesh.close_model_axis(axis)
+        mesh.close_mesh(axes)
     log(f"[serve] OK{f' (rank 0 of {model})' if model > 1 else ''}")
     return res
 

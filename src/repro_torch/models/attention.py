@@ -63,6 +63,22 @@ def _head_maps(cfg: ModelConfig, plan: ShardingPlan, rank: int, device):
     return valid, kv_local
 
 
+def _per_q_head(t: torch.Tensor, kvmap: torch.Tensor, cfg: ModelConfig,
+                plan: ShardingPlan, rank: int) -> torch.Tensor:
+    """(B, S, kv_loc, hd) -> (B, S, hq_loc, hd), the kv head of each q
+    head. Where the map is kv head ``i // (hq_loc / kv_loc)`` for q head
+    ``i`` (every q head of the rank real), a broadcast: its backward sums
+    in a fixed order, where index_select's adds atomically on the card,
+    so a training step gives the same bits every run. Else index_select."""
+    rep, rem = divmod(plan.hq_loc, plan.kv_loc)
+    if rem == 0 and (rank + 1) * plan.hq_loc <= cfg.n_heads and \
+            cfg.n_heads // cfg.n_kv_heads == rep:
+        b, s, kv, hd = t.shape
+        return t[:, :, :, None, :].expand(b, s, kv, rep, hd).reshape(
+            b, s, kv * rep, hd)
+    return torch.index_select(t, 2, kvmap)
+
+
 def _scale(hd: int) -> float:
     """1/sqrt(hd) as float32 arithmetic gives it (as in the JAX code), as
     a Python float (exact in float32) so that no host-to-device copy
@@ -152,8 +168,7 @@ def self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
         if cfg.rope_theta is not None:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
-        ke = torch.index_select(k, 2, kvmap)      # expand to per-q-head
-        ve = torch.index_select(v, 2, kvmap)
+        ke, ve = (_per_q_head(t, kvmap, cfg, plan, rank) for t in (k, v))
         ctx = blockwise_attention(q, ke, ve, positions, positions)
         return _finish(p, ctx, valid, policy, cfg, layer, group), None
 

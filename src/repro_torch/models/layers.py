@@ -1,9 +1,9 @@
 """Normalization, RoPE, embeddings, vocab-parallel logits, dense MLP.
 
 Every activation that crosses the TP ranks goes through
-:func:`tp_psum`, the paper's quantized AllReduce site. ``group`` is the
-TP process group (``None``: one rank) and ``rank`` this rank's index in
-it.
+:func:`tp_psum`, the paper's quantized AllReduce site (its backward the
+``tp_bwd`` site). ``group`` is the TP process group (``None``: one rank)
+and ``rank`` this rank's index in it.
 """
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.collectives import compressed_psum
+from repro_torch.core.collectives import (all_gather_rows, compressed_psum,
+                                          psum_exact)
 from repro_torch.core.comm_config import NO_COMPRESSION
 from repro_torch.core.policy import CommPolicy
 
@@ -20,9 +21,12 @@ from repro_torch.core.policy import CommPolicy
 def tp_psum(x: torch.Tensor, policy: CommPolicy, group=None,
             layer: Optional[int] = None) -> torch.Tensor:
     """The TP AllReduce site. ``layer`` is the global block index (None
-    for the embedding psum); the policy resolves ``("tp", layer)``."""
+    for the embedding psum); the policy resolves ``("tp", layer)``, and
+    ``("tp_bwd", layer)`` for the backward (None: the exact sum of the
+    cotangent)."""
     cfg = policy.resolve("tp", layer) or NO_COMPRESSION
-    return compressed_psum(x, cfg, group)
+    bwd = policy.resolve("tp_bwd", layer)
+    return compressed_psum(x, cfg, group, bwd)
 
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor,
@@ -76,6 +80,34 @@ def vocab_parallel_logits(x: torch.Tensor, unemb_loc: torch.Tensor,
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+def vocab_parallel_ce(logits_loc: torch.Tensor, labels: torch.Tensor,
+                      vocab: int, v_loc: int, group=None,
+                      rank: int = 0) -> torch.Tensor:
+    """Cross-entropy over logits sharded by vocabulary over ``group``:
+    logits_loc (T, v_loc) f32, labels (T,) global ids -> (T,) nll.
+
+    The stabiliser max carries no gradient (a detached local max, its
+    maxima gathered without one); the sums over the ranks are exact, with
+    the exact sum as their backward.
+    """
+    base = rank * v_loc
+    col = torch.arange(v_loc, device=logits_loc.device)[None, :] + base
+    masked = torch.where(col < vocab, logits_loc,
+                         torch.full_like(logits_loc, float("-inf")))
+    loc_mx = torch.amax(masked, dim=-1).detach()
+    mx = torch.amax(all_gather_rows(loc_mx, group), dim=0)       # (T,)
+    se = psum_exact(torch.sum(torch.exp(masked - mx[:, None]), dim=-1),
+                    group)
+    lse = mx + torch.log(se)
+    ids = labels.to(torch.int64) - base
+    ok = (ids >= 0) & (ids < v_loc)
+    own = torch.gather(logits_loc, 1,
+                       torch.clamp(ids, 0, v_loc - 1)[:, None])[:, 0]
+    label_logit = psum_exact(torch.where(ok, own, torch.zeros_like(own)),
+                             group)
+    return lse - label_logit
 
 
 def mlp_apply(p: Dict, x: torch.Tensor, act: str, policy: CommPolicy,

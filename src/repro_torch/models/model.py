@@ -9,12 +9,22 @@ plus ``pre{i}_{kind}`` / ``suf{i}_{kind}`` for unrepeated blocks. Every
 activation crossing the TP ranks goes through the quantized AllReduce
 site, and an MoE block's dispatch through the quantized All2All site,
 each resolved per ``(site, global block index)``.
+
+Serving runs :func:`forward` on resident weights (``fsdp == 1``).
+Training runs :func:`forward_train` on the flat ZeRO store of
+:mod:`repro_torch.parallel.shardings`: each block group is gathered over
+the data axis (the ``qag`` site) as the JAX package's ``forward`` does,
+and each block, its gather included, is recomputed in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint``), so the backward
+replays the block's forward sites before it runs their backward sites.
+:func:`lm_loss` is the vocabulary-parallel cross-entropy.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.core.policy import CommPolicy
 from repro_torch.core.collectives import all_gather_rows
@@ -22,10 +32,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_lookup, mlp_apply, rms_norm,
+                                       vocab_parallel_ce,
                                        vocab_parallel_logits)
 from repro_torch.parallel.axis import axis_rank
 from repro_torch.parallel.plan import ShardingPlan
-from repro_torch.parallel.shardings import ParamSpec, Params
+from repro_torch.parallel.shardings import (ParamSpec, Params, Store,
+                                            gather_group)
 
 SUPPORTED_KINDS = ("dense", "moe")
 
@@ -87,22 +99,33 @@ def param_groups(cfg: ModelConfig, plan: ShardingPlan
     return groups
 
 
+def _block_order(cfg: ModelConfig) -> List[Tuple[str, int, List[str]]]:
+    """[(group, stack index, block kinds), ...] in layer order: one entry
+    for each unrepeated block and for each repeat of the pattern."""
+    out = [(f"pre{i}_{k}", 0, [k]) for i, k in enumerate(cfg.prefix)]
+    out += [("pattern", r, list(cfg.pattern))
+            for r in range(cfg.pattern_repeats)]
+    return out + [(f"suf{i}_{k}", 0, [k]) for i, k in enumerate(cfg.suffix)]
+
+
+def _block_of(p: Dict[str, torch.Tensor], gname: str,
+              j: int) -> Dict[str, torch.Tensor]:
+    """Block ``j`` of a group's parameters ``p``, its names unprefixed
+    (the pattern's names carry ``L{j}_``)."""
+    if gname != "pattern":
+        return p
+    pre = f"L{j}_"
+    return {k[len(pre):]: v for k, v in p.items() if k.startswith(pre)}
+
+
 def layer_params(params: Params, cfg: ModelConfig
                  ) -> List[Tuple[str, Dict[str, torch.Tensor]]]:
     """[(kind, {name: tensor}), ...] for every block in layer order."""
     out = []
-    for i, kind in enumerate(cfg.prefix):
-        out.append((kind, {k: v[0] for k, v in
-                           params[f"pre{i}_{kind}"].items()}))
-    for r in range(cfg.pattern_repeats):
-        for j, kind in enumerate(cfg.pattern):
-            pre = f"L{j}_"
-            out.append((kind, {k[len(pre):]: v[r] for k, v in
-                               params["pattern"].items()
-                               if k.startswith(pre)}))
-    for i, kind in enumerate(cfg.suffix):
-        out.append((kind, {k: v[0] for k, v in
-                           params[f"suf{i}_{kind}"].items()}))
+    for gname, stack, kinds in _block_order(cfg):
+        p = {k: v[stack] for k, v in params[gname].items()}
+        out += [(kind, _block_of(p, gname, j)) for j, kind in
+                enumerate(kinds)]
     return out
 
 
@@ -131,12 +154,59 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
                          group=group), 0.0
 
 
+def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
+             plan: ShardingPlan, policy: CommPolicy, *, dtype, group,
+             caches: Optional[Dict] = None, stats: Optional[Dict] = None,
+             recompute: bool = False):
+    """The one decoder loop of :func:`forward` and :func:`forward_train`:
+    ``get(group, stack)`` gives a parameter group's tensors at one stack
+    index; with ``recompute`` each block group, its ``get`` included, is
+    recomputed in the backward (``torch.utils.checkpoint``)."""
+    policy = policy.bind(cfg.n_layers)
+    rank = axis_rank(group)
+    decode = caches is not None
+    pe = get("embed", 0)
+    x = embed_lookup(tokens, pe["tok"], policy, dtype, group, rank)
+    pos = caches["pos"] if decode else 0
+    positions = None if decode else torch.arange(tokens.shape[1],
+                                                 device=tokens.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer = 0
+    for gname, stack, kinds in _block_order(cfg):
+        def body(cx, aux, gname=gname, stack=stack, kinds=kinds,
+                 layer0=layer):
+            p = get(gname, stack)
+            for j, kind in enumerate(kinds):
+                cx, a = apply_block(
+                    kind, _block_of(p, gname, j), cx, positions=positions,
+                    cfg=cfg, plan=plan, policy=policy,
+                    cache=caches["layers"][layer0 + j] if decode else None,
+                    pos=pos, layer=layer0 + j, group=group, rank=rank,
+                    stats=stats)
+                aux = aux + a
+            return cx, aux
+        if recompute:
+            with ckpt.set_checkpoint_early_stop(False):
+                x, aux_total = ckpt.checkpoint(body, x, aux_total,
+                                               use_reentrant=False)
+        else:
+            x, aux_total = body(x, aux_total)
+        layer += len(kinds)
+    if decode:
+        caches["pos"] = pos + 1
+    po = get("out", 0)
+    x = rms_norm(x, po["nf_gain"])
+    unemb = po["unemb"] if not cfg.tie_embeddings else pe["tok"]
+    return x, unemb, aux_total
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             plan: ShardingPlan, policy: CommPolicy, *,
             caches: Optional[Dict] = None, dtype=torch.bfloat16,
             group=None, stats: Optional[Dict] = None):
     """tokens (B, S) -> (hidden (B, S, d), unemb, aux_loss, caches), this
-    rank's shard of the model axis ``group`` (its rank read from it).
+    rank's shard of the model axis ``group`` (its rank read from it), on
+    resident weights.
 
     ``aux_loss`` is the MoE blocks' load-balance loss, summed (serving
     ignores it).
@@ -145,28 +215,60 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     token sits at ``caches["pos"]``, and the caches are updated in place
     (``pos`` advances by one).
     """
-    policy = policy.bind(cfg.n_layers)
-    rank = axis_rank(group)
-    decode = caches is not None
-    x = embed_lookup(tokens, params["embed"]["tok"][0], policy, dtype,
-                     group, rank)
-    pos = caches["pos"] if decode else 0
-    positions = None if decode else torch.arange(tokens.shape[1],
-                                                 device=tokens.device)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, (kind, p) in enumerate(layer_params(params, cfg)):
-        x, aux = apply_block(
-            kind, p, x, positions=positions, cfg=cfg, plan=plan,
-            policy=policy, cache=caches["layers"][layer] if decode else None,
-            pos=pos, layer=layer, group=group, rank=rank, stats=stats)
-        aux_total = aux_total + aux
-    if decode:
-        caches["pos"] = pos + 1
-    po = params["out"]
-    x = rms_norm(x, po["nf_gain"][0])
-    unemb = (po["unemb"] if not cfg.tie_embeddings
-             else params["embed"]["tok"])[0]
-    return x, unemb, aux_total, caches
+    def get(gname: str, stack: int) -> Dict[str, torch.Tensor]:
+        return {k: v[stack] for k, v in params[gname].items()}
+
+    x, unemb, aux = _decoder(get, tokens, cfg, plan, policy, dtype=dtype,
+                             group=group, caches=caches, stats=stats)
+    return x, unemb, aux, caches
+
+
+def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
+                  plan: ShardingPlan, policy: CommPolicy, *,
+                  dtype=torch.bfloat16, group=None, data_group=None,
+                  grad_deltas: Optional[Store] = None):
+    """The training forward: tokens (B_loc, S) -> (hidden (B_loc, S, d),
+    unemb, aux_loss).
+
+    ``store`` is this rank's flat ZeRO store (``store[g][name]`` of shape
+    ``(n_stack, flat / fsdp)``); every block group is gathered over the
+    data axis ``data_group`` through ``gather_group`` (quantized at the
+    ``qag`` site), ``group`` is the model axis. ``grad_deltas`` mirrors
+    the store with zero full-flat-length leaves ``(n_stack, flat)``: when
+    given, every gathered parameter is detached and its delta added (the
+    ``qgrad_rs`` tap). Each block, its gather included, is recomputed in
+    the backward (``torch.utils.checkpoint``, the whole block replayed).
+    """
+    if cfg.moe is not None or set(cfg.layer_kinds) != {"dense"}:
+        raise NotImplementedError(
+            "training runs dense blocks only: MoE training needs "
+            "dispatch_all_to_all's backward (ROADMAP Queue A item 7)")
+    groups = param_groups(cfg, plan)
+    qag = policy.bind(cfg.n_layers).resolve("qag")
+
+    def get(gname: str, stack: int) -> Dict[str, torch.Tensor]:
+        views = {k: v[stack] for k, v in store[gname].items()}
+        deltas = None if grad_deltas is None else {
+            k: v[stack] for k, v in grad_deltas[gname].items()}
+        return gather_group(views, groups[gname][1], plan, dtype, qag,
+                            data_group, deltas)
+
+    return _decoder(get, tokens, cfg, plan, policy, dtype=dtype,
+                    group=group, recompute=True)
+
+
+def lm_loss(hidden: torch.Tensor, unemb: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, plan: ShardingPlan, aux: torch.Tensor,
+            aux_weight: float = 0.01, group=None) -> torch.Tensor:
+    """Vocabulary-parallel cross-entropy, the mean over this rank's tokens
+    (the caller averages over the data ranks), plus ``aux_weight`` x the
+    auxiliary loss."""
+    t = hidden.shape[0] * hidden.shape[1]
+    logits = vocab_parallel_logits(hidden.reshape(t, -1), unemb,
+                                   cfg.logit_softcap)
+    nll = vocab_parallel_ce(logits, labels.reshape(t), cfg.vocab, plan.v_loc,
+                            group, axis_rank(group))
+    return torch.mean(nll) + aux_weight * aux
 
 
 def init_caches(cfg: ModelConfig, plan: ShardingPlan, batch: int,

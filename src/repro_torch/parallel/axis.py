@@ -1,11 +1,12 @@
-"""The model axis as a rank process sees it.
+"""A mesh axis as a rank process sees it.
 
 A model runs its TP sites over a ``group`` argument: ``None`` (one rank),
 a ``torch.distributed`` process group, or a :class:`ModelAxis`, which
 adds the peer world that the fused collectives push through
-(:mod:`repro_torch.launch.mesh` builds it). :func:`axis_parts` reads any
-of the three; :mod:`repro_torch.core.collectives` hands the kernel layer
-the process group or the peer world it picks from them.
+(:mod:`repro_torch.launch.mesh` builds it). The same three serve the
+data and pod axes of training (:class:`MeshAxes`). :func:`axis_parts`
+reads any of the three; :mod:`repro_torch.core.collectives` hands the
+kernel layer the process group or the peer world it picks from them.
 """
 from __future__ import annotations
 
@@ -40,3 +41,14 @@ def axis_parts(group) -> Tuple[Any, int, Optional[Any]]:
 def axis_rank(group) -> int:
     """This process's rank in ``group``."""
     return axis_parts(group)[1]
+
+
+class MeshAxes(NamedTuple):
+    """One rank's axes of the training mesh ``DATA,MODEL[,POD]``: each a
+    group as above (``None`` for an axis of one rank). ``multi_pod`` says
+    whether the mesh has a pod axis at all (its size may be 1): the
+    cross-pod gradient sync runs then, as in the JAX package."""
+    model: Any = None
+    data: Any = None
+    pod: Any = None
+    multi_pod: bool = False

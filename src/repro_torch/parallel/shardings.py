@@ -1,15 +1,26 @@
-"""Parameter specs, the port's random init, and loading a JAX store.
+"""Parameter specs, the port's random init, loading a JAX store, and the
+flat ZeRO store of training with its FSDP gather.
 
-The port keeps each parameter in its logical TP-local shape, stacked over
-pattern repeats: ``params[group][name]`` is ``(n_stack, *local_shape)``.
-Serving runs with ``fsdp == 1`` (weights resident), so there is no FSDP
-gather.
+Serving keeps each parameter in its logical TP-local shape, stacked over
+pattern repeats: ``params[group][name]`` is ``(n_stack, *local_shape)``,
+resident (``fsdp == 1``, no gather).
 
-The JAX package stores every parameter flat, as ``(n_stack, tp, flat)``
-with ``flat`` the rank's values zero-padded to
-:func:`repro_torch.parallel.plan.flat_store_len`;
-:func:`load_jax_store` unflattens such a store (copied to numpy) into the
-port's layout, so both packages can run the same weights.
+Training keeps the JAX package's flat ZeRO-3 store: a rank at
+``(model m, data d)`` holds ``store[group][name]`` of shape ``(n_stack,
+flat / fsdp)``, data shard ``d`` of rank ``m``'s TP-local values
+flattened and zero-padded to :func:`repro_torch.parallel.plan.
+flat_store_len` (whole quantization groups a shard). The forward gathers
+a parameter over the data axis (:func:`gather_param`, optionally through
+the wire codec: the ``qag`` site) and reshapes it; the gather's backward
+is the exact reduce-scatter, which lands the gradient on the rank's
+shard. A zero full-length ``delta`` added to the detached gathered
+weights instead taps the full-length per-rank gradient, for the explicit
+quantized reduce-scatter (the ``qgrad_rs`` site) that
+:mod:`repro_torch.train.train_step` runs after the backward.
+
+The JAX package stores every parameter as ``(n_stack, tp, flat)``;
+:func:`load_jax_store` takes such a store (copied to numpy) into either
+layout, so both packages run the same weights.
 """
 from __future__ import annotations
 
@@ -21,9 +32,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import codec
+from repro_torch.core.comm_config import CommConfig
 from repro_torch.parallel.plan import ShardingPlan, flat_store_len
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+#: the training store: ``store[group][name]`` (n_stack, flat / fsdp) f32
+Store = Dict[str, Dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,26 +104,67 @@ def init_params(cfg, plan: ShardingPlan, seed: int, device,
             elif spec.init == "zeros":
                 t.zero_()
             else:
-                fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-                std = 1.0 / math.sqrt(max(fan_in, 1))
-                r = rank if (spec.tp_dim is not None
-                            or spec.moe_fold is not None) else 0
                 for i in range(n_stack):
-                    gen = torch.Generator(device=device)
-                    gen.manual_seed(_seed(seed, gname, name, i, r))
-                    t[i] = (torch.randn(shape, generator=gen, device=device,
-                                        dtype=torch.float32) * std).to(dtype)
+                    t[i] = _draw(spec, plan, seed, gname, name, i, rank,
+                                 device).to(dtype)
+            out[gname][name] = t
+    return out
+
+
+def _draw(spec: ParamSpec, plan: ShardingPlan, seed: int, gname: str,
+          name: str, stack: int, rank: int, device) -> torch.Tensor:
+    """One stack slice of a ``fan_in`` parameter, float32 (see
+    :func:`init_params`)."""
+    shape = spec.local_shape(plan)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    r = rank if (spec.tp_dim is not None or spec.moe_fold is not None) else 0
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_seed(seed, gname, name, stack, r))
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32) * std
+
+
+def init_store(cfg, plan: ShardingPlan, seed: int, device, rank: int = 0,
+               data_rank: int = 0) -> Store:
+    """The training store of the rank at (model ``rank``, data
+    ``data_rank``), float32 on ``device``: the weights of
+    :func:`init_params` (the same seed gives the same values), flattened,
+    zero-padded to the flat length, data shard ``data_rank``."""
+    from repro_torch.models.model import param_groups
+    out: Store = {}
+    for gname, (n_stack, specs) in sorted(param_groups(cfg, plan).items()):
+        out[gname] = {}
+        for name, spec in sorted(specs.items()):
+            flat = spec.flat_len(plan)
+            shard = flat // plan.fsdp
+            lo = data_rank * shard
+            t = torch.zeros((n_stack, shard), dtype=torch.float32,
+                            device=device)
+            numel = spec.numel_loc(plan)
+            if spec.init == "ones":
+                t[:, :max(0, min(numel - lo, shard))] = 1.0
+            elif spec.init != "zeros":
+                for i in range(n_stack):
+                    v = _draw(spec, plan, seed, gname, name, i, rank,
+                              device).reshape(-1)[lo:lo + shard]
+                    t[i, :v.shape[0]] = v
+                    del v
             out[gname][name] = t
     return out
 
 
 def load_jax_store(store_np, cfg, plan: ShardingPlan, device,
-                   dtype=torch.float32, rank: int = 0) -> Params:
+                   dtype=torch.float32, rank: int = 0,
+                   data_rank: Optional[int] = None) -> Params:
     """JAX storage dict -> the port's parameters for TP rank ``rank``.
 
     ``store_np`` is ``{group: {name: ndarray (n_stack, tp, flat_len)}}``,
     as ``repro.parallel.shardings.build_store`` makes it and
-    ``np.asarray`` copies it.
+    ``np.asarray`` copies it. With ``data_rank`` None: the serving layout,
+    each parameter in its logical shape. With ``data_rank`` d: the
+    training store of (model ``rank``, data d), each ``(n_stack, flat /
+    fsdp)``, data shard d of the flat payload.
     """
     from repro_torch.models.model import param_groups
     out: Params = {}
@@ -116,10 +172,88 @@ def load_jax_store(store_np, cfg, plan: ShardingPlan, device,
         out[gname] = {}
         for name, spec in specs.items():
             arr = np.asarray(store_np[gname][name], dtype=np.float32)
-            assert arr.shape == (n_stack, plan.tp, spec.flat_len(plan)), (
+            flat = spec.flat_len(plan)
+            assert arr.shape == (n_stack, plan.tp, flat), (
                 gname, name, arr.shape)
-            shape = spec.local_shape(plan)
-            vals = arr[:, rank, :math.prod(shape)].reshape(n_stack, *shape)
+            if data_rank is None:
+                shape = spec.local_shape(plan)
+                vals = arr[:, rank, :math.prod(shape)].reshape(n_stack,
+                                                               *shape)
+            else:
+                shard = flat // plan.fsdp
+                vals = arr[:, rank, data_rank * shard:(data_rank + 1) * shard]
             out[gname][name] = torch.from_numpy(vals.copy()).to(
                 device=device, dtype=dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# FSDP gather (differentiable, optionally quantized)
+# ---------------------------------------------------------------------------
+
+def _all_gather(x: torch.Tensor, cfg: Optional[CommConfig],
+                group) -> torch.Tensor:
+    from repro_torch.core.collectives import all_gather_rows
+    if cfg is None or not cfg.enabled:
+        return all_gather_rows(x, group).reshape(-1)
+    wire = codec.encode(x, cfg)                       # (w,)
+    allw = all_gather_rows(wire, group)               # (fsdp, w)
+    return codec.decode(allw, cfg, x.shape[-1],
+                        out_dtype=x.dtype).reshape(-1)
+
+
+class _FsdpAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cfg, group):
+        ctx.group = group
+        return _all_gather(x, cfg, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.collectives import reduce_scatter_tiled
+        return reduce_scatter_tiled(g, ctx.group), None, None
+
+
+def fsdp_all_gather(x: torch.Tensor, cfg: Optional[CommConfig],
+                    group) -> torch.Tensor:
+    """(flat / fsdp,) -> (flat,) over the data axis ``group``: the plain
+    all-gather, or with ``cfg`` enabled the wire codec's (the ZeRO++-style
+    ``qag`` site: each rank's shard encoded once, the wires gathered and
+    decoded). The backward is the exact reduce-scatter."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _FsdpAllGather.apply(x, cfg, group)
+    return _all_gather(x, cfg, group)
+
+
+def gather_param(flat_view: torch.Tensor, spec: ParamSpec,
+                 plan: ShardingPlan, dtype, qag: Optional[CommConfig] = None,
+                 group=None, delta: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """A rank's flat shard (flat / fsdp,) -> its logical TP-local array in
+    ``dtype``, gathered over the data axis ``group`` when ``fsdp > 1``.
+
+    ``delta`` (zeros of the full flat length) is the gradient tap of the
+    explicit ``qgrad_rs`` pass: the gathered weights are detached and
+    ``delta`` added, so the gradient w.r.t. ``delta`` is the full-length
+    per-rank gradient, before any reduce-scatter.
+    """
+    if plan.fsdp == 1:
+        flat = flat_view.reshape(-1)
+    else:
+        flat = fsdp_all_gather(flat_view.reshape(-1), qag, group)
+    if delta is not None:
+        flat = flat.detach() + delta.reshape(-1).to(flat.dtype)
+    shape = spec.local_shape(plan)
+    return flat[:math.prod(shape)].reshape(shape).to(dtype)
+
+
+def gather_group(views: Dict[str, torch.Tensor], specs: Dict[str, ParamSpec],
+                 plan: ShardingPlan, dtype, qag: Optional[CommConfig] = None,
+                 group=None, deltas: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """:func:`gather_param` of every parameter of a block group, in name
+    order (the same order on every rank)."""
+    return {name: gather_param(views[name], specs[name], plan, dtype, qag,
+                               group, None if deltas is None
+                               else deltas[name])
+            for name in sorted(specs)}

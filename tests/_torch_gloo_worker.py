@@ -25,6 +25,8 @@ next token over the vocabulary shards, and ``serve``'s decode loop (the
 prompt teacher-forced through the cache, then generation). Also the
 greedy choice on :func:`tie_logits`, whose two shards tie.
 
+MODE ``serve_llama``: the same for the llama3-8b smoke config.
+
 MODE ``serve_moe``: the same for the moonshot smoke config (float32;
 ``tests/test_torch_serve_tp_moe.py`` writes its ``jax.npz``), its experts
 spread over the ranks (ep = WORLD), with the routes dropped over
@@ -132,7 +134,8 @@ SERVE_RUNS = {"paper/two_step": ("paper", None),
               "bf16": ("bf16", None)}
 
 
-SERVE_ARCHS = {"serve": "qwen3-14b", "serve_moe": "moonshot-v1-16b-a3b"}
+SERVE_ARCHS = {"serve": "qwen3-14b", "serve_llama": "llama3-8b",
+               "serve_moe": "moonshot-v1-16b-a3b"}
 
 
 def serve_config(arch: str = "qwen3-14b"):

@@ -1,0 +1,514 @@
+"""One rank of the port's training run on gloo, held against JAX's.
+
+    python tests/_torch_train_worker.py RANK MESH INIT_FILE OUT_DIR POLICIES
+    python tests/_torch_train_worker.py jax MESH OUT_DIR POLICIES
+    python tests/_torch_train_worker.py coll RANK WORLD INIT_FILE OUT_DIR
+
+``MESH`` is ``DATA,MODEL[,POD]`` (as the launchers take it), ``POLICIES``
+a comma-separated list of :data:`POLICIES` keys. ``OUT_DIR`` holds the
+JAX side (written by ``tests/test_torch_train*.py``): ``init.npz``, the
+global store both packages start from (``store/GROUP/NAME``, JAX's
+``(n_stack, tp, flat)`` arrays), and ``jax_POLICY.npz``, JAX's metrics and
+state after each of :data:`STEPS` steps (``STEP/loss``,
+``STEP/grad_norm``, ``STEP/lr``, ``STEP/store/...``, ``STEP/m/...``,
+``STEP/v/...``, ``STEP/ef/...``, ``STEP/qef/...``).
+
+The ``jax`` mode writes them: the JAX package builds the store
+(``build_store`` with a crc32 in place of its per-process salted
+``hash``, the zero-initialised output projections filled from a seeded
+normal so that every TP site carries data) and trains each policy with
+its jitted ``make_train_step`` on a mesh of fake CPU devices
+(``XLA_FLAGS=--xla_force_host_platform_device_count``).
+
+The ``coll`` mode is one rank of ``tests/test_torch_train_collectives.py``:
+the collectives with a backward (:data:`COLL_CASES`) on every rank's row
+of :func:`coll_inputs`, their outputs and input gradients saved as
+``OUT_DIR/coll{RANK}.npz``.
+
+The rank joins the mesh (:func:`repro_torch.launch.mesh.init_mesh`
+on the CPU), loads its ``(model, data)`` shard of the initial store
+(``load_jax_store(data_rank=...)``) and trains each policy for
+:data:`STEPS` steps on the same batches, each step after the first from
+JAX's store after the step before (its optimizer state is its own).
+After each step it holds every tree of its state against the same slice
+of JAX's, and checks its EF residuals' sum rule over the ranks
+(:func:`ef_sums`). It saves, as ``rankR.npz``, its metrics, for each
+(policy, step, tree) each leaf's :func:`leaf_stats` and for ``ef`` and
+``qef`` each leaf's sum rule; :func:`check` asserts on them.
+"""
+import dataclasses
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__))), "src"))
+
+STEPS = 3
+BATCH, SEQ = 8, 16
+ARCH = "llama3-8b"
+TREES = ("store", "m", "v", "ef", "qef")
+
+
+def policies():
+    from repro_torch.core.policy import (BF16_POLICY, aggressive_policy,
+                                         depth_policy, paper_policy)
+    return {"bf16": BF16_POLICY, "paper": paper_policy(),
+            "depth": depth_policy(), "aggressive": aggressive_policy(),
+            "aggressive_ef": dataclasses.replace(aggressive_policy(),
+                                                 grad_ef=True)}
+
+
+def train_config():
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+
+
+def opt_config():
+    from repro_torch.train.optim import OptimConfig
+    return OptimConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+
+
+def read_store(npz) -> dict:
+    store = {}
+    for key in npz.files:
+        if key.startswith("store/"):
+            _, g, name = key.split("/")
+            store.setdefault(g, {})[name] = npz[key]
+    return store
+
+
+def leaf_stats(got: np.ndarray, want: np.ndarray,
+               start: np.ndarray = None) -> np.ndarray:
+    """One leaf of the port's state against JAX's -> [rel, ratio]: the L2
+    norm of the difference over that of JAX's value (of its change since
+    ``start``, for the store), and the L2 norm of the port's value
+    (change) over JAX's. Where JAX's is zero: 0 if the port's is too,
+    else infinite."""
+    got, want = got.astype(np.float64), want.astype(np.float64)
+    if start is not None:
+        got, want = got - start, want - start
+    nd, nr, ng = (float(np.linalg.norm(a)) for a in (got - want, want, got))
+    if not nr:
+        return np.array([0.0 if nd == 0 else np.inf] * 2)
+    return np.array([nd / nr, ng / nr])
+
+
+def ef_tap(calls: list):
+    """Wrap the train step's EF collectives so that each call records its
+    kind (``ef`` for ``compressed_psum_ef``, ``qef`` for
+    ``quantized_reduce_scatter_ef``), its input with the residual added
+    (``x + residual``, as the collective forms it) and its output, in
+    call order (the sorted leaves)."""
+    from repro_torch.train import train_step as ts
+
+    def tap(kind, fn):
+        def wrapped(x, residual, cfg, group=None):
+            xe = (x.detach().float() + residual.detach().float()).double()
+            out, res = fn(x, residual, cfg, group)
+            calls.append((kind, xe, out.detach().double()))
+            return out, res
+        return wrapped
+
+    ts.compressed_psum_ef = tap("ef", ts.compressed_psum_ef)
+    ts.quantized_reduce_scatter_ef = tap(
+        "qef", ts.quantized_reduce_scatter_ef)
+
+
+def ef_sums(calls: list, opt: dict, mesh) -> dict:
+    """{"ef" / "qef": [per leaf]} the residuals' sum rule after a step,
+    from the calls :func:`ef_tap` recorded: the sum over the collective's
+    ranks of the new residuals in the optimizer state must equal the sum
+    of the inputs (with the old residuals) less the output, the
+    collective's whole error (the two-step's phase-1 and owned phase-2
+    errors; the reduce-scatter's one quantization), each leaf's largest
+    difference over the largest summed input."""
+    from repro_torch.core.collectives import all_gather_tiled, all_reduce_sum
+    out = {}
+    for kind, group in (("ef", mesh.pod), ("qef", mesh.data)):
+        mine = [c for c in calls if c[0] == kind]
+        if not mine:
+            continue
+        assert len(mine) == len(leaves(opt[kind])), (kind, len(mine))
+        stats = []
+        for (g, n), (_, xe, o) in zip(leaves(opt[kind]), mine):
+            tot = all_reduce_sum(xe, group)
+            if kind == "qef":             # each rank holds its chunk
+                o = all_gather_tiled(o, group)
+            res = all_reduce_sum(opt[kind][g][n].double(), group)
+            stats.append(float((tot - o - res).abs().max()
+                               / tot.abs().max()))
+        out[kind] = np.array(stats)
+    return out
+
+
+def run(out_dir: str, mesh_spec: str, names, timeout: float = 240):
+    """The JAX reference, then the port's ranks, of ``names`` on
+    ``mesh_spec`` -> ([rank npz, ...], {name: jax npz})."""
+    import subprocess
+    dims = [int(v) for v in mesh_spec.split(",")]
+    world = dims[0] * dims[1] * (dims[2] if len(dims) > 2 else 1)
+    me = os.path.abspath(__file__)
+    env = dict(os.environ, OMP_NUM_THREADS="1", XLA_FLAGS=(
+        f"--xla_force_host_platform_device_count={world}"))
+    cmds = [[sys.executable, me, "jax", mesh_spec, out_dir, ",".join(names)]]
+    cmds.append(None)
+    cmds += [[sys.executable, me, str(r), mesh_spec,
+              os.path.join(out_dir, "rendezvous"), out_dir, ",".join(names)]
+             for r in range(world)]
+    for batch in (cmds[:1], cmds[2:]):
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, env=env)
+                 for c in batch]
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=timeout)[0].decode())
+            finally:
+                p.kill()
+        assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    return ([np.load(os.path.join(out_dir, f"rank{r}.npz"))
+             for r in range(world)],
+            {n: np.load(os.path.join(out_dir, f"jax_{n}.npz"))
+             for n in names})
+
+
+#: per policy: the bound on loss and grad norm (relative), and on each
+#: leaf's relative L2 difference (leaf_stats "rel") of the store's change
+#: and of ``m`` and ``v``, at every step (``check`` says where they come
+#: from)
+BOUNDS = {"bf16": dict(loss=1e-6, grad_norm=1e-6, store=1e-2, moments=1e-4),
+          "paper": dict(loss=3e-4, grad_norm=2e-3, store=0.5, moments=0.05),
+          "depth": dict(loss=3e-4, grad_norm=2e-3, store=0.5, moments=0.4),
+          "aggressive": dict(loss=3e-4, grad_norm=2e-3, store=0.5,
+                             moments=0.4)}
+BOUNDS["aggressive_ef"] = BOUNDS["aggressive"]
+#: the EF residuals' sum rule (:func:`ef_sums`), relative
+EF_SUM = 1e-6
+#: each EF residual leaf's L2 norm within this factor of JAX's
+EF_NORM = 4.0
+
+
+def check(ranks, want, name: str) -> None:
+    """Hold every rank's run of policy ``name`` against JAX's ``want``,
+    every step (each step starts from JAX's weights, so the runs cannot
+    drift apart; the moments and residuals are each package's own).
+
+    Without the codec (bf16) the packages differ only in float32
+    summation order: loss and grad norm to 1e-6, ``m`` and ``v`` to 1e-4
+    of each leaf's L2 norm (measured 2e-6), the store's change to 1e-2
+    (6e-4: where a gradient is within rounding of zero, Adam moves the
+    element the other way by 2 lr). Under a quantized policy such a
+    difference moves a value across a rounding boundary of some wire now
+    and then, one code step of its group, and JAX's jitted decode rounds
+    differently from the port's (ROADMAP Queue C); the step moves every
+    gradient downstream a little. Measured at (2, 2, 2) and (1, 2, 1)
+    (``BOUNDS`` holds 1.2-5x each): loss 8.1e-5, grad norm 3.8e-4, the
+    store's change 0.28, ``m`` and ``v`` 0.016 (paper), 0.19 (depth),
+    0.21 (aggressive). Planted faults read far above: the store never
+    updated 1.0; the model axis's sum of the replicated gradients
+    dropped: ``m`` 0.79, ``v`` 0.86; ``m`` without its history: 0.7.
+
+    The EF residuals are quantization errors, which a flipped code or a
+    group's moved range replaces wholesale, so against JAX's they differ
+    by 1.3-2.9 of their norm per leaf even at step 0: they are held by
+    their sum rule (:func:`ef_sums`, to 1e-6; measured 9e-8; the
+    phase-2 error dropped 0.25, on the wrong chunk 0.30, the residual not
+    fed back 0.41, ``qef`` not carried 6e-3) and by their size (each
+    leaf's norm within 4x of JAX's; measured 0.32-2.7), and they exist
+    exactly where JAX's do.
+    """
+    bd = BOUNDS[name]
+    for i in range(STEPS):
+        for r, res in enumerate(ranks):
+            tag = f"{name} step {i} rank {r}"
+            for k in ("loss", "grad_norm"):
+                got, exp = float(res[f"{name}/{i}/{k}"]), float(
+                    want[f"{i}/{k}"])
+                assert np.isfinite(got) and abs(got - exp) <= bd[k] * abs(
+                    exp), (tag, k, got, exp)
+            for tree in TREES:
+                key = f"{name}/{i}/{tree}"
+                has = any(f.startswith(f"{i}/{tree}/") for f in want.files)
+                assert (key in res.files) == has, (tag, tree)
+                if not has:
+                    continue
+                rel, ratio = res[key].T
+                if tree in ("ef", "qef"):
+                    sums = res[f"{key}_sum"]
+                    assert sums.max() <= EF_SUM, (tag, tree, sums.max())
+                    assert (ratio.min() >= 1 / EF_NORM
+                            and ratio.max() <= EF_NORM), (
+                        tag, tree, ratio.min(), ratio.max())
+                else:
+                    b = bd["store" if tree == "store" else "moments"]
+                    assert rel.max() <= b, (tag, tree, rel.max(), b)
+
+
+def leaves(tree) -> list:
+    """(group, name) of every leaf of a state tree, sorted: the rows of
+    a tree's statistics."""
+    return [(g, n) for g in sorted(tree) for n in sorted(tree[g])]
+
+
+def local(arr: np.ndarray, plan, m: int, d: int) -> np.ndarray:
+    """A JAX ``(n_stack, tp, flat)`` state array -> the ``(n_stack,
+    flat / fsdp)`` shard of model rank ``m``, data rank ``d``."""
+    k = arr.shape[2] // plan.fsdp
+    return arr[:, m, d * k:(d + 1) * k]
+
+
+def jax_reference(mesh_spec: str, out_dir: str, names) -> None:
+    """The JAX side (its own process, with enough fake devices)."""
+    import zlib
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import get_smoke_config
+    from repro.core import policy as jpolicy
+    from repro.launch.mesh import make_test_mesh
+    from repro.models import model as jmodel
+    from repro.parallel import shardings as jshard
+    from repro.parallel.plan import make_plan
+    from repro.train.data import DataConfig, make_dataset, to_device
+    from repro.train.optim import OptimConfig
+    from repro.train.train_step import (init_train_state, make_train_step,
+                                        wants_grad_ef, wants_qgrad_ef)
+    dims = [int(v) for v in mesh_spec.split(",")]
+    data, model, pod = dims[0], dims[1], dims[2] if len(dims) > 2 else 0
+    mesh = make_test_mesh(data=data, model=model, pod=pod)
+    cfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    plan = make_plan(cfg, tp=model, fsdp=data)
+    oc = OptimConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    jshard.hash = lambda s: zlib.crc32(s.encode())
+    store0 = jshard.build_store(jmodel.param_groups(cfg, plan), plan,
+                                jax.random.PRNGKey(0), jnp.float32)
+    rng = np.random.default_rng(7)
+    init, store_np = {}, {}
+    for g, arrs in sorted(store0.items()):
+        store_np[g] = {}
+        for name, a in sorted(arrs.items()):
+            a = np.array(a)
+            if not a.any():                      # zero-init projections
+                a = (rng.standard_normal(a.shape) * 0.05).astype(np.float32)
+            store_np[g][name] = init[f"store/{g}/{name}"] = a
+    np.savez(os.path.join(out_dir, "init.npz"), **init)
+    pols = {"bf16": jpolicy.BF16_POLICY, "paper": jpolicy.paper_policy(),
+            "depth": jpolicy.depth_policy(),
+            "aggressive": jpolicy.aggressive_policy()}
+    pols["aggressive_ef"] = dataclasses.replace(pols["aggressive"],
+                                                grad_ef=True)
+    sh = NamedSharding(mesh, jshard.STORE_SPEC)
+    ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
+                                 global_batch=BATCH))
+
+    def put(x):                   # placed as the step returns them
+        return jax.device_put(x, sh if x.ndim == 3
+                              else NamedSharding(mesh, P()))
+
+    def flat(tree, prefix, out):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flat(v, f"{prefix}{k}/", out)
+            else:
+                out[prefix + k] = np.asarray(v)
+
+    for name in names:
+        pol = jpolicy.with_backend(pols[name], "ref")
+        store = jax.tree_util.tree_map(lambda a: put(jnp.asarray(a)),
+                                       store_np)
+        step = make_train_step(cfg, plan, pol, oc, mesh, global_batch=BATCH)
+        opt = jax.tree_util.tree_map(put, init_train_state(
+            store, oc, grad_ef=wants_grad_ef(pol, mesh),
+            qgrad_ef=wants_qgrad_ef(pol, plan), fsdp=plan.fsdp))
+        res = {}
+        for i in range(STEPS):
+            store, opt, m = step(store, opt, to_device(ds.batch(i)))
+            for k, v in m.items():
+                res[f"{i}/{k}"] = np.asarray(v)
+            flat(store, f"{i}/store/", res)
+            flat({k: v for k, v in opt.items() if k != "step"}, f"{i}/",
+                 res)
+        np.savez(os.path.join(out_dir, f"jax_{name}.npz"), **res)
+
+
+COLL_N, COLL_K = 2048, 512
+#: case -> (function, config keywords, backward config keywords)
+COLL_CASES = {
+    "psum": ("psum", dict(bits=8, group=128), None),
+    "psum_bwd": ("psum", dict(bits=8, group=128), dict(bits=8, group=128)),
+    "psum_hierpp": ("psum", dict(bits=4, group=32, spike=True,
+                                 scale_int=True, scheme="hier_pp"), None),
+    "psum_fused": ("psum", dict(bits=8, group=128, scheme="fused"), None),
+    "qrs": ("qrs", dict(bits=8, group=128), None),
+    "qag": ("qag", dict(bits=4, group=32, scale_int=True), None),
+    "fsdp": ("fsdp", dict(bits=4, group=32, scale_int=True), None),
+    "fsdp_exact": ("fsdp", None, None),
+    "ef_two_step": ("ef", dict(bits=2, group=32, spike=True), None),
+    "ef_hierpp": ("ef", dict(bits=4, group=32, spike=True, scale_int=True,
+                             scheme="hier_pp"), None),
+    "ef_fused": ("ef", dict(bits=8, group=128, scheme="fused"), None),
+    "qrs_ef": ("qrs_ef", dict(bits=8, group=128), None),
+    "grad_all_reduce": ("gar", dict(bits=8, group=128,
+                                    scheme="hierarchical"), None),
+    # two axes: inner = pairs of consecutive ranks, outer = across pairs
+    "hier2": ("psum2", dict(bits=8, group=128, scheme="hierarchical"),
+              dict(bits=8, group=128)),
+    "hier2_pp": ("psum2", dict(bits=8, group=128, scheme="hier_pp"), None),
+    "two_step2_outer": ("psum2", dict(bits=8, group=128), None),
+}
+#: the outer (bridge) wire of the two-axis cases
+COLL_OUTER = dict(bits=4, group=32, spike=True)
+
+
+def coll_inputs(world: int):
+    """Every rank's input row, residual and cotangents (numpy, seeded)."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((world, COLL_N)) * 2).astype(np.float32)
+    x[1, 37] = 40.0
+    return {"x": x,
+            "r": (rng.standard_normal((world, COLL_N)) * 0.01).astype(
+                np.float32),
+            "xk": rng.standard_normal((world, COLL_K)).astype(np.float32),
+            "ct": rng.standard_normal((world, COLL_N)).astype(np.float32),
+            "ct_rs": rng.standard_normal((world, COLL_N // world)).astype(
+                np.float32),
+            "ct_ag": rng.standard_normal((world, world * COLL_K)).astype(
+                np.float32)}
+
+
+def coll_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
+    """One rank of the collectives' gloo run (mode ``coll``)."""
+    import torch.distributed as dist
+    from repro_torch.core import collectives as C
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.parallel.shardings import fsdp_all_gather
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    from repro_torch.parallel.axis import ModelAxis
+    g = dist.group.WORLD
+    pairs = [dist.new_group(r) for r in ([0, 1], [2, 3])]   # inner axis
+    cross = [dist.new_group(r) for r in ([0, 2], [1, 3])]   # outer axis
+    axes = (ModelAxis(pairs[rank // 2], rank % 2, 2),
+            ModelAxis(cross[rank % 2], rank // 2, 2))
+    inp = {k: torch.from_numpy(v[rank]) for k, v in
+           coll_inputs(world).items()}
+    out = {}
+    try:
+        for case, (fn, kw, bkw) in COLL_CASES.items():
+            cfg = None if kw is None else CommConfig(**kw)
+            bwd = None if bkw is None else CommConfig(**bkw)
+            big = fn not in ("qag", "fsdp")
+            x = (inp["x"] if big else inp["xk"]).clone().requires_grad_()
+            r = inp["r"].clone().requires_grad_()
+            if fn == "psum":
+                y = C.compressed_psum(x, cfg, g, bwd)
+            elif fn == "psum2":
+                y = C.compressed_psum(x, cfg, axes, bwd,
+                                      CommConfig(**COLL_OUTER))
+            elif fn == "gar":
+                y = C.grad_all_reduce({"a": {"w": x}}, [g], cfg)["a"]["w"]
+            elif fn == "qrs":
+                y = C.quantized_reduce_scatter(x, cfg, g)
+            elif fn == "qag":
+                y = C.quantized_all_gather(x, cfg, g)
+            elif fn == "fsdp":
+                y = fsdp_all_gather(x, cfg, g)
+            elif fn == "ef":
+                y, res = C.compressed_psum_ef(x, r, cfg, g)
+            else:
+                y, res = C.quantized_reduce_scatter_ef(x, r, cfg, g)
+            ct = {"qrs": "ct_rs", "qrs_ef": "ct_rs", "qag": "ct_ag",
+                  "fsdp": "ct_ag"}.get(fn, "ct")
+            y.backward(inp[ct])
+            out[f"{case}/out"] = y.detach().numpy()
+            out[f"{case}/grad"] = x.grad.numpy()
+            if fn in ("ef", "qrs_ef"):
+                out[f"{case}/res"] = res.detach().numpy()
+                out[f"{case}/grad_r"] = r.grad.numpy()
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"coll{rank}.npz"), **out)
+
+
+def main():
+    if sys.argv[1] == "coll":
+        return coll_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                         sys.argv[5])
+    if sys.argv[1] == "jax":
+        return jax_reference(sys.argv[2], sys.argv[3],
+                             sys.argv[4].split(","))
+    rank, mesh_spec = int(sys.argv[1]), sys.argv[2]
+    init_file, out_dir = sys.argv[3], sys.argv[4]
+    names = sys.argv[5].split(",")
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.parallel.axis import axis_rank
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.parallel.shardings import load_jax_store
+    from repro_torch.train.data import DataConfig, make_dataset
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.train_step import (local_batch, make_train_step_fn,
+                                              wants_grad_ef, wants_qgrad_ef)
+    data, model, pod = mesh_lib.parse_train_mesh(mesh_spec)
+    cpu = torch.device("cpu")
+    mesh = mesh_lib.init_mesh(data, model, pod, rank, init_file, cpu, 0)
+    cfg = train_config()
+    plan = make_plan(cfg, tp=model, fsdp=data)
+    m, d = axis_rank(mesh.model), axis_rank(mesh.data)
+    init = np.load(os.path.join(out_dir, "init.npz"))
+    store_np = read_store(init)
+    ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
+                                 global_batch=BATCH))
+    out, calls = {}, []
+    ef_tap(calls)
+    try:
+        for name in names:
+            policy = policies()[name]
+            want = np.load(os.path.join(out_dir, f"jax_{name}.npz"))
+            store = load_jax_store(store_np, cfg, plan, cpu, rank=m,
+                                   data_rank=d)
+            opt = init_opt_state(store, opt_config(),
+                                 grad_ef=wants_grad_ef(policy, mesh),
+                                 qgrad_ef=wants_qgrad_ef(policy, plan),
+                                 fsdp=plan.fsdp)
+            step = make_train_step_fn(cfg, plan, policy, opt_config(), mesh)
+            for i in range(STEPS):
+                # every step starts from JAX's weights: step 0 from the
+                # init (as load_jax_store sliced it), the others from
+                # JAX's store after the step before
+                src, start = (init, "store") if i == 0 else (
+                    want, f"{i - 1}/store")
+                for g, n in leaves(store) if i else ():
+                    store[g][n].copy_(torch.from_numpy(local(
+                        src[f"{start}/{g}/{n}"], plan, m, d)))
+                store, opt, metrics = step(store, opt, local_batch(
+                    ds.batch(i), mesh, cpu))
+                for k, v in metrics.items():
+                    out[f"{name}/{i}/{k}"] = v.numpy()
+                for tree, st in ef_sums(calls, opt, mesh).items():
+                    out[f"{name}/{i}/{tree}_sum"] = st
+                calls.clear()
+                state = {"store": store, **opt}
+                for tree in TREES:
+                    if tree not in state:
+                        continue
+                    stats = []
+                    for g, n in leaves(state[tree]):
+                        sl = local(want[f"{i}/{tree}/{g}/{n}"], plan, m, d)
+                        s0 = (local(src[f"{start}/{g}/{n}"], plan, m, d)
+                              if tree == "store" else None)
+                        stats.append(leaf_stats(
+                            state[tree][g][n].numpy().reshape(sl.shape), sl,
+                            s0))
+                    out[f"{name}/{i}/{tree}"] = np.stack(stats)
+    finally:
+        mesh_lib.close_mesh(mesh)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+if __name__ == "__main__":
+    main()

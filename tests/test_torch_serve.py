@@ -1,4 +1,5 @@
-"""Serving the qwen3-14b smoke config: the port against the JAX package.
+"""Serving the qwen3-14b and llama3-8b smoke configs: the port against
+the JAX package.
 
 The JAX package builds the weights (``build_store``, float32), the port
 carries them over with ``load_jax_store``, and both run in float32 on the
@@ -41,14 +42,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S, GEN = 2, 12, 3
 POLICIES = {"paper": (lambda: jwith_backend(jpaper(), "ref"), paper_policy),
             "bf16": (lambda: JBF16, lambda: BF16_POLICY)}
+ARCHS = ("qwen3-14b", "llama3-8b")
 
 
 @pytest.fixture(scope="module")
-def setup():
-    jcfg = dataclasses.replace(jax_smoke_config("qwen3-14b"),
-                               dtype="float32")
-    cfg = dataclasses.replace(get_smoke_config("qwen3-14b"),
-                              dtype="float32")
+def setups():
+    """arch -> its setup (built once a module)."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            cache[arch] = _setup(arch)
+        return cache[arch]
+    return get
+
+
+@pytest.fixture(scope="module")
+def setup(setups):
+    return setups("qwen3-14b")
+
+
+def _setup(arch):
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     jplan = jmake_plan(jcfg, tp=1, fsdp=1)
     # build_store folds ``hash(name)`` into each parameter's key, and str
     # hashes are salted per process: a crc32 in its place makes the
@@ -85,8 +101,9 @@ def test_data_matches_jax(setup):
     np.testing.assert_array_equal(setup["prompts"], want)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("pol", ["paper", "bf16"])
-def test_prefill_hidden_and_next_token(setup, pol):
+def test_prefill_hidden_and_next_token(setups, pol, arch):
     """Hidden states agree to 2e-4 (relative to their max magnitude): the
     packages differ in float32 summation order (matmuls, RMS norm,
     softmax) and in the last ulp of pow/cos/sin in RoPE. Under the paper
@@ -94,7 +111,7 @@ def test_prefill_hidden_and_next_token(setup, pol):
     a value lies at a rounding boundary: at most 0.5% of the elements may
     then differ by up to one int8 step of the widest group (2 max|h| /
     255). Next tokens are equal."""
-    s = setup
+    s = setups(arch)
     jpol, tpol = POLICIES[pol]
 
     def hidden_fn(store, toks):
@@ -129,12 +146,13 @@ def test_prefill_hidden_and_next_token(setup, pol):
                           s["plan"]).numpy(), want_tok)
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("pol", ["paper", "bf16"])
-def test_decode_tokens_match_jax(setup, pol):
+def test_decode_tokens_match_jax(setups, pol, arch):
     """The decode loop (prompt teacher-forced through the cache, then
     greedy) gives the JAX tokens at every step: argmaxes of logits that
     agree as in the prefill test."""
-    s = setup
+    s = setups(arch)
     jpol, tpol = POLICIES[pol]
     clen = S + GEN
     jinit = jserve.make_cache_init(s["jcfg"], s["jplan"], s["mesh"], B, clen)
@@ -251,6 +269,7 @@ def test_policy_files_resolve_like_jax(path):
     pairs = [(jpolicy.load_policy_file(path), tpolicy.load_policy_file(path)),
              (jpolicy.paper_policy(), tpolicy.paper_policy()),
              (jpolicy.aggressive_policy(), tpolicy.aggressive_policy()),
+             (jpolicy.depth_policy(), tpolicy.depth_policy()),
              (jpolicy.BF16_POLICY, tpolicy.BF16_POLICY)]
     for jp, tp in pairs:
         for site in tpolicy.SITES:

@@ -1,5 +1,5 @@
-"""Serving the qwen3-14b smoke config at tp = 2: the port's gloo ranks
-against the JAX package on a (1, 2) mesh.
+"""Serving the qwen3-14b and llama3-8b smoke configs at tp = 2: the
+port's gloo ranks against the JAX package on a (1, 2) mesh.
 
 The JAX side runs in a subprocess of this file (``python
 tests/test_torch_serve_tp.py jax OUT_DIR``) with two fake CPU devices
@@ -108,17 +108,23 @@ def _run(cmd, env, timeout=240):
     return logs
 
 
-@pytest.fixture(scope="module")
-def served(tmp_path_factory):
-    """The JAX reference, then two gloo ranks serving from its weights:
-    (jax.npz, [rank0.npz, rank1.npz])."""
+#: the dense smoke configs served here, each with its worker mode
+ARCH_MODES = {"qwen3-14b": "serve", "llama3-8b": "serve_llama"}
+
+
+@pytest.fixture(scope="module", params=list(ARCH_MODES))
+def served(tmp_path_factory, request):
+    """The JAX reference, then two gloo ranks serving from its weights,
+    for each dense arch: (jax.npz, [rank0.npz, rank1.npz])."""
+    arch = request.param
     out = tmp_path_factory.mktemp("serve_tp")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                XLA_FLAGS="--xla_force_host_platform_device_count=2")
-    _run([[sys.executable, os.path.abspath(__file__), "jax", str(out)]], env)
+    _run([[sys.executable, os.path.abspath(__file__), "jax", str(out),
+           arch]], env)
     script = os.path.join(ROOT, "tests", "_torch_gloo_worker.py")
     _run([[sys.executable, script, str(r), str(TP), str(out / "store"),
-           str(out), "serve"] for r in range(TP)], env)
+           str(out), ARCH_MODES[arch]] for r in range(TP)], env)
     return (np.load(out / "jax.npz"),
             [np.load(out / f"rank{r}.npz") for r in range(TP)])
 
