@@ -55,6 +55,15 @@ Phases, each printing its lines; any failure exits non-zero:
              the first generated token
              (``repro_torch.launch.serve.prefill_decode_agreement``; the
              run without the codec to CACHE_REL_TOL).
+   ln     -- command-r-35b (LayerNorm) at full width, its depth cut to
+             LN_REPEATS layers (weights from seed SEED, output
+             projections filled): paper/two_step's prefill hidden states
+             and DECODE_CHECK_STEPS decode steps' logits through the CUDA
+             kernels equal the plain codec's bit for bit; then it serves
+             LN_RUNS (paper/two_step, bf16) with exact launch counts,
+             every norm a LayerNorm (counted: 2 a layer and the final one
+             a forward) and prefill/decode agreement (bf16 to
+             CACHE_REL_TOL).
 6. a2a    -- the peer-push All2All kernel (fc_a2a, one launch a call, its
              grid sized by the call) in a loopback world of tp ranks on
              the card, tp in A2A_TPS, at moonshot's dispatch shapes with
@@ -110,16 +119,25 @@ Phases, each printing its lines; any failure exits non-zero:
              weights from seed SEED (init_params(rank=r), output
              projections filled): paper/fused's prefill hidden states and
              DECODE_CHECK_STEPS decode logits bit-equal to
-             paper/two_step's; then it serves BATCH x PROMPT_LEN + GEN
+             paper/two_step's; then it serves BATCH x PROMPT_LEN + TP_GEN
              tokens under TP_RUNS (qwen3-14b) and MOE_TP_RUNS (moonshot):
              paper/fused (every TP site through fc_ar, every dispatch
-             through fc_a2a), paper/two_step (the wire kernels around the
-             host-staged gloo hop) and bf16, with exact launch counts
+             through fc_a2a) and paper/two_step (the wire kernels around
+             the host-staged gloo hop), with exact launch counts
              (fused: fc_ar 81 times a forward for qwen3-14b; 50 and fc_a2a
              47 for moonshot; no wire kernel), the dense runs'
              prefill/decode agreement and moonshot's dropped routes. Rank 0
              prints TTFT and ms/step, every rank its peak memory; a failed
              rank fails the phase.
+   tp4    -- glm4-9b at --mesh 1,GLM_TP (four rank processes on the card;
+             its two kv heads replicated, the decode cache a sequence-
+             sharded ring), its depth cut to GLM_REPEATS layers: fc_ar
+             (GLM_PROBE_CALLS calls) through a PeerWorld.from_group of
+             four processes, timed between them; then as phase tp:
+             paper/fused == paper/two_step bit for bit on every rank,
+             TP_RUNS served with exact launch counts and the ring's
+             merges counted (one a layer and decode step), prefill/decode
+             agreement, every rank the same tokens.
 
 10. train -- llama3-8b trained at full width, its depth cut to
              TRAIN_REPEATS layers, global batch TRAIN_BATCH x seq
@@ -145,15 +163,26 @@ Phases, each printing its lines; any failure exits non-zero:
              (_train_expected), ms/step (median and p90 of the steps
              after the first, host clock, synchronised), tokens/s, peak
              memory.
+   moe_train -- moonshot-v1-16b-a3b trained at full width, its dense
+             prefix block and TRAIN_MOE_REPEATS MoE blocks (64 experts,
+             top-6), TRAIN_BATCH x TRAIN_SEQ tokens a step: --mesh 1,1 in
+             this process, paper through the CUDA codec == the plain
+             codec over TRAIN_CHECK_STEPS steps; then TRAIN_MOE_MESHES
+             (--mesh 1,2, ep = 2): paper/fused (the TP sites through
+             fc_ar, the dispatch through fc_a2a, forward and replayed)
+             == paper/two_step bit for bit on both ranks. Exact launches
+             every step, the routes dropped over capacity, ms/step, peak
+             memory.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches``: the wire kernels' from the serve, moe and train paths,
-the stage kernels' from their entry points, fc_a2a's from phase tp's
-moonshot runs on rank 0, fc_ar's from phase tp's served runs of both
-models and phase train's runs on rank 0; ``serve_launches``,
-``moe_launches``, ``tp_launches``, ``moe_tp_launches`` and
-``train_launches``: from those paths); the last line is ``{"ok": true,
-"device": {...}}``.
+(``launches``: the wire kernels' from the serve, ln, moe, train and
+moe_train paths, the stage kernels' from their entry points, fc_a2a's
+from phase tp's moonshot runs on rank 0 and phase moe_train's, fc_ar's
+from phase tp's and tp4's served runs and phases train's and
+moe_train's runs on rank 0; ``serve_launches``, ``ln_launches``,
+``moe_launches``, ``tp_launches``, ``moe_tp_launches``,
+``glm_tp_launches``, ``train_launches`` and ``moe_train_launches``: from
+those paths); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -170,8 +199,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "wire_vectors.npz")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-PHASES = ("build", "codec", "stage", "time", "serve", "a2a", "moe", "ar",
-          "tp", "train")
+PHASES = ("build", "codec", "stage", "time", "serve", "ln", "a2a", "moe",
+          "ar", "tp", "tp4", "train", "moe_train")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -218,11 +247,25 @@ AR_CONFIGS = (("paper int8 g128", dict(bits=8, group=128)),
 AR_SCATTER, AR_GATHER, A2A_COLLECTIVE = 0, 1, 2   # kernels/protocol.py ids
 TP = 2                             # phase tp: --mesh 1,TP
 TP_PROBE_CALLS = 100
+# phase tp's served runs of both models (its qwen3-14b bf16 run and 12
+# of its GEN generated tokens were cut to pay for phases ln, tp4 and
+# moe_train)
 TP_RUNS = (("paper/fused", "paper", "fused"),
-           ("paper/two_step", "paper", None),
-           BASELINE)
-MOE_TP_RUNS = TP_RUNS[:2]          # phase tp's moonshot runs
+           ("paper/two_step", "paper", None))
+MOE_TP_RUNS = TP_RUNS
+TP_GEN = 4
 TP_TIMEOUT_S = 900
+# phase tp4: glm4-9b at --mesh 1,GLM_TP, its two kv heads replicated (the
+# decode cache a sequence-sharded ring), its 40 layers cut to GLM_REPEATS
+GLM_ARCH = "glm4-9b"
+GLM_TP = 4
+GLM_REPEATS = 4
+GLM_PROBE_CALLS = 25
+# phase ln: command-r-35b (LayerNorm) at tp = 1, its 40 layers cut to
+# LN_REPEATS
+LN_ARCH = "command-r-35b"
+LN_REPEATS = 8
+LN_RUNS = (("paper/two_step", "paper", None), BASELINE)
 DECODE_CHECK_STEPS = 4
 # phase train: llama3-8b at full width, its 32 layers cut to TRAIN_REPEATS
 TRAIN_ARCH = "llama3-8b"
@@ -244,6 +287,12 @@ TRAIN_MESHES = (("1,1,2", (("paper/two_step", "paper", None),
                            ("paper/fused", "paper", "fused"),
                            ("depth", "depth", None))),
                 ("2,1", (("aggressive", "aggressive", None),)))
+# phase moe_train: moonshot-v1-16b-a3b at full width, its dense prefix
+# block and TRAIN_MOE_REPEATS MoE blocks; --mesh 1,1 in process, then
+# TRAIN_MOE_MESHES as rank processes
+TRAIN_MOE_REPEATS = 1
+TRAIN_MOE_MESHES = (("1,2", (("paper/two_step", "paper", None),
+                             ("paper/fused", "paper", "fused"))),)
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
                                              scale_int=True)),
@@ -837,12 +886,13 @@ def _fill_output_projections(torch, cfg, plan, params, seed: int,
     """Fill the zero-initialised output projections (attention, MLP and
     experts) of every block from a fan-in normal (std 1/sqrt(fan_in)),
     one stack slice at a time, so that every TP and dispatch site of
-    every layer carries data and every expert's output is non-zero. A TP
-    rank ``rank`` folds its index into the seed, so that the ranks'
-    shards differ."""
+    every layer carries data and every expert's output is non-zero (the
+    zero-initialised vectors, biases, stay zero). A TP rank ``rank``
+    folds its index into the seed, so that the ranks' shards differ."""
     from repro_torch.models.model import param_groups
     names = [(g, n) for g, (_, specs) in sorted(param_groups(
-        cfg, plan).items()) for n, sp in specs.items() if sp.init == "zeros"]
+        cfg, plan).items()) for n, sp in specs.items()
+             if sp.init == "zeros" and len(sp.shape) > 1]
     t0 = params[names[0][0]][names[0][1]]
     gen = torch.Generator(device=t0.device)
     gen.manual_seed(seed + 1000003 * rank)
@@ -969,6 +1019,120 @@ def phase_serve(torch, np):
           "fused and two_step generated different tokens")
     print("[serve] paper/fused generated the same tokens as "
           "paper/two_step", flush=True)
+    return launches, results
+
+
+def phase_ln(torch, np):
+    """command-r-35b (LayerNorm) at tp = 1 at full width, its depth cut to
+    LN_REPEATS: paper/two_step's prefill hidden states and
+    DECODE_CHECK_STEPS decode steps' logits through the CUDA codec equal
+    the plain codec's bit for bit; then LN_RUNS served with exact
+    launches, every norm a LayerNorm (counted), and prefill/decode
+    agreement (the run without the codec to CACHE_REL_TOL)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import stage, wire
+    from repro_torch.launch.serve import build_policy, serve
+    from repro_torch.models import layers
+    from repro_torch.models.model import forward
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.parallel.shardings import init_params
+    from repro_torch.train.data import DataConfig, make_dataset
+    from repro_torch.train.serve_step import (make_cache_init,
+                                              make_decode_step)
+    torch.set_grad_enabled(False)
+    torch.cuda.empty_cache()                   # the earlier models are gone
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(LN_ARCH), pattern_repeats=LN_REPEATS)
+    check(cfg.norm == "ln", f"{LN_ARCH}: norm {cfg.norm}")
+    plan = make_plan(cfg, tp=1)
+    t0 = time.perf_counter()
+    params = init_params(cfg, plan, SEED, dev, torch.bfloat16)
+    filled = _fill_output_projections(torch, cfg, plan, params, SEED + 1)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for g in params.values()
+                 for t in g.values())
+    print(f"[ln] {LN_ARCH} full width, {cfg.n_layers} of its 40 layers: "
+          f"{nbytes / 1e9:.2f} GB bf16 weights from seed {SEED} ({filled} "
+          f"filled) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    prompts = torch.from_numpy(make_dataset(DataConfig(
+        vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH,
+        seed=SEED)).batch(0)["tokens"]).to(dev)
+    label, pol, scheme = LN_RUNS[0]
+    pols = [build_policy(pol, backend=b, scheme=scheme)
+            for b in ("cuda", "ref")]
+    h_cuda, h_plain = (forward(params, prompts, cfg, plan, p,
+                               dtype=torch.bfloat16)[0] for p in pols)
+    check(bool(torch.isfinite(h_cuda).all()),
+          f"ln prefill {label}: hidden states not finite")
+    check(_bits_equal(torch, h_cuda, h_plain), f"ln prefill {label}: hidden "
+          f"states through the CUDA codec differ from the plain codec's")
+    steps = [make_decode_step(cfg, plan, p) for p in pols]
+    caches = [make_cache_init(cfg, plan, BATCH, DECODE_CHECK_STEPS, dev)()
+              for _ in pols]
+    for i in range(DECODE_CHECK_STEPS):
+        (lc, caches[0]), (lr, caches[1]) = (
+            st(params, c, prompts[:, i:i + 1])
+            for st, c in zip(steps, caches))
+        check(_bits_equal(torch, lc, lr), f"ln decode {label} step {i}: "
+              f"logits through the CUDA codec differ from the plain codec's")
+    del caches, h_cuda, h_plain
+    print(f"[ln] full width: prefill hidden states and {DECODE_CHECK_STEPS} "
+          f"decode steps' logits through the CUDA codec equal the plain "
+          f"codec's bit for bit ({label})", flush=True)
+
+    norms = [0]
+    plain_ln = layers.layer_norm
+
+    def counted(*a, **k):
+        norms[0] += 1
+        return plain_ln(*a, **k)
+
+    sites = 1 + 2 * cfg.n_layers
+    forwards = 1 + PROMPT_LEN + GEN - 1
+    layers.layer_norm = counted
+    try:
+        wire.reset_launches()              # the ln path starts here
+        stage.reset_launches()
+        results = {}
+        for label, pol, scheme in LN_RUNS:
+            before, n0 = dict(wire.LAUNCHES), norms[0]
+            torch.cuda.reset_peak_memory_stats()
+            res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
+                        batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN,
+                        device=dev, seed=SEED, label=f" ln {label}")
+            got = {k: wire.LAUNCHES[k] - before[k] for k in wire.LAUNCHES}
+            want = {"encode_wire": 2, "decode_wire": 2, "decode_reduce": 0}
+            want = {k: 0 if pol == "bf16" else v * sites * forwards
+                    for k, v in want.items()}
+            n_norms = norms[0] - n0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            print(f"[ln {label}] launches {got} (expected {want}); "
+                  f"LayerNorms {n_norms} (expected "
+                  f"{(2 * cfg.n_layers + 1) * forwards}); peak memory "
+                  f"{peak:.2f} GB", flush=True)
+            check(got == want, f"ln {label}: launches {got} != {want}")
+            check(n_norms == (2 * cfg.n_layers + 1) * forwards,
+                  f"ln {label}: {n_norms} LayerNorms")
+            check(res["agreement"] is not None,
+                  f"ln {label}: no prefill/decode check")
+            res["peak_gb"] = peak
+            results[label] = res
+        launches = dict(wire.LAUNCHES)     # read right after the ln path
+        stage_launches = dict(stage.LAUNCHES)
+    finally:
+        layers.layer_norm = plain_ln
+    for k, v in launches.items():
+        check(v > 0 or k == "decode_reduce",
+              f"kernel {k} never launched on the ln path")
+    check(set(stage_launches.values()) == {0},
+          f"stage kernels launched on the ln path: {stage_launches}")
+    rel = max(results[BASELINE[0]]["agreement"]["rel_divergence"])
+    check(rel <= CACHE_REL_TOL, f"ln: unquantized prefill/decode logit "
+          f"divergence {rel} > {CACHE_REL_TOL}: KV-cache drift")
+    print(f"[ln] unquantized prefill/decode logit divergence {rel} <= "
+          f"{CACHE_REL_TOL}", flush=True)
     return launches, results
 
 
@@ -1365,10 +1529,12 @@ def phase_ar(torch, card: str):
 # phase 9: qwen3-14b at --mesh 1,TP, one rank a process
 # ---------------------------------------------------------------------------
 
-def _tp_world_checks(torch, axis, dev) -> dict:
-    """fc_ar and fc_a2a through this rank's world of processes. Every rank
-    draws every rank's inputs from one seed, so it can run the plain
-    version of all ranks and hold its own slice to it bit for bit."""
+def _tp_world_checks(torch, axis, dev, probe_calls: int = TP_PROBE_CALLS,
+                     a2a: bool = True) -> dict:
+    """fc_ar (``probe_calls`` calls) and, with ``a2a``, fc_a2a through this
+    rank's world of processes. Every rank draws every rank's inputs from
+    one seed, so it can run the plain version of all ranks and hold its
+    own slice to it bit for bit."""
     from repro_torch.core.comm_config import CommConfig
     from repro_torch.kernels import ops, rdma
     from repro_torch.launch import mesh
@@ -1392,7 +1558,7 @@ def _tp_world_checks(torch, axis, dev) -> dict:
 
     n = _ar_shapes()["decode"]
     cfg = CommConfig(**AR_CONFIGS[0][1])
-    xs = [_ar_input(torch, gen, tp, n, dev) for _ in range(TP_PROBE_CALLS)]
+    xs = [_ar_input(torch, gen, tp, n, dev) for _ in range(probe_calls)]
     outs, per_call = timed([lambda x=x: ops.fused_all_reduce(x[rank], cfg,
                                                             world)
                             for x in xs])
@@ -1407,6 +1573,12 @@ def _tp_world_checks(torch, axis, dev) -> dict:
                           gath[rank]),
           f"tp rank {rank}: fc_ar's receive rows differ from the plain "
           f"version's")
+    if not a2a:
+        check(_ar_pads_ok(world, rank),
+              f"tp rank {rank}: signal pads off after {world.epochs} calls")
+        return {"ar_n": n, "ar_calls": probe_calls, "epochs": world.epochs,
+                "caps": {str(k): v for k, v in world.caps.items()},
+                "ar_blocks": world.ar_blocks(n, cfg), "probe_ms": per_call}
 
     # fc_a2a at moonshot's dispatch with ep = tp, its prefill and decode
     # rows: A2A_CALLS back to back at each, timed between the processes
@@ -1446,7 +1618,7 @@ def _tp_world_checks(torch, axis, dev) -> dict:
           world.signal_pad(rank, A2A_COLLECTIVE).tolist() ==
           world.pad_targets(A2A_COLLECTIVE),
           f"tp rank {rank}: signal pads off after {world.epochs} calls")
-    return {"ar_n": n, "ar_calls": TP_PROBE_CALLS + A2A_CALLS,
+    return {"ar_n": n, "ar_calls": probe_calls + A2A_CALLS,
             "a2a_rows": rows, "a2a_calls": len(rows) * A2A_CALLS + A2A_CALLS,
             "epochs": world.epochs,
             "caps": {str(k): v for k, v in world.caps.items()},
@@ -1459,17 +1631,20 @@ def _tp_counts():
     return {**wire.LAUNCHES, **stage.LAUNCHES, **rdma.LAUNCHES}
 
 
-def _tp_serve(torch, axis, dev, arch: str, runs) -> dict:
-    """``arch`` at full width on this rank: weights from SEED (output
-    projections filled), paper/fused == paper/two_step bit for bit (the
-    prefill's hidden states, DECODE_CHECK_STEPS decode steps' logits),
-    then the served ``runs`` with exact counts: fused, every TP site
-    through fc_ar and every dispatch through fc_a2a, no wire kernel;
+def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
+    """Model ``cfg`` at full width on this rank of the model axis ``axis``
+    (tp = its size): weights from SEED (output projections filled),
+    paper/fused == paper/two_step bit for bit (the prefill's hidden
+    states, DECODE_CHECK_STEPS decode steps' logits), then the served
+    ``runs`` (``gen`` tokens generated) with exact counts: fused, every TP
+    site through fc_ar and every dispatch through fc_a2a, no wire kernel;
     two_step, two encodes and two decodes a TP site (around the gloo
-    hop), one of each a dispatch site; bf16, none."""
-    from repro_torch.configs import get_config
+    hop), one of each a dispatch site; bf16, none. In replicate mode the
+    decode's ring merges (``attention.RING_MERGES``) number one a layer
+    and decode step."""
     from repro_torch.kernels import rdma, stage, wire
     from repro_torch.launch import mesh
+    from repro_torch.models import attention
     from repro_torch.launch.serve import build_policy, serve
     from repro_torch.models.model import forward
     from repro_torch.parallel.plan import make_plan
@@ -1477,12 +1652,10 @@ def _tp_serve(torch, axis, dev, arch: str, runs) -> dict:
     from repro_torch.train.data import DataConfig, make_dataset
     from repro_torch.train.serve_step import (make_cache_init,
                                               make_decode_step)
-    rank = axis.rank
+    rank, tp = axis.rank, axis.size
     log = print if rank == 0 else (lambda *a, **k: None)
-    tag = "tp" if arch == ARCH else "moe tp"
-    cfg = get_config(arch)
     moe = cfg.moe is not None
-    plan = make_plan(cfg, tp=TP)
+    plan = make_plan(cfg, tp=tp)
     t0 = time.perf_counter()
     params = init_params(cfg, plan, SEED, dev, torch.bfloat16, rank=rank)
     filled = _fill_output_projections(torch, cfg, plan, params, SEED + 1,
@@ -1492,8 +1665,10 @@ def _tp_serve(torch, axis, dev, arch: str, runs) -> dict:
                  for t in g.values())
     experts = (f" (ep {plan.moe.ep}, {plan.moe.e_loc} experts a rank)"
                if moe else "")
-    log(f"[{tag}] {arch} full width at --mesh 1,{TP}, {cfg.n_layers} "
-        f"layers{experts}: "
+    kv = (f", {cfg.n_kv_heads} kv heads {plan.kv_mode}d"
+          if plan.kv_mode == "replicate" else "")
+    log(f"[{tag}] {cfg.name} full width at --mesh 1,{tp}, {cfg.n_layers} "
+        f"layers{experts}{kv}: "
         f"{nbytes / 1e9:.2f} GB bf16 weights a rank from seed {SEED} "
         f"({filled} filled) in {time.perf_counter() - t0:.1f} s",
         flush=True)
@@ -1529,19 +1704,26 @@ def _tp_serve(torch, axis, dev, arch: str, runs) -> dict:
     kinds = cfg.layer_kinds
     tp_sites = 1 + sum(2 if k == "dense" else 1 for k in kinds)
     a2a_sites = kinds.count("moe")
-    forwards = 1 + PROMPT_LEN + GEN - 1
+    forwards = 1 + PROMPT_LEN + gen - 1
+    merges = (cfg.n_layers * (PROMPT_LEN + gen - 1)
+              if plan.kv_mode == "replicate" else 0)
     wire.reset_launches()                  # the tp path starts here
     stage.reset_launches()
     rdma.reset_launches()
     served, peaks = {}, {}
     for label, pol, scheme in runs:
         before = _tp_counts()
+        attention.reset_ring_merges()
         torch.cuda.reset_peak_memory_stats()
         res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
-                    batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN, device=dev,
-                    seed=SEED, label=f" {tag}={TP} {label}", log=log,
+                    batch=BATCH, prompt_len=PROMPT_LEN, gen=gen, device=dev,
+                    seed=SEED, label=f" {tag}={tp} {label}", log=log,
                     group=axis)
         got = {k: v - before[k] for k, v in _tp_counts().items()}
+        check(attention.RING_MERGES == merges,
+              f"{tag} rank {rank} {label}: {attention.RING_MERGES} ring "
+              f"merges != {merges}")
+        res["ring_merges"] = attention.RING_MERGES
         want = dict.fromkeys(got, 0)
         if scheme == "fused":
             want["ar"] = tp_sites * forwards
@@ -1552,7 +1734,8 @@ def _tp_serve(torch, axis, dev, arch: str, runs) -> dict:
         peaks[label] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[{tag} {label}] rank {rank} launches {got} (expected: "
             f"{tp_sites} TP and {a2a_sites} dispatch sites x {forwards} "
-            f"forwards)", flush=True)
+            f"forwards); ring merges {attention.RING_MERGES} (expected "
+            f"{merges})", flush=True)
         check(got == want, f"{tag} rank {rank} {label}: launches {got} != "
               f"{want}")
         check((res["agreement"] is None) == moe,
@@ -1564,33 +1747,54 @@ def _tp_serve(torch, axis, dev, arch: str, runs) -> dict:
     check(bool((served["paper/fused"]["generated"] ==
                 served["paper/two_step"]["generated"]).all()),
           f"{tag} rank {rank}: fused and two_step generated different tokens")
-    return {"arch": arch, "launches": launches, "peak_gb": peaks, "runs": {
+    return {"arch": cfg.name, "launches": launches, "peak_gb": peaks,
+            "layers": cfg.n_layers, "runs": {
         k: {m: (v.tolist() if hasattr(v, "tolist") else v)
             for m, v in r.items()} for k, r in served.items()}}
 
 
-def tp_rank_main(rank: int, rendezvous: str, out_dir: str) -> int:
-    """One rank process of phase tp (``chip_smoke.py --tp-rank``): the
-    world checks, then ARCH, then (its weights freed) MOE_ARCH."""
-    import torch
+def _tp_cfg(arch: str):
+    """Phase tp's and tp4's configs: qwen3-14b and moonshot whole, glm4-9b
+    cut to GLM_REPEATS layers."""
+    import dataclasses
     from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch == GLM_ARCH:
+        cfg = dataclasses.replace(cfg, pattern_repeats=GLM_REPEATS)
+    return cfg
+
+
+def tp_rank_main(rank: int, size: int, rendezvous: str, out_dir: str) -> int:
+    """One rank process of phase tp (``chip_smoke.py --tp-rank``, ``size``
+    TP) or tp4 (``size`` GLM_TP): the world checks, then at TP ARCH and
+    (its weights freed) MOE_ARCH, at GLM_TP GLM_ARCH."""
+    import torch
     from repro_torch.launch import mesh
     from repro_torch.parallel.plan import make_plan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_grad_enabled(False)
     dev = mesh.rank_device(rank, torch.device("cuda"))
-    row_bytes = max(mesh.site_row_bytes(cfg, make_plan(cfg, tp=TP), BATCH,
+    archs = (ARCH, MOE_ARCH) if size == TP else (GLM_ARCH,)
+    row_bytes = max(mesh.site_row_bytes(cfg, make_plan(cfg, tp=size), BATCH,
                                         PROMPT_LEN)
-                    for cfg in map(get_config, (ARCH, MOE_ARCH)))
-    axes = mesh.init_mesh(1, TP, 0, rank, rendezvous, dev, row_bytes)
+                    for cfg in map(_tp_cfg, archs))
+    axes = mesh.init_mesh(1, size, 0, rank, rendezvous, dev, row_bytes)
     axis = axes.model
     try:
         res = {"rank": rank, "device": str(dev), "row_bytes": row_bytes,
                "backend": str(torch.distributed.get_backend(axis.pg))}
-        res["world"] = _tp_world_checks(torch, axis, dev)
-        res["dense"] = _tp_serve(torch, axis, dev, ARCH, TP_RUNS)
-        torch.cuda.empty_cache()               # the dense model is gone
-        res["moe"] = _tp_serve(torch, axis, dev, MOE_ARCH, MOE_TP_RUNS)
+        if size == TP:
+            res["world"] = _tp_world_checks(torch, axis, dev)
+            res["dense"] = _tp_serve(torch, axis, dev, _tp_cfg(ARCH),
+                                     TP_RUNS, "tp", TP_GEN)
+            torch.cuda.empty_cache()           # the dense model is gone
+            res["moe"] = _tp_serve(torch, axis, dev, _tp_cfg(MOE_ARCH),
+                                   MOE_TP_RUNS, "moe tp", TP_GEN)
+        else:
+            res["world"] = _tp_world_checks(torch, axis, dev,
+                                            GLM_PROBE_CALLS, a2a=False)
+            res["glm"] = _tp_serve(torch, axis, dev, _tp_cfg(GLM_ARCH),
+                                   TP_RUNS, "tp4", TP_GEN)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -1598,19 +1802,23 @@ def tp_rank_main(rank: int, rendezvous: str, out_dir: str) -> int:
     return 0
 
 
-def phase_tp(torch, card: str):
+def phase_tp(torch, card: str, size: int = TP):
+    """Phase tp (``size`` TP: qwen3-14b, then moonshot) or tp4 (``size``
+    GLM_TP: glm4-9b), one rank process a rank, all on the one card."""
     from repro_torch.launch import mesh
     torch.cuda.empty_cache()                   # the earlier models are gone
-    out_dir = os.path.join(ROOT, "chiprun_out", "tp")
+    tag = "tp" if size == TP else "tp4"
+    out_dir = os.path.join(ROOT, "chiprun_out", tag)
     os.makedirs(out_dir, exist_ok=True)
     for f in os.listdir(out_dir):
         os.unlink(os.path.join(out_dir, f))
     t0 = time.perf_counter()
     mesh.run_ranks(lambda r, store: [
         sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
-        "--rendezvous", store, "--out", out_dir], TP, timeout=TP_TIMEOUT_S)
+        "--tp-size", str(size), "--rendezvous", store, "--out", out_dir],
+        size, timeout=TP_TIMEOUT_S)
     ranks = []
-    for r in range(TP):
+    for r in range(size):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     def ms(calls):
@@ -1623,38 +1831,45 @@ def phase_tp(torch, card: str):
         caps = {k: sorted({v for c, v in w["caps"].items()
                            if ("a2a" in c) == (k == "fc_a2a")})
                 for k in ("fc_a2a", "fc_ar")}
-        print(f"[tp] rank {res['rank']} on {res['device']} "
+        a2a = (f" and fc_a2a x {w['a2a_calls']} ({w['a2a_rows']} rows a "
+               f"peer)" if "a2a_ms" in w else "")
+        print(f"[{tag}] rank {res['rank']} on {res['device']} "
               f"({res['backend']} group, receive rows of {res['row_bytes']} "
-              f"bytes): fc_ar x {w['ar_calls']} (decode n {w['ar_n']}) and "
-              f"fc_a2a x {w['a2a_calls']} ({w['a2a_rows']} rows a peer) "
+              f"bytes): fc_ar x {w['ar_calls']} (decode n {w['ar_n']}){a2a} "
               f"through PeerWorld.from_group bit-equal to the plain "
               f"versions, pads exact (epochs {w['epochs']}, caps {caps}, "
-              f"fc_ar {w['ar_blocks']} and fc_a2a {w['a2a_blocks']} blocks "
-              f"a call); back to back, between the processes: fc_ar x "
-              f"{TP_PROBE_CALLS} {ms(w['probe_ms'])}; "
-              + "; ".join(f"fc_a2a {shape} x {len(v)} {ms(v)}"
-                          for shape, v in w["a2a_ms"].items())
+              f"fc_ar {w['ar_blocks']}"
+              + (f" and fc_a2a {w['a2a_blocks']}" if a2a else "")
+              + f" blocks a call); back to back, between the {size} "
+              f"processes: fc_ar x {len(w['probe_ms'])} {ms(w['probe_ms'])}"
+              + "".join(f"; fc_a2a {shape} x {len(v)} {ms(v)}"
+                        for shape, v in w.get("a2a_ms", {}).items())
               + f" (ranks taking turns on one card)  [{card}]", flush=True)
-    for part, runs in (("dense", TP_RUNS), ("moe", MOE_TP_RUNS)):
-        tag = "tp" if part == "dense" else "moe tp"
+    parts = ((("dense", TP_RUNS, "tp"), ("moe", MOE_TP_RUNS, "moe tp"))
+             if size == TP else (("glm", TP_RUNS, "tp4"),))
+    for part, runs, ptag in parts:
         for label, _, _ in runs:
             r0 = ranks[0][part]["runs"][label]
             check(all(r[part]["runs"][label]["generated"] == r0["generated"]
-                      for r in ranks), f"{tag} {label}: ranks generated "
+                      for r in ranks), f"{ptag} {label}: ranks generated "
                   f"different tokens")
             routes = (f"; routes dropped prefill {r0['dropped_prefill']} of "
                       f"{r0['routes_prefill']}, decode {r0['dropped_decode']} "
                       f"of {r0['routes_decode']} (rank 0)"
                       if "dropped_prefill" in r0 else "")
+            agree = (f"; prefill/decode logit divergence "
+                     f"{max(r0['agreement']['rel_divergence']):.4f}"
+                     if r0.get("agreement") else "")
             peaks = ", ".join(f"rank {r['rank']} {r[part]['peak_gb'][label]:.2f}"
                               for r in ranks)
-            print(f"[{tag} {label}] {ranks[0][part]['arch']}: TTFT "
+            print(f"[{ptag} {label}] {ranks[0][part]['arch']} "
+                  f"({ranks[0][part]['layers']} layers): TTFT "
                   f"{r0['ttft_ms']:.1f} ms, decode median "
                   f"{r0['step_ms_median']:.2f} ms/step, p90 "
-                  f"{r0['step_ms_p90']:.2f} (rank 0; {TP} ranks taking turns "
-                  f"on one card, not NVLink time){routes}; peak memory "
-                  f"{peaks} GB  [{card}]", flush=True)
-    print(f"[tp] {TP} rank processes done in "
+                  f"{r0['step_ms_p90']:.2f} (rank 0; {size} ranks taking "
+                  f"turns on one card, not NVLink time){routes}{agree}; peak "
+                  f"memory {peaks} GB  [{card}]", flush=True)
+    print(f"[{tag}] {size} rank processes done in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return ranks
 
@@ -1663,11 +1878,14 @@ def phase_tp(torch, card: str):
 # phase train: llama3-8b trained at full width, depth cut
 # ---------------------------------------------------------------------------
 
-def _train_cfg():
+def _train_cfg(arch: str = TRAIN_ARCH):
+    """Phase train's llama3-8b (TRAIN_REPEATS layers) or phase
+    moe_train's moonshot (its dense prefix block and TRAIN_MOE_REPEATS
+    MoE blocks), at full width."""
     import dataclasses
     from repro_torch.configs import get_config
-    return dataclasses.replace(get_config(TRAIN_ARCH),
-                               pattern_repeats=TRAIN_REPEATS)
+    return dataclasses.replace(get_config(arch), pattern_repeats=(
+        TRAIN_REPEATS if arch == TRAIN_ARCH else TRAIN_MOE_REPEATS))
 
 
 def _sections(lay):
@@ -1792,7 +2010,10 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
     (forward and replay), the qgrad_rs reduce-scatters, the pod grad site
     of every leaf. A two_step site: 2 encodes and 2 decodes; ``fused``
     over one rank: 2 encodes, a decode+reduce and a decode; ``fused``
-    through an axis's peer world: fc_ar once a piece of its rows."""
+    through an axis's peer world: fc_ar once a piece of its rows. An MoE
+    block has one TP site and a dispatch, forward and replayed: quantized
+    over the process group, an encode and a decode; ``fused`` through the
+    peer world, fc_a2a; its backward is exact."""
     from repro_torch.core.collectives import group_size
     from repro_torch.models.model import param_groups
     from repro_torch.train.train_step import (_qgrad_active, pod_grad_config,
@@ -1825,10 +2046,22 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
         group_size(mesh.pod) if mesh.multi_pod else 1))
     act = b_loc * TRAIN_SEQ * cfg.d_model
     tp, rows = plan.tp, _world_rows(mesh.model)
-    for layer in [None] + [l for l in range(cfg.n_layers) for _ in (0, 1)]:
+    kinds = cfg.layer_kinds
+    for layer in [None] + [l for l in range(cfg.n_layers)
+                           for _ in range(2 if kinds[l] == "dense" else 1)]:
         psum(pol.resolve("tp", layer), act, tp, rows,
              times=1 if layer is None else 2)      # replayed in backward
         psum(pol.resolve("tp_bwd", layer), act, tp, rows)
+    for layer in range(cfg.n_layers):
+        c = pol.resolve("a2a", layer)
+        if kinds[layer] != "moe" or c is None or not c.enabled or \
+                c.scheme == "nccl":
+            continue
+        if c.scheme == "fused" and rows is not None:
+            want["a2a"] += 2
+        else:
+            want["encode_wire"] += 2
+            want["decode_wire"] += 2
     groups = param_groups(cfg, plan)
     qag = pol.resolve("qag")
     if plan.fsdp > 1 and qag is not None and qag.enabled:
@@ -1862,8 +2095,9 @@ def _train_one(torch, cfg, plan, mesh, dev, label: str, policy,
     """Train ``steps`` steps of ``policy`` from the filled SEED store;
     per-step launch counts (each must equal ``expected``), ms/step
     (median and p90 of steps 1-3, host clock, synchronised), tokens/s,
-    peak memory; with ``snapshot``, the metrics of the first
-    TRAIN_CHECK_STEPS steps and the store after them, on the host."""
+    peak memory, an MoE model's routes dropped over capacity; with
+    ``snapshot``, the metrics of the first TRAIN_CHECK_STEPS steps and
+    the store after them, on the host."""
     from repro_torch.launch.train import train
     from repro_torch.parallel.axis import axis_rank
     from repro_torch.train.optim import OptimConfig
@@ -1871,7 +2105,7 @@ def _train_one(torch, cfg, plan, mesh, dev, label: str, policy,
                           total_steps=steps)
     store = _train_store(torch, cfg, plan, dev, axis_rank(mesh.model),
                          axis_rank(mesh.data))
-    counts, snap, metrics = [], {}, []
+    counts, snap, metrics, stats = [], {}, [], {}
     last = [_train_counts()]
 
     t0 = time.perf_counter()
@@ -1896,7 +2130,8 @@ def _train_one(torch, cfg, plan, mesh, dev, label: str, policy,
     res = train(cfg, plan, policy, opt_cfg, mesh, batch=TRAIN_BATCH,
                 seq=TRAIN_SEQ, steps=steps, device=dev, seed=SEED,
                 log_every=steps, log=lambda *a, **k: None, store=store,
-                on_step=on_step)
+                on_step=on_step, stats=stats)
+    routes = (int(stats["routes"]), int(stats["dropped"])) if stats else None
     peak = torch.cuda.max_memory_allocated() / 1e9
     ef = res["opt"].get("ef")
     ef_abs = (max(float(t.abs().max()) for gg in ef.values()
@@ -1924,11 +2159,14 @@ def _train_one(torch, cfg, plan, mesh, dev, label: str, policy,
         f"{ {k: v for k, v in counts[0].items() if v} } (expected "
         f"{ {k: v for k, v in (expected or {}).items() if v} })"
         + (f"; EF residual max |ef| {ef_abs:.3e}" if ef_abs is not None
-           else "") + (f"  [{card}]" if card else ""), flush=True)
+           else "")
+        + (f"; routes dropped over capacity {routes[1]} of {routes[0]} "
+           f"over {steps} steps (this rank's forwards)" if routes else "")
+        + (f"  [{card}]" if card else ""), flush=True)
     return {"label": label, "metrics": metrics, "counts": counts,
             "expected": expected, "step_ms": step_ms, "median_ms": med,
             "p90_ms": p90, "tokens_per_s": tps, "peak_gb": peak,
-            "ef_max_abs": ef_abs}, snap
+            "ef_max_abs": ef_abs, "routes": routes}, snap
 
 
 def _snap_equal(torch, a: dict, b: dict) -> bool:
@@ -1937,34 +2175,45 @@ def _snap_equal(torch, a: dict, b: dict) -> bool:
                for g in a["store"] for n in a["store"][g])
 
 
-def _train_single(torch, card: str, dev=None) -> dict:
-    """--mesh 1,1 in this process: bf16, then paper through the CUDA
-    codec, then paper through the plain codec (2 steps): loss, grad norm
-    and the store after TRAIN_CHECK_STEPS steps bit-equal."""
+def _train_single(torch, card: str, dev=None, arch: str = TRAIN_ARCH
+                  ) -> dict:
+    """--mesh 1,1 in this process: bf16 (llama3-8b only), then paper
+    through the CUDA codec, then paper through the plain codec (2 steps):
+    loss, grad norm and the store after TRAIN_CHECK_STEPS steps
+    bit-equal; llama3-8b's paper step-0 loss within TRAIN_LOSS_REL of
+    bf16's."""
     from repro_torch.launch.train import build_policy
     from repro_torch.parallel.axis import MeshAxes
     from repro_torch.parallel.plan import make_plan
-    cfg, mesh = _train_cfg(), MeshAxes()
+    cfg, mesh = _train_cfg(arch), MeshAxes()
+    dense = arch == TRAIN_ARCH
+    tag = "train 1,1" if dense else "moe_train 1,1"
     dev = dev or torch.device("cuda")
     plan = make_plan(cfg, tp=1, fsdp=1)
     runs = {}
     for label, pol, backend, steps in (
-            ("bf16", "bf16", "auto", TRAIN_STEPS),
+            (("bf16", "bf16", "auto", TRAIN_STEPS),) if dense else ()) + (
             ("paper", "paper", "auto", TRAIN_STEPS),
             ("paper/plain codec", "paper", "ref", TRAIN_CHECK_STEPS)):
         policy = build_policy(pol, backend=backend)
         expected = _train_expected(cfg, plan, policy, mesh) \
             if backend != "ref" else dict.fromkeys(_train_counts(), 0)
         runs[label] = _train_one(torch, cfg, plan, mesh, dev, label, policy,
-                                 steps, "train 1,1", print, card, expected,
+                                 steps, tag, print, card, expected,
                                  snapshot=pol == "paper")
     (cuda, snap_c), (plain, snap_p) = runs["paper"], runs["paper/plain codec"]
     k = TRAIN_CHECK_STEPS
     check(cuda["metrics"][:k] == plain["metrics"][:k] and
           _snap_equal(torch, snap_c, snap_p),
-          f"train 1,1: paper through the CUDA codec differs from the plain "
+          f"{tag}: paper through the CUDA codec differs from the plain "
           f"codec over {k} steps: {cuda['metrics'][:k]} vs "
           f"{plain['metrics'][:k]}")
+    if not dense:
+        print(f"[{tag}] paper through the CUDA codec equals the plain codec "
+              f"over {k} steps (loss, grad norm, every parameter, bit for "
+              f"bit)", flush=True)
+        del snap_c, snap_p
+        return {label: r for label, (r, _) in runs.items()}
     l0, b0 = cuda["metrics"][0]["loss"], runs["bf16"][0]["metrics"][0]["loss"]
     check(abs(l0 - b0) <= TRAIN_LOSS_REL * abs(b0),
           f"train 1,1: paper's step-0 loss {l0} is not within "
@@ -1977,11 +2226,16 @@ def _train_single(torch, card: str, dev=None) -> dict:
     return {label: r for label, (r, _) in runs.items()}
 
 
+def _train_meshes(arch: str):
+    return dict(TRAIN_MESHES if arch == TRAIN_ARCH else TRAIN_MOE_MESHES)
+
+
 def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
-                    out_dir: str) -> int:
-    """One rank process of phase train (``chip_smoke.py --train-rank``):
-    the runs of TRAIN_MESHES[mesh_spec]; on --mesh 1,1,2, fused equal to
-    two_step over TRAIN_CHECK_STEPS steps, and depth's EF residual
+                    out_dir: str, arch: str = TRAIN_ARCH) -> int:
+    """One rank process of phase train or moe_train (``chip_smoke.py
+    --train-rank``): the runs of the mesh ``mesh_spec`` (TRAIN_MESHES, or
+    TRAIN_MOE_MESHES for moonshot); with both, paper/fused equal to
+    paper/two_step over TRAIN_CHECK_STEPS steps, and depth's EF residual
     non-zero."""
     import torch
     from repro_torch.launch import mesh as mesh_lib
@@ -1990,16 +2244,19 @@ def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
     torch.backends.cuda.matmul.allow_tf32 = False
     data, model, pod = mesh_lib.parse_train_mesh(mesh_spec)
     dev = mesh_lib.rank_device(rank, torch.device("cuda"))
-    cfg = _train_cfg()
+    cfg = _train_cfg(arch)
     plan = make_plan(cfg, tp=model, fsdp=data)
+    b_loc = TRAIN_BATCH // (data * max(pod, 1))
     mesh = mesh_lib.init_mesh(data, model, pod, rank, rendezvous, dev,
-                              mesh_lib.site_row_bytes(cfg, plan, TRAIN_BATCH,
+                              mesh_lib.site_row_bytes(cfg, plan, b_loc,
                                                       TRAIN_SEQ))
     log = print if rank == 0 else (lambda *a, **k: None)
-    tag = f"train {mesh_spec}"
+    tag = f"{'train' if arch == TRAIN_ARCH else 'moe_train'} {mesh_spec}"
+    sites = ("the TP sites through fc_ar, the dispatch through fc_a2a"
+             if cfg.moe is not None else "the grad site through fc_ar")
     try:
         runs, snaps = {}, {}
-        for label, pol, scheme in dict(TRAIN_MESHES)[mesh_spec]:
+        for label, pol, scheme in _train_meshes(arch)[mesh_spec]:
             policy = build_policy(pol, scheme=scheme)
             expected = _train_expected(cfg, plan, policy, mesh)
             runs[label], snap = _train_one(
@@ -2014,9 +2271,9 @@ def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
                 torch, snaps["paper/fused"], snaps["paper/two_step"]),
                 f"{tag} rank {rank}: paper/fused differs from "
                 f"paper/two_step over {k} steps")
-            log(f"[{tag}] every rank: paper/fused (the grad site through "
-                f"fc_ar) equals paper/two_step over {k} steps (loss, grad "
-                f"norm, every parameter, bit for bit)", flush=True)
+            log(f"[{tag}] every rank: paper/fused ({sites}) equals "
+                f"paper/two_step over {k} steps (loss, grad norm, every "
+                f"parameter, bit for bit)", flush=True)
         if "depth" in runs:
             ef = runs["depth"]["ef_max_abs"]
             check(ef is not None and ef > 0,
@@ -2029,9 +2286,11 @@ def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
     return 0
 
 
-def _train_ranks(torch, card: str, mesh_spec: str) -> list:
-    """TRAIN_MESHES[mesh_spec] in one rank process a rank (all on the one
-    card, taking turns on it)."""
+def _train_ranks(torch, card: str, mesh_spec: str,
+                 arch: str = TRAIN_ARCH) -> list:
+    """The runs of mesh ``mesh_spec`` (TRAIN_MESHES, or TRAIN_MOE_MESHES
+    for moonshot) in one rank process a rank (all on the one card,
+    taking turns on it)."""
     from repro_torch.launch import mesh as mesh_lib
     data, model, pod = mesh_lib.parse_train_mesh(mesh_spec)
     world = max(pod, 1) * data * model
@@ -2042,35 +2301,41 @@ def _train_ranks(torch, card: str, mesh_spec: str) -> list:
     t0 = time.perf_counter()
     mesh_lib.run_ranks(lambda r, store: [
         sys.executable, os.path.abspath(__file__), "--train-rank", str(r),
-        "--train-mesh", mesh_spec, "--rendezvous", store, "--out", out_dir],
-        world, timeout=TRAIN_TIMEOUT_S)
+        "--train-mesh", mesh_spec, "--train-arch", arch, "--rendezvous",
+        store, "--out", out_dir], world, timeout=TRAIN_TIMEOUT_S)
     ranks = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    for label, _, _ in dict(TRAIN_MESHES)[mesh_spec]:
+    tag = f"{'train' if arch == TRAIN_ARCH else 'moe_train'} {mesh_spec}"
+    for label, _, _ in _train_meshes(arch)[mesh_spec]:
         losses = {json.dumps(r["runs"][label]["metrics"]) for r in ranks}
-        check(len(losses) == 1, f"train {mesh_spec} {label}: the ranks "
+        check(len(losses) == 1, f"{tag} {label}: the ranks "
               f"report different metrics")
         r0 = ranks[0]["runs"][label]
         peaks = ", ".join(f"rank {r['rank']} {r['runs'][label]['peak_gb']:.2f}"
                           for r in ranks)
-        print(f"[train {mesh_spec} {label}] {world} rank processes on one "
+        print(f"[{tag} {label}] {world} rank processes on one "
               f"card: median {r0['median_ms']:.1f} ms/step, p90 "
               f"{r0['p90_ms']:.1f} (rank 0, host clock; the ranks take turns "
               f"on the card), {r0['tokens_per_s']:.0f} tokens/s; peak memory "
-              f"{peaks} GB  [{card}]", flush=True)
-    print(f"[train {mesh_spec}] {world} rank processes done in "
+              f"{peaks} GB; launches a step (rank 0) "
+              f"{ {k: v for k, v in r0['counts'][0].items() if v} }"
+              + (f"; routes dropped {r0['routes'][1]} of {r0['routes'][0]} "
+                 f"(rank 0, {TRAIN_STEPS} steps)" if r0.get("routes")
+                 else "") + f"  [{card}]", flush=True)
+    print(f"[{tag}] {world} rank processes done in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return ranks
 
 
-def _train_launches(trained: dict) -> dict:
-    """Each kernel's launches over phase train's runs through the kernels
-    (the --mesh 1,1 runs, and rank 0's of the others), every step's."""
+def _train_launches(trained: dict, meshes=TRAIN_MESHES) -> dict:
+    """Each kernel's launches over phase train's (or moe_train's) runs
+    through the kernels (the --mesh 1,1 runs, and rank 0's of the
+    others), every step's."""
     total: dict = {}
     runs = list(trained.get("1,1", {}).values())
-    for spec, _ in TRAIN_MESHES:
+    for spec, _ in meshes:
         if trained.get(spec):
             runs += list(trained[spec][0]["runs"].values())
     for r in runs:
@@ -2099,6 +2364,29 @@ def phase_train(torch, card: str) -> dict:
     return res
 
 
+def phase_moe_train(torch, card: str) -> dict:
+    """moonshot-v1-16b-a3b trained at full width (_train_cfg): --mesh 1,1
+    in this process (the CUDA codec == the plain codec), then
+    TRAIN_MOE_MESHES as rank processes (ep = 2: paper/fused, the dispatch
+    through fc_a2a, == paper/two_step)."""
+    from repro_torch.launch.train import param_count
+    torch.cuda.empty_cache()                   # the earlier models are gone
+    t0 = time.perf_counter()
+    cfg = _train_cfg(MOE_ARCH)
+    print(f"[moe_train] {MOE_ARCH} at full width, {cfg.n_layers} of its 48 "
+          f"layers ({', '.join(cfg.layer_kinds)}): "
+          f"{param_count(cfg) / 1e9:.3f} B parameters", flush=True)
+    res = {"1,1": _train_single(torch, card, arch=MOE_ARCH)}
+    torch.cuda.empty_cache()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    for spec, _ in TRAIN_MOE_MESHES:
+        res[spec] = _train_ranks(torch, card, spec, arch=MOE_ARCH)
+    print(f"[moe_train] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2106,19 +2394,24 @@ def main(argv=None) -> int:
     # a rank process of phase tp (started by phase tp itself)
     ap.add_argument("--tp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--tp-size", type=int, default=TP,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--rendezvous", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     # a rank process of phase train (started by phase train itself)
     ap.add_argument("--train-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--train-mesh", help=argparse.SUPPRESS)
+    ap.add_argument("--train-arch", default=TRAIN_ARCH,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.tp_rank is not None:
-        return tp_rank_main(args.tp_rank, args.rendezvous, args.out)
+        return tp_rank_main(args.tp_rank, args.tp_size, args.rendezvous,
+                            args.out)
     if args.train_rank is not None:
         sys.path.insert(0, os.path.join(ROOT, "src"))
         return train_rank_main(args.train_rank, args.train_mesh,
-                               args.rendezvous, args.out)
+                               args.rendezvous, args.out, args.train_arch)
     phases = args.phases.split(",")
 
     import numpy as np
@@ -2145,6 +2438,9 @@ def main(argv=None) -> int:
     launches, served = {}, {}
     if "serve" in phases:
         launches, served = phase_serve(torch, np)
+    ln_launches, ln_served = {}, {}
+    if "ln" in phases:
+        ln_launches, ln_served = phase_ln(torch, np)
     a2a_launches, a2a_timed = {}, {}
     if "a2a" in phases:
         a2a_launches, a2a_timed = phase_a2a(torch, card)
@@ -2155,10 +2451,15 @@ def main(argv=None) -> int:
     if "ar" in phases:
         ar_launches, ar_timed = phase_ar(torch, card)
     tp_ranks = phase_tp(torch, card) if "tp" in phases else []
+    tp4_ranks = phase_tp(torch, card, GLM_TP) if "tp4" in phases else []
     trained = phase_train(torch, card) if "train" in phases else {}
+    moe_trained = (phase_moe_train(torch, card) if "moe_train" in phases
+                   else {})
     train_launches = _train_launches(trained)
+    moe_train_launches = _train_launches(moe_trained, TRAIN_MOE_MESHES)
     tp_launches = tp_ranks[0]["dense"]["launches"] if tp_ranks else {}
     moe_tp_launches = tp_ranks[0]["moe"]["launches"] if tp_ranks else {}
+    glm_tp_launches = tp4_ranks[0]["glm"]["launches"] if tp4_ranks else {}
 
     main_cfg = {name: "int2 g32 spike" if name == "spike_pack"
                 else "int8 g128" for name in REPLACES}
@@ -2168,21 +2469,26 @@ def main(argv=None) -> int:
             t = a2a_timed.get(A2A_TIME_TP, {}).get("prefill", {})
             errs = [r["max_abs_err"] for by_shape in a2a_timed.values()
                     for r in by_shape.values()]
-            source, n = "rdma.cu", moe_tp_launches.get(name, 0)
+            source = "rdma.cu"
+            n = (moe_tp_launches.get(name, 0)
+                 + moe_train_launches.get(name, 0))
         elif name == "ar":
             t = ar_timed.get("prefill", {})
             errs = [r["max_abs_err"] for r in ar_timed.values()]
             source = "allreduce.cu"
             n = (tp_launches.get(name, 0) + moe_tp_launches.get(name, 0)
-                 + train_launches.get(name, 0))
+                 + glm_tp_launches.get(name, 0)
+                 + train_launches.get(name, 0)
+                 + moe_train_launches.get(name, 0))
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
                 name, {})
             errs = [r[name]["max_abs_err"] for by_cfg in timing.values()
                     for r in by_cfg.values() if name in r]
             source = "wire.cu" if name in WIRE_KERNELS else "stage.cu"
-            n = (launches.get(name, 0) + moe_launches.get(name, 0)
-                 + train_launches.get(name, 0)
+            n = (launches.get(name, 0) + ln_launches.get(name, 0)
+                 + moe_launches.get(name, 0) + train_launches.get(name, 0)
+                 + moe_train_launches.get(name, 0)
                  if name in WIRE_KERNELS else stage_launches.get(name, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source,
@@ -2192,6 +2498,9 @@ def main(argv=None) -> int:
             "tp_launches": tp_launches.get(name, 0),
             "moe_tp_launches": moe_tp_launches.get(name, 0),
             "train_launches": train_launches.get(name, 0),
+            "ln_launches": ln_launches.get(name, 0),
+            "glm_tp_launches": glm_tp_launches.get(name, 0),
+            "moe_train_launches": moe_train_launches.get(name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -2208,7 +2517,8 @@ def main(argv=None) -> int:
               "a2a_launches": a2a_launches, "moe_launches": moe_launches,
               "serve": numbers(served), "moe": numbers(moe_served),
               "ar": ar_timed, "ar_launches": ar_launches, "tp": tp_ranks,
-              "train": trained}
+              "train": trained, "ln": numbers(ln_served), "tp4": tp4_ranks,
+              "moe_train": moe_trained}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -42,10 +42,14 @@ forward                          backward
 _ef`
 :func:`psum_exact`               exact sum (the transpose of ``psum`` under
                                  per-rank loss seeding)
+:func:`dispatch_all_to_all`      exact all-to-all of the cotangent
+:func:`all_to_all_rows`          exact all-to-all of the cotangent
+:func:`all_gather_rows`          exact reduce-scatter, summed in rank order
 ===============================  ==========================================
 
-The All2All (:func:`quantized_all_to_all`) quantizes the MoE dispatch
-payload; the combine stays exact, as in the paper.
+The All2All (:func:`quantized_all_to_all`, under
+:func:`dispatch_all_to_all`) quantizes the MoE dispatch payload; the
+combine stays exact, as in the paper.
 """
 from __future__ import annotations
 
@@ -66,14 +70,54 @@ def group_size(group) -> int:
     return emulate.group_size(axis_parts(group)[0])
 
 
+class _AllToAllRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return emulate.all_to_all_rows(x, axis_parts(group)[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        return emulate.all_to_all_rows(g.contiguous(),
+                                       axis_parts(ctx.group)[0]), None
+
+
+def _differentiable(x: torch.Tensor, group) -> bool:
+    """Whether a collective of ``x`` over ``group`` records a backward:
+    autograd on, ``x`` needs a gradient, more than one rank."""
+    return (torch.is_grad_enabled() and x.requires_grad
+            and group_size(group) > 1)
+
+
 def all_to_all_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Exact all-to-all of (tp, ...) rows: row p goes to peer p, row p of
-    the result came from peer p."""
+    the result came from peer p. The backward is the all-to-all of the
+    cotangent (tiled ``lax.all_to_all``'s transpose)."""
+    if _differentiable(x, group):
+        return _AllToAllRows.apply(x, group)
     return emulate.all_to_all_rows(x, axis_parts(group)[0])
 
 
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return emulate.all_gather_rows(x, axis_parts(group)[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        got = emulate.all_to_all_rows(g.contiguous(),
+                                      axis_parts(ctx.group)[0])
+        return sum_rows(got, 0), None
+
+
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """(...) -> (tp, ...): every rank's tensor, in rank order."""
+    """(...) -> (tp, ...): every rank's tensor, in rank order. The
+    backward is the exact reduce-scatter of the cotangent (tiled
+    ``lax.all_gather``'s transpose, ``psum_scatter``): each rank's row
+    of every rank's cotangent, summed in rank order."""
+    if _differentiable(x, group):
+        return _AllGatherRows.apply(x, group)
     return emulate.all_gather_rows(x, axis_parts(group)[0])
 
 
@@ -640,9 +684,23 @@ def quantized_all_to_all(x: torch.Tensor, cfg: CommConfig,
     return codec.decode(recv, cfg, xp.shape[-1], out_dtype=x.dtype)[..., :d]
 
 
+class _DispatchAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cfg, group):
+        ctx.group = group
+        return quantized_all_to_all(x, cfg, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_rows(g.contiguous(), ctx.group), None, None
+
+
 def dispatch_all_to_all(x: torch.Tensor, cfg: CommConfig,
                         group=None) -> torch.Tensor:
-    """The MoE dispatch All2All (quantized payload), forward only: the
-    JAX package's backward, an exact all-to-all in the combine direction
-    (straight-through quantization), comes with MoE training."""
+    """The MoE dispatch All2All: :func:`quantized_all_to_all` of (tp, ...,
+    d) blocks. The backward is the exact all-to-all of the cotangent (the
+    combine direction): the dispatch's quantization is straight-through,
+    as the JAX package's ``custom_vjp``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _DispatchAllToAll.apply(x, cfg, group)
     return quantized_all_to_all(x, cfg, group)

@@ -64,9 +64,13 @@ def parse_mesh(text: str) -> Tuple[int, int]:
 
 
 def site_row_bytes(cfg, plan, batch: int, seq: int) -> int:
-    """Receive-row bytes for every site that a peer world serving model
-    ``cfg`` on ``plan`` at ``batch`` x ``seq`` tokens carries, the larger
-    of two, each more than the wire of any config of at most 8 bits:
+    """Receive-row bytes for every site that a peer world carries for
+    model ``cfg`` on ``plan`` at ``batch`` x ``seq`` tokens a forward (a
+    prefill served, or a training step's ``b_loc`` x ``seq`` local
+    tokens: the TP sites' backward, ``tp_bwd``, has their forward's
+    shape, and the dispatch's backward is exact, over the process group),
+    the larger of two, each more than the wire of any config of at most 8
+    bits:
 
     * the largest TP site: ``batch * seq * d_model`` values padded to a
       ``tp * 128`` multiple, the f32 bytes of a rank's chunk;

@@ -1,5 +1,5 @@
-"""Training launcher: a dense decoder on a ``DATA,MODEL[,POD]`` mesh of
-rank processes.
+"""Training launcher: a decoder of dense and MoE blocks on a
+``DATA,MODEL[,POD]`` mesh of rank processes.
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU it raises
 rather than run on the CPU. The flags are the JAX launcher's. Example
@@ -17,9 +17,16 @@ prints. The store is the flat ZeRO store, float32, from ``--seed``
 JSON object of the JAX launcher, ``{"first_loss": ..., "last_loss":
 ...}``.
 
-Not ported: ``--check`` (the analyzer, ROADMAP Queue A item 11),
-``--framed-bridge`` (frames, item 8), and MoE models (their dispatch's
-backward, item 7).
+An MoE model's experts spread over the model axis (ep = gcd(experts,
+MODEL)); its dispatch All2All runs inside the step, forward and backward,
+and its load-balance loss enters the loss at weight 0.01. For example
+(moonshot's smoke config, two expert-parallel ranks on gloo)::
+
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch moonshot-v1-16b-a3b --smoke --device cpu --steps 3 --mesh 1,2
+
+Not ported: ``--check`` (the analyzer, ROADMAP Queue A item 11) and
+``--framed-bridge`` (frames, item 8).
 """
 from __future__ import annotations
 
@@ -88,15 +95,16 @@ def train(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
           steps: int, device: torch.device, seed: int = 0, n_micro: int = 1,
           log_every: int = 10, resume: Optional[str] = None,
           ckpt: Optional[str] = None, log=print, store=None,
-          on_step=None) -> Dict:
+          on_step=None, stats: Optional[Dict] = None) -> Dict:
     """Train ``steps`` steps on this rank (every rank of ``mesh`` calls
     it) -> ``{"history": [...], "step_ms": [...], "store", "opt"}``.
 
     The weights are ``resume``'s, else ``store`` (this rank's flat store,
     trained in place), else :func:`~repro_torch.parallel.shardings.
     init_store`'s from ``seed``. ``on_step(i, store, opt, metrics)``, if
-    given, runs after each step (a check reads the state there). Each
-    step is timed on the host, the card synchronised before and after.
+    given, runs after each step (a check reads the state there);
+    ``stats``, if given, gathers an MoE model's routing counts. Each step
+    is timed on the host, the card synchronised before and after.
     """
     rank = axis_rank(mesh.model)
     data_rank = axis_rank(mesh.data)
@@ -122,7 +130,8 @@ def train(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
         opt = init_opt_state(store, opt_cfg, grad_ef=grad_ef,
                              qgrad_ef=qgrad_ef, fsdp=plan.fsdp)
         start = 0
-    step_fn = make_train_step_fn(cfg, plan, policy, opt_cfg, mesh, n_micro)
+    step_fn = make_train_step_fn(cfg, plan, policy, opt_cfg, mesh, n_micro,
+                                 stats)
     ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                  global_batch=batch, seed=seed))
     history: List[Dict] = []
@@ -201,10 +210,6 @@ def main(argv=None) -> Optional[Dict]:
             "--framed-bridge needs the framed wire (core/frame.py), which "
             "is not ported: ROADMAP Queue A item 8")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{args.arch} is an MoE model: MoE training needs "
-            f"dispatch_all_to_all's backward (ROADMAP Queue A item 7)")
     data, model, pod = mesh_lib.parse_train_mesh(args.mesh)
     device = resolve_device(args.device)
     world = max(pod, 1) * data * model

@@ -1,23 +1,32 @@
 """GQA attention: blockwise (online-softmax) prefill + cached decode.
 
 Written with plain tensor ops and float32 scores, as the JAX package
-writes it. q heads are sharded over the TP ranks; kv heads are sharded
-("shard" mode, the only mode this package runs). The out-projection's
+writes it. q heads are sharded over the TP ranks (padded to a multiple
+of tp; padded heads are masked, exact no-ops). kv heads are sharded when
+``n_kv % tp == 0`` ("shard" mode), else every rank holds all of them
+("replicate" mode, Megatron's GQA fallback). The out-projection's
 partial sums cross the ranks through :func:`repro_torch.models.layers.
 tp_psum`.
 
 The decode cache is a ring: ``slot_pos[c]`` is the position held in slot
-``c`` (-1 when empty); position ``pos`` goes to slot ``pos % cache_len``.
-Unlike the JAX package, which returns a new cache, the port writes the
-cache in place.
+``c`` (-1 when empty). In shard mode each rank holds every position of
+its kv heads, position ``pos`` in slot ``pos % cache_len``. In replicate
+mode the ring is sharded by sequence: each rank holds ``cache_len / tp``
+positions of all kv heads, position ``pos`` goes to slot ``pos %
+cache_len`` of the whole ring, which rank ``slot // c_loc`` owns, and
+the ranks' online-softmax partials are merged (:func:`_ring_attention`,
+counted in :data:`RING_MERGES`). Unlike the JAX package, which returns a
+new cache, the port writes the cache in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.collectives import (all_gather_rows, all_to_all_rows,
+                                          sum_rows)
 from repro_torch.core.policy import CommPolicy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm, rope, tp_psum
@@ -26,6 +35,15 @@ from repro_torch.parallel.shardings import ParamSpec
 
 KV_CHUNK = 1024
 _NEG = -1e30
+#: replicate mode's decode merges over the ring (:func:`_ring_attention`),
+#: one a layer and step, each an all-gather of q and an all-to-all of the
+#: partials (:func:`reset_ring_merges` zeroes it)
+RING_MERGES = 0
+
+
+def reset_ring_merges() -> None:
+    global RING_MERGES
+    RING_MERGES = 0
 
 
 def attn_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
@@ -50,33 +68,49 @@ def attn_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
     return s
 
 
-def _head_maps(cfg: ModelConfig, plan: ShardingPlan, rank: int, device):
-    """This rank's (q-head validity mask, local kv index per q head)."""
-    gq = rank * plan.hq_loc + torch.arange(plan.hq_loc, device=device)
-    valid = gq < cfg.n_heads
+def _kv_map(cfg: ModelConfig, plan: ShardingPlan, rank: int) -> List[int]:
+    """The local kv index of each of rank ``rank``'s q heads: in replicate
+    mode the global one (every rank holds every kv head). A host list: it
+    depends on the plan and the rank only."""
     q_per_kv = cfg.n_heads // cfg.n_kv_heads
-    gkv = torch.clamp(gq // q_per_kv, 0, cfg.n_kv_heads - 1)
-    if plan.kv_mode != "shard":
-        raise NotImplementedError(
-            "replicated-kv attention (tp > n_kv_heads) is not ported")
-    kv_local = torch.clamp(gkv - rank * plan.kv_loc, 0, plan.kv_loc - 1)
-    return valid, kv_local
+    gkv = [min((rank * plan.hq_loc + i) // q_per_kv, cfg.n_kv_heads - 1)
+           for i in range(plan.hq_loc)]
+    if plan.kv_mode == "shard":
+        return [min(max(k - rank * plan.kv_loc, 0), plan.kv_loc - 1)
+                for k in gkv]
+    return gkv
 
 
-def _per_q_head(t: torch.Tensor, kvmap: torch.Tensor, cfg: ModelConfig,
-                plan: ShardingPlan, rank: int) -> torch.Tensor:
+def _head_maps(cfg: ModelConfig, plan: ShardingPlan, rank: int, device
+               ) -> Tuple[torch.Tensor, List[int]]:
+    """This rank's (q-head validity mask, :func:`_kv_map`)."""
+    valid = (rank * plan.hq_loc + torch.arange(plan.hq_loc, device=device)
+             ) < cfg.n_heads
+    return valid, _kv_map(cfg, plan, rank)
+
+
+def _per_q_head(t: torch.Tensor, kvmap: List[int]) -> torch.Tensor:
     """(B, S, kv_loc, hd) -> (B, S, hq_loc, hd), the kv head of each q
-    head. Where the map is kv head ``i // (hq_loc / kv_loc)`` for q head
-    ``i`` (every q head of the rank real), a broadcast: its backward sums
-    in a fixed order, where index_select's adds atomically on the card,
-    so a training step gives the same bits every run. Else index_select."""
-    rep, rem = divmod(plan.hq_loc, plan.kv_loc)
-    if rem == 0 and (rank + 1) * plan.hq_loc <= cfg.n_heads and \
-            cfg.n_heads // cfg.n_kv_heads == rep:
-        b, s, kv, hd = t.shape
-        return t[:, :, :, None, :].expand(b, s, kv, rep, hd).reshape(
-            b, s, kv * rep, hd)
-    return torch.index_select(t, 2, kvmap)
+    head. The map never decreases, so it is runs of kv heads: one
+    broadcast of a slice when every run has one length, else a
+    concatenation of one broadcast a run (the padded q heads' clamped
+    heads make a shorter last run; a rank of replicate mode may start or
+    end inside a kv head's q heads). Either backward sums in a fixed
+    order, where index_select's adds atomically on the card, so a
+    training step gives the same bits every run."""
+    runs: List[List[int]] = []                    # [kv head, count]
+    for k in kvmap:
+        if runs and runs[-1][0] == k:
+            runs[-1][1] += 1
+        else:
+            runs.append([k, 1])
+    b, s, _, hd = t.shape
+    k0, n, rep = runs[0][0], len(runs), runs[0][1]
+    if all(r == [k0 + i, rep] for i, r in enumerate(runs)):
+        return t[:, :, k0:k0 + n, None, :].expand(b, s, n, rep, hd).reshape(
+            b, s, n * rep, hd)
+    return torch.cat([t[:, :, k:k + 1].expand(b, s, c, hd)
+                      for k, c in runs], dim=2)
 
 
 def _scale(hd: int) -> float:
@@ -119,12 +153,19 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def init_kv_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int,
                   cache_len: int, dtype, device) -> Dict[str, torch.Tensor]:
-    """Head-sharded decode cache: every rank holds all positions of its
-    ``kv_loc`` heads."""
-    shape = (batch, cache_len, plan.kv_loc, cfg.hd)
+    """Decode cache. Shard mode: head-sharded, every rank holds all
+    positions of its ``kv_loc`` heads. Replicate mode: the sequence-
+    sharded ring, each rank ``cache_len / tp`` positions of all kv heads
+    (a replicated cache would hold every position tp times)."""
+    if plan.kv_mode == "shard":
+        c_loc = cache_len
+    else:
+        assert cache_len % plan.tp == 0, (cache_len, plan.tp)
+        c_loc = cache_len // plan.tp
+    shape = (batch, c_loc, plan.kv_loc, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "slot_pos": torch.full((cache_len,), -1, dtype=torch.int64,
+            "slot_pos": torch.full((c_loc,), -1, dtype=torch.int64,
                                    device=device)}
 
 
@@ -168,7 +209,7 @@ def self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
         if cfg.rope_theta is not None:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
-        ke, ve = (_per_q_head(t, kvmap, cfg, plan, rank) for t in (k, v))
+        ke, ve = (_per_q_head(t, kvmap) for t in (k, v))
         ctx = blockwise_attention(q, ke, ve, positions, positions)
         return _finish(p, ctx, valid, policy, cfg, layer, group), None
 
@@ -176,19 +217,68 @@ def self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
         pvec = torch.full((1,), pos, dtype=torch.int64, device=x.device)
         q = rope(q, pvec, cfg.rope_theta)
         k = rope(k, pvec, cfg.rope_theta)
-    slot = pos % cache["k"].shape[1]
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["slot_pos"][slot] = pos
+    c_loc = cache["k"].shape[1]
+    # the slot of ``pos`` in the whole ring, and the rank that holds it
+    # (every rank in shard mode); ``pos`` is a host int, so is the owner
+    slot = pos % (c_loc * (1 if plan.kv_mode == "shard" else plan.tp))
+    if slot // c_loc == (0 if plan.kv_mode == "shard" else rank):
+        cache["k"][:, slot % c_loc] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot % c_loc] = v[:, 0].to(cache["v"].dtype)
+        cache["slot_pos"][slot % c_loc] = pos
     spos = cache["slot_pos"]
-
-    ke = torch.index_select(cache["k"], 2, kvmap)   # (B, C, hq_loc, hd)
-    ve = torch.index_select(cache["v"], 2, kvmap)
-    sc = torch.einsum("bshd,bchd->bshc", q.to(torch.float32),
-                      ke.to(torch.float32)) * _scale(cfg.hd)
-    mask = (spos >= 0) & (spos <= pos)
-    sc = torch.where(mask[None, None, None, :], sc, torch.full_like(sc, _NEG))
-    w = torch.softmax(sc, dim=-1)
-    ctx = torch.einsum("bshc,bchd->bshd", w, ve.to(torch.float32))
+    mask = ((spos >= 0) & (spos <= pos))[None, None, None, :]
+    if plan.kv_mode == "shard":
+        ke = _per_q_head(cache["k"], kvmap)          # (B, C, hq_loc, hd)
+        ve = _per_q_head(cache["v"], kvmap)
+        sc = torch.einsum("bshd,bchd->bshc", q.to(torch.float32),
+                          ke.to(torch.float32)) * _scale(cfg.hd)
+        sc = torch.where(mask, sc, torch.full_like(sc, _NEG))
+        w = torch.softmax(sc, dim=-1)
+        ctx = torch.einsum("bshc,bchd->bshd", w, ve.to(torch.float32))
+    else:
+        ctx = _ring_attention(q, cache, mask, cfg, plan, group)
     return _finish(p, ctx.to(x.dtype), valid, policy, cfg, layer,
                    group), cache
+
+
+def _ring_attention(q: torch.Tensor, cache: Dict, mask: torch.Tensor,
+                    cfg: ModelConfig, plan: ShardingPlan,
+                    group) -> torch.Tensor:
+    """Replicate mode's decode over the sequence-sharded ring: q (B, 1,
+    hq_loc, hd) -> this rank's heads' context (B, 1, hq_loc, hd) f32.
+
+    The ring's slots on this rank serve every q head, so the ranks' q
+    heads are gathered first (exact); this rank's online-softmax partials
+    (m, l, acc) of every q head go to the rank that owns the head in one
+    all-to-all, and each rank merges its heads' partials with the JAX
+    package's arithmetic, the sums over the ranks in rank order. (JAX
+    gathers the partials of each rank's own heads and merges them as if
+    they were one head's: a difference from the reference, ROADMAP Queue
+    C.) A rank whose slots are all masked has m = -1e30, weights exp(0) =
+    1 and l = c_loc, as in JAX: its correction exp(m - max m) is 0, which
+    takes its share out."""
+    global RING_MERGES
+    tp, hq, hd = plan.tp, plan.hq_loc, cfg.hd
+    b = q.shape[0]
+    qa = all_gather_rows(q, group)                   # (tp, B, 1, hq, hd)
+    qa = qa.permute(1, 2, 0, 3, 4).reshape(b, 1, tp * hq, hd)
+    every = [k for r in range(tp) for k in _kv_map(cfg, plan, r)]
+    ke = _per_q_head(cache["k"], every)              # (B, C_loc, hq_pad, hd)
+    ve = _per_q_head(cache["v"], every)
+    sc = torch.einsum("bshd,bchd->bshc", qa.to(torch.float32),
+                      ke.to(torch.float32)) * _scale(hd)
+    sc = torch.where(mask, sc, torch.full_like(sc, _NEG))
+    m_loc = torch.amax(sc, dim=-1)                   # (B, 1, hq_pad)
+    pw = torch.exp(sc - m_loc[..., None])
+    l_loc = torch.sum(pw, dim=-1)
+    acc = torch.einsum("bshc,bchd->bshd", pw, ve.to(torch.float32))
+    part = torch.cat([acc, m_loc[..., None], l_loc[..., None]], dim=-1)
+    part = part.reshape(b, 1, tp, hq, hd + 2).permute(2, 0, 1, 3, 4)
+    parts = all_to_all_rows(part.contiguous(), group)  # row p: rank p's
+    RING_MERGES += 1
+    a_all, m_all, l_all = parts[..., :-2], parts[..., -2], parts[..., -1]
+    m_g = torch.amax(m_all, dim=0)
+    corr = torch.exp(m_all - m_g[None])
+    l_g = sum_rows(l_all * corr, 0)
+    return (sum_rows(a_all * corr[..., None], 0)
+            / torch.clamp(l_g, min=1e-20)[..., None])

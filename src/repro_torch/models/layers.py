@@ -1,4 +1,5 @@
-"""Normalization, RoPE, embeddings, vocab-parallel logits, dense MLP.
+"""Normalization (RMS and LayerNorm), RoPE, embeddings, vocab-parallel
+logits, dense MLP.
 
 Every activation that crosses the TP ranks goes through
 :func:`tp_psum`, the paper's quantized AllReduce site (its backward the
@@ -35,6 +36,27 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * gain.to(torch.float32)
             ).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (the population variance,
+    as ``jnp.var``), cast back to ``x``'s dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    c = xf - mu
+    var = torch.mean(c * c, dim=-1, keepdim=True)
+    y = c * torch.rsqrt(var + eps)
+    return (y * gain.to(torch.float32) + bias.to(torch.float32)
+            ).to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, p: Dict, kind: str) -> torch.Tensor:
+    """The norm ``kind``: "rms" (``p["gain"]``) or "ln" (``p["gain"]``,
+    ``p["bias"]``)."""
+    if kind == "rms":
+        return rms_norm(x, p["gain"])
+    return layer_norm(x, p["gain"], p["bias"])
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

@@ -31,7 +31,7 @@ from repro_torch.core.collectives import all_gather_rows
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (embed_lookup, mlp_apply, rms_norm,
+from repro_torch.models.layers import (apply_norm, embed_lookup, mlp_apply,
                                        vocab_parallel_ce,
                                        vocab_parallel_logits)
 from repro_torch.parallel.axis import axis_rank
@@ -43,9 +43,19 @@ SUPPORTED_KINDS = ("dense", "moe")
 
 
 def _norm_specs(cfg: ModelConfig, name: str) -> Dict[str, ParamSpec]:
-    if cfg.norm != "rms":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
-    return {name + "gain": ParamSpec((cfg.d_model,), init="ones")}
+    s = {name + "gain": ParamSpec((cfg.d_model,), init="ones")}
+    if cfg.norm == "ln":
+        s[name + "bias"] = ParamSpec((cfg.d_model,), init="zeros")
+    return s
+
+
+def _norm(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+          name: str) -> torch.Tensor:
+    """The model's norm (``cfg.norm``) with the parameters ``name*``."""
+    prm = {"gain": p[name + "gain"]}
+    if cfg.norm == "ln":
+        prm["bias"] = p[name + "bias"]
+    return apply_norm(x, prm, cfg.norm)
 
 
 def _mlp_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
@@ -140,12 +150,12 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
     (:func:`repro_torch.models.moe.moe_apply`)."""
     if kind not in SUPPORTED_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
-    h = rms_norm(x, p["n1_gain"])
+    h = _norm(p, x, cfg, "n1_")
     a, _ = attn.self_attention(p, h, positions, cfg, plan, policy,
                                cache=cache, pos=pos, layer=layer,
                                group=group, rank=rank)
     x = x + a
-    h = rms_norm(x, p["n2_gain"])
+    h = _norm(p, x, cfg, "n2_")
     if kind == "moe":
         f, aux = moe_mod.moe_apply(p, h, cfg, plan, policy, layer=layer,
                                    group=group, rank=rank, stats=stats)
@@ -161,7 +171,8 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
     """The one decoder loop of :func:`forward` and :func:`forward_train`:
     ``get(group, stack)`` gives a parameter group's tensors at one stack
     index; with ``recompute`` each block group, its ``get`` included, is
-    recomputed in the backward (``torch.utils.checkpoint``)."""
+    recomputed in the backward (``torch.utils.checkpoint``), and ``stats``
+    counts the routes of the forward only, not of the replay."""
     policy = policy.bind(cfg.n_layers)
     rank = axis_rank(group)
     decode = caches is not None
@@ -174,15 +185,16 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
     layer = 0
     for gname, stack, kinds in _block_order(cfg):
         def body(cx, aux, gname=gname, stack=stack, kinds=kinds,
-                 layer0=layer):
+                 layer0=layer, first=[True]):
             p = get(gname, stack)
+            st, first[0] = (stats if first[0] else None), False
             for j, kind in enumerate(kinds):
                 cx, a = apply_block(
                     kind, _block_of(p, gname, j), cx, positions=positions,
                     cfg=cfg, plan=plan, policy=policy,
                     cache=caches["layers"][layer0 + j] if decode else None,
                     pos=pos, layer=layer0 + j, group=group, rank=rank,
-                    stats=stats)
+                    stats=st)
                 aux = aux + a
             return cx, aux
         if recompute:
@@ -195,7 +207,7 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
     if decode:
         caches["pos"] = pos + 1
     po = get("out", 0)
-    x = rms_norm(x, po["nf_gain"])
+    x = _norm(po, x, cfg, "nf_")
     unemb = po["unemb"] if not cfg.tie_embeddings else pe["tok"]
     return x, unemb, aux_total
 
@@ -226,7 +238,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
                   plan: ShardingPlan, policy: CommPolicy, *,
                   dtype=torch.bfloat16, group=None, data_group=None,
-                  grad_deltas: Optional[Store] = None):
+                  grad_deltas: Optional[Store] = None,
+                  stats: Optional[Dict] = None):
     """The training forward: tokens (B_loc, S) -> (hidden (B_loc, S, d),
     unemb, aux_loss).
 
@@ -238,11 +251,10 @@ def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
     given, every gathered parameter is detached and its delta added (the
     ``qgrad_rs`` tap). Each block, its gather included, is recomputed in
     the backward (``torch.utils.checkpoint``, the whole block replayed).
+    An MoE block's aux loss enters ``aux_loss``; ``stats``, if given,
+    gathers its routing counts (:func:`repro_torch.models.moe.moe_apply`)
+    in the forward.
     """
-    if cfg.moe is not None or set(cfg.layer_kinds) != {"dense"}:
-        raise NotImplementedError(
-            "training runs dense blocks only: MoE training needs "
-            "dispatch_all_to_all's backward (ROADMAP Queue A item 7)")
     groups = param_groups(cfg, plan)
     qag = policy.bind(cfg.n_layers).resolve("qag")
 
@@ -254,7 +266,7 @@ def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
                             data_group, deltas)
 
     return _decoder(get, tokens, cfg, plan, policy, dtype=dtype,
-                    group=group, recompute=True)
+                    group=group, stats=stats, recompute=True)
 
 
 def lm_loss(hidden: torch.Tensor, unemb: torch.Tensor, labels: torch.Tensor,

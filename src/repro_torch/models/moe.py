@@ -13,6 +13,14 @@ Process groups: ``group`` is the TP group. With ``etp == 1`` the dispatch
 runs over it; with ``ep == 1`` the within-expert AllReduce does. A plan
 with both above 1 needs subgroups, which this package does not build.
 
+Under autograd every collective has the JAX package's transpose: the
+dispatch's is the exact all-to-all (straight-through quantization), the
+combine's an all-to-all, the ``ep_slice`` gather's the exact
+reduce-scatter, the aux loss's mean over the ranks the exact sum over
+``tp``. The backward adds in a fixed order: the routes' token copies are
+a broadcast, the dispatch buffer an out-of-place ``index_add`` whose
+backward is a gather, and the combine's gather scatters exact zeros only
+into slots that several routes read (a dropped route weighs 0).
 """
 from __future__ import annotations
 
@@ -21,9 +29,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.collectives import (all_gather_rows, all_reduce_sum,
-                                          all_to_all_rows, compressed_psum,
-                                          dispatch_all_to_all)
+from repro_torch.core.collectives import (all_gather_rows, all_to_all_rows,
+                                          compressed_psum,
+                                          dispatch_all_to_all, psum_exact)
 from repro_torch.core.comm_config import NO_COMPRESSION
 from repro_torch.core.policy import CommPolicy
 from repro_torch.models.config import ModelConfig
@@ -139,11 +147,11 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     cap = capacity(t, cfg)
     re = topi.reshape(-1)
     rw = topv.reshape(-1)
-    tok_idx = torch.arange(re.shape[0], device=x.device) // m.top_k
     slot = re * cap + torch.where(keep, pos, torch.full_like(pos, cap - 1))
+    src = xt[:, None].expand(t, m.top_k, d).reshape(-1, d)   # route i's token
     buf = torch.zeros((m.n_experts * cap, d), dtype=x.dtype,
-                      device=x.device)
-    buf.index_add_(0, slot, xt[tok_idx] * keep[:, None].to(x.dtype))
+                      device=x.device).index_add(
+                          0, slot, src * keep[:, None].to(x.dtype))
     buf = buf.reshape(mp.ep, mp.e_loc * cap, d)
     recv = dispatch_all_to_all(buf, a2a_cfg, ep_group)
 
@@ -173,6 +181,5 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     if ep_slice:
         out = all_gather_rows(out, ep_group).reshape(-1, d)[:t_orig]
         # the slice's aux estimates the whole; average over the TP group
-        aux = all_reduce_sum(aux, group)
-        aux = aux / plan.tp
+        aux = psum_exact(aux, group) / plan.tp
     return out.reshape(b, s, d), aux

@@ -22,7 +22,7 @@ gradients are those of the mean loss, as under JAX's ``shard_map``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -75,8 +75,10 @@ def _replicated_mask(cfg: ModelConfig, plan: ShardingPlan) -> Dict:
 
 def make_loss_fn(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
                  mesh: MeshAxes, n_micro: int = 1,
-                 aux_weight: float = 0.01):
-    """(store, deltas, batch) -> (seed loss, raw loss) of this rank."""
+                 aux_weight: float = 0.01, stats: Optional[Dict] = None):
+    """(store, deltas, batch) -> (seed loss, raw loss) of this rank; an
+    MoE model's aux loss enters at ``aux_weight``, and ``stats``, if
+    given, gathers its routing counts in the forward."""
     dtype = getattr(torch, cfg.dtype)
     denom = group_size(mesh.model) * group_size(mesh.data)
     if mesh.multi_pod:
@@ -85,7 +87,7 @@ def make_loss_fn(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
     def one_micro(store, deltas, tokens, labels):
         hidden, unemb, aux = forward_train(
             store, tokens, cfg, plan, policy, dtype=dtype, group=mesh.model,
-            data_group=mesh.data, grad_deltas=deltas)
+            data_group=mesh.data, grad_deltas=deltas, stats=stats)
         return lm_loss(hidden, unemb, labels, cfg, plan, aux, aux_weight,
                        group=mesh.model)
 
@@ -150,14 +152,16 @@ def _sorted_leaves(tree: Tree):
 
 def make_train_step_fn(cfg: ModelConfig, plan: ShardingPlan,
                        policy: CommPolicy, opt_cfg: OptimConfig,
-                       mesh: MeshAxes, n_micro: int = 1):
+                       mesh: MeshAxes, n_micro: int = 1,
+                       stats: Optional[Dict] = None):
     """step(store, opt_state, batch) -> (store, opt_state, metrics) of
     this rank; ``batch`` is its local rows (:func:`local_batch`). The
     store and the optimizer state are updated in place; ``opt_state`` is
     :func:`repro_torch.train.optim.init_opt_state` with
     ``wants_grad_ef(policy, mesh)`` and ``wants_qgrad_ef(policy, plan)``.
+    ``stats``, if given, gathers the MoE routing counts of every step.
     """
-    loss_fn = make_loss_fn(cfg, plan, policy, mesh, n_micro)
+    loss_fn = make_loss_fn(cfg, plan, policy, mesh, n_micro, stats=stats)
     pod_cfg = pod_grad_config(policy)
     qgrad_cfg = qgrad_rs_config(policy)
     use_qgrad = _qgrad_active(policy, plan)

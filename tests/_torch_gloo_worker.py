@@ -27,6 +27,12 @@ greedy choice on :func:`tie_logits`, whose two shards tie.
 
 MODE ``serve_llama``: the same for the llama3-8b smoke config.
 
+MODE ``serve_glm4``: the same for the glm4-9b smoke config, whose two kv
+heads are replicated at WORLD = 4 (the decode cache a sequence-sharded
+ring, :func:`serve_gen` tokens generated), with the ring merges' count
+(``attention.RING_MERGES``) a served run and the logits of the decode
+steps through the prompt (:func:`decode_logits`).
+
 MODE ``serve_moe``: the same for the moonshot smoke config (float32;
 ``tests/test_torch_serve_tp_moe.py`` writes its ``jax.npz``), its experts
 spread over the ranks (ep = WORLD), with the routes dropped over
@@ -135,7 +141,17 @@ SERVE_RUNS = {"paper/two_step": ("paper", None),
 
 
 SERVE_ARCHS = {"serve": "qwen3-14b", "serve_llama": "llama3-8b",
-               "serve_moe": "moonshot-v1-16b-a3b"}
+               "serve_glm4": "glm4-9b", "serve_moe": "moonshot-v1-16b-a3b"}
+
+
+def serve_gen(plan) -> int:
+    """Tokens generated: SERVE_GEN, or in replicate mode the fewest from
+    SERVE_GEN up that make the cache (prompt + generated) a multiple of
+    tp, which the sequence-sharded ring needs."""
+    gen = SERVE_GEN
+    while plan.kv_mode == "replicate" and (SERVE_S + gen) % plan.tp:
+        gen += 1
+    return gen
 
 
 def serve_config(arch: str = "qwen3-14b"):
@@ -145,9 +161,11 @@ def serve_config(arch: str = "qwen3-14b"):
 
 
 def tie_logits(rank: int) -> torch.Tensor:
-    """Two ranks' (2, 3) shards: row 0 ties at 5.0 (rank 0's column 1,
-    rank 1's column 0; rank 0 wins: token 1); row 1's maximum is rank 1's
-    column 2 (token 5)."""
+    """A rank's (2, 3) shard: row 0 ties at 5.0 (rank 0's columns 1 and
+    2, rank 1's column 0; the first wins: token 1); row 1's maximum is
+    rank 1's column 2 (token 5). Ranks from 2 up hold zeros."""
+    if rank > 1:
+        return torch.zeros(2, 3)
     return torch.tensor([[[0., 5., 5.], [1., 0., 0.]],
                          [[5., 0., 0.], [0., 0., 2.]]])[rank]
 
@@ -156,6 +174,7 @@ def run_serve(rank: int, world: int, out_dir: str,
               arch: str = "qwen3-14b") -> dict:
     import types
     from repro_torch.launch.serve import build_policy, serve
+    from repro_torch.models import attention
     from repro_torch.models.model import forward, greedy_next_token
     from repro_torch.parallel.axis import ModelAxis
     from repro_torch.parallel.plan import make_plan
@@ -188,15 +207,37 @@ def run_serve(rank: int, world: int, out_dir: str,
             out[f"{name}/token"] = greedy_next_token(
                 make_prefill(cfg, plan, policy, group=axis)(params, toks),
                 plan, axis).numpy()
+            attention.reset_ring_merges()
             res = serve(params, cfg, plan, policy, batch=SERVE_B,
-                        prompt_len=SERVE_S, gen=SERVE_GEN,
+                        prompt_len=SERVE_S, gen=serve_gen(plan),
                         device=torch.device("cpu"), log=lambda *a: None,
                         group=axis)
             out[f"{name}/generated"] = res["generated"]
+            out[f"{name}/ring_merges"] = np.array(attention.RING_MERGES)
+            if plan.kv_mode == "replicate":
+                out[f"{name}/decode_logits"] = decode_logits(
+                    params, cfg, plan, policy, axis, toks)
             if cfg.moe is not None:
                 out[f"{name}/dropped"] = np.array(
                     [res["dropped_prefill"], res["dropped_decode"]])
     return out
+
+
+def decode_logits(params, cfg, plan, policy, axis, toks) -> np.ndarray:
+    """The decode steps through the prompt ``toks`` (B, S) -> the logits
+    after each position over the whole vocabulary (B, S, vocab)."""
+    from repro_torch.core.collectives import all_gather_rows
+    from repro_torch.train.serve_step import (make_cache_init,
+                                              make_decode_step)
+    b, s = toks.shape
+    step = make_decode_step(cfg, plan, policy, group=axis)
+    caches = make_cache_init(cfg, plan, b, s + serve_gen(plan), "cpu")()
+    out = []
+    for i in range(s):
+        logits, caches = step(params, caches, toks[:, i:i + 1])
+        full = all_gather_rows(logits, axis).transpose(0, 1).reshape(b, -1)
+        out.append(full[:, :cfg.vocab].numpy())
+    return np.stack(out, 1)
 
 
 def run_allreduce(rank: int, world: int) -> dict:

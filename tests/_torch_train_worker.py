@@ -1,11 +1,14 @@
 """One rank of the port's training run on gloo, held against JAX's.
 
-    python tests/_torch_train_worker.py RANK MESH INIT_FILE OUT_DIR POLICIES
-    python tests/_torch_train_worker.py jax MESH OUT_DIR POLICIES
+    python tests/_torch_train_worker.py RANK MESH INIT_FILE OUT_DIR \
+        POLICIES [ARCH]
+    python tests/_torch_train_worker.py jax MESH OUT_DIR POLICIES [ARCH]
     python tests/_torch_train_worker.py coll RANK WORLD INIT_FILE OUT_DIR
 
 ``MESH`` is ``DATA,MODEL[,POD]`` (as the launchers take it), ``POLICIES``
-a comma-separated list of :data:`POLICIES` keys. ``OUT_DIR`` holds the
+a comma-separated list of :data:`POLICIES` keys, ``ARCH`` the smoke
+config trained (:data:`ARCH` by default; an MoE model's aux loss enters
+the loss). ``OUT_DIR`` holds the
 JAX side (written by ``tests/test_torch_train*.py``): ``init.npz``, the
 global store both packages start from (``store/GROUP/NAME``, JAX's
 ``(n_stack, tp, flat)`` arrays), and ``jax_POLICY.npz``, JAX's metrics and
@@ -48,7 +51,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(
 
 STEPS = 3
 BATCH, SEQ = 8, 16
-ARCH = "llama3-8b"
+ARCH = "llama3-8b"             # the default smoke config trained
 TREES = ("store", "m", "v", "ef", "qef")
 
 
@@ -61,9 +64,9 @@ def policies():
                                                  grad_ef=True)}
 
 
-def train_config():
+def train_config(arch: str = ARCH):
     from repro_torch.configs import get_smoke_config
-    return dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32")
 
 
 def opt_config():
@@ -144,20 +147,23 @@ def ef_sums(calls: list, opt: dict, mesh) -> dict:
     return out
 
 
-def run(out_dir: str, mesh_spec: str, names, timeout: float = 240):
+def run(out_dir: str, mesh_spec: str, names, timeout: float = 240,
+        arch: str = ARCH):
     """The JAX reference, then the port's ranks, of ``names`` on
-    ``mesh_spec`` -> ([rank npz, ...], {name: jax npz})."""
+    ``mesh_spec`` for ``arch``'s smoke config -> ([rank npz, ...], {name:
+    jax npz})."""
     import subprocess
     dims = [int(v) for v in mesh_spec.split(",")]
     world = dims[0] * dims[1] * (dims[2] if len(dims) > 2 else 1)
     me = os.path.abspath(__file__)
     env = dict(os.environ, OMP_NUM_THREADS="1", XLA_FLAGS=(
         f"--xla_force_host_platform_device_count={world}"))
-    cmds = [[sys.executable, me, "jax", mesh_spec, out_dir, ",".join(names)]]
+    cmds = [[sys.executable, me, "jax", mesh_spec, out_dir, ",".join(names),
+             arch]]
     cmds.append(None)
     cmds += [[sys.executable, me, str(r), mesh_spec,
-              os.path.join(out_dir, "rendezvous"), out_dir, ",".join(names)]
-             for r in range(world)]
+              os.path.join(out_dir, "rendezvous"), out_dir, ",".join(names),
+              arch] for r in range(world)]
     for batch in (cmds[:1], cmds[2:]):
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, env=env)
@@ -260,7 +266,8 @@ def local(arr: np.ndarray, plan, m: int, d: int) -> np.ndarray:
     return arr[:, m, d * k:(d + 1) * k]
 
 
-def jax_reference(mesh_spec: str, out_dir: str, names) -> None:
+def jax_reference(mesh_spec: str, out_dir: str, names,
+                  arch: str = ARCH) -> None:
     """The JAX side (its own process, with enough fake devices)."""
     import zlib
 
@@ -281,7 +288,7 @@ def jax_reference(mesh_spec: str, out_dir: str, names) -> None:
     dims = [int(v) for v in mesh_spec.split(",")]
     data, model, pod = dims[0], dims[1], dims[2] if len(dims) > 2 else 0
     mesh = make_test_mesh(data=data, model=model, pod=pod)
-    cfg = dataclasses.replace(get_smoke_config(ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     plan = make_plan(cfg, tp=model, fsdp=data)
     oc = OptimConfig(lr=1e-3, warmup_steps=2, total_steps=20)
     jshard.hash = lambda s: zlib.crc32(s.encode())
@@ -360,7 +367,20 @@ COLL_CASES = {
               dict(bits=8, group=128)),
     "hier2_pp": ("psum2", dict(bits=8, group=128, scheme="hier_pp"), None),
     "two_step2_outer": ("psum2", dict(bits=8, group=128), None),
+    # moe_apply's collectives: the dispatch (paper's int4 g32 wire, two
+    # schedules), the combine's all-to-all, ep_slice's tiled all-gather of
+    # the outputs and its aux loss's mean over the ranks
+    "dispatch": ("dispatch", dict(bits=4, group=32), None),
+    "dispatch_fused": ("dispatch", dict(bits=4, group=32, scheme="fused"),
+                       None),
+    "combine": ("a2a", None, None),
+    "ep_gather": ("gather", None, None),
+    "aux_mean": ("pmean", None, None),
 }
+#: the (tp, rows, d) blocks of a dispatch or combine case's input row
+COLL_D = 256
+#: the functions whose input is ``xk`` and cotangent ``ct_ag``
+COLL_GATHERS = ("qag", "fsdp", "gather")
 #: the outer (bridge) wire of the two-axis cases
 COLL_OUTER = dict(bits=4, group=32, spike=True)
 
@@ -402,7 +422,7 @@ def coll_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
         for case, (fn, kw, bkw) in COLL_CASES.items():
             cfg = None if kw is None else CommConfig(**kw)
             bwd = None if bkw is None else CommConfig(**bkw)
-            big = fn not in ("qag", "fsdp")
+            big = fn not in COLL_GATHERS
             x = (inp["x"] if big else inp["xk"]).clone().requires_grad_()
             r = inp["r"].clone().requires_grad_()
             if fn == "psum":
@@ -418,12 +438,22 @@ def coll_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
                 y = C.quantized_all_gather(x, cfg, g)
             elif fn == "fsdp":
                 y = fsdp_all_gather(x, cfg, g)
+            elif fn == "dispatch":
+                y = C.dispatch_all_to_all(x.reshape(world, -1, COLL_D), cfg,
+                                          g).reshape(-1)
+            elif fn == "a2a":
+                y = C.all_to_all_rows(x.reshape(world, -1, COLL_D),
+                                      g).reshape(-1)
+            elif fn == "gather":
+                y = C.all_gather_rows(x.reshape(-1, COLL_D), g).reshape(-1)
+            elif fn == "pmean":
+                y = C.psum_exact(x, g) / world
             elif fn == "ef":
                 y, res = C.compressed_psum_ef(x, r, cfg, g)
             else:
                 y, res = C.quantized_reduce_scatter_ef(x, r, cfg, g)
-            ct = {"qrs": "ct_rs", "qrs_ef": "ct_rs", "qag": "ct_ag",
-                  "fsdp": "ct_ag"}.get(fn, "ct")
+            ct = {"qrs": "ct_rs", "qrs_ef": "ct_rs"}.get(
+                fn, "ct_ag" if fn in COLL_GATHERS else "ct")
             y.backward(inp[ct])
             out[f"{case}/out"] = y.detach().numpy()
             out[f"{case}/grad"] = x.grad.numpy()
@@ -441,7 +471,7 @@ def main():
                          sys.argv[5])
     if sys.argv[1] == "jax":
         return jax_reference(sys.argv[2], sys.argv[3],
-                             sys.argv[4].split(","))
+                             sys.argv[4].split(","), *sys.argv[5:6])
     rank, mesh_spec = int(sys.argv[1]), sys.argv[2]
     init_file, out_dir = sys.argv[3], sys.argv[4]
     names = sys.argv[5].split(",")
@@ -456,7 +486,7 @@ def main():
     data, model, pod = mesh_lib.parse_train_mesh(mesh_spec)
     cpu = torch.device("cpu")
     mesh = mesh_lib.init_mesh(data, model, pod, rank, init_file, cpu, 0)
-    cfg = train_config()
+    cfg = train_config(*sys.argv[6:7])
     plan = make_plan(cfg, tp=model, fsdp=data)
     m, d = axis_rank(mesh.model), axis_rank(mesh.data)
     init = np.load(os.path.join(out_dir, "init.npz"))

@@ -1,11 +1,12 @@
-"""Serving the qwen3-14b and llama3-8b smoke configs: the port against
-the JAX package.
+"""Serving the qwen3-14b, llama3-8b, glm4-9b and command-r-35b smoke
+configs (command-r's with LayerNorm): the port against the JAX package.
 
 The JAX package builds the weights (``build_store``, float32), the port
 carries them over with ``load_jax_store``, and both run in float32 on the
 same prompts. The JAX store zero-initialises the attention and MLP output
-projections; they are filled with seeded random values in both stores
-first, so that every TP AllReduce site carries data.
+projections (and LayerNorm's biases); they are filled with seeded random
+values in both stores first, so that every TP AllReduce site carries
+data and every bias leaf is carried across non-zero.
 """
 import dataclasses
 import os
@@ -42,7 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S, GEN = 2, 12, 3
 POLICIES = {"paper": (lambda: jwith_backend(jpaper(), "ref"), paper_policy),
             "bf16": (lambda: JBF16, lambda: BF16_POLICY)}
-ARCHS = ("qwen3-14b", "llama3-8b")
+ARCHS = ("qwen3-14b", "llama3-8b", "glm4-9b", "command-r-35b")
 
 
 @pytest.fixture(scope="module")
@@ -173,6 +174,46 @@ def test_decode_tokens_match_jax(setups, pol, arch):
                                       err_msg=f"step {i}")
         tok = prompts[:, i + 1:i + 2] if i + 1 < S else np.asarray(jn)[:, None]
     assert tcache["pos"] == S + GEN - 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_jax(dtype):
+    """``layer_norm`` against JAX's on the same rows: float32 within 2
+    float32 roundings of the output's magnitude (the mean and variance
+    sum in another order), bf16 within one bf16 rounding (the two may
+    round a float32 value at a tie apart) on at most 1% of the values
+    and bit for bit elsewhere. A constant row (variance 0) gives the
+    bias exactly, and the variance is the population's: eps 1e-5 on a
+    row of +-1 gives 1 / sqrt(1 + 1e-5), not the sample variance's.
+    Measured: float32 4.8e-7 off at most (the bound 8.4e-7), bf16 bit
+    for bit; the sample variance in place of the population's reads
+    6.6e-3 (float32) and moves 30% of the bf16 values."""
+    from repro.models.layers import layer_norm as jlayer_norm
+    from repro_torch.models.layers import layer_norm
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((6, 256)) * 3 + 1).astype(np.float32)
+    x[1] = 2.5                                     # constant row
+    x[2] = np.where(np.arange(256) % 2, 1.0, -1.0)
+    gain = (1 + 0.1 * rng.standard_normal(256)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(256)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jlayer_norm(jnp.asarray(x, jd), jnp.asarray(gain, jd),
+                                  jnp.asarray(bias, jd)).astype(jnp.float32))
+    got = layer_norm(torch.from_numpy(x).to(td), torch.from_numpy(gain).to(
+        td), torch.from_numpy(bias).to(td)).float().numpy()
+    assert got.dtype == np.float32 and got.shape == x.shape
+    bias_d = torch.from_numpy(bias).to(td).float().numpy()
+    np.testing.assert_array_equal(got[1], bias_d)
+    g_d = torch.from_numpy(gain).to(td).float().numpy()
+    np.testing.assert_allclose(got[2], (np.where(np.arange(256) % 2, 1, -1)
+                                        / np.sqrt(1 + 1e-5)) * g_d + bias_d,
+                               rtol=1e-2 if dtype == "bfloat16" else 1e-6)
+    d = np.abs(got - want)
+    if dtype == "float32":
+        assert d.max() <= 2 * 2 ** -23 * np.abs(want).max()
+    else:
+        assert np.mean(d > 0) <= 0.01
+        assert (d <= 2 ** -8 * np.abs(want) + 1e-30).all()
 
 
 def test_serve_cli_cpu_and_device_default(monkeypatch):

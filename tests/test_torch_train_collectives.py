@@ -6,8 +6,12 @@ collectives' backward rules, the optimizer, checkpoints.
   hier_pp and fused, and over two axes (hierarchical, hier_pp and
   two_step with an outer wire of its own); ``grad_all_reduce``; the
   quantized reduce-scatter and all-gather; ``fsdp_all_gather``, plain
-  and with ``qag``; the EF pair) on four gloo ranks, outputs, residuals and input gradients, against JAX's
-  ``custom_vjp``s under ``shard_map`` on four fake CPU devices (run in a
+  and with ``qag``; the EF pair; ``moe_apply``'s collectives: the
+  dispatch ``autograd.Function`` under two_step and fused, the combine's
+  all-to-all, ``ep_slice``'s tiled all-gather and its aux loss's mean,
+  ``psum_exact / tp`` for ``lax.pmean``) on four gloo ranks, outputs,
+  residuals and input gradients, against JAX's ``custom_vjp``s and
+  ``lax`` collectives under ``shard_map`` on four fake CPU devices (run in a
   subprocess of this file: ``python tests/test_torch_train_collectives.py
   jax OUT_DIR``), each rank's gradient from ``jax.vjp`` of its own output.
 * ``lr_schedule`` and ``adamw_update`` on numpy inputs, in this process.
@@ -32,6 +36,7 @@ def _jax_reference(out_dir: str) -> None:
     """The JAX side: every case of COLL_CASES on a (1, WORLD) mesh."""
     import jax
     import jax.numpy as jnp
+    from jax import lax
     from jax.sharding import PartitionSpec as P
 
     from repro import compat
@@ -51,8 +56,8 @@ def _jax_reference(out_dir: str) -> None:
     for case, (fn, kw, bkw) in worker.COLL_CASES.items():
         cfg = None if kw is None else CommConfig(backend="ref", **kw)
         bwd = None if bkw is None else CommConfig(backend="ref", **bkw)
-        ct = {"qrs": "ct_rs", "qrs_ef": "ct_rs", "qag": "ct_ag",
-              "fsdp": "ct_ag"}.get(fn, "ct")
+        ct = {"qrs": "ct_rs", "qrs_ef": "ct_rs"}.get(
+            fn, "ct_ag" if fn in worker.COLL_GATHERS else "ct")
         two = fn in ("ef", "qrs_ef")
 
         def f(x, r, fn=fn, cfg=cfg, bwd=bwd):
@@ -69,6 +74,18 @@ def _jax_reference(out_dir: str) -> None:
                 return J.quantized_all_gather(x, "model", cfg)
             if fn == "fsdp":
                 return fsdp_all_gather(x, "model", cfg)
+            if fn == "dispatch":
+                return J.dispatch_all_to_all(
+                    x.reshape(WORLD, -1, worker.COLL_D), "model",
+                    cfg).reshape(-1)
+            if fn == "a2a":
+                return lax.all_to_all(x.reshape(WORLD, -1, worker.COLL_D),
+                                      "model", 0, 0, tiled=True).reshape(-1)
+            if fn == "gather":
+                return lax.all_gather(x.reshape(-1, worker.COLL_D), "model",
+                                      axis=0, tiled=True).reshape(-1)
+            if fn == "pmean":
+                return lax.pmean(x, "model")
             if fn == "ef":
                 return J.compressed_psum_ef(x, r, ("model",), cfg)
             return J.quantized_reduce_scatter_ef(x, r, "model", cfg)
@@ -87,7 +104,7 @@ def _jax_reference(out_dir: str) -> None:
         sm = compat.shard_map(body, mesh=mesh2 if fn == "psum2" else mesh,
                               in_specs=(rows,) * 3,
                               out_specs=(rows,) * n_out, check_vma=False)
-        big = fn not in ("qag", "fsdp")
+        big = fn not in worker.COLL_GATHERS
         res = jax.jit(sm)(inp["x"] if big else inp["xk"], inp["r"],
                           inp[ct])
         out[f"{case}/out"] = np.asarray(res[0])
@@ -171,7 +188,7 @@ def test_collective_forward_and_backward_match_jax(coll, case):
                 assert d.max() <= 1e-6 * scale, (r, k, d.max(), scale)
             else:
                 xmax = max(np.abs(worker.coll_inputs(WORLD)[
-                    "x" if fn not in ("qag", "fsdp") else "xk"]).max(), 1)
+                    "x" if fn not in worker.COLL_GATHERS else "xk"]).max(), 1)
                 step = 2 * WORLD * xmax / (2 ** bits - 1)
                 assert d.max() <= step, (r, k, d.max(), step)
                 assert np.mean(d > 1e-6 * scale) <= 0.01, (r, k)
@@ -265,9 +282,10 @@ def test_adamw_update_matches_jax():
 @pytest.mark.parametrize("fsdp", [2, 4])
 def test_flat_store_matches_jax_at_fsdp(fsdp):
     """Every parameter's stored flat length and local shape equal the JAX
-    package's at fsdp = 2 and 4 (tp 1 and 2, llama3-8b and qwen3-14b at
-    full width and smoke size), so that a data shard of a JAX store is
-    the port's shard."""
+    package's at fsdp = 2 and 4 (tp 1, 2 and 4, llama3-8b and qwen3-14b at
+    full width and smoke size; glm4-9b's replicated kv heads, command-r's
+    LayerNorm biases, moonshot's expert leaves), so that a data shard of
+    a JAX store is the port's shard."""
     from repro.configs import get_config as jget
     from repro.configs import get_smoke_config as jsmoke
     from repro.models.model import param_groups as jgroups
@@ -275,10 +293,11 @@ def test_flat_store_matches_jax_at_fsdp(fsdp):
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.model import param_groups
     from repro_torch.parallel.plan import make_plan
-    for arch in ("llama3-8b", "qwen3-14b"):
+    for arch in ("llama3-8b", "qwen3-14b", "glm4-9b", "command-r-35b",
+                 "moonshot-v1-16b-a3b"):
         for cfg, jcfg in ((get_config(arch), jget(arch)),
                           (get_smoke_config(arch), jsmoke(arch))):
-            for tp in (1, 2):
+            for tp in (1, 2, 4):
                 plan, jp = make_plan(cfg, tp, fsdp), jplan(jcfg, tp, fsdp)
                 groups, jg = param_groups(cfg, plan), jgroups(jcfg, jp)
                 assert groups.keys() == jg.keys()
