@@ -8,7 +8,8 @@ Phases, each printing its lines; any failure exits non-zero:
 
 1. build  -- print the card's name and power limit, build the CUDA
              kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
-             process for each source, all at once.
+             process for each source, all at once (wire.cu, stage.cu,
+             rdma.cu, allreduce.cu and crc.cu).
 2. codec  -- the CUDA encode reproduces every raw golden wire vector of
              ``tests/golden/wire_vectors.npz`` byte for byte, and each
              ``_rot`` key within the CPU tests' bound (at most 1% of bytes
@@ -20,6 +21,21 @@ Phases, each printing its lines; any failure exits non-zero:
              f32, bf16 and fp16 out, and at (1 | 2 | 8 | 9, 4096)); each
              config's encode also on tie input (_tie_input: values whose
              (v - z) / s is k + 1/2 or one float32 ulp beside it).
+             The framed wire: the 9 ``frame_int*`` goldens byte for byte
+             from the CUDA codec (``core/codec.py`` with a framed config:
+             fc_encode_wire, then the frame with fc_crc32c), their CUDA
+             decode bit-equal to the unframed decode, and each one
+             self-describing on the host (``frame.frame_decode``);
+             fc_crc32c (the CRC kernel, no Pallas counterpart) equal to
+             its plain version and to the host ``frame.crc32c`` on the
+             check vector, rows of 1 to 3 bytes, lengths no multiple of
+             its chunk or tile, several rows, strided rows (framed rows'
+             payloads) and rows whose bytes sit at no 4-byte boundary
+             (its byte path), and equal to its plain version at a
+             leaf-sized row (2 rows of llama3-8b's embedding leaf at pod
+             = 2, int8 g128); then every byte of one framed row flipped in
+             turn (three configs): the CUDA codec's decode NaN-poisons
+             exactly that row and leaves the others bit-equal.
 3. stage  -- the per-stage kernels (quant_pack, dequant_unpack,
              spike_pack) equal their plain versions byte for byte (payload,
              scale, zero, spike values and indices) and bit for bit
@@ -122,8 +138,9 @@ Phases, each printing its lines; any failure exits non-zero:
              paper/two_step's; then it serves BATCH x PROMPT_LEN + TP_GEN
              tokens under TP_RUNS (qwen3-14b) and MOE_TP_RUNS (moonshot):
              paper/fused (every TP site through fc_ar, every dispatch
-             through fc_a2a) and paper/two_step (the wire kernels around
-             the host-staged gloo hop), with exact launch counts
+             through fc_a2a) and, for qwen3-14b, paper/two_step (the wire
+             kernels around the host-staged gloo hop), with exact launch
+             counts
              (fused: fc_ar 81 times a forward for qwen3-14b; 50 and fc_a2a
              47 for moonshot; no wire kernel), the dense runs'
              prefill/decode agreement and moonshot's dropped routes. Rank 0
@@ -174,6 +191,18 @@ Phases, each printing its lines; any failure exits non-zero:
              every step, the routes dropped over capacity, ms/step, peak
              memory.
 
+In phase train, --mesh 1,1,2 also runs paper/two_step with
+``--framed-bridge 8`` (policy.with_framed_bridge: the pod hop int8 g128
+hier_pp in frames, each wire row's CRC through fc_crc32c) for
+TRAIN_CHECK_STEPS steps: its loss, grad norm and every parameter equal
+paper/two_step's bit for bit (the bridge's one-axis hier_pp batches the
+microchunks through the two-step, and a group's codes do not depend on
+where its chunk lies, so the frame is pure envelope;
+tests/test_torch_frame.py shows the two equal on the CPU), with exact
+launch counts (one fc_crc32c a framed encode and one a framed decode)
+and no NaN in any parameter. Before it, phase train times fc_crc32c at
+the pod site's framed rows of the embedding leaf.
+
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the wire kernels' from the serve, ln, moe, train and
 moe_train paths, the stage kernels' from their entry points, fc_a2a's
@@ -204,6 +233,9 @@ PHASES = ("build", "codec", "stage", "time", "serve", "ln", "a2a", "moe",
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
+# the TPU kernel each CUDA kernel replaces; fc_crc32c replaces none (JAX's
+# crc32c_rows is a byte-serial lax.scan in jnp): the file:line given is
+# that function
 REPLACES = {"encode_wire": "src/repro/kernels/wire.py:58",
             "decode_wire": "src/repro/kernels/wire.py:100",
             "decode_reduce": "src/repro/kernels/emulate.py:110",
@@ -211,7 +243,8 @@ REPLACES = {"encode_wire": "src/repro/kernels/wire.py:58",
             "dequant_unpack": "src/repro/kernels/dequant_unpack.py:42",
             "spike_pack": "src/repro/kernels/spike_reserve.py:46",
             "a2a": "src/repro/kernels/rdma_all2all.py:75",
-            "ar": "src/repro/kernels/rdma_allreduce.py:154"}
+            "ar": "src/repro/kernels/rdma_allreduce.py:154",
+            "crc32c": "src/repro/core/frame.py:122"}
 # (bits, group): SWEEP of tests/test_kernels.py, and its spike configs
 STAGE_SWEEP = ((8, 128), (6, 128), (5, 128), (4, 32), (3, 32), (2, 32),
                (7, 128))
@@ -249,10 +282,12 @@ TP = 2                             # phase tp: --mesh 1,TP
 TP_PROBE_CALLS = 100
 # phase tp's served runs of both models (its qwen3-14b bf16 run and 12
 # of its GEN generated tokens were cut to pay for phases ln, tp4 and
-# moe_train)
+# moe_train; moonshot's paper/two_step run to pay for phase train's
+# framed-bridge run: its prefill and decode steps are still held against
+# paper/fused's bit for bit before the served runs)
 TP_RUNS = (("paper/fused", "paper", "fused"),
            ("paper/two_step", "paper", None))
-MOE_TP_RUNS = TP_RUNS
+MOE_TP_RUNS = TP_RUNS[:1]
 TP_GEN = 4
 TP_TIMEOUT_S = 900
 # phase tp4: glm4-9b at --mesh 1,GLM_TP, its two kv heads replicated (the
@@ -278,21 +313,30 @@ TRAIN_CHECK_STEPS = 2              # CUDA == plain codec, fused == two_step
 TRAIN_LOSS_REL = 5e-5
 TRAIN_TIMEOUT_S = 600
 TRAIN_PIECE = 1 << 24              # columns of a plain-version piece
+FRAMED_LABEL = "paper/two_step framed-bridge 8"
 TRAIN_LEAF_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                       ("int2 g32 spike", dict(bits=2, group=32, spike=True)),
                       ("int4 g32 spike scale_int",
                        dict(bits=4, group=32, spike=True, scale_int=True)))
-#: the multi-rank cells: mesh DATA,MODEL[,POD] -> (label, policy, scheme)
-TRAIN_MESHES = (("1,1,2", (("paper/two_step", "paper", None),
-                           ("paper/fused", "paper", "fused"),
-                           ("depth", "depth", None))),
-                ("2,1", (("aggressive", "aggressive", None),)))
+#: the multi-rank cells: mesh DATA,MODEL[,POD] -> (label, policy, scheme,
+#: --framed-bridge bits or None, steps)
+TRAIN_MESHES = (("1,1,2", (("paper/two_step", "paper", None, None,
+                            TRAIN_STEPS),
+                           ("paper/fused", "paper", "fused", None,
+                            TRAIN_STEPS),
+                           (FRAMED_LABEL, "paper", None, 8,
+                            TRAIN_CHECK_STEPS),
+                           ("depth", "depth", None, None, TRAIN_STEPS))),
+                ("2,1", (("aggressive", "aggressive", None, None,
+                          TRAIN_STEPS),)))
 # phase moe_train: moonshot-v1-16b-a3b at full width, its dense prefix
 # block and TRAIN_MOE_REPEATS MoE blocks; --mesh 1,1 in process, then
 # TRAIN_MOE_MESHES as rank processes
 TRAIN_MOE_REPEATS = 1
-TRAIN_MOE_MESHES = (("1,2", (("paper/two_step", "paper", None),
-                             ("paper/fused", "paper", "fused"))),)
+TRAIN_MOE_MESHES = (("1,2", (("paper/two_step", "paper", None, None,
+                              TRAIN_STEPS),
+                             ("paper/fused", "paper", "fused", None,
+                              TRAIN_STEPS))),)
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
                                              scale_int=True)),
@@ -368,16 +412,17 @@ def phase_build(torch):
     card = smi.stdout.strip().splitlines()[0]
     print(f"[build] card: {card}", flush=True)
     print(card, flush=True)
-    from repro_torch.kernels import build, rdma, stage, wire
+    from repro_torch.kernels import build, crc, rdma, stage, wire
     t0 = time.perf_counter()
     paths = build.build_all([wire.SOURCE, stage.SOURCE, rdma.SOURCE,
-                             rdma.AR_SOURCE], verbose=True)
+                             rdma.AR_SOURCE, crc.SOURCE], verbose=True)
     print(f"[build] {', '.join(p.name for p in paths)} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     wire._lib()
     stage._lib()
     rdma._lib()
     rdma._ar_lib()
+    crc._lib()
     return card
 
 
@@ -451,7 +496,6 @@ def phase_codec(torch, np):
     from repro_torch.kernels import wire
     dev = torch.device("cuda")
     data = np.load(GOLDEN)
-    skipped = [k for k in data.files if k.startswith("frame")]
     keys = [k for k in data.files if k.startswith(("int", "a2a_int"))]
     n_rot, rot_diff = 0, 0.0
     for key in keys:
@@ -486,8 +530,8 @@ def phase_codec(torch, np):
           f"CUDA encode, decode bit-equal to plain; {n_rot} _rot keys: CUDA "
           f"encode byte-equal to plain and within {rot_diff:.4f} <= 0.01 of "
           f"golden bytes, decode of the golden bit-equal to plain on the "
-          f"card and on the CPU; skipped {len(skipped)} keys (frame_*: "
-          f"framed wire not ported)", flush=True)
+          f"card and on the CPU", flush=True)
+    _frame_checks(torch, np, data)
 
     x = torch.from_numpy(_stage_input(np, 4, 1024, 7)).to(dev)
     cfgs = []
@@ -581,6 +625,123 @@ def phase_codec(torch, np):
         odd.append(buf.shape[1])
     print(f"[codec] rows of {odd} wire bytes: CUDA encode byte-equal and "
           f"decode bit-equal to plain", flush=True)
+
+
+def _frame_golden_cfg(key: str):
+    """The framed golden ``key``'s config (scripts/gen_golden_wire.py
+    golden_cfg, framed)."""
+    from repro_torch.core.comm_config import CommConfig
+    stem = key[len("frame_"):]
+    bits = int(stem.split("_")[0][len("int"):])
+    return CommConfig(bits=bits, group=32 if bits <= 4 else 128,
+                      spike=stem.endswith("_sr"),
+                      rotation=stem.endswith("_rot"), framed=True)
+
+
+def _frame_checks(torch, np, data):
+    """The framed wire on the card: the framed goldens through the CUDA
+    codec, fc_crc32c against its plain version and the host CRC, and the
+    decode's poisoning of every flipped byte."""
+    from repro_torch.core import codec, frame
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.kernels import crc, wire
+    dev = torch.device("cuda")
+    keys = sorted(k for k in data.files if k.startswith("frame_"))
+    check(len(keys) == 9, f"framed goldens: {keys}")
+    x = torch.from_numpy(data["x"]).to(dev)
+    n = x.shape[-1]
+    before = dict(crc.LAUNCHES), dict(wire.LAUNCHES)
+    for key in keys:
+        cfg = _frame_golden_cfg(key)
+        buf = codec.encode(x, cfg)
+        gold = torch.from_numpy(data[key]).to(dev)
+        check(torch.equal(buf, gold), f"CUDA framed encode != golden {key}")
+        dec = codec.decode(gold, cfg, n)
+        raw = codec.decode(codec.encode(x, cfg.with_framed(False)),
+                           cfg.with_framed(False), n)
+        check(_bits_equal(torch, dec, raw), f"CUDA framed decode of golden "
+              f"{key} != the unframed decode")
+        host = frame.frame_decode(data[key])
+        check(host.shape == tuple(x.shape) and bool(torch.isfinite(
+            host).all()), f"golden {key} does not self-describe on the host")
+    check(crc.LAUNCHES["crc32c"] - before[0]["crc32c"] == 2 * len(keys) and
+          wire.LAUNCHES["encode_wire"] - before[1]["encode_wire"]
+          == 2 * len(keys), f"framed goldens: launches {crc.LAUNCHES} "
+          f"{wire.LAUNCHES}")
+    print(f"[codec] {len(keys)} framed goldens (frame_int*): CUDA encode "
+          f"(fc_encode_wire + fc_crc32c) byte-equal, CUDA decode bit-equal "
+          f"to the unframed decode, each self-describing on the host",
+          flush=True)
+
+    rng = np.random.default_rng(21)
+    check(int(crc.crc32c_rows(torch.tensor([list(b"123456789")],
+                                           dtype=torch.uint8, device=dev))[0])
+          == 0xE3069283, "fc_crc32c of the check vector != 0xE3069283")
+    shapes = [(1, 1), (1, 2), (1, 3), (3, 1), (3, 2), (3, 3), (2, 63),
+              (2, 64), (2, 65), (4, 8191), (4, 8192), (4, 8193),
+              (5, 3 * 8192 + 17), (7, 1000), (2, 20 * 8192 + 4),
+              (3, 1100 * 8192 + 5)]
+    n_cases = 0
+    for rows, length in shapes:
+        # contiguous rows, framed rows' payloads (a pitch of 16 + length),
+        # and rows 3 bytes into a pitch of 3 + length (fc_crc32c's byte
+        # path: no 4-byte alignment)
+        def rand(width):
+            return torch.from_numpy(rng.integers(0, 256, (rows, width),
+                                                 dtype=np.uint8)).to(dev)
+        for view in (rand(length), rand(16 + length)[:, 16:],
+                     rand(3 + length)[:, 3:]):
+            for init in (crc.MASK, 0x12345678):
+                got = crc.crc32c_rows(view, init)
+                check(torch.equal(got, crc.crc32c_rows_plain(view, init)),
+                      f"fc_crc32c != plain at {tuple(view.shape)} stride "
+                      f"{view.stride()} init {init:#x}")
+                if init == crc.MASK and length < 100000:
+                    host = [frame.crc32c(r) for r in view.cpu().numpy()]
+                    check(got.cpu().tolist() == host, f"fc_crc32c != host "
+                          f"crc32c at {tuple(view.shape)}")
+                n_cases += 1
+    leaf = _train_cfg()
+    n_leaf = leaf.vocab * leaf.d_model // 2
+    plen = CommConfig(bits=8, group=128).wire_bytes(n_leaf)
+    big = torch.randint(0, 256, (2, plen), dtype=torch.uint8, device=dev)
+    check(torch.equal(crc.crc32c_rows(big), crc.crc32c_rows_plain(big)),
+          f"fc_crc32c != plain at the leaf-sized rows (2, {plen})")
+    del big
+    torch.cuda.empty_cache()
+    print(f"[codec] fc_crc32c: the check vector 0xE3069283; {n_cases} "
+          f"cases (rows of 1 to 3 bytes, lengths no multiple of its "
+          f"{crc.CHUNK}-byte chunk or {crc.TILE}-byte tile, up to 7 rows, "
+          f"contiguous, odd-pitch and framed-payload rows, two initial "
+          f"registers) equal to its plain version and (below 100000 bytes) "
+          f"the host crc32c; equal to plain at the leaf-sized rows "
+          f"(2, {plen}) (llama3-8b's embedding leaf at pod = 2, int8 g128 "
+          f"wire)", flush=True)
+
+    flips = 0
+    for cfg in (CommConfig(bits=4, group=32, framed=True),
+                CommConfig(bits=2, group=32, spike=True, scale_int=True,
+                           framed=True),
+                CommConfig(bits=8, group=128, rotation=True, framed=True)):
+        m = 2 * cfg.group
+        xs = torch.from_numpy((rng.standard_normal((3, m)) * 2).astype(
+            np.float32)).to(dev)
+        buf = codec.encode(xs, cfg)
+        clean = codec.decode(buf, cfg, m)
+        check(bool(torch.isfinite(clean).all()), f"framed decode of {cfg} "
+              f"not finite")
+        for i in range(buf.shape[1]):
+            bad = buf.clone()
+            bad[1, i] ^= 1 << (i % 8)
+            out = codec.decode(bad, cfg, m)
+            check(bool(torch.isnan(out[1]).all()) and _bits_equal(
+                torch, out[0::2], clean[0::2]), f"flipped byte {i} of row 1 "
+                f"({cfg}): not exactly that row poisoned")
+            flips += 1
+    print(f"[codec] {flips} single-bit flips, one in every byte of a framed "
+          f"row (int4 g32, int2 g32 spike scale_int, int8 g128 rotation): "
+          f"the CUDA decode NaN-poisons exactly that row, the other rows "
+          f"bit-equal", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1744,9 +1905,11 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     launches = _tp_counts()                # read right after the tp path
     for k in ("ar", "a2a") if moe else ("ar",):
         check(launches[k] > 0, f"{k} never launched on the {tag} path")
-    check(bool((served["paper/fused"]["generated"] ==
-                served["paper/two_step"]["generated"]).all()),
-          f"{tag} rank {rank}: fused and two_step generated different tokens")
+    if "paper/two_step" in served:
+        check(bool((served["paper/fused"]["generated"] ==
+                    served["paper/two_step"]["generated"]).all()),
+              f"{tag} rank {rank}: fused and two_step generated different "
+              f"tokens")
     return {"arch": cfg.name, "launches": launches, "peak_gb": peaks,
             "layers": cfg.n_layers, "runs": {
         k: {m: (v.tolist() if hasattr(v, "tolist") else v)
@@ -1968,6 +2131,54 @@ def _train_kernel_checks(torch, card: str) -> dict:
     return out
 
 
+def _train_crc_time(torch, card: str) -> dict:
+    """fc_crc32c at the framed rows of llama3-8b's embedding gradient leaf
+    at the pod site of --mesh 1,1,2 --framed-bridge 8 (hier_pp: 4
+    microchunks x 2 ranks = 8 rows, each row's CRC over the config's
+    header prefix and its payload, read in place from the framed rows),
+    and at the leaf's halves as 2 rows: bit-equal to its plain version,
+    then its time (CUDA events, median of 5) beside the bound (bytes read
+    over 3.35 TB/s) and the plain version's time. No PyTorch call computes
+    CRC32C: no library time."""
+    from repro_torch.core import codec, frame
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.kernels import crc
+    cfg = _train_cfg()
+    emb = cfg.vocab * cfg.d_model
+    bridge = CommConfig(bits=8, group=128, scheme="hier_pp", framed=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    out = {}
+    for label, rows in (("pod site", 8), ("leaf / 2", 2)):
+        x = torch.randn((rows, emb // rows), generator=gen, device=dev) * 1e-3
+        buf = codec.encode(x, bridge)
+        del x
+        plen = buf.shape[1] - 16
+        payload = buf[:, 16:]
+        init = frame._prefix_register(bridge, plen)
+        got = crc.crc32c_rows(payload, init)
+        check(torch.equal(got, crc.crc32c_rows_plain(payload, init)),
+              f"fc_crc32c != plain at the framed {label} rows "
+              f"({rows}, {plen})")
+        ms = _time_ms(torch, lambda: crc.crc32c_rows(payload, init), runs=5,
+                      warmup=2)
+        plain_ms = _time_ms(torch, lambda: crc.crc32c_rows_plain(
+            payload, init), runs=3, warmup=1)
+        bound = crc.bound_bytes(rows, plen) / HBM_BYTES_PER_S * 1e3
+        print(f"[train] fc_crc32c at the embedding leaf's framed {label} "
+              f"rows ({rows}, {plen}) (strided: the payloads of the framed "
+              f"rows): bit-equal to plain; {ms:.4f} ms a call (bound "
+              f"{bound:.4f}, bytes; {bound / ms:.2f} of the bound), plain "
+              f"{plain_ms:.4f} ms, library none  [{card}]", flush=True)
+        out[label] = {"rows": rows, "length": plen, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": "bytes", "max_abs_err": 0.0}
+        del buf, payload, got
+        torch.cuda.empty_cache()
+    return out
+
+
 def _train_store(torch, cfg, plan, dev, rank: int = 0, data_rank: int = 0):
     """This rank's store from SEED (init_store), its zero-initialised
     output projections filled from a fan-in normal (seeded by SEED + 1 and
@@ -1993,8 +2204,9 @@ def _train_store(torch, cfg, plan, dev, rank: int = 0, data_rank: int = 0):
 
 
 def _train_counts():
-    from repro_torch.kernels import rdma, stage, wire
-    return {**wire.LAUNCHES, **stage.LAUNCHES, **rdma.LAUNCHES}
+    from repro_torch.kernels import crc, rdma, stage, wire
+    return {**wire.LAUNCHES, **stage.LAUNCHES, **rdma.LAUNCHES,
+            **crc.LAUNCHES}
 
 
 def _world_rows(axis):
@@ -2010,7 +2222,8 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
     (forward and replay), the qgrad_rs reduce-scatters, the pod grad site
     of every leaf. A two_step site: 2 encodes and 2 decodes; ``fused``
     over one rank: 2 encodes, a decode+reduce and a decode; ``fused``
-    through an axis's peer world: fc_ar once a piece of its rows. An MoE
+    through an axis's peer world: fc_ar once a piece of its rows. A framed
+    site (the bridge): fc_crc32c once an encode and once a decode. An MoE
     block has one TP site and a dispatch, forward and replayed: quantized
     over the process group, an encode and a decode; ``fused`` through the
     peer world, fc_a2a; its backward is exact."""
@@ -2041,6 +2254,8 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
         else:
             want["encode_wire"] += 2 * times
             want["decode_wire"] += 2 * times
+            if c.framed:
+                want["crc32c"] += 4 * times
 
     b_loc = TRAIN_BATCH // (group_size(mesh.data) * (
         group_size(mesh.pod) if mesh.multi_pod else 1))
@@ -2081,6 +2296,8 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
             if wants_grad_ef(pol, mesh) and c.scheme != "fused":
                 want["encode_wire"] += 2
                 want["decode_wire"] += 4
+                if c.framed:
+                    want["crc32c"] += 6
                 continue
             psum(c, n, pod, _world_rows(mesh.pod))
             if wants_grad_ef(pol, mesh):      # fused: the local QDQ error
@@ -2256,11 +2473,12 @@ def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
              if cfg.moe is not None else "the grad site through fc_ar")
     try:
         runs, snaps = {}, {}
-        for label, pol, scheme in _train_meshes(arch)[mesh_spec]:
-            policy = build_policy(pol, scheme=scheme)
+        for label, pol, scheme, bridge, steps in \
+                _train_meshes(arch)[mesh_spec]:
+            policy = build_policy(pol, scheme=scheme, framed_bridge=bridge)
             expected = _train_expected(cfg, plan, policy, mesh)
             runs[label], snap = _train_one(
-                torch, cfg, plan, mesh, dev, label, policy, TRAIN_STEPS, tag,
+                torch, cfg, plan, mesh, dev, label, policy, steps, tag,
                 log, "", expected, snapshot=label.startswith("paper/"))
             if snap:
                 snaps[label] = snap
@@ -2274,6 +2492,24 @@ def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
             log(f"[{tag}] every rank: paper/fused ({sites}) equals "
                 f"paper/two_step over {k} steps (loss, grad norm, every "
                 f"parameter, bit for bit)", flush=True)
+        if FRAMED_LABEL in runs:
+            k = TRAIN_CHECK_STEPS
+            a, b = runs[FRAMED_LABEL], runs["paper/two_step"]
+            snap = snaps[FRAMED_LABEL]["store"]
+            check(all(bool(torch.isfinite(t).all()) for gg in snap.values()
+                      for t in gg.values()) and all(
+                math.isfinite(m["grad_norm"]) for m in a["metrics"]),
+                f"{tag} rank {rank}: a NaN in the framed-bridge run")
+            check(a["metrics"][:k] == b["metrics"][:k] and _snap_equal(
+                torch, snaps[FRAMED_LABEL], snaps["paper/two_step"]),
+                f"{tag} rank {rank}: {FRAMED_LABEL} differs from "
+                f"paper/two_step over {k} steps: {a['metrics'][:k]} vs "
+                f"{b['metrics'][:k]}")
+            log(f"[{tag}] every rank: {FRAMED_LABEL} (the pod hop int8 g128 "
+                f"hier_pp in frames, fc_crc32c "
+                f"{a['counts'][0].get('crc32c', 0)} launches a step) equals "
+                f"paper/two_step over {k} steps (loss, grad norm, every "
+                f"parameter, bit for bit), no NaN", flush=True)
         if "depth" in runs:
             ef = runs["depth"]["ef_max_abs"]
             check(ef is not None and ef > 0,
@@ -2308,7 +2544,7 @@ def _train_ranks(torch, card: str, mesh_spec: str,
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     tag = f"{'train' if arch == TRAIN_ARCH else 'moe_train'} {mesh_spec}"
-    for label, _, _ in _train_meshes(arch)[mesh_spec]:
+    for label, *_ in _train_meshes(arch)[mesh_spec]:
         losses = {json.dumps(r["runs"][label]["metrics"]) for r in ranks}
         check(len(losses) == 1, f"{tag} {label}: the ranks "
               f"report different metrics")
@@ -2351,6 +2587,7 @@ def phase_train(torch, card: str) -> dict:
     print(f"[train] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
           f"allocated by the earlier phases", flush=True)
     res = {"kernels": _train_kernel_checks(torch, card),
+           "crc": _train_crc_time(torch, card),
            "1,1": _train_single(torch, card)}
     torch.cuda.empty_cache()
     # the rank processes share the card: expandable segments keep each
@@ -2464,8 +2701,13 @@ def main(argv=None) -> int:
     main_cfg = {name: "int2 g32 spike" if name == "spike_pack"
                 else "int8 g128" for name in REPLACES}
     kernels = []
-    for name in WIRE_KERNELS + STAGE_KERNELS + ("a2a", "ar"):
-        if name == "a2a":
+    for name in WIRE_KERNELS + STAGE_KERNELS + ("a2a", "ar", "crc32c"):
+        if name == "crc32c":
+            t = trained.get("crc", {}).get("pod site", {})
+            errs = [t.get("max_abs_err")]
+            source = "crc.cu"
+            n = train_launches.get(name, 0)
+        elif name == "a2a":
             t = a2a_timed.get(A2A_TIME_TP, {}).get("prefill", {})
             errs = [r["max_abs_err"] for by_shape in a2a_timed.values()
                     for r in by_shape.values()]
@@ -2506,6 +2748,7 @@ def main(argv=None) -> int:
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
             "library_ms": None})
+    check(len(kernels) == len(REPLACES), f"kernels line: {len(kernels)}")
 
     def numbers(runs):
         return {k: {m: v for m, v in r.items()

@@ -15,6 +15,17 @@ For an input of shape ``(..., n)`` the encoder produces
   tensor raises;
 * ``"auto"`` -- the kernels for a CUDA tensor, the plain codec for a CPU
   tensor.
+
+A framed config (``cfg.framed``, :mod:`repro_torch.core.frame`) encodes
+the raw wire (``cfg.with_framed(False)``) and wraps each row in the
+self-describing frame, the CRC32C through the kernel ``fc_crc32c`` where
+the wire goes through the kernels. Its decode checks each row's header
+and CRC on the device and NaN-poisons exactly the rows that fail, with no
+host sync, as the JAX package does under ``jit``; a buffer whose width is
+wrong for the config raises :class:`~repro_torch.core.frame.FrameError`
+at once. (JAX's eager decode of a corrupt concrete buffer raises instead;
+the port's host ingress that raises is :func:`repro_torch.core.frame.
+frame_decode`.)
 """
 from __future__ import annotations
 
@@ -22,32 +33,37 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core import frame
 from repro_torch.core.comm_config import CommConfig
-
-
-def _check(cfg: CommConfig) -> None:
-    assert cfg.enabled
-    if cfg.framed:
-        raise NotImplementedError(
-            "framed wire (the JAX package's core/frame.py) is not ported")
 
 
 def encode(x: torch.Tensor, cfg: CommConfig) -> torch.Tensor:
     """(..., n) float -> (..., cfg.wire_bytes(n)) uint8."""
     from repro_torch.kernels import ops    # deferred: kernels import core
-    _check(cfg)
+    assert cfg.enabled
     n = x.shape[-1]
-    buf = ops.fused_encode_wire(x.reshape(-1, n), cfg)
+    if not cfg.framed:
+        buf = ops.fused_encode_wire(x.reshape(-1, n), cfg)
+    else:
+        buf = frame.frame_wrap(ops.fused_encode_wire(
+            x.reshape(-1, n), cfg.with_framed(False)), cfg)
     return buf.reshape(*x.shape[:-1], buf.shape[-1])
 
 
 def decode(buf: torch.Tensor, cfg: CommConfig, n: int,
            out_dtype=torch.float32) -> torch.Tensor:
-    """(..., wire_bytes(n)) uint8 -> (..., n) out_dtype."""
+    """(..., wire_bytes(n)) uint8 -> (..., n) out_dtype; a framed row that
+    fails its check decodes to NaN."""
     from repro_torch.kernels import ops
-    _check(cfg)
-    out = ops.fused_decode_wire(buf.reshape(-1, buf.shape[-1]), cfg, n,
-                                out_dtype)
+    assert cfg.enabled
+    rows = buf.reshape(-1, buf.shape[-1])
+    if not cfg.framed:
+        out = ops.fused_decode_wire(rows, cfg, n, out_dtype)
+        return out.reshape(*buf.shape[:-1], n)
+    payload, ok = frame.frame_check_rows(rows, cfg, n)
+    out = ops.fused_decode_wire(payload.contiguous(), cfg.with_framed(False),
+                                n, out_dtype)
+    out.masked_fill_(~ok[:, None], float("nan"))     # in place: no copy
     return out.reshape(*buf.shape[:-1], n)
 
 

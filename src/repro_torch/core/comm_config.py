@@ -44,8 +44,8 @@ SCHEMES = ("nccl", "two_step", "fused", "hierarchical", "hier_pp")
 # kernels for a CUDA tensor and the plain codec for a CPU tensor.
 BACKENDS = ("ref", "cuda", "auto")
 
-# Size of the self-describing frame header of the JAX package's framed
-# wire; kept so that wire-size accounting of framed configs agrees.
+# Size of the self-describing frame header (core/frame.py), byte for byte
+# the JAX package's.
 FRAME_HEADER_BYTES = 16
 
 
@@ -123,8 +123,8 @@ class CommConfig:
     pipeline_chunks: int = 4      # microchunks for hier_pp
     meta_dtype: str = "bfloat16"  # wire meta dtype when scale_int is off
     backend: str = "auto"         # codec implementation, see BACKENDS
-    # Self-describing frame header; the port does not write frames yet
-    # (codec.encode raises for a framed config).
+    # Self-describing frame header + CRC32C around each wire row
+    # (core/frame.py); the bridge tier's two-step schedules only.
     framed: bool = False
 
     def __post_init__(self):
@@ -160,6 +160,10 @@ class CommConfig:
     def with_scheme(self, scheme: str) -> "CommConfig":
         """Same config routed through a different collective schedule."""
         return dataclasses.replace(self, scheme=scheme)
+
+    def with_framed(self, on: bool = True) -> "CommConfig":
+        """Same config with the self-describing frame header toggled."""
+        return dataclasses.replace(self, framed=on)
 
     def with_bits(self, bits: int) -> "CommConfig":
         """Same transport at another width, paper defaults for group and

@@ -182,6 +182,25 @@ def with_scheme(policy: CommPolicy, scheme: str) -> CommPolicy:
         sites=("tp", "grad", "tp_bwd", "a2a"))
 
 
+def with_framed_bridge(policy: CommPolicy, bits: int,
+                       scheme: str = "hier_pp",
+                       backend: Optional[str] = None) -> CommPolicy:
+    """Policy with a framed pod-bridge tier at its own bit width.
+
+    Installs a ``bridge``-site config (paper-default group/spike for
+    ``bits``) with the self-describing frame header on, leaving every
+    other site untouched: the mixed-policy-pods switch behind the launch
+    CLI's ``--framed-bridge BITS``. The backend follows the grad site's
+    unless given (the bridge runs the same codec, framed).
+    """
+    if backend is None:
+        grad_cfg = policy.resolve("grad")
+        backend = grad_cfg.backend if grad_cfg is not None else "auto"
+    cfg = default_comm_config(bits, scheme=scheme,
+                              backend=backend).with_framed()
+    return dataclasses.replace(policy, bridge=uniform(cfg))
+
+
 def paper_policy(tp_bits: int = 8, a2a_bits: int = 4,
                  grad_bits: int = 8, backend: str = "auto") -> CommPolicy:
     """The paper's configuration: INT8 g128 TP AllReduce, INT4 g32 MoE

@@ -18,6 +18,10 @@ go by their ``world`` argument: a
 kernels; a process group or ``None`` runs the emulated schedule (the wire
 kernels around the library hops), as the JAX package does off the TPU.
 
+The CRC32C of the frame (:func:`crc32c_rows`) takes ``use_kernel`` as
+the per-stage kernels do; the codec passes :func:`use_kernel` of the
+frame's config, so that the ``"ref"`` backend stays plain on any device.
+
 This is the only place that decides; the kernel wrappers take CUDA
 tensors only.
 """
@@ -25,8 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (dequant_unpack, quant_pack, rdma, ref,
-                                 spike_reserve, wire)
+from repro_torch.kernels import (crc, dequant_unpack, quant_pack, rdma,
+                                 ref, spike_reserve, wire)
 
 
 def use_kernel(cfg, t: torch.Tensor) -> bool:
@@ -133,3 +137,12 @@ def fused_spike_pack(x: torch.Tensor, bits: int, group: int,
     if _stage_kernel(use_kernel, x):
         return spike_reserve.spike_pack(x.contiguous(), bits, group)
     return ref.spike_pack_ref(x, bits, group)
+
+
+def crc32c_rows(rows: torch.Tensor, init: int = crc.MASK,
+                use_kernel: bool | None = None) -> torch.Tensor:
+    """(R, L) uint8 -> (R,) int64 CRC32C values, the bytes after a
+    register ``init`` (0xFFFFFFFF: each row's plain CRC32C)."""
+    if _stage_kernel(use_kernel, rows):
+        return crc.crc32c_rows(rows, init)
+    return crc.crc32c_rows_plain(rows, init)

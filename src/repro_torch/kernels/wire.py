@@ -25,7 +25,8 @@ aligned vector store (see the source's header).
 
 Each wrapper launches its kernel on a CUDA tensor, or raises: for a
 tensor elsewhere, and for what the kernel does not take (a group other
-than 32/64/128, a framed wire); it never falls back.
+than 32/64/128, a framed config: the kernels read and write the raw
+payload, and the codec wraps and checks the frame); it never falls back.
 :mod:`repro_torch.kernels.ops` decides whether a tensor goes through a
 kernel or through its plain PyTorch version (``*_plain``, the codec of
 :mod:`repro_torch.core.tilecodec`). ``LAUNCHES`` counts the launches of
@@ -101,7 +102,9 @@ def _lib() -> ctypes.CDLL:
 
 def _check_cfg(cfg) -> None:
     if cfg.framed:
-        raise NotImplementedError("the port writes no framed wire yet")
+        raise ValueError("the wire kernels take the raw payload: the codec "
+                         "(core/codec.py) wraps and checks the frame, so "
+                         "pass cfg.with_framed(False)")
     if cfg.group not in KERNEL_GROUPS:
         raise NotImplementedError(
             f"the CUDA wire kernels take group {KERNEL_GROUPS}, "

@@ -25,8 +25,15 @@ and its load-balance loss enters the loss at weight 0.01. For example
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch moonshot-v1-16b-a3b --smoke --device cpu --steps 3 --mesh 1,2
 
-Not ported: ``--check`` (the analyzer, ROADMAP Queue A item 11) and
-``--framed-bridge`` (frames, item 8).
+``--framed-bridge BITS`` runs the pod hop of the gradient sync at its
+own width, in self-describing frames (header + CRC32C a row,
+:mod:`repro_torch.core.frame`), while every other site keeps the policy's
+config; for example (two pods on gloo)::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
+      --smoke --device cpu --steps 2 --mesh 1,1,2 --framed-bridge 4
+
+Not ported: ``--check`` (the analyzer, ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ from repro_torch.core.comm_config import BACKENDS, SCHEMES
 from repro_torch.core.policy import (BF16_POLICY, CommPolicy,
                                      aggressive_policy, depth_policy,
                                      describe_policy, load_policy_file,
-                                     paper_policy, with_backend, with_scheme)
+                                     paper_policy, with_backend,
+                                     with_framed_bridge, with_scheme)
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -66,12 +74,15 @@ POLICIES = {"paper": paper_policy, "bf16": lambda: BF16_POLICY,
 
 def build_policy(name: str = "paper", policy_file: Optional[str] = None,
                  backend: str = "auto", scheme: Optional[str] = None,
-                 grad_ef: bool = False) -> CommPolicy:
+                 grad_ef: bool = False,
+                 framed_bridge: Optional[int] = None) -> CommPolicy:
     base = load_policy_file(policy_file) if policy_file \
         else POLICIES[name]()
     policy = with_backend(base, backend)
     if scheme:
         policy = with_scheme(policy, scheme)
+    if framed_bridge is not None:
+        policy = with_framed_bridge(policy, framed_bridge)
     if grad_ef:
         policy = dataclasses.replace(policy, grad_ef=True)
     return policy
@@ -177,8 +188,11 @@ def main(argv=None) -> Optional[Dict]:
                     help="JSON policy artifact (see configs/policies/); "
                          "overrides --policy")
     ap.add_argument("--framed-bridge", type=int, default=None,
-                    metavar="BITS", help="not ported (ROADMAP Queue A "
-                                         "item 8)")
+                    metavar="BITS",
+                    help="run the pod-bridge gradient hop at its own bit "
+                         "width with the self-describing frame header "
+                         "(core/frame) while every other site keeps the "
+                         "policy's config")
     ap.add_argument("--grad-ef", action="store_true",
                     help="error-feedback gradient compression")
     ap.add_argument("--codec-backend", default="auto", choices=BACKENDS,
@@ -187,7 +201,7 @@ def main(argv=None) -> Optional[Dict]:
                     help="override the collective schedule at every "
                          "enabled site")
     ap.add_argument("--check", action="store_true",
-                    help="not ported (ROADMAP Queue A item 11)")
+                    help="not ported (ROADMAP Queue A item 7)")
     ap.add_argument("--n-micro", type=int, default=1)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--resume", default=None)
@@ -204,11 +218,7 @@ def main(argv=None) -> Optional[Dict]:
     if args.check:
         raise NotImplementedError(
             "--check runs the analyzer (commcheck), which is not ported: "
-            "ROADMAP Queue A item 11")
-    if args.framed_bridge is not None:
-        raise NotImplementedError(
-            "--framed-bridge needs the framed wire (core/frame.py), which "
-            "is not ported: ROADMAP Queue A item 8")
+            "ROADMAP Queue A item 7")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     data, model, pod = mesh_lib.parse_train_mesh(args.mesh)
     device = resolve_device(args.device)
@@ -222,7 +232,7 @@ def main(argv=None) -> Optional[Dict]:
     rank = args.rank or 0
     plan = make_plan(cfg, tp=model, fsdp=data)
     policy = build_policy(args.policy, args.policy_file, args.codec_backend,
-                          args.comm_scheme, args.grad_ef)
+                          args.comm_scheme, args.grad_ef, args.framed_bridge)
     opt_cfg = OptimConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 2),
                           total_steps=args.steps)
     if world > 1:

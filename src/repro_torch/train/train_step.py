@@ -14,7 +14,8 @@ Gradient communication, as in the JAX package:
   gains) get the exact sum (Megatron's LN-grad all-reduce);
 * across pods: the paper's quantized two-step AllReduce of the sharded
   flat gradients (only 1 / fsdp of them cross the bridge), with its EF
-  residual ``ef`` under ``grad_ef``.
+  residual ``ef`` under ``grad_ef``; at the ``bridge`` site's config when
+  the policy sets one (:func:`pod_grad_config`), framed or not.
 
 Every rank seeds its backward with ``raw / (model * data [* pod])``:
 with the exact sum as the transpose of every sum over ranks, the
@@ -110,14 +111,13 @@ def make_loss_fn(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
 
 
 def pod_grad_config(policy: CommPolicy) -> CommConfig:
-    """The grad site's config for the cross-pod sync (one axis, so the
-    hierarchical schemes run their one-axis forms). A ``bridge`` site
-    would override it with a framed wire, which the port does not write."""
-    if policy.resolve("bridge") is not None:
-        raise NotImplementedError(
-            "the bridge site runs the framed wire (core/frame.py), which "
-            "is not ported: ROADMAP Queue A item 8")
-    return policy.resolve("grad") or NO_COMPRESSION
+    """The config of the cross-pod sync (one axis, so the hierarchical
+    schemes run their one-axis forms): the ``bridge`` site's when it is
+    set (the SDP4Bit-style mixed-tier split: the pod hop at its own
+    width, typically framed, :func:`repro_torch.core.policy.
+    with_framed_bridge`), else the grad site's."""
+    return (policy.resolve("bridge") or policy.resolve("grad")
+            or NO_COMPRESSION)
 
 
 def wants_grad_ef(policy: CommPolicy, mesh: MeshAxes) -> bool:

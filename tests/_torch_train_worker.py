@@ -61,7 +61,8 @@ def policies():
     return {"bf16": BF16_POLICY, "paper": paper_policy(),
             "depth": depth_policy(), "aggressive": aggressive_policy(),
             "aggressive_ef": dataclasses.replace(aggressive_policy(),
-                                                 grad_ef=True)}
+                                                 grad_ef=True),
+            "framed": framed_policies()["framed"]}
 
 
 def train_config(arch: str = ARCH):
@@ -191,6 +192,7 @@ BOUNDS = {"bf16": dict(loss=1e-6, grad_norm=1e-6, store=1e-2, moments=1e-4),
           "aggressive": dict(loss=3e-4, grad_norm=2e-3, store=0.5,
                              moments=0.4)}
 BOUNDS["aggressive_ef"] = BOUNDS["aggressive"]
+BOUNDS["framed"] = BOUNDS["paper"]
 #: the EF residuals' sum rule (:func:`ef_sums`), relative
 EF_SUM = 1e-6
 #: each EF residual leaf's L2 norm within this factor of JAX's
@@ -309,6 +311,7 @@ def jax_reference(mesh_spec: str, out_dir: str, names,
             "aggressive": jpolicy.aggressive_policy()}
     pols["aggressive_ef"] = dataclasses.replace(pols["aggressive"],
                                                 grad_ef=True)
+    pols["framed"] = jpolicy.with_framed_bridge(pols["paper"], 8)
     sh = NamedSharding(mesh, jshard.STORE_SPEC)
     ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
                                  global_batch=BATCH))
@@ -367,6 +370,20 @@ COLL_CASES = {
               dict(bits=8, group=128)),
     "hier2_pp": ("psum2", dict(bits=8, group=128, scheme="hier_pp"), None),
     "two_step2_outer": ("psum2", dict(bits=8, group=128), None),
+    # the framed bridge: an 8-bit framed outer wire (COLL_FRAMED_OUTER)
+    # over a 4-bit inner tier, each scheme; hierarchical_all_reduce's
+    # small-remainder branch (the outer hop a quantized all-gather and a
+    # local sum: n / inner = 128 values, no multiple of outer * group),
+    # forward only; the pod site with error feedback, framed hier_pp
+    "framed2": ("psum2f", dict(bits=4, group=32), None),
+    "framed2_hier": ("psum2f", dict(bits=4, group=32, scheme="hierarchical"),
+                     None),
+    "framed2_hierpp": ("psum2f", dict(bits=4, group=32, scheme="hier_pp"),
+                       None),
+    "framed2_remainder": ("hrem", dict(bits=4, group=32,
+                                       scheme="hierarchical"), None),
+    "ef_framed_hierpp": ("ef", dict(bits=8, group=128, scheme="hier_pp",
+                                    framed=True), None),
     # moe_apply's collectives: the dispatch (paper's int4 g32 wire, two
     # schedules), the combine's all-to-all, ep_slice's tiled all-gather of
     # the outputs and its aux loss's mean over the ranks
@@ -383,6 +400,34 @@ COLL_D = 256
 COLL_GATHERS = ("qag", "fsdp", "gather")
 #: the outer (bridge) wire of the two-axis cases
 COLL_OUTER = dict(bits=4, group=32, spike=True)
+#: the framed outer wire of the ``psum2f`` and ``hrem`` cases
+COLL_FRAMED_OUTER = dict(bits=8, group=128, framed=True)
+#: values of the ``hrem`` case's input (the first of each rank's row)
+COLL_REM_N = 256
+#: the functions without a backward (no custom VJP in JAX either)
+COLL_FORWARD_ONLY = ("hrem",)
+#: the cases held against JAX's eager run (``jax.disable_jit``) of the
+#: same call with the frames removed, bit for bit: the two-step over two
+#: axes with the 4-bit inner tier, where JAX's jitted run differs from its
+#: own eager run in 2.1% of the values (a phase-2 code step of the inner
+#: tier; the port equals the eager run, ROADMAP Queue C). JAX's eager
+#: framed decode would scan every wire byte in Python; its own check holds
+#: its framed run equal to its unframed run bit for bit
+#: (tests/_multidev_script.py check_framed_bridge). The other framed cases
+#: equal JAX's jitted framed run bit for bit.
+COLL_EAGER = ("framed2",)
+
+
+def framed_twin(fn: str, cfg):
+    """A framed case's unframed twin: the case's call with every framed
+    wire unframed (``psum2f`` / ``hrem``: the outer wire; ``ef``: the
+    config), or None for an unframed case."""
+    from repro_torch.core.comm_config import CommConfig
+    if fn in ("psum2f", "hrem"):
+        return cfg, CommConfig(**COLL_FRAMED_OUTER).with_framed(False)
+    if fn == "ef" and cfg.framed:
+        return cfg.with_framed(False), None
+    return None
 
 
 def coll_inputs(world: int):
@@ -423,9 +468,32 @@ def coll_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
             cfg = None if kw is None else CommConfig(**kw)
             bwd = None if bkw is None else CommConfig(**bkw)
             big = fn not in COLL_GATHERS
+            twin = framed_twin(fn, cfg)
+            if fn == "hrem":
+                with torch.no_grad():
+                    for key, outer in (("out", COLL_FRAMED_OUTER),
+                                       ("twin", None)):
+                        out[f"{case}/{key}"] = C.hierarchical_all_reduce(
+                            inp["x"][:COLL_REM_N], axes[0], axes[1], cfg,
+                            CommConfig(**outer) if outer else twin[1]
+                        ).numpy()
+                continue
+            if twin is not None:      # the same call, every wire unframed
+                with torch.no_grad():
+                    if fn == "ef":
+                        y, res = C.compressed_psum_ef(inp["x"], inp["r"],
+                                                      twin[0], g)
+                        out[f"{case}/twin_res"] = res.numpy()
+                    else:
+                        y = C.compressed_psum(inp["x"], twin[0], axes, bwd,
+                                              twin[1])
+                    out[f"{case}/twin"] = y.numpy()
             x = (inp["x"] if big else inp["xk"]).clone().requires_grad_()
             r = inp["r"].clone().requires_grad_()
-            if fn == "psum":
+            if fn == "psum2f":
+                y = C.compressed_psum(x, cfg, axes, bwd,
+                                      CommConfig(**COLL_FRAMED_OUTER))
+            elif fn == "psum":
                 y = C.compressed_psum(x, cfg, g, bwd)
             elif fn == "psum2":
                 y = C.compressed_psum(x, cfg, axes, bwd,
@@ -463,6 +531,68 @@ def coll_rank(rank: int, world: int, init_file: str, out_dir: str) -> None:
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(out_dir, f"coll{rank}.npz"), **out)
+
+
+FRAMED_STEPS = 2
+
+
+def framed_policies():
+    """paper with ``--framed-bridge 8``, the same bridge unframed, and
+    paper itself (its grad site int8 g128 hierarchical). With ``framed``
+    among the policies of a --mesh 1,1,2 run, each rank also trains the
+    three from one store (:func:`framed_equality`)."""
+    from repro_torch.core.policy import (paper_policy, uniform,
+                                         with_framed_bridge)
+    framed = with_framed_bridge(paper_policy(), 8)
+    return {"framed": framed,
+            "unframed": dataclasses.replace(framed, bridge=uniform(
+                framed.bridge.base.with_framed(False))),
+            "paper": paper_policy()}
+
+
+def framed_equality(mesh) -> dict:
+    """On this rank of --mesh 1,1,2: each of :func:`framed_policies` for
+    FRAMED_STEPS steps from the seed-0 store -> its metrics and store
+    after the steps (``eq/{policy}/...``), each run's CRC calls (one a
+    framed encode and one a framed decode) and the number of leaves."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.parallel.shardings import init_store
+    from repro_torch.train.data import DataConfig, make_dataset
+    from repro_torch.train.optim import init_opt_state
+    from repro_torch.train.train_step import local_batch, make_train_step_fn
+    cpu = torch.device("cpu")
+    cfg = train_config()
+    plan = make_plan(cfg, tp=1, fsdp=1)
+    ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
+                                 global_batch=BATCH))
+    calls = [0]
+    crc_rows = ops.crc32c_rows
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return crc_rows(*a, **k)
+
+    ops.crc32c_rows = counted
+    out = {}
+    try:
+        for name, policy in framed_policies().items():
+            calls[0] = 0
+            store = init_store(cfg, plan, 0, cpu)
+            opt = init_opt_state(store, opt_config())
+            step = make_train_step_fn(cfg, plan, policy, opt_config(), mesh)
+            for i in range(FRAMED_STEPS):
+                store, opt, metrics = step(store, opt, local_batch(
+                    ds.batch(i), mesh, cpu))
+                for k, v in metrics.items():
+                    out[f"eq/{name}/{i}/{k}"] = v.numpy()
+            for g, n in leaves(store):
+                out[f"eq/{name}/store/{g}/{n}"] = store[g][n].numpy()
+            out[f"eq/{name}_crc_calls"] = np.asarray(calls[0])
+        out["eq/leaves"] = np.asarray(len(leaves(store)))
+    finally:
+        ops.crc32c_rows = crc_rows
+    return out
 
 
 def main():
@@ -535,6 +665,8 @@ def main():
                             state[tree][g][n].numpy().reshape(sl.shape), sl,
                             s0))
                     out[f"{name}/{i}/{tree}"] = np.stack(stats)
+        if "framed" in names and mesh_spec == "1,1,2":
+            out.update(framed_equality(mesh))
     finally:
         mesh_lib.close_mesh(mesh)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

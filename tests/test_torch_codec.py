@@ -377,7 +377,8 @@ def test_decode_out_dtype_and_meta(out, meta):
 def test_wrappers_plain_on_cpu_and_backend_rules():
     """On a CPU tensor the dispatching wrappers run the plain versions and
     count no launch; the kernel wrappers refuse a CPU tensor, and so does
-    the 'cuda' backend."""
+    the 'cuda' backend, framed too (the frame's CRC32C then goes through
+    the kernel); a framed config on the CPU frames the plain wire."""
     x = _t(_edge_x())
     cfg = CommConfig(bits=5, group=128, scale_int=True)
     wire.reset_launches()
@@ -395,8 +396,14 @@ def test_wrappers_plain_on_cpu_and_backend_rules():
             call()
     with pytest.raises(ValueError, match="CUDA tensor"):
         codec.encode(x, cfg.with_backend("cuda"))
-    with pytest.raises(NotImplementedError):
-        codec.encode(x, CommConfig(framed=True))
+    framed = cfg.with_framed()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        codec.encode(x, framed.with_backend("cuda"))
+    fbuf = codec.encode(x, framed)
+    assert torch.equal(fbuf[:, 16:], buf)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        codec.decode(fbuf, framed.with_backend("cuda"), 512)
+    assert set(wire.LAUNCHES.values()) == {0}
     assert codec.wire_shape((3, 512), cfg) == (3, cfg.wire_bytes(512))
 
 

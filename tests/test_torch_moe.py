@@ -468,6 +468,78 @@ def test_routing_drops_at_width_match_jax(wide, pol, monkeypatch):
     assert int(stats["dropped"]) == sum(d for _, d in tdrops)
 
 
+# a training step's tokens: phase moe_train's global batch (8 x 512)
+TRAIN_B, TRAIN_S = 8, 512
+
+
+def test_training_drops_at_width_match_jax(wide, monkeypatch):
+    """The training forward's dropped routes, layer by layer (paper, 64
+    experts, top-6, a training step's 8 x 512 tokens: 24576 routes a layer
+    for 64 slots x 480), on the same weights in both packages.
+
+    - The port's ``stats`` of ``forward_train`` (the checkpointed blocks
+      over the flat store, as the train step runs them) equal the drops
+      of JAX's routing (:func:`_jax_route`) on the port's MoE input of
+      each layer: exact.
+    - Against the drops of JAX's routing on JAX's own training forward's
+      MoE input (``forward`` on the store, as JAX's train step calls it):
+      within the routes that moved to another expert, as in
+      :func:`test_routing_drops_at_width_match_jax`."""
+    from repro_torch.models.model import forward_train
+    s = wide
+    jpol, tpol = POLICIES["paper/two_step"]
+    jins, tins, tdrops = [], [], []
+    jorig, torig = jmoe.moe_apply, moe.moe_apply
+
+    def jax_tap(p, x, *a, **k):
+        jax.debug.callback(lambda v, r: jins.append(
+            (np.asarray(v), np.asarray(r))), x, p["moe_router"])
+        return jorig(p, x, *a, **k)
+
+    def torch_tap(p, x, *a, stats=None, **k):
+        st = {}
+        out = torig(p, x, *a, stats=st, **k)
+        tins.append(x.reshape(-1, x.shape[-1]).detach().numpy().copy())
+        tdrops.append((int(st["routes"]), int(st["dropped"])))
+        stats["routes"] = stats.get("routes", 0) + st["routes"]
+        stats["dropped"] = stats.get("dropped", 0) + st["dropped"]
+        return out
+
+    monkeypatch.setattr(jmoe, "moe_apply", jax_tap)
+    monkeypatch.setattr(moe, "moe_apply", torch_tap)
+    tokens = np.random.default_rng(9).integers(0, s["cfg"].vocab,
+                                               (TRAIN_B, TRAIN_S))
+    sspec = jshard.store_spec(s["jplan"])
+    jax.jit(compat.shard_map(
+        lambda st, t: jmodel.forward(st, t, s["jcfg"], s["jplan"], jpol(),
+                                     dtype=jnp.float32)[0],
+        mesh=make_test_mesh(1, 1), in_specs=(sspec, P()), out_specs=P(),
+        check_vma=False))(s["jstore"], jnp.asarray(tokens))
+    store = load_jax_store(
+        {g: {n: np.asarray(a) for n, a in arrs.items()}
+         for g, arrs in s["jstore"].items()}, s["cfg"], s["plan"], "cpu",
+        data_rank=0)
+    stats = {}
+    with torch.no_grad():
+        forward_train(store, torch.from_numpy(tokens), s["cfg"], s["plan"],
+                      tpol(), dtype=torch.float32, stats=stats)
+    n_moe = s["cfg"].layer_kinds.count("moe")
+    assert len(jins) == len(tins) == len(tdrops) == n_moe == 2
+    routes = TRAIN_B * TRAIN_S * s["cfg"].moe.top_k
+    for layer, ((jx, router), tx, got) in enumerate(zip(jins, tins,
+                                                        tdrops)):
+        ti, _, _, tkeep, _ = _jax_route(jnp.asarray(tx), jnp.asarray(router),
+                                        s["jcfg"])
+        assert tkeep.size == routes and not tkeep.all(), layer
+        assert got == (routes, int((~tkeep).sum())), layer
+        ji, _, _, jkeep, _ = _jax_route(jnp.asarray(jx), jnp.asarray(router),
+                                        s["jcfg"])
+        moved = sum(s["cfg"].moe.top_k - len(set(a) & set(b))
+                    for a, b in zip(ji, ti))
+        assert abs(int((~jkeep).sum()) - got[1]) <= moved, layer
+    assert int(stats["dropped"]) == sum(d for _, d in tdrops)
+
+
 A2A_CFGS = [dict(bits=4, group=32), dict(bits=4, group=32, scale_int=True),
             dict(bits=2, group=32, spike=True), dict(bits=8, group=128)]
 

@@ -4,9 +4,12 @@ collectives' backward rules, the optimizer, checkpoints.
 * The collectives that carry a backward (``tests/_torch_train_worker.py``
   ``COLL_CASES``: ``compressed_psum`` with and without ``bwd_cfg``, with
   hier_pp and fused, and over two axes (hierarchical, hier_pp and
-  two_step with an outer wire of its own); ``grad_all_reduce``; the
+  two_step with an outer wire of its own, and with a framed 8-bit outer
+  wire over a 4-bit inner tier, hierarchical_all_reduce's small-remainder
+  branch included); ``grad_all_reduce``; the
   quantized reduce-scatter and all-gather; ``fsdp_all_gather``, plain
-  and with ``qag``; the EF pair; ``moe_apply``'s collectives: the
+  and with ``qag``; the EF pair (and the EF AllReduce under framed
+  hier_pp); ``moe_apply``'s collectives: the
   dispatch ``autograd.Function`` under two_step and fused, the combine's
   all-to-all, ``ep_slice``'s tiled all-gather and its aux loss's mean,
   ``psum_exact / tp`` for ``lax.pmean``) on four gloo ranks, outputs,
@@ -50,22 +53,31 @@ def _jax_reference(out_dir: str) -> None:
     # inner axis "model" (pairs of consecutive ranks), the outer "data"
     mesh2 = make_test_mesh(2, WORLD // 2)
     outer = CommConfig(backend="ref", **worker.COLL_OUTER)
+    framed_outer = CommConfig(backend="ref", **worker.COLL_FRAMED_OUTER)
     inp = {k: jnp.asarray(v) for k, v in
            worker.coll_inputs(WORLD).items()}
     out = {}
     for case, (fn, kw, bkw) in worker.COLL_CASES.items():
         cfg = None if kw is None else CommConfig(backend="ref", **kw)
         bwd = None if bkw is None else CommConfig(backend="ref", **bkw)
+        framed = (framed_outer.with_framed(False)
+                  if case in worker.COLL_EAGER else framed_outer)
         ct = {"qrs": "ct_rs", "qrs_ef": "ct_rs"}.get(
             fn, "ct_ag" if fn in worker.COLL_GATHERS else "ct")
         two = fn in ("ef", "qrs_ef")
 
-        def f(x, r, fn=fn, cfg=cfg, bwd=bwd):
+        def f(x, r, fn=fn, cfg=cfg, bwd=bwd, framed=framed):
             if fn == "psum":
                 return J.compressed_psum(x, ("model",), cfg, None, bwd)
             if fn == "psum2":
                 return J.compressed_psum(x, ("model", "data"), cfg, None,
                                          bwd, outer)
+            if fn == "psum2f":
+                return J.compressed_psum(x, ("model", "data"), cfg, None,
+                                         bwd, framed)
+            if fn == "hrem":
+                return J.hierarchical_all_reduce(
+                    x[:worker.COLL_REM_N], "model", "data", cfg, framed)
             if fn == "gar":
                 return J.grad_all_reduce({"w": x}, ("model",), cfg)["w"]
             if fn == "qrs":
@@ -90,8 +102,10 @@ def _jax_reference(out_dir: str) -> None:
                 return J.compressed_psum_ef(x, r, ("model",), cfg)
             return J.quantized_reduce_scatter_ef(x, r, "model", cfg)
 
-        def body(x, r, c, f=f, two=two):
+        def body(x, r, c, f=f, two=two, fwd=fn in worker.COLL_FORWARD_ONLY):
             x, r, c = x[0], r[0], c[0]
+            if fwd:
+                return (f(x, r)[None],)
             y, vjp = jax.vjp(f, x, r)
             if two:
                 gx, gr = vjp((c, jnp.zeros_like(y[1])))
@@ -99,20 +113,25 @@ def _jax_reference(out_dir: str) -> None:
             gx, _ = vjp(c)
             return y[None], gx[None]
 
-        n_out = 4 if two else 2
-        rows = P(("data", "model")) if fn == "psum2" else P("model")
-        sm = compat.shard_map(body, mesh=mesh2 if fn == "psum2" else mesh,
+        n_out = 4 if two else 1 if fn in worker.COLL_FORWARD_ONLY else 2
+        two_axes = fn in ("psum2", "psum2f", "hrem")
+        rows = P(("data", "model")) if two_axes else P("model")
+        sm = compat.shard_map(body, mesh=mesh2 if two_axes else mesh,
                               in_specs=(rows,) * 3,
                               out_specs=(rows,) * n_out, check_vma=False)
         big = fn not in worker.COLL_GATHERS
-        res = jax.jit(sm)(inp["x"] if big else inp["xk"], inp["r"],
-                          inp[ct])
+        args = (inp["x"] if big else inp["xk"], inp["r"], inp[ct])
+        if case in worker.COLL_EAGER:
+            with jax.disable_jit():
+                res = sm(*args)
+        else:
+            res = jax.jit(sm)(*args)
         out[f"{case}/out"] = np.asarray(res[0])
         if two:
             out[f"{case}/res"] = np.asarray(res[1])
             out[f"{case}/grad"] = np.asarray(res[2])
             out[f"{case}/grad_r"] = np.asarray(res[3])
-        else:
+        elif n_out == 2:
             out[f"{case}/grad"] = np.asarray(res[1])
     np.savez(os.path.join(out_dir, "jax.npz"), **out)
 
@@ -166,6 +185,11 @@ def test_collective_forward_and_backward_match_jax(coll, case):
     moves it by as much. Measured: every output of the bf16-scale cases
     bit for bit; the Eq.-1 cases within 1.1e-6; the two-axis case with a
     4-bit outer wire one outer code step (1.02) on a few values.
+
+    The framed case of ``worker.COLL_EAGER`` (the two-step over two axes
+    with a 4-bit inner tier) is held against JAX's eager run of the same
+    call with the frames removed, its output bit for bit (see
+    COLL_EAGER).
     """
     jax_out, ranks = coll
     fn, kw, bkw = worker.COLL_CASES[case]
@@ -182,6 +206,7 @@ def test_collective_forward_and_backward_match_jax(coll, case):
             assert got.shape == want.shape, (k, got.shape, want.shape)
             if np.array_equal(_bits(got), _bits(want)):
                 continue
+            assert case not in worker.COLL_EAGER or key != "out", (r, k)
             d = np.abs(got - want)
             scale = np.abs(want).max()
             if key in ("grad", "grad_r") and bkw is None:
@@ -192,6 +217,26 @@ def test_collective_forward_and_backward_match_jax(coll, case):
                 step = 2 * WORLD * xmax / (2 ** bits - 1)
                 assert d.max() <= step, (r, k, d.max(), step)
                 assert np.mean(d > 1e-6 * scale) <= 0.01, (r, k)
+
+
+def test_framed_collectives_equal_unframed_twins(coll):
+    """Each framed case (the bridge's outer wire framed over two axes under
+    two_step, hierarchical and hier_pp, hierarchical_all_reduce's
+    small-remainder branch, and the pod site's EF under framed hier_pp)
+    gives on every rank the output (and residual) of the same call with
+    every wire unframed, bit for bit: the frame is pure envelope."""
+    _, ranks = coll
+    cases = [c for c in worker.COLL_CASES if f"{c}/twin" in ranks[0].files]
+    assert len(cases) == 5, cases
+    for res in ranks:
+        for case in cases:
+            np.testing.assert_array_equal(
+                _bits(res[f"{case}/out"]), _bits(res[f"{case}/twin"]),
+                err_msg=case)
+            if f"{case}/res" in res.files:
+                np.testing.assert_array_equal(
+                    _bits(res[f"{case}/res"]),
+                    _bits(res[f"{case}/twin_res"]), err_msg=case)
 
 
 def test_ef_residuals_sum_to_the_error(coll):
