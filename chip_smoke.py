@@ -28,14 +28,24 @@ Phases, each printing its lines; any failure exits non-zero:
              self-describing on the host (``frame.frame_decode``);
              fc_crc32c (the CRC kernel, no Pallas counterpart) equal to
              its plain version and to the host ``frame.crc32c`` on the
-             check vector, rows of 1 to 3 bytes, lengths no multiple of
-             its chunk or tile, several rows, strided rows (framed rows'
-             payloads) and rows whose bytes sit at no 4-byte boundary
-             (its byte path), and equal to its plain version at a
-             leaf-sized row (2 rows of llama3-8b's embedding leaf at pod
-             = 2, int8 g128); then every byte of one framed row flipped in
-             turn (three configs): the CUDA codec's decode NaN-poisons
-             exactly that row and leaves the others bit-equal.
+             check vector, rows of 1 to 3 bytes, lengths L - 1, L and
+             L + 1 around a word, 16 bytes, its chunk, its tile, its ring
+             of tiles and a block's run of tiles (_crc_cases), several
+             rows, contiguous rows, framed rows' payloads and rows at a
+             pitch of 3 + L, each case naming its path (the ring of bulk
+             copies or the synchronous load; both are hit), and equal to
+             its plain version at a leaf-sized row (2 rows of llama3-8b's
+             embedding leaf at pod = 2, int8 g128); then every byte of
+             one framed row flipped in turn (three configs): the CUDA
+             codec's decode NaN-poisons exactly that row and leaves the
+             others bit-equal.
+   crc    -- fc_crc32c at the framed pod bridge's rows of llama3-8b's
+             embedding leaf (the pod site's (8, 67719168) and the leaf's
+             halves (2, 270876672), on the kernel's ring) and at the pod
+             site's length at a pitch of 3 + L (its synchronous path):
+             bit-equal to its plain version; CUDA events (median of 5)
+             beside the bound and the plain version's time, and each
+             launch's device time from torch.profiler (phase_crc).
 3. stage  -- the per-stage kernels (quant_pack, dequant_unpack,
              spike_pack) equal their plain versions byte for byte (payload,
              scale, zero, spike values and indices) and bit for bit
@@ -200,8 +210,7 @@ microchunks through the two-step, and a group's codes do not depend on
 where its chunk lies, so the frame is pure envelope;
 tests/test_torch_frame.py shows the two equal on the CPU), with exact
 launch counts (one fc_crc32c a framed encode and one a framed decode)
-and no NaN in any parameter. Before it, phase train times fc_crc32c at
-the pod site's framed rows of the embedding leaf.
+and no NaN in any parameter.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the wire kernels' from the serve, ln, moe, train and
@@ -219,6 +228,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -228,8 +238,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "wire_vectors.npz")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-PHASES = ("build", "codec", "stage", "time", "serve", "ln", "a2a", "moe",
-          "ar", "tp", "tp4", "train", "moe_train")
+PHASES = ("build", "codec", "crc", "stage", "time", "serve", "ln", "a2a",
+          "moe", "ar", "tp", "tp4", "train", "moe_train")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -638,6 +648,23 @@ def _frame_golden_cfg(key: str):
                       rotation=stem.endswith("_rot"), framed=True)
 
 
+def _crc_cases(torch):
+    """(rows, length) of phase codec's fc_crc32c cases: L - 1, L and L + 1
+    around a word, a bulk copy's 16 bytes, a chunk, a tile, the ring's
+    tiles and a block's run of tiles (2 rows of SMs / 2 tiles: one tile a
+    block, then two tiles in some blocks' runs, chains carried from tile to
+    tile), and rows of 1 to 3 bytes, several rows a block, long runs."""
+    from repro_torch.kernels import crc
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = [(1, 1), (1, 2), (1, 3), (3, 1), (3, 2), (3, 3), (7, 1000),
+           (5, 3 * crc.TILE + 16), (3, 60 * crc.TILE + 5),
+           (2, 400 * crc.TILE + 16)]
+    for rows, n in ((2, 4), (2, 16), (2, crc.CHUNK), (4, crc.TILE),
+                    (3, crc.STAGES * crc.TILE), (2, sms // 2 * crc.TILE)):
+        out += [(rows, n + d) for d in (-1, 0, 1)]
+    return out
+
+
 def _frame_checks(torch, np, data):
     """The framed wire on the card: the framed goldens through the CUDA
     codec, fc_crc32c against its plain version and the host CRC, and the
@@ -677,30 +704,31 @@ def _frame_checks(torch, np, data):
     check(int(crc.crc32c_rows(torch.tensor([list(b"123456789")],
                                            dtype=torch.uint8, device=dev))[0])
           == 0xE3069283, "fc_crc32c of the check vector != 0xE3069283")
-    shapes = [(1, 1), (1, 2), (1, 3), (3, 1), (3, 2), (3, 3), (2, 63),
-              (2, 64), (2, 65), (4, 8191), (4, 8192), (4, 8193),
-              (5, 3 * 8192 + 17), (7, 1000), (2, 20 * 8192 + 4),
-              (3, 1100 * 8192 + 5)]
-    n_cases = 0
-    for rows, length in shapes:
+    n_cases, paths = 0, {True: 0, False: 0}
+    for rows, length in _crc_cases(torch):
         # contiguous rows, framed rows' payloads (a pitch of 16 + length),
-        # and rows 3 bytes into a pitch of 3 + length (fc_crc32c's byte
-        # path: no 4-byte alignment)
+        # and rows 3 bytes into a pitch of 3 + length (never the ring)
         def rand(width):
             return torch.from_numpy(rng.integers(0, 256, (rows, width),
                                                  dtype=np.uint8)).to(dev)
         for view in (rand(length), rand(16 + length)[:, 16:],
                      rand(3 + length)[:, 3:]):
+            ring = crc.ring_path(view.data_ptr(), view.stride(0)
+                                 if rows > 1 else length, length)
             for init in (crc.MASK, 0x12345678):
                 got = crc.crc32c_rows(view, init)
                 check(torch.equal(got, crc.crc32c_rows_plain(view, init)),
                       f"fc_crc32c != plain at {tuple(view.shape)} stride "
-                      f"{view.stride()} init {init:#x}")
+                      f"{view.stride()} init {init:#x} "
+                      f"({'ring' if ring else 'synchronous'} path)")
                 if init == crc.MASK and length < 100000:
                     host = [frame.crc32c(r) for r in view.cpu().numpy()]
                     check(got.cpu().tolist() == host, f"fc_crc32c != host "
                           f"crc32c at {tuple(view.shape)}")
                 n_cases += 1
+                paths[ring] += 1
+            del view
+    check(paths[True] > 0 and paths[False] > 0, f"fc_crc32c paths: {paths}")
     leaf = _train_cfg()
     n_leaf = leaf.vocab * leaf.d_model // 2
     plen = CommConfig(bits=8, group=128).wire_bytes(n_leaf)
@@ -710,8 +738,10 @@ def _frame_checks(torch, np, data):
     del big
     torch.cuda.empty_cache()
     print(f"[codec] fc_crc32c: the check vector 0xE3069283; {n_cases} "
-          f"cases (rows of 1 to 3 bytes, lengths no multiple of its "
-          f"{crc.CHUNK}-byte chunk or {crc.TILE}-byte tile, up to 7 rows, "
+          f"cases ({paths[True]} on the ring, {paths[False]} synchronous: "
+          f"lengths L - 1, L, L + 1 around a word, 16 bytes, its "
+          f"{crc.CHUNK}-byte chunk, its {crc.TILE}-byte tile, its ring of "
+          f"{crc.STAGES} tiles and a run of tiles a block, up to 7 rows, "
           f"contiguous, odd-pitch and framed-payload rows, two initial "
           f"registers) equal to its plain version and (below 100000 bytes) "
           f"the host crc32c; equal to plain at the leaf-sized rows "
@@ -2131,15 +2161,46 @@ def _train_kernel_checks(torch, card: str) -> dict:
     return out
 
 
-def _train_crc_time(torch, card: str) -> dict:
+# ---------------------------------------------------------------------------
+# phase crc: fc_crc32c at the framed pod bridge's rows
+# ---------------------------------------------------------------------------
+
+def _kernel_device_ms(torch, fn, runs: int = 25) -> dict:
+    """Each kernel's mean device time over the launches a torch.profiler
+    trace of ``runs`` calls recorded -> {name: (ms, records)}; {} when the
+    trace has no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0 and ev.count:
+            name = re.search(r"(\w+(<[^>]*>)?)\(", ev.key)
+            out[name.group(1) if name else ev.key] = (t / ev.count / 1e3,
+                                                      ev.count)
+    return out
+
+
+def phase_crc(torch, card: str) -> dict:
     """fc_crc32c at the framed rows of llama3-8b's embedding gradient leaf
     at the pod site of --mesh 1,1,2 --framed-bridge 8 (hier_pp: 4
     microchunks x 2 ranks = 8 rows, each row's CRC over the config's
     header prefix and its payload, read in place from the framed rows),
-    and at the leaf's halves as 2 rows: bit-equal to its plain version,
-    then its time (CUDA events, median of 5) beside the bound (bytes read
-    over 3.35 TB/s) and the plain version's time. No PyTorch call computes
-    CRC32C: no library time."""
+    at the leaf's halves as 2 rows, and (the synchronous path) at the pod
+    site's length in rows at a pitch of 3 + L: bit-equal to its plain
+    version, then its time (CUDA events, median of 5) beside the bound
+    (bytes read over 3.35 TB/s) and the plain version's time, and each
+    launch's device time (torch.profiler, the mean over a trace of 25
+    calls) with the records the trace kept. No PyTorch call computes
+    CRC32C: no library time. Only crc32c_rows, crc32c_rows_plain,
+    bound_bytes and plan of the kernel's module are called, so that an
+    older tree's kernel can be timed by this script."""
     from repro_torch.core import codec, frame
     from repro_torch.core.comm_config import CommConfig
     from repro_torch.kernels import crc
@@ -2150,30 +2211,47 @@ def _train_crc_time(torch, card: str) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 19)
     out = {}
-    for label, rows in (("pod site", 8), ("leaf / 2", 2)):
-        x = torch.randn((rows, emb // rows), generator=gen, device=dev) * 1e-3
-        buf = codec.encode(x, bridge)
-        del x
-        plen = buf.shape[1] - 16
-        payload = buf[:, 16:]
-        init = frame._prefix_register(bridge, plen)
+    for label, rows in (("pod site", 8), ("leaf / 2", 2),
+                        ("pod site, pitch 3 + L", 8)):
+        if label.endswith("3 + L"):
+            plen = out["pod site"]["length"]
+            buf = torch.randint(0, 256, (rows, 3 + plen), generator=gen,
+                                dtype=torch.uint8, device=dev)
+            payload, init = buf[:, 3:], crc.MASK
+        else:
+            x = torch.randn((rows, emb // rows), generator=gen,
+                            device=dev) * 1e-3
+            buf = codec.encode(x, bridge)
+            del x
+            plen = buf.shape[1] - 16
+            payload = buf[:, 16:]
+            init = frame._prefix_register(bridge, plen)
+        ring = getattr(crc, "ring_path", None)   # an older tree has none
+        path = ("no ring" if ring is None else "ring" if ring(
+            payload.data_ptr(), payload.stride(0), plen) else "synchronous")
         got = crc.crc32c_rows(payload, init)
         check(torch.equal(got, crc.crc32c_rows_plain(payload, init)),
-              f"fc_crc32c != plain at the framed {label} rows "
-              f"({rows}, {plen})")
+              f"fc_crc32c != plain at the {label} rows ({rows}, {plen})")
         ms = _time_ms(torch, lambda: crc.crc32c_rows(payload, init), runs=5,
                       warmup=2)
         plain_ms = _time_ms(torch, lambda: crc.crc32c_rows_plain(
             payload, init), runs=3, warmup=1)
+        launches = _kernel_device_ms(torch,
+                                     lambda: crc.crc32c_rows(payload, init))
         bound = crc.bound_bytes(rows, plen) / HBM_BYTES_PER_S * 1e3
-        print(f"[train] fc_crc32c at the embedding leaf's framed {label} "
-              f"rows ({rows}, {plen}) (strided: the payloads of the framed "
-              f"rows): bit-equal to plain; {ms:.4f} ms a call (bound "
-              f"{bound:.4f}, bytes; {bound / ms:.2f} of the bound), plain "
-              f"{plain_ms:.4f} ms, library none  [{card}]", flush=True)
+        p = crc.plan(plen)
+        print(f"[crc] fc_crc32c {label} ({rows}, {plen}) ({path} path; "
+              f"{p.tiles} tiles a row, pad {p.pad}; strided): bit-equal to "
+              f"plain; {ms:.4f} ms a call (bound {bound:.4f}, bytes; "
+              f"{bound / ms:.2f} of the bound), plain {plain_ms:.4f} ms, "
+              f"library none; device "
+              + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]} of 25 records)"
+                          for k, v in sorted(launches.items()))
+              + f"  [{card}]", flush=True)
         out[label] = {"rows": rows, "length": plen, "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound,
-                      "bound_by": "bytes", "max_abs_err": 0.0}
+                      "bound_by": "bytes", "max_abs_err": 0.0,
+                      "path": path, "launch_ms": launches}
         del buf, payload, got
         torch.cuda.empty_cache()
     return out
@@ -2587,7 +2665,6 @@ def phase_train(torch, card: str) -> dict:
     print(f"[train] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
           f"allocated by the earlier phases", flush=True)
     res = {"kernels": _train_kernel_checks(torch, card),
-           "crc": _train_crc_time(torch, card),
            "1,1": _train_single(torch, card)}
     torch.cuda.empty_cache()
     # the rank processes share the card: expandable segments keep each
@@ -2670,6 +2747,7 @@ def main(argv=None) -> int:
     card = phase_build(torch)
     if "codec" in phases:
         phase_codec(torch, np)
+    crc_timed = phase_crc(torch, card) if "crc" in phases else {}
     stage_launches = phase_stage(torch, np) if "stage" in phases else {}
     timing = phase_time(torch, np, card) if "time" in phases else {}
     launches, served = {}, {}
@@ -2703,7 +2781,7 @@ def main(argv=None) -> int:
     kernels = []
     for name in WIRE_KERNELS + STAGE_KERNELS + ("a2a", "ar", "crc32c"):
         if name == "crc32c":
-            t = trained.get("crc", {}).get("pod site", {})
+            t = crc_timed.get("pod site", {})
             errs = [t.get("max_abs_err")]
             source = "crc.cu"
             n = train_launches.get(name, 0)
@@ -2760,7 +2838,8 @@ def main(argv=None) -> int:
               "a2a_launches": a2a_launches, "moe_launches": moe_launches,
               "serve": numbers(served), "moe": numbers(moe_served),
               "ar": ar_timed, "ar_launches": ar_launches, "tp": tp_ranks,
-              "train": trained, "ln": numbers(ln_served), "tp4": tp4_ranks,
+              "train": trained, "crc": crc_timed, "ln": numbers(ln_served),
+              "tp4": tp4_ranks,
               "moe_train": moe_trained}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -16,8 +16,8 @@ and for its plain version::
 
 Each run's output goes to ``chiprun_out/ab/<i>_<tree>.log`` (and its
 record to ``<i>_<tree>.json``) under this checkout; the summary of the
-``[time]`` and ``[yardstick]`` lines of the named kernels to the standard
-output. With ``--sass REGEX`` each tree's kernels whose name matches are
+``[time]``, ``[yardstick]`` and ``[crc]`` lines of the named kernels to
+the standard output. With ``--sass REGEX`` each tree's kernels whose name matches are
 disassembled once (``cuobjdump -sass`` of the libraries its run built)
 and their opcodes counted, one ``[sass]`` line a kernel (also in
 ``<i>_<tree>.sass``): instructions in the binary, not executed ones.
@@ -27,6 +27,13 @@ Exits non-zero if a run failed. Needs a CUDA card::
     git add -A && git archive $(git write-tree) | tar -x -C build/final
     python3 scripts/ab_device_time.py --phases build,time,ar \\
         build/parent build/final build/final build/parent
+
+A parent whose ``chip_smoke.py`` lacks a phase gets this tree's
+(``cp chip_smoke.py build/parent/``): phase crc, for one, calls only
+what every tree's ``kernels/crc.py`` has::
+
+    python3 scripts/ab_device_time.py --phases build,crc \\
+        --kernels fc_crc32c build/parent build/final build/final build/parent
 """
 from __future__ import annotations
 
@@ -128,7 +135,7 @@ def main(argv=None) -> int:
     out = os.path.join(ROOT, "chiprun_out", "ab")
     os.makedirs(out, exist_ok=True)
     yard = os.path.join(ROOT, "chip_smoke.py")
-    rows = re.compile(r"^\[(time|yardstick)\] (%s) " % "|".join(
+    rows = re.compile(r"^\[(time|yardstick|crc)\] (%s) " % "|".join(
         re.escape(k) for k in args.kernels.split(",")))
     failed, disassembled = [], set()
     for i, tree in enumerate(args.trees, 1):

@@ -2,10 +2,11 @@
 package's ``core/frame.py``, on the same seeded numpy inputs.
 
 * CRC32C: the host ``crc32c`` and the per-row ``crc32c_rows`` (on the CPU,
-  the plain version of the CUDA kernel ``fc_crc32c``: its chunks, tiles
-  and GF(2) combine) against JAX's, at lengths that are no multiple of
-  the kernel's chunk or tile, and after an initial register (a frame's
-  header prefix).
+  the plain version of the CUDA kernel ``fc_crc32c``: its chunks, chains,
+  tiles, runs and GF(2) combine) against JAX's, at lengths L - 1, L and
+  L + 1 around a word, 16 bytes, a chunk, a tile and the kernel's ring,
+  cut into the H100's runs and into one, and after an initial register
+  (a frame's header prefix); the wrapper's choice of the kernel's ring.
 * ``frame_wrap`` bytes and ``frame_check_rows``' ``ok`` mask against
   JAX's, corrupt rows included.
 * Every test of ``tests/test_frame.py`` on the frame, mirrored: each
@@ -103,9 +104,9 @@ def test_crc32c_rows_match_jax(length):
 def test_crc32c_rows_long_rows_and_initial_register():
     """A row of several tiles against JAX's host ``crc32c``; after an
     initial register, the CRC of the bytes before the rows and the rows,
-    against JAX's; and a row of more tiles than the combine has threads
-    (each thread Horner over 2 tiles) equal to its two halves, the second
-    run after the first's register (a plan of one tile a thread)."""
+    against JAX's; and a row cut into two runs whose segments span several
+    tiles (chains carried from tile to tile) equal to its two halves, the
+    second run after the first's register (one segment each)."""
     rng = np.random.RandomState(7)
     buf = rng.randint(0, 256, (2, 3 * crc.TILE + 17), np.uint8)
     got = crc.crc32c_rows_plain(torch.from_numpy(buf)).tolist()
@@ -115,17 +116,71 @@ def test_crc32c_rows_long_rows_and_initial_register():
     init = crc.update(crc.MASK, head.tobytes())
     got = crc.crc32c_rows_plain(torch.from_numpy(body), init).tolist()
     assert got == [jframe.crc32c(np.concatenate([head, r])) for r in body]
-    length = (crc.MAX_ROW_THREADS + 3) * crc.TILE - 5
-    assert crc.plan(length).per_thread == 2
+    length = 5 * crc.TILE - 5
+    assert [s[2:] for s in crc.segments(1, crc.plan(length).tiles, 2)] \
+        == [(0, 2), (2, 5)]
     row = torch.from_numpy(rng.randint(0, 256, (1, length), np.uint8))
     half = length // 2
-    assert crc.plan(half).per_thread == crc.plan(length - half).per_thread \
-        == 1
-    first = int(crc.crc32c_rows_plain(row[:, :half])[0]) ^ crc.MASK
-    assert crc.crc32c_rows_plain(row).tolist() == \
-        crc.crc32c_rows_plain(row[:, half:], first).tolist()
+    assert crc.plan(half).tiles == crc.plan(length - half).tiles == 3
+    first = int(crc.crc32c_rows_plain(row[:, :half], blocks=1)[0]) ^ crc.MASK
+    assert crc.crc32c_rows_plain(row, blocks=2).tolist() == \
+        crc.crc32c_rows_plain(row[:, half:], first, blocks=1).tolist()
     assert crc.crc32c_rows_plain(torch.zeros((2, 0), dtype=torch.uint8)
                                  ).tolist() == [0, 0]
+
+
+#: L - 1, L, L + 1 around a word, the bulk copy's 16 bytes, a chunk, a
+#: tile and the kernel's ring of tiles
+BOUNDARY_LENGTHS = sorted({n + d for n in (4, 16, crc.CHUNK, crc.TILE,
+                                           crc.STAGES * crc.TILE)
+                           for d in (-1, 0, 1)})
+
+
+@pytest.mark.parametrize("prefix", [0, 12])
+@pytest.mark.parametrize("length", BOUNDARY_LENGTHS)
+def test_crc32c_rows_plain_boundaries_match_jax(length, prefix):
+    """The plain version at the cuts' boundaries, two rows, with the
+    H100's runs and with one run (a segment crossing a row's end and, past
+    a tile, a chain over several tiles), against JAX's jitted
+    ``crc32c_rows`` and host ``crc32c`` of the bytes after a ``prefix``
+    of header bytes (none: the plain CRC)."""
+    rng = np.random.RandomState(length + prefix)
+    head = rng.randint(0, 256, prefix, np.uint8)
+    buf = rng.randint(0, 256, (2, length), np.uint8)
+    init = crc.update(crc.MASK, head.tobytes())
+    whole = np.concatenate([np.broadcast_to(head, (2, prefix)), buf], 1)
+    want = np.asarray(jax.jit(jframe.crc32c_rows)(jnp.asarray(whole)))
+    assert want.tolist() == [jframe.crc32c(r) for r in whole]
+    for blocks in (crc.BLOCKS, 1):
+        got = crc.crc32c_rows_plain(torch.from_numpy(buf), init, blocks)
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_crc_ring_path_choice():
+    """The wrapper's choice of the kernel's ring (bulk copies: address,
+    pitch and length multiples of 16) for the views the frame hands it:
+    contiguous rows and framed rows' payloads (16 + L apart) take it when L
+    is a multiple of 16; an odd pitch (3 + L) or an odd length do not."""
+    assert crc.ring_path(0, 32, 16) and crc.ring_path(4096, 4096, 4096)
+    assert not crc.ring_path(8, 32, 16)
+    assert not crc.ring_path(0, 40, 16)
+    assert not crc.ring_path(0, 32, 20)
+
+    def path(rows):
+        pitch = rows.stride(0) if rows.shape[0] > 1 else rows.shape[1]
+        return crc.ring_path(rows.data_ptr(), pitch, rows.shape[1])
+
+    for length in (16, 4096, crc.TILE):
+        base = torch.zeros((3, 16 + length), dtype=torch.uint8)
+        assert base.data_ptr() % 16 == 0
+        assert path(base[:, :length].contiguous())
+        assert path(base[:, 16:])
+        assert not path(torch.zeros((3, 3 + length),
+                                    dtype=torch.uint8)[:, 3:])
+        assert not path(base[:, 16:length + 15])
+        assert not path(torch.zeros((3, 8 + length),
+                                    dtype=torch.uint8)[:, :length])
+        assert path(base[:1, 16:])
 
 
 def test_crc_dispatch_refuses_cpu_for_the_kernel():
