@@ -73,8 +73,9 @@ Phases, each printing its lines; any failure exits non-zero:
              logits through the CUDA kernels equal those through the plain
              codec on the card, bit for bit. Then it serves BATCH x
              PROMPT_LEN prompt tokens + GEN generated tokens under
-             paper/two_step, paper/fused and aggressive/two_step, and
-             without the codec (bf16). The launch counts of every kernel
+             SERVE_RUNS (paper/two_step, paper/fused; aggressive/two_step
+             is checked above but no longer served), and without the
+             codec (bf16). The launch counts of every kernel
              are zeroed just before these runs and read just after; each
              wire kernel must have run the expected number of times and
              each stage kernel none, and prefill and decode must agree on
@@ -105,15 +106,17 @@ Phases, each printing its lines; any failure exits non-zero:
              and the launch counts exact; then its time at both shapes,
              at tp = A2A_TIME_TP (the paper config and the spike one) and
              at the serve path's tp = TP.
-7. moe    -- moonshot-v1-16b-a3b at full width (48 layers: 1 dense, 47
-             MoE with 64 experts, top-6), weights from seed SEED with the
+7. moe    -- moonshot-v1-16b-a3b at full width (1 dense and MOE_REPEATS
+             of its 47 MoE blocks with 64 experts, top-6), weights from
+             seed SEED with the
              zero-initialised output projections (attention, MLP and
              experts) filled. For each policy the prefill's hidden states
              and DECODE_CHECK_STEPS decode steps' logits through the CUDA
              kernels equal those through the plain codec, bit for bit;
              then it serves BATCH x PROMPT_LEN + GEN tokens under the
-             policies of phase serve, with exact launch counts (50 TP
-             sites and 47 dispatch sites a forward), and prints TTFT,
+             policies of phase serve, with exact launch counts (a TP
+             site a block and the embedding's, a dispatch site an MoE
+             block, a forward), and prints TTFT,
              ms/step and the routes dropped over capacity. Prefill and
              decode route with different capacities, so their agreement
              is not checked here (the CPU tests hold both against JAX).
@@ -140,9 +143,10 @@ Phases, each printing its lines; any failure exits non-zero:
              (moonshot's prefill and decode dispatch, A2A_CALLS each)
              through PeerWorld.from_group (CUDA IPC), each call timed
              between the processes, bit-equal to the plain versions of all
-             ranks' inputs, with exact pads. Then qwen3-14b and, its
-             weights freed, moonshot-v1-16b-a3b (ep = TP) at full width,
-             weights from seed SEED (init_params(rank=r), output
+             ranks' inputs, with exact pads. Then qwen3-14b (TP_REPEATS
+             layers) and, its weights freed, moonshot-v1-16b-a3b (ep =
+             TP; its dense block and TP_MOE_REPEATS MoE blocks) at full
+             width, weights from seed SEED (init_params(rank=r), output
              projections filled): paper/fused's prefill hidden states and
              DECODE_CHECK_STEPS decode logits bit-equal to
              paper/two_step's; then it serves BATCH x PROMPT_LEN + TP_GEN
@@ -151,8 +155,8 @@ Phases, each printing its lines; any failure exits non-zero:
              through fc_a2a) and, for qwen3-14b, paper/two_step (the wire
              kernels around the host-staged gloo hop), with exact launch
              counts
-             (fused: fc_ar 81 times a forward for qwen3-14b; 50 and fc_a2a
-             47 for moonshot; no wire kernel), the dense runs'
+             (fused: fc_ar once a TP site, fc_a2a once a dispatch; no
+             wire kernel), the dense runs'
              prefill/decode agreement and moonshot's dropped routes. Rank 0
              prints TTFT and ms/step, every rank its peak memory; a failed
              rank fails the phase.
@@ -201,6 +205,28 @@ Phases, each printing its lines; any failure exits non-zero:
              every step, the routes dropped over capacity, ms/step, peak
              memory.
 
+11. moe_archs -- grok-1 (GeGLU experts, top-2; 4 of its 64 MoE blocks,
+             42.6 GB) and llama4-maverick (top-1 over 128 experts; one
+             (dense, moe) repeat of 24, 36.9 GB) at full width, tp = 1,
+             as phase moe: paper/two_step's prefill hidden states and
+             DECODE_CHECK_STEPS decode steps' logits through the CUDA
+             kernels equal the plain codec's bit for bit; MOE_ARCH_RUNS
+             served with exact launch counts, TTFT, ms/step, the routes
+             dropped and peak memory.
+12. ep8   -- grok-1's smoke config at --mesh 1,EP_TP (ep 4 x etp 2, its
+             two kv heads replicated: the decode ring at tp = 8), EP_TP
+             rank processes on the card, each with three peer worlds
+             (the model axis's and its ep and etp subaxes'): fc_ar
+             through the model and etp worlds and fc_a2a through the ep
+             world, timed between the processes, bit-equal to the plain
+             versions; paper/fused == paper/two_step bit for bit on
+             every rank (prefill, decode steps), both served (EP_GEN
+             tokens) with exact launch counts (fused: fc_ar at every TP
+             site and every within-expert AllReduce, fc_a2a at every
+             dispatch), the same tokens and routes dropped; then trained
+             EP_TRAIN_MESHES (paper/fused == paper/two_step over
+             EP_TRAIN_STEPS steps, finite losses).
+
 In phase train, --mesh 1,1,2 also runs paper/two_step with
 ``--framed-bridge 8`` (policy.with_framed_bridge: the pod hop int8 g128
 hier_pp in frames, each wire row's CRC through fc_crc32c) for
@@ -213,14 +239,16 @@ launch counts (one fc_crc32c a framed encode and one a framed decode)
 and no NaN in any parameter.
 
 The line before the last is a JSON object with one entry per kernel
-(``launches``: the wire kernels' from the serve, ln, moe, train and
-moe_train paths, the stage kernels' from their entry points, fc_a2a's
-from phase tp's moonshot runs on rank 0 and phase moe_train's, fc_ar's
-from phase tp's and tp4's served runs and phases train's and
-moe_train's runs on rank 0; ``serve_launches``, ``ln_launches``,
-``moe_launches``, ``tp_launches``, ``moe_tp_launches``,
-``glm_tp_launches``, ``train_launches`` and ``moe_train_launches``: from
-those paths); the last line is ``{"ok": true, "device": {...}}``.
+(``launches``: the wire kernels' from the serve, ln, moe, train,
+moe_train and moe_archs paths, the stage kernels' from their entry
+points, fc_a2a's from phase tp's moonshot runs on rank 0 and phases
+moe_train's and ep8's, fc_ar's from phase tp's and tp4's served runs and
+phases train's, moe_train's and ep8's runs on rank 0;
+``serve_launches``, ``ln_launches``, ``moe_launches``, ``tp_launches``,
+``moe_tp_launches``, ``glm_tp_launches``, ``train_launches``,
+``moe_train_launches``, ``moe_archs_launches``, ``ep8_launches`` and
+``ep8_train_launches``: from those paths); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -239,7 +267,7 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "wire_vectors.npz")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 PHASES = ("build", "codec", "crc", "stage", "time", "serve", "ln", "a2a",
-          "moe", "ar", "tp", "tp4", "train", "moe_train")
+          "moe", "ar", "tp", "tp4", "train", "moe_train", "moe_archs", "ep8")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -267,6 +295,10 @@ RUNS = (("paper/two_step", "paper", None),
 # can: unquantized, prefill and decode differ by bf16 rounding only
 # (about 0.02 of the logits' spread at full width on one H100).
 BASELINE = ("bf16", "bf16", None)
+# phase serve's served runs: its aggressive/two_step run was cut to pay
+# for phases moe_archs and ep8 (its prefill and decode steps are still
+# held against the plain codec's bit for bit)
+SERVE_RUNS = RUNS[:2]
 CACHE_REL_TOL = 0.1
 ARCH = "qwen3-14b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
@@ -300,6 +332,14 @@ TP_RUNS = (("paper/fused", "paper", "fused"),
 MOE_TP_RUNS = TP_RUNS[:1]
 TP_GEN = 4
 TP_TIMEOUT_S = 900
+# phase tp's depth, cut to pay for phases moe_archs and ep8: qwen3-14b's
+# 40 layers to TP_REPEATS, moonshot's 47 MoE blocks (after its dense one)
+# to TP_MOE_REPEATS
+TP_REPEATS = 20
+TP_MOE_REPEATS = 15
+# phase moe's moonshot (tp = 1): its 47 MoE blocks cut to MOE_REPEATS,
+# for the same reason
+MOE_REPEATS = 23
 # phase tp4: glm4-9b at --mesh 1,GLM_TP, its two kv heads replicated (the
 # decode cache a sequence-sharded ring), its 40 layers cut to GLM_REPEATS
 GLM_ARCH = "glm4-9b"
@@ -347,6 +387,25 @@ TRAIN_MOE_MESHES = (("1,2", (("paper/two_step", "paper", None, None,
                               TRAIN_STEPS),
                              ("paper/fused", "paper", "fused", None,
                               TRAIN_STEPS))),)
+# phase moe_archs: grok-1 and llama4-maverick at full width, tp = 1, their
+# depth cut to MOE_ARCHS' layer counts (grok-1 4 of 64 MoE blocks,
+# llama4-maverick one (dense, moe) repeat of 24), served under
+# MOE_ARCH_RUNS
+MOE_ARCHS = (("grok-1-314b", 4), ("llama4-maverick-400b-a17b", 1))
+MOE_ARCH_RUNS = (("paper/two_step", "paper", None), BASELINE)
+# phase ep8: grok-1's smoke config at --mesh 1,EP_TP (ep 4 x etp 2, its two
+# kv heads replicated: the decode ring at tp = 8), EP_TP rank processes on
+# the card; EP_GEN tokens generated (PROMPT_LEN + EP_GEN a multiple of
+# EP_TP, as the ring needs), then trained EP_TRAIN_MESHES
+EP_ARCH = "grok-1-314b"
+EP_TP = 8
+EP_GEN = 8
+EP_PROBE_CALLS = 25
+EP_TRAIN_STEPS = 2
+EP_TRAIN_MESHES = (("1,8", (("paper/two_step", "paper", None, None,
+                             EP_TRAIN_STEPS),
+                            ("paper/fused", "paper", "fused", None,
+                             EP_TRAIN_STEPS))),)
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
                                              scale_int=True)),
@@ -1089,9 +1148,9 @@ def _fill_output_projections(torch, cfg, plan, params, seed: int,
     gen.manual_seed(seed + 1000003 * rank)
     for g, name in names:
         t = params[g][name]
-        for i in range(t.shape[0]):
-            t[i] = (torch.randn(t.shape[1:], generator=gen, device=t.device)
-                    / t.shape[-2] ** 0.5).to(t.dtype)
+        for i in range(t.shape[0]):         # one float32 slice at a time
+            t[i].copy_(torch.randn(t.shape[1:], generator=gen,
+                                   device=t.device).div_(t.shape[-2] ** 0.5))
     return [f"{g}/{n}" for g, n in names]
 
 
@@ -1174,7 +1233,7 @@ def phase_serve(torch, np):
     wire.reset_launches()                  # the main path starts here
     stage.reset_launches()
     results = {}
-    for label, pol, scheme in RUNS + (BASELINE,):
+    for label, pol, scheme in SERVE_RUNS + (BASELINE,):
         before = dict(wire.LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
@@ -1462,7 +1521,42 @@ def phase_a2a(torch, card: str):
 # ---------------------------------------------------------------------------
 
 def phase_moe(torch, np):
+    import dataclasses
     from repro_torch.configs import get_config
+    torch.cuda.empty_cache()                   # the dense model is gone
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              pattern_repeats=MOE_REPEATS)
+    return _moe_serve(torch, np, cfg, RUNS + (BASELINE,), "moe")
+
+
+def phase_moe_archs(torch, np, card: str):
+    """grok-1 and llama4-maverick at full width, tp = 1, their depth cut
+    to MOE_ARCHS' (_moe_serve under MOE_ARCH_RUNS, one model at a time)
+    -> (the launches of both paths, {arch: served results})."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    launches, served = {}, {}
+    for arch, repeats in MOE_ARCHS:
+        torch.cuda.empty_cache()               # the earlier models are gone
+        cfg = dataclasses.replace(get_config(arch), pattern_repeats=repeats)
+        got, served[arch] = _moe_serve(torch, np, cfg, MOE_ARCH_RUNS,
+                                       "moe_archs", card)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, served
+
+
+def _moe_serve(torch, np, cfg, runs, tag: str, card: str = ""):
+    """MoE model ``cfg`` at full width on one card (weights from seed SEED,
+    the zero-initialised output projections, attention, MLP and experts,
+    filled): for each quantized run of ``runs`` the prefill's hidden
+    states and DECODE_CHECK_STEPS decode steps' logits through the CUDA
+    kernels equal those through the plain codec, bit for bit; then it
+    serves BATCH x PROMPT_LEN + GEN tokens under ``runs`` with exact
+    launch counts (a TP site: 2 encodes, 2 decodes, fused 1 decode and 1
+    decode+reduce; a dispatch: 1 of each) and prints TTFT, ms/step and the
+    routes dropped over capacity -> (launches over the served runs,
+    {label: served result})."""
     from repro_torch.kernels import rdma, stage, wire
     from repro_torch.launch.serve import build_policy, serve
     from repro_torch.models.model import forward
@@ -1472,9 +1566,7 @@ def phase_moe(torch, np):
     from repro_torch.train.serve_step import (make_cache_init,
                                               make_decode_step)
     torch.set_grad_enabled(False)
-    torch.cuda.empty_cache()                   # the dense model is gone
     dev = torch.device("cuda")
-    cfg = get_config(MOE_ARCH)
     plan = make_plan(cfg, tp=1)
     t0 = time.perf_counter()
     params = init_params(cfg, plan, SEED, dev, torch.bfloat16)
@@ -1482,23 +1574,26 @@ def phase_moe(torch, np):
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size() for g in params.values()
                  for t in g.values())
-    print(f"[moe] {MOE_ARCH} full width, {cfg.n_layers} layers "
-          f"({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}): "
+    kinds = cfg.layer_kinds
+    print(f"[{tag}] {cfg.name} full width, {cfg.n_layers} layers "
+          f"({kinds.count('dense')} dense, {kinds.count('moe')} MoE with "
+          f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, {cfg.act}): "
           f"{nbytes / 1e9:.2f} GB bf16 weights from seed {SEED} ({filled} "
           f"filled) in {time.perf_counter() - t0:.1f} s", flush=True)
 
     prompts = torch.from_numpy(make_dataset(DataConfig(
         vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH,
         seed=SEED)).batch(0)["tokens"]).to(dev)
-    for label, pol, scheme in RUNS:
+    checked = [r for r in runs if r[1] != "bf16"]
+    for label, pol, scheme in checked:
         pols = [build_policy(pol, backend=b, scheme=scheme)
                 for b in ("cuda", "ref")]
         h_cuda, h_plain = (forward(params, prompts, cfg, plan, p,
                                    dtype=torch.bfloat16)[0] for p in pols)
         check(bool(torch.isfinite(h_cuda).all()),
-              f"moe prefill {label}: hidden states not finite")
+              f"{tag} prefill {label}: hidden states not finite")
         check(_bits_equal(torch, h_cuda, h_plain),
-              f"moe prefill {label}: hidden states through the CUDA codec "
+              f"{tag} prefill {label}: hidden states through the CUDA codec "
               f"differ from the plain codec's")
         steps = [make_decode_step(cfg, plan, p) for p in pols]
         caches = [make_cache_init(cfg, plan, BATCH, DECODE_CHECK_STEPS,
@@ -1508,28 +1603,27 @@ def phase_moe(torch, np):
                 st(params, c, prompts[:, i:i + 1])
                 for st, c in zip(steps, caches))
             check(_bits_equal(torch, lc, lr),
-                  f"moe decode {label} step {i}: logits through the CUDA "
+                  f"{tag} decode {label} step {i}: logits through the CUDA "
                   f"codec differ from the plain codec's")
-        del caches
-    print(f"[moe] full width: prefill hidden states and "
+        del caches, h_cuda, h_plain
+    print(f"[{tag}] {cfg.name} full width: prefill hidden states and "
           f"{DECODE_CHECK_STEPS} decode steps' logits through the CUDA "
           f"codec equal the plain codec's bit for bit "
-          f"({', '.join(r[0] for r in RUNS)})", flush=True)
+          f"({', '.join(r[0] for r in checked)})", flush=True)
 
-    kinds = cfg.layer_kinds
     tp_sites = 1 + sum(2 if k == "dense" else 1 for k in kinds)
     a2a_sites = kinds.count("moe")
     forwards = 1 + PROMPT_LEN + GEN - 1
     wire.reset_launches()                  # the moe path starts here
     stage.reset_launches()
     rdma.reset_launches()
-    results = {}
-    for label, pol, scheme in RUNS + (BASELINE,):
+    results, expected = {}, dict.fromkeys(wire.LAUNCHES, 0)
+    for label, pol, scheme in runs:
         before = dict(wire.LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
                     batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN, device=dev,
-                    seed=SEED, label=f" moe {label}")
+                    seed=SEED, label=f" {tag} {label}")
         got = {k: wire.LAUNCHES[k] - before[k] for k in wire.LAUNCHES}
         fused = scheme == "fused"
         # a TP site: 2 encodes, 2 decodes (fused: 1 decode + 1
@@ -1537,27 +1631,37 @@ def phase_moe(torch, np):
         per_fwd = {"encode_wire": 2 * tp_sites + a2a_sites,
                    "decode_wire": (1 if fused else 2) * tp_sites + a2a_sites,
                    "decode_reduce": tp_sites if fused else 0}
-        want = {k: 0 if label == BASELINE[0] else v * forwards
+        want = {k: 0 if pol == "bf16" else v * forwards
                 for k, v in per_fwd.items()}
-        print(f"[moe {label}] launches {got} (expected {want}; {tp_sites} "
-              f"TP and {a2a_sites} dispatch sites a forward, {forwards} "
-              f"forwards); peak memory "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-        check(got == want, f"moe {label}: launches {got} != {want}")
-        check(res["agreement"] is None, f"moe {label}: agreement checked")
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[{tag} {label}] {cfg.name}: launches {got} (expected "
+              f"{want}; {tp_sites} TP and {a2a_sites} dispatch sites a "
+              f"forward, {forwards} forwards); TTFT {res['ttft_ms']:.1f} ms, "
+              f"decode median {res['step_ms_median']:.2f} ms/step; routes "
+              f"dropped prefill {res['dropped_prefill']} of "
+              f"{res['routes_prefill']}, decode {res['dropped_decode']} of "
+              f"{res['routes_decode']}; peak memory {res['peak_gb']:.2f} GB"
+              + (f"  [{card}]" if card else ""), flush=True)
+        check(got == want, f"{tag} {label}: launches {got} != {want}")
+        check(res["agreement"] is None, f"{tag} {label}: agreement checked")
+        for k, v in want.items():
+            expected[k] += v
         results[label] = res
     launches = dict(wire.LAUNCHES)         # read right after the moe path
     stage_launches = dict(stage.LAUNCHES)
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} never launched on the moe path")
+        check(v > 0 or expected[k] == 0,
+              f"kernel {k} never launched on the {tag} path")
     check(set(stage_launches.values()) == {0} and rdma.LAUNCHES["a2a"] == 0,
-          f"stage or a2a kernels launched on the moe path: "
+          f"stage or a2a kernels launched on the {tag} path: "
           f"{stage_launches} {rdma.LAUNCHES}")
-    check(np.array_equal(results["paper/two_step"]["generated"],
-                         results["paper/fused"]["generated"]),
-          "moe: fused and two_step generated different tokens")
-    print("[moe] paper/fused generated the same tokens as paper/two_step",
-          flush=True)
+    if "paper/fused" in results:
+        check(np.array_equal(results["paper/two_step"]["generated"],
+                             results["paper/fused"]["generated"]),
+              f"{tag}: fused and two_step generated different tokens")
+        print(f"[{tag}] paper/fused generated the same tokens as "
+              f"paper/two_step", flush=True)
+    del params
     return launches, results
 
 
@@ -1720,6 +1824,49 @@ def phase_ar(torch, card: str):
 # phase 9: qwen3-14b at --mesh 1,TP, one rank a process
 # ---------------------------------------------------------------------------
 
+def _timed_calls(torch, axis, calls):
+    """Run ``calls`` back to back after a host barrier of the ranks of
+    ``axis``, no sync between them -> (outputs, ms of each call)."""
+    from repro_torch.launch import mesh
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(len(calls) + 1)]
+    mesh.barrier(axis)
+    ev[0].record()
+    outs = []
+    for i, call in enumerate(calls):
+        outs.append(call())
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return outs, [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+
+def _a2a_world_probe(torch, axis, gen, d: int, rows: dict, dev) -> tuple:
+    """fc_a2a (the paper config) through the peer world of ``axis`` at
+    each shape of ``rows`` ({shape: rows a peer} of ``d`` values, bf16):
+    A2A_CALLS calls back to back, timed between the processes, each
+    bit-equal to the plain version of every rank's input -> ({shape: ms
+    of each call}, {shape: blocks a call})."""
+    from repro_torch.core.comm_config import CommConfig
+    from repro_torch.kernels import ops, rdma
+    world, rank, tp = axis.world, axis.rank, axis.size
+    acfg = CommConfig(**A2A_CONFIGS[0][1])
+    a2a_ms, a2a_blocks = {}, {}
+    for shape, m in rows.items():
+        xa = [_a2a_payload(torch, gen, tp, m, d, dev)
+              for _ in range(A2A_CALLS)]
+        mine = [x[rank:rank + 1].contiguous() for x in xa]
+        outs, a2a_ms[shape] = _timed_calls(torch, axis, [
+            lambda x=x: ops.fused_all_to_all(x, acfg, world) for x in mine])
+        for i, (x, out) in enumerate(zip(xa, outs)):
+            ref, _ = rdma.fused_all_to_all_rdma_plain(x, acfg)
+            check(_bits_equal(torch, out[0], ref[rank]),
+                  f"rank {rank} of {tp}: fc_a2a {shape} call {i} through "
+                  f"the world of processes differs from the plain version")
+        a2a_blocks[shape] = world.a2a_blocks(m, d, acfg, torch.bfloat16)
+        del xa, mine, outs
+    return a2a_ms, a2a_blocks
+
+
 def _tp_world_checks(torch, axis, dev, probe_calls: int = TP_PROBE_CALLS,
                      a2a: bool = True) -> dict:
     """fc_ar (``probe_calls`` calls) and, with ``a2a``, fc_a2a through this
@@ -1728,31 +1875,15 @@ def _tp_world_checks(torch, axis, dev, probe_calls: int = TP_PROBE_CALLS,
     own slice to it bit for bit."""
     from repro_torch.core.comm_config import CommConfig
     from repro_torch.kernels import ops, rdma
-    from repro_torch.launch import mesh
     world, rank, tp = axis.world, axis.rank, axis.size
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 11)
 
-    def timed(calls):
-        """Run ``calls`` back to back after a host barrier of the ranks,
-        no sync between them -> (outputs, ms of each call)."""
-        ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(len(calls) + 1)]
-        mesh.barrier(axis)
-        ev[0].record()
-        outs = []
-        for i, call in enumerate(calls):
-            outs.append(call())
-            ev[i + 1].record()
-        torch.cuda.synchronize()
-        return outs, [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
-
     n = _ar_shapes()["decode"]
     cfg = CommConfig(**AR_CONFIGS[0][1])
     xs = [_ar_input(torch, gen, tp, n, dev) for _ in range(probe_calls)]
-    outs, per_call = timed([lambda x=x: ops.fused_all_reduce(x[rank], cfg,
-                                                            world)
-                            for x in xs])
+    outs, per_call = _timed_calls(torch, axis, [
+        lambda x=x: ops.fused_all_reduce(x[rank], cfg, world) for x in xs])
     for i, (x, out) in enumerate(zip(xs, outs)):
         ref, scat, gath = rdma.fused_all_reduce_rdma_plain(x, cfg)
         check(_bits_equal(torch, out, ref[rank]),
@@ -1775,20 +1906,7 @@ def _tp_world_checks(torch, axis, dev, probe_calls: int = TP_PROBE_CALLS,
     # rows: A2A_CALLS back to back at each, timed between the processes
     d, rows = _a2a_rows(tp)
     acfg = CommConfig(**A2A_CONFIGS[0][1])
-    a2a_ms, a2a_blocks = {}, {}
-    for shape, m in rows.items():
-        xa = [_a2a_payload(torch, gen, tp, m, d, dev)
-              for _ in range(A2A_CALLS)]
-        mine = [x[rank:rank + 1].contiguous() for x in xa]
-        outs, a2a_ms[shape] = timed([lambda x=x: ops.fused_all_to_all(
-            x, acfg, world) for x in mine])
-        for i, (x, out) in enumerate(zip(xa, outs)):
-            ref, _ = rdma.fused_all_to_all_rdma_plain(x, acfg)
-            check(_bits_equal(torch, out[0], ref[rank]),
-                  f"tp rank {rank}: fc_a2a {shape} call {i} through the "
-                  f"world of processes differs from the plain version")
-        a2a_blocks[shape] = world.a2a_blocks(m, d, acfg, torch.bfloat16)
-        del xa, mine, outs
+    a2a_ms, a2a_blocks = _a2a_world_probe(torch, axis, gen, d, rows, dev)
     # then fc_a2a (decode rows) and fc_ar alternating: each protocol
     # counts its own calls on its own pad
     for i in range(A2A_CALLS):
@@ -1805,9 +1923,7 @@ def _tp_world_checks(torch, axis, dev, probe_calls: int = TP_PROBE_CALLS,
                           rdma.fused_all_reduce_rdma_plain(x, cfg)[0][rank]),
               f"tp rank {rank}: fc_ar after fc_a2a call {i} differs")
     torch.cuda.synchronize()
-    check(_ar_pads_ok(world, rank) and
-          world.signal_pad(rank, A2A_COLLECTIVE).tolist() ==
-          world.pad_targets(A2A_COLLECTIVE),
+    check(_ar_pads_ok(world, rank) and _a2a_pads_ok(world, rank),
           f"tp rank {rank}: signal pads off after {world.epochs} calls")
     return {"ar_n": n, "ar_calls": probe_calls + A2A_CALLS,
             "a2a_rows": rows, "a2a_calls": len(rows) * A2A_CALLS + A2A_CALLS,
@@ -1817,19 +1933,69 @@ def _tp_world_checks(torch, axis, dev, probe_calls: int = TP_PROBE_CALLS,
             "probe_ms": per_call, "a2a_ms": a2a_ms}
 
 
+def _a2a_pads_ok(world, rank: int) -> bool:
+    """Rank ``rank``'s All2All pad holds exactly the world's running
+    targets."""
+    return (world.signal_pad(rank, A2A_COLLECTIVE).tolist()
+            == world.pad_targets(A2A_COLLECTIVE))
+
+
+def _ep_world_checks(torch, axis, dev, cfg) -> dict:
+    """Phase ep8's peer worlds, each with its own ranks: fc_ar
+    (EP_PROBE_CALLS calls at the decode probe's n) through the model
+    world of EP_TP processes and through this rank's etp world, then
+    fc_a2a through its ep world at ``cfg``'s dispatch rows (prefill and
+    decode), each call timed between the processes, bit-equal to the
+    plain versions, the pads exact."""
+    from repro_torch.models.moe import capacity
+    out = {name: _tp_world_checks(torch, sub, dev, EP_PROBE_CALLS,
+                                  a2a=False)
+           for name, sub in (("model", axis), ("etp", axis.etp))}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    ep = axis.ep
+    e_loc = cfg.moe.n_experts // ep.size
+    rows = {"prefill": e_loc * capacity(BATCH * PROMPT_LEN, cfg),
+            "decode": e_loc * capacity(BATCH, cfg)}
+    a2a_ms, blocks = _a2a_world_probe(torch, ep, gen, cfg.d_model, rows, dev)
+    torch.cuda.synchronize()
+    check(_a2a_pads_ok(ep.world, ep.rank), f"ep8 rank {axis.rank}: the ep "
+          f"world's All2All pad off after {ep.world.epochs} calls")
+    out["ep"] = {"a2a_rows": rows, "a2a_blocks": blocks, "a2a_ms": a2a_ms,
+                 "epochs": ep.world.epochs}
+    for name, sub in (("model", axis), ("etp", axis.etp), ("ep", ep)):
+        out[name]["group"] = torch.distributed.get_process_group_ranks(
+            sub.pg)
+        out[name]["row_bytes"] = sub.world.row_bytes
+    return out
+
+
+def _world_calls(axis) -> dict:
+    """The fc_ar and fc_a2a calls so far of each peer world of the model
+    axis ``axis``: its own and, with ep and etp subaxes, theirs."""
+    subs = {"model": axis}
+    if axis.ep is not None:
+        subs.update(ep=axis.ep, etp=axis.etp)
+    return {f"{name} {kernel}": sub.world.epochs.get(cid, 0)
+            for name, sub in subs.items()
+            for kernel, cid in (("fc_ar", AR_SCATTER),
+                                ("fc_a2a", A2A_COLLECTIVE))}
+
+
 def _tp_counts():
     from repro_torch.kernels import rdma, stage, wire
     return {**wire.LAUNCHES, **stage.LAUNCHES, **rdma.LAUNCHES}
 
 
 def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
-    """Model ``cfg`` at full width on this rank of the model axis ``axis``
-    (tp = its size): weights from SEED (output projections filled),
-    paper/fused == paper/two_step bit for bit (the prefill's hidden
-    states, DECODE_CHECK_STEPS decode steps' logits), then the served
-    ``runs`` (``gen`` tokens generated) with exact counts: fused, every TP
-    site through fc_ar and every dispatch through fc_a2a, no wire kernel;
-    two_step, two encodes and two decodes a TP site (around the gloo
+    """Model ``cfg`` on this rank of the model axis ``axis`` (tp = its
+    size): weights from SEED (output projections filled), paper/fused ==
+    paper/two_step bit for bit (the prefill's hidden states,
+    DECODE_CHECK_STEPS decode steps' logits), then the served ``runs``
+    (``gen`` tokens generated) with exact counts: fused, every TP site
+    and every within-expert AllReduce (etp > 1) through fc_ar and every
+    dispatch through fc_a2a, no wire kernel; two_step, two encodes and
+    two decodes a TP site or within-expert AllReduce (around the gloo
     hop), one of each a dispatch site; bf16, none. In replicate mode the
     decode's ring merges (``attention.RING_MERGES``) number one a layer
     and decode step."""
@@ -1854,11 +2020,12 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size() for g in params.values()
                  for t in g.values())
-    experts = (f" (ep {plan.moe.ep}, {plan.moe.e_loc} experts a rank)"
-               if moe else "")
+    experts = (f" (ep {plan.moe.ep} x etp {plan.moe.etp}, {plan.moe.e_loc} "
+               f"experts a rank)" if moe else "")
+    width = "smoke config" if cfg.name.endswith("-smoke") else "full width"
     kv = (f", {cfg.n_kv_heads} kv heads {plan.kv_mode}d"
           if plan.kv_mode == "replicate" else "")
-    log(f"[{tag}] {cfg.name} full width at --mesh 1,{tp}, {cfg.n_layers} "
+    log(f"[{tag}] {cfg.name} {width} at --mesh 1,{tp}, {cfg.n_layers} "
         f"layers{experts}{kv}: "
         f"{nbytes / 1e9:.2f} GB bf16 weights a rank from seed {SEED} "
         f"({filled} filled) in {time.perf_counter() - t0:.1f} s",
@@ -1878,8 +2045,8 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     check(_bits_equal(torch, hf, ht), f"{tag} rank {rank}: prefill hidden "
           f"states under paper/fused differ from paper/two_step")
     steps = [make_decode_step(cfg, plan, p, group=axis) for p in pols]
-    caches = [make_cache_init(cfg, plan, BATCH, DECODE_CHECK_STEPS, dev)()
-              for _ in pols]
+    clen = -(-DECODE_CHECK_STEPS // tp) * tp      # the ring: a tp multiple
+    caches = [make_cache_init(cfg, plan, BATCH, clen, dev)() for _ in pols]
     for i in range(DECODE_CHECK_STEPS):
         (lf, caches[0]), (lt, caches[1]) = (
             st(params, c, prompts[:, i:i + 1])
@@ -1895,6 +2062,7 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     kinds = cfg.layer_kinds
     tp_sites = 1 + sum(2 if k == "dense" else 1 for k in kinds)
     a2a_sites = kinds.count("moe")
+    etp_sites = a2a_sites if moe and plan.moe.etp > 1 else 0
     forwards = 1 + PROMPT_LEN + gen - 1
     merges = (cfg.n_layers * (PROMPT_LEN + gen - 1)
               if plan.kv_mode == "replicate" else 0)
@@ -1904,6 +2072,7 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     served, peaks = {}, {}
     for label, pol, scheme in runs:
         before = _tp_counts()
+        calls0 = _world_calls(axis)
         attention.reset_ring_merges()
         torch.cuda.reset_peak_memory_stats()
         res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
@@ -1917,18 +2086,36 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
         res["ring_merges"] = attention.RING_MERGES
         want = dict.fromkeys(got, 0)
         if scheme == "fused":
-            want["ar"] = tp_sites * forwards
+            want["ar"] = (tp_sites + etp_sites) * forwards
             want["a2a"] = a2a_sites * forwards
         elif pol != "bf16":
             want["encode_wire"] = want["decode_wire"] = \
-                (2 * tp_sites + a2a_sites) * forwards
+                (2 * (tp_sites + etp_sites) + a2a_sites) * forwards
+        # the calls of each peer world: with ep and etp subaxes the
+        # dispatch crosses the ep world and the within-expert AllReduce
+        # the etp world
+        calls = {k: v - calls0[k] for k, v in _world_calls(axis).items()}
+        want_calls = dict.fromkeys(calls, 0)
+        if scheme == "fused":
+            sub = axis.ep is not None
+            want_calls["model fc_ar"] = (tp_sites + (0 if sub else etp_sites)
+                                         ) * forwards
+            want_calls["ep fc_a2a" if sub else "model fc_a2a"] = \
+                a2a_sites * forwards
+            if sub:
+                want_calls["etp fc_ar"] = etp_sites * forwards
+        res["world_calls"] = calls
         peaks[label] = torch.cuda.max_memory_allocated() / 1e9
         log(f"[{tag} {label}] rank {rank} launches {got} (expected: "
-            f"{tp_sites} TP and {a2a_sites} dispatch sites x {forwards} "
-            f"forwards); ring merges {attention.RING_MERGES} (expected "
-            f"{merges})", flush=True)
+            f"{tp_sites} TP, {etp_sites} within-expert AllReduce and "
+            f"{a2a_sites} dispatch sites x {forwards} forwards); calls a "
+            f"peer world { {k: v for k, v in calls.items() if v} }; ring "
+            f"merges {attention.RING_MERGES} (expected {merges})",
+            flush=True)
         check(got == want, f"{tag} rank {rank} {label}: launches {got} != "
               f"{want}")
+        check(calls == want_calls, f"{tag} rank {rank} {label}: calls a "
+              f"peer world {calls} != {want_calls}")
         check((res["agreement"] is None) == moe,
               f"{tag} {label}: prefill/decode check {res['agreement']}")
         served[label] = res
@@ -1936,10 +2123,13 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     for k in ("ar", "a2a") if moe else ("ar",):
         check(launches[k] > 0, f"{k} never launched on the {tag} path")
     if "paper/two_step" in served:
-        check(bool((served["paper/fused"]["generated"] ==
-                    served["paper/two_step"]["generated"]).all()),
+        a, b = served["paper/fused"], served["paper/two_step"]
+        check(bool((a["generated"] == b["generated"]).all()),
               f"{tag} rank {rank}: fused and two_step generated different "
               f"tokens")
+        check(all(a[k] == b[k] for k in a if k.startswith("dropped")),
+              f"{tag} rank {rank}: fused and two_step dropped different "
+              f"routes")
     return {"arch": cfg.name, "launches": launches, "peak_gb": peaks,
             "layers": cfg.n_layers, "runs": {
         k: {m: (v.tolist() if hasattr(v, "tolist") else v)
@@ -1947,47 +2137,58 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
 
 
 def _tp_cfg(arch: str):
-    """Phase tp's and tp4's configs: qwen3-14b and moonshot whole, glm4-9b
-    cut to GLM_REPEATS layers."""
+    """Phase tp's and tp4's configs at full width, their depth cut:
+    qwen3-14b to TP_REPEATS layers, moonshot to its dense block and
+    TP_MOE_REPEATS MoE blocks, glm4-9b to GLM_REPEATS layers."""
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = get_config(arch)
-    if arch == GLM_ARCH:
-        cfg = dataclasses.replace(cfg, pattern_repeats=GLM_REPEATS)
-    return cfg
+    repeats = {ARCH: TP_REPEATS, MOE_ARCH: TP_MOE_REPEATS,
+               GLM_ARCH: GLM_REPEATS}[arch]
+    return dataclasses.replace(get_config(arch), pattern_repeats=repeats)
 
 
 def tp_rank_main(rank: int, size: int, rendezvous: str, out_dir: str) -> int:
     """One rank process of phase tp (``chip_smoke.py --tp-rank``, ``size``
-    TP) or tp4 (``size`` GLM_TP): the world checks, then at TP ARCH and
-    (its weights freed) MOE_ARCH, at GLM_TP GLM_ARCH."""
+    TP), tp4 (``size`` GLM_TP) or ep8 (``size`` EP_TP): the world checks,
+    then at TP ARCH and (its weights freed) MOE_ARCH, at GLM_TP GLM_ARCH,
+    at EP_TP EP_ARCH's smoke config (its mesh with the ep and etp
+    subaxes)."""
     import torch
+    from repro_torch.configs import get_smoke_config
     from repro_torch.launch import mesh
     from repro_torch.parallel.plan import make_plan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_grad_enabled(False)
     dev = mesh.rank_device(rank, torch.device("cuda"))
-    archs = (ARCH, MOE_ARCH) if size == TP else (GLM_ARCH,)
-    row_bytes = max(mesh.site_row_bytes(cfg, make_plan(cfg, tp=size), BATCH,
-                                        PROMPT_LEN)
-                    for cfg in map(_tp_cfg, archs))
-    axes = mesh.init_mesh(1, size, 0, rank, rendezvous, dev, row_bytes)
+    cfgs = ([get_smoke_config(EP_ARCH)] if size == EP_TP else
+            [_tp_cfg(a) for a in ((ARCH, MOE_ARCH) if size == TP
+                                  else (GLM_ARCH,))])
+    plans = [make_plan(cfg, tp=size) for cfg in cfgs]
+    row_bytes = max(mesh.site_row_bytes(cfg, plan, BATCH, PROMPT_LEN)
+                    for cfg, plan in zip(cfgs, plans))
+    axes = mesh.init_mesh(1, size, 0, rank, rendezvous, dev, row_bytes,
+                          plans[0].moe if size == EP_TP else None)
     axis = axes.model
     try:
-        res = {"rank": rank, "device": str(dev), "row_bytes": row_bytes,
+        res = {"rank": rank, "device": str(dev),
+               "row_bytes": row_bytes.model,
                "backend": str(torch.distributed.get_backend(axis.pg))}
         if size == TP:
             res["world"] = _tp_world_checks(torch, axis, dev)
-            res["dense"] = _tp_serve(torch, axis, dev, _tp_cfg(ARCH),
-                                     TP_RUNS, "tp", TP_GEN)
+            res["dense"] = _tp_serve(torch, axis, dev, cfgs[0], TP_RUNS,
+                                     "tp", TP_GEN)
             torch.cuda.empty_cache()           # the dense model is gone
-            res["moe"] = _tp_serve(torch, axis, dev, _tp_cfg(MOE_ARCH),
-                                   MOE_TP_RUNS, "moe tp", TP_GEN)
+            res["moe"] = _tp_serve(torch, axis, dev, cfgs[1], MOE_TP_RUNS,
+                                   "moe tp", TP_GEN)
+        elif size == EP_TP:
+            res["worlds"] = _ep_world_checks(torch, axis, dev, cfgs[0])
+            res["ep"] = _tp_serve(torch, axis, dev, cfgs[0], TP_RUNS, "ep8",
+                                  EP_GEN)
         else:
             res["world"] = _tp_world_checks(torch, axis, dev,
                                             GLM_PROBE_CALLS, a2a=False)
-            res["glm"] = _tp_serve(torch, axis, dev, _tp_cfg(GLM_ARCH),
-                                   TP_RUNS, "tp4", TP_GEN)
+            res["glm"] = _tp_serve(torch, axis, dev, cfgs[0], TP_RUNS,
+                                   "tp4", TP_GEN)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -1996,11 +2197,12 @@ def tp_rank_main(rank: int, size: int, rendezvous: str, out_dir: str) -> int:
 
 
 def phase_tp(torch, card: str, size: int = TP):
-    """Phase tp (``size`` TP: qwen3-14b, then moonshot) or tp4 (``size``
-    GLM_TP: glm4-9b), one rank process a rank, all on the one card."""
+    """Phase tp (``size`` TP: qwen3-14b, then moonshot), tp4 (``size``
+    GLM_TP: glm4-9b) or ep8's serving (``size`` EP_TP: grok-1's smoke
+    config), one rank process a rank, all on the one card."""
     from repro_torch.launch import mesh
     torch.cuda.empty_cache()                   # the earlier models are gone
-    tag = "tp" if size == TP else "tp4"
+    tag = {TP: "tp", GLM_TP: "tp4", EP_TP: "ep8"}[size]
     out_dir = os.path.join(ROOT, "chiprun_out", tag)
     os.makedirs(out_dir, exist_ok=True)
     for f in os.listdir(out_dir):
@@ -2019,7 +2221,25 @@ def phase_tp(torch, card: str, size: int = TP):
         return (f"median {statistics.median(c):.4f}, min {c[0]:.4f}, max "
                 f"{c[-1]:.4f} ms a call")
 
-    for res in ranks:
+    for res in ranks if size == EP_TP else ():
+        ws = res["worlds"]
+        print(f"[{tag}] rank {res['rank']} on {res['device']} "
+              f"({res['backend']} groups): through PeerWorld.from_group, "
+              f"bit-equal to the plain versions, pads exact, back to back "
+              f"between the processes of each world (all {size} ranks "
+              f"taking turns on one card): "
+              + "; ".join(
+                  f"{name} world {w['group']} ({w['row_bytes']} bytes a "
+                  f"row): fc_ar x {len(w['probe_ms'])} (n {w['ar_n']}) "
+                  f"{ms(w['probe_ms'])}" for name, w in ws.items()
+                  if name != "ep")
+              + f"; ep world {ws['ep']['group']} ({ws['ep']['row_bytes']} "
+              f"bytes a row): " + "; ".join(
+                  f"fc_a2a {shape} ({ws['ep']['a2a_rows'][shape]} rows a "
+                  f"peer) x {len(v)} {ms(v)}"
+                  for shape, v in ws["ep"]["a2a_ms"].items())
+              + f"  [{card}]", flush=True)
+    for res in ranks if size != EP_TP else ():
         w = res["world"]
         caps = {k: sorted({v for c, v in w["caps"].items()
                            if ("a2a" in c) == (k == "fc_a2a")})
@@ -2038,8 +2258,9 @@ def phase_tp(torch, card: str, size: int = TP):
               + "".join(f"; fc_a2a {shape} x {len(v)} {ms(v)}"
                         for shape, v in w.get("a2a_ms", {}).items())
               + f" (ranks taking turns on one card)  [{card}]", flush=True)
-    parts = ((("dense", TP_RUNS, "tp"), ("moe", MOE_TP_RUNS, "moe tp"))
-             if size == TP else (("glm", TP_RUNS, "tp4"),))
+    parts = {TP: (("dense", TP_RUNS, "tp"), ("moe", MOE_TP_RUNS, "moe tp")),
+             GLM_TP: (("glm", TP_RUNS, "tp4"),),
+             EP_TP: (("ep", TP_RUNS, "ep8"),)}[size]
     for part, runs, ptag in parts:
         for label, _, _ in runs:
             r0 = ranks[0][part]["runs"][label]
@@ -2074,11 +2295,18 @@ def phase_tp(torch, card: str, size: int = TP):
 def _train_cfg(arch: str = TRAIN_ARCH):
     """Phase train's llama3-8b (TRAIN_REPEATS layers) or phase
     moe_train's moonshot (its dense prefix block and TRAIN_MOE_REPEATS
-    MoE blocks), at full width."""
+    MoE blocks), at full width; phase ep8's grok-1 smoke config."""
     import dataclasses
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
+    if arch == EP_ARCH:
+        return get_smoke_config(arch)
     return dataclasses.replace(get_config(arch), pattern_repeats=(
         TRAIN_REPEATS if arch == TRAIN_ARCH else TRAIN_MOE_REPEATS))
+
+
+def _train_tag(arch: str) -> str:
+    return {TRAIN_ARCH: "train", MOE_ARCH: "moe_train",
+            EP_ARCH: "ep8_train"}[arch]
 
 
 def _sections(lay):
@@ -2304,9 +2532,14 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
     site (the bridge): fc_crc32c once an encode and once a decode. An MoE
     block has one TP site and a dispatch, forward and replayed: quantized
     over the process group, an encode and a decode; ``fused`` through the
-    peer world, fc_a2a; its backward is exact."""
+    peer world (the ep world with ep and etp both above 1), fc_a2a; its
+    backward is exact. With etp > 1 the block's within-expert AllReduce
+    of its ``e_loc * ep * capacity * d_model`` partial sums is a site too,
+    forward and replayed, through the etp world; its backward is
+    exact."""
     from repro_torch.core.collectives import group_size
     from repro_torch.models.model import param_groups
+    from repro_torch.models.moe import capacity
     from repro_torch.train.train_step import (_qgrad_active, pod_grad_config,
                                               qgrad_rs_config, wants_grad_ef)
     want = dict.fromkeys(_train_counts(), 0)
@@ -2339,6 +2572,8 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
         group_size(mesh.pod) if mesh.multi_pod else 1))
     act = b_loc * TRAIN_SEQ * cfg.d_model
     tp, rows = plan.tp, _world_rows(mesh.model)
+    sub = mesh.model is not None and mesh.model.ep is not None
+    a2a_rows = _world_rows(mesh.model.ep) if sub else rows
     kinds = cfg.layer_kinds
     for layer in [None] + [l for l in range(cfg.n_layers)
                            for _ in range(2 if kinds[l] == "dense" else 1)]:
@@ -2350,11 +2585,19 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
         if kinds[layer] != "moe" or c is None or not c.enabled or \
                 c.scheme == "nccl":
             continue
-        if c.scheme == "fused" and rows is not None:
+        if c.scheme == "fused" and a2a_rows is not None:
             want["a2a"] += 2
         else:
             want["encode_wire"] += 2
             want["decode_wire"] += 2
+        mp = plan.moe
+        if mp.etp > 1:
+            t = b_loc * TRAIN_SEQ
+            cap = capacity(-(-t // mp.ep) if pol.ep_slice and mp.ep > 1
+                           else t, cfg)
+            psum(pol.resolve("tp", layer), mp.e_loc * mp.ep * cap
+                 * cfg.d_model, mp.etp,
+                 _world_rows(mesh.model.etp) if sub else rows, times=2)
     groups = param_groups(cfg, plan)
     qag = pol.resolve("qag")
     if plan.fsdp > 1 and qag is not None and qag.enabled:
@@ -2522,7 +2765,8 @@ def _train_single(torch, card: str, dev=None, arch: str = TRAIN_ARCH
 
 
 def _train_meshes(arch: str):
-    return dict(TRAIN_MESHES if arch == TRAIN_ARCH else TRAIN_MOE_MESHES)
+    return dict({TRAIN_ARCH: TRAIN_MESHES, MOE_ARCH: TRAIN_MOE_MESHES,
+                 EP_ARCH: EP_TRAIN_MESHES}[arch])
 
 
 def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
@@ -2544,11 +2788,14 @@ def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
     b_loc = TRAIN_BATCH // (data * max(pod, 1))
     mesh = mesh_lib.init_mesh(data, model, pod, rank, rendezvous, dev,
                               mesh_lib.site_row_bytes(cfg, plan, b_loc,
-                                                      TRAIN_SEQ))
+                                                      TRAIN_SEQ), plan.moe)
     log = print if rank == 0 else (lambda *a, **k: None)
-    tag = f"{'train' if arch == TRAIN_ARCH else 'moe_train'} {mesh_spec}"
+    tag = f"{_train_tag(arch)} {mesh_spec}"
     sites = ("the TP sites through fc_ar, the dispatch through fc_a2a"
              if cfg.moe is not None else "the grad site through fc_ar")
+    if cfg.moe is not None and plan.moe.etp > 1:
+        sites += (" over the ep world, the within-expert AllReduce through "
+                  "fc_ar over the etp world")
     try:
         runs, snaps = {}, {}
         for label, pol, scheme, bridge, steps in \
@@ -2602,9 +2849,9 @@ def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
 
 def _train_ranks(torch, card: str, mesh_spec: str,
                  arch: str = TRAIN_ARCH) -> list:
-    """The runs of mesh ``mesh_spec`` (TRAIN_MESHES, or TRAIN_MOE_MESHES
-    for moonshot) in one rank process a rank (all on the one card,
-    taking turns on it)."""
+    """The runs of mesh ``mesh_spec`` (TRAIN_MESHES, TRAIN_MOE_MESHES for
+    moonshot, EP_TRAIN_MESHES for grok-1's smoke config) in one rank
+    process a rank (all on the one card, taking turns on it)."""
     from repro_torch.launch import mesh as mesh_lib
     data, model, pod = mesh_lib.parse_train_mesh(mesh_spec)
     world = max(pod, 1) * data * model
@@ -2621,11 +2868,14 @@ def _train_ranks(torch, card: str, mesh_spec: str,
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    tag = f"{'train' if arch == TRAIN_ARCH else 'moe_train'} {mesh_spec}"
+    tag = f"{_train_tag(arch)} {mesh_spec}"
     for label, *_ in _train_meshes(arch)[mesh_spec]:
         losses = {json.dumps(r["runs"][label]["metrics"]) for r in ranks}
         check(len(losses) == 1, f"{tag} {label}: the ranks "
               f"report different metrics")
+        check(all(math.isfinite(m["loss"]) for m in
+                  ranks[0]["runs"][label]["metrics"]),
+              f"{tag} {label}: a loss not finite")
         r0 = ranks[0]["runs"][label]
         peaks = ", ".join(f"rank {r['rank']} {r['runs'][label]['peak_gb']:.2f}"
                           for r in ranks)
@@ -2636,7 +2886,7 @@ def _train_ranks(torch, card: str, mesh_spec: str,
               f"{peaks} GB; launches a step (rank 0) "
               f"{ {k: v for k, v in r0['counts'][0].items() if v} }"
               + (f"; routes dropped {r0['routes'][1]} of {r0['routes'][0]} "
-                 f"(rank 0, {TRAIN_STEPS} steps)" if r0.get("routes")
+                 f"(rank 0, {len(r0['counts'])} steps)" if r0.get("routes")
                  else "") + f"  [{card}]", flush=True)
     print(f"[{tag}] {world} rank processes done in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2699,6 +2949,22 @@ def phase_moe_train(torch, card: str) -> dict:
     print(f"[moe_train] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return res
+
+
+def phase_ep8(torch, card: str):
+    """grok-1's smoke config at --mesh 1,EP_TP (ep 4 x etp 2): served
+    (phase_tp's rank processes, EP_TP of them), then trained
+    EP_TRAIN_MESHES -> (the serving ranks' results, {mesh: training
+    ranks' results})."""
+    t0 = time.perf_counter()
+    ranks = phase_tp(torch, card, EP_TP)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    trained = {spec: _train_ranks(torch, card, spec, arch=EP_ARCH)
+               for spec, _ in EP_TRAIN_MESHES}
+    print(f"[ep8] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return ranks, trained
 
 
 def main(argv=None) -> int:
@@ -2770,6 +3036,14 @@ def main(argv=None) -> int:
     trained = phase_train(torch, card) if "train" in phases else {}
     moe_trained = (phase_moe_train(torch, card) if "moe_train" in phases
                    else {})
+    moe_archs_launches, moe_archs_served = {}, {}
+    if "moe_archs" in phases:
+        moe_archs_launches, moe_archs_served = phase_moe_archs(torch, np,
+                                                               card)
+    ep8_ranks, ep8_trained = (phase_ep8(torch, card) if "ep8" in phases
+                              else ([], {}))
+    ep8_launches = ep8_ranks[0]["ep"]["launches"] if ep8_ranks else {}
+    ep8_train_launches = _train_launches(ep8_trained, EP_TRAIN_MESHES)
     train_launches = _train_launches(trained)
     moe_train_launches = _train_launches(moe_trained, TRAIN_MOE_MESHES)
     tp_launches = tp_ranks[0]["dense"]["launches"] if tp_ranks else {}
@@ -2791,7 +3065,9 @@ def main(argv=None) -> int:
                     for r in by_shape.values()]
             source = "rdma.cu"
             n = (moe_tp_launches.get(name, 0)
-                 + moe_train_launches.get(name, 0))
+                 + moe_train_launches.get(name, 0)
+                 + ep8_launches.get(name, 0)
+                 + ep8_train_launches.get(name, 0))
         elif name == "ar":
             t = ar_timed.get("prefill", {})
             errs = [r["max_abs_err"] for r in ar_timed.values()]
@@ -2799,7 +3075,9 @@ def main(argv=None) -> int:
             n = (tp_launches.get(name, 0) + moe_tp_launches.get(name, 0)
                  + glm_tp_launches.get(name, 0)
                  + train_launches.get(name, 0)
-                 + moe_train_launches.get(name, 0))
+                 + moe_train_launches.get(name, 0)
+                 + ep8_launches.get(name, 0)
+                 + ep8_train_launches.get(name, 0))
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
                 name, {})
@@ -2809,6 +3087,7 @@ def main(argv=None) -> int:
             n = (launches.get(name, 0) + ln_launches.get(name, 0)
                  + moe_launches.get(name, 0) + train_launches.get(name, 0)
                  + moe_train_launches.get(name, 0)
+                 + moe_archs_launches.get(name, 0)
                  if name in WIRE_KERNELS else stage_launches.get(name, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source,
@@ -2821,6 +3100,9 @@ def main(argv=None) -> int:
             "ln_launches": ln_launches.get(name, 0),
             "glm_tp_launches": glm_tp_launches.get(name, 0),
             "moe_train_launches": moe_train_launches.get(name, 0),
+            "moe_archs_launches": moe_archs_launches.get(name, 0),
+            "ep8_launches": ep8_launches.get(name, 0),
+            "ep8_train_launches": ep8_train_launches.get(name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -2840,7 +3122,11 @@ def main(argv=None) -> int:
               "ar": ar_timed, "ar_launches": ar_launches, "tp": tp_ranks,
               "train": trained, "crc": crc_timed, "ln": numbers(ln_served),
               "tp4": tp4_ranks,
-              "moe_train": moe_trained}
+              "moe_train": moe_trained,
+              "moe_archs": {a: numbers(r) for a, r in
+                            moe_archs_served.items()},
+              "moe_archs_launches": moe_archs_launches,
+              "ep8": ep8_ranks, "ep8_train": ep8_trained}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -14,12 +14,17 @@ row-major order:
   refuses two ranks on one card, or run on the CPU), and a subgroup for
   each axis of more than one rank (a :class:`~repro_torch.parallel.axis.
   ModelAxis`; an axis of one rank is ``None``);
+* for an MoE plan with ep and etp both above 1, the model axis's ``ep``
+  and ``etp`` subaxes: a subgroup for every group of the plan's
+  ``ep_groups`` and ``etp_groups``;
 * the rank on card ``rank % torch.cuda.device_count()``;
-* on the card, for the model and the pod axes, the peer world of their
-  ``fused`` collectives (:meth:`~repro_torch.kernels.rdma.PeerWorld.
-  from_group`): the model axis's receive rows sized from the largest site
-  it serves, a TP site or an MoE dispatch (:func:`site_row_bytes`), the pod
-  axis's :data:`GRAD_ROW_BYTES` (a larger gradient leaf crosses in pieces).
+* on the card, for the model and the pod axes and the model axis's
+  subaxes, the peer world of their ``fused`` collectives
+  (:meth:`~repro_torch.kernels.rdma.PeerWorld.from_group`): each model
+  world's receive rows sized from the largest site it serves, a TP site,
+  an MoE dispatch or a within-expert AllReduce (:func:`site_row_bytes`),
+  the pod axis's :data:`GRAD_ROW_BYTES` (a larger gradient leaf crosses
+  in pieces).
 
 Serving takes ``--mesh 1,TP`` (:func:`parse_mesh`: data-parallel serving,
 ``DATA > 1``, is not ported); training takes ``--mesh DATA,MODEL[,POD]``
@@ -31,7 +36,7 @@ import os
 import subprocess
 import tempfile
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -63,29 +68,60 @@ def parse_mesh(text: str) -> Tuple[int, int]:
     return data, model
 
 
-def site_row_bytes(cfg, plan, batch: int, seq: int) -> int:
-    """Receive-row bytes for every site that a peer world carries for
-    model ``cfg`` on ``plan`` at ``batch`` x ``seq`` tokens a forward (a
-    prefill served, or a training step's ``b_loc`` x ``seq`` local
-    tokens: the TP sites' backward, ``tp_bwd``, has their forward's
-    shape, and the dispatch's backward is exact, over the process group),
-    the larger of two, each more than the wire of any config of at most 8
-    bits:
+class WorldRows(NamedTuple):
+    """Receive-row bytes of a model axis's peer worlds: ``model``, the
+    axis's own; ``ep`` and ``etp``, its MoE subaxes' (0: the axis has no
+    such subaxis)."""
+    model: int
+    ep: int = 0
+    etp: int = 0
 
-    * the largest TP site: ``batch * seq * d_model`` values padded to a
+
+def _chunk_bytes(n: int, ranks: int, value_bytes: int) -> int:
+    """Bytes of a rank's chunk of an ``n``-value vector padded to a
+    ``ranks * 128`` multiple, ``value_bytes`` a value."""
+    return value_bytes * (-(-n // (ranks * _MAX_GROUP)) * _MAX_GROUP)
+
+
+def site_row_bytes(cfg, plan, batch: int, seq: int) -> WorldRows:
+    """Receive-row bytes of each peer world that carries model ``cfg``'s
+    sites on ``plan`` at ``batch`` x ``seq`` tokens a forward (a prefill
+    served, or a training step's ``b_loc`` x ``seq`` local tokens: the TP
+    sites' backward, ``tp_bwd``, has their forward's shape, and the
+    backwards of the dispatch and of the within-expert AllReduce are
+    exact, over the process groups), each more than the wire of any
+    config of at most 8 bits of what crosses it:
+
+    * a TP site: ``batch * seq * d_model`` values padded to a
       ``tp * 128`` multiple, the f32 bytes of a rank's chunk;
-    * with experts spread over ranks (ep > 1), the MoE dispatch: the
+    * the MoE dispatch (experts spread over ranks, ep > 1): the
       ``e_loc * capacity(batch * seq)`` rows of ``d_model`` values (a
-      128 multiple) that a rank sends a peer, 2 bytes a value. A policy
-      that slices the tokens by ep (``ep_slice``) sends fewer.
+      128 multiple) that a rank sends a peer, 2 bytes a value (a policy
+      that slices the tokens by ep, ``ep_slice``, sends fewer);
+    * the within-expert AllReduce (experts sharded, etp > 1): the
+      ``e_loc * ep * capacity * d_model`` values of its partial sums
+      padded to an ``etp * 128`` multiple, the f32 bytes of a rank's
+      chunk.
+
+    The model world carries the TP sites, and the dispatch where it
+    spans the whole axis (etp = 1) or the AllReduce where that does
+    (ep = 1). With ep and etp both above 1, the ``ep`` world carries the
+    dispatch and the ``etp`` world the AllReduce.
     """
-    tp, n = plan.tp, batch * seq * cfg.d_model
-    rows = _TP_VALUE_BYTES * (-(-n // (tp * _MAX_GROUP)) * _MAX_GROUP)
-    if plan.moe is not None and plan.moe.ep > 1:
-        d = -(-cfg.d_model // _MAX_GROUP) * _MAX_GROUP
-        m = plan.moe.e_loc * capacity(batch * seq, cfg)
-        rows = max(rows, _DISPATCH_VALUE_BYTES * m * d)
-    return rows
+    t, d = batch * seq, cfg.d_model
+    model = _chunk_bytes(t * d, plan.tp, _TP_VALUE_BYTES)
+    mp = plan.moe
+    if mp is None or plan.tp == 1:
+        return WorldRows(model)
+    cap = capacity(t, cfg)
+    dispatch = (_DISPATCH_VALUE_BYTES * mp.e_loc * cap
+                * (-(-d // _MAX_GROUP) * _MAX_GROUP))
+    psum = _chunk_bytes(mp.e_loc * mp.ep * cap * d, mp.etp, _TP_VALUE_BYTES)
+    if mp.etp == 1:
+        return WorldRows(max(model, dispatch))
+    if mp.ep == 1:
+        return WorldRows(max(model, psum))
+    return WorldRows(model, dispatch, psum)
 
 
 def parse_train_mesh(text: str) -> Tuple[int, int, int]:
@@ -103,15 +139,44 @@ def mesh_coord(rank: int, data: int, model: int) -> Tuple[int, int, int]:
     return rank // (data * model), rank // model % data, rank % model
 
 
+def _moe_subgroups(moe, lines: List[List[int]], rank: int):
+    """Create the process group of every ``moe.ep_groups`` and
+    ``moe.etp_groups`` group of every model axis (``lines``: each axis's
+    global ranks in model order), every rank all of them in one order
+    (``dist.new_group`` is collective over the world) -> [(this rank's
+    ep group, its index there), (its etp group, its index there)], or
+    ``None`` when the plan needs no subgroups."""
+    if moe is None or moe.ep == 1 or moe.etp == 1:
+        return None
+    mine = [None, None]
+    for line in lines:
+        for kind, groups in enumerate((moe.ep_groups, moe.etp_groups)):
+            for grp in groups:
+                ranks = [line[m] for m in grp]
+                pg = dist.new_group(ranks)
+                if rank in ranks:
+                    mine[kind] = (pg, ranks.index(rank))
+    return mine
+
+
 def init_mesh(data: int, model: int, pod: int, rank: int,
-                    rendezvous: Optional[str], device: torch.device,
-                    row_bytes: int) -> MeshAxes:
+              rendezvous: Optional[str], device: torch.device,
+              row_bytes: Union[int, WorldRows], moe=None) -> MeshAxes:
     """Rank ``rank`` of ``max(pod, 1) * data * model`` rank processes on
     ``device`` joins their process group at the ``FileStore`` file
     ``rendezvous`` (one process: nothing to join) and builds its axes
     (the module docstring; every rank creates every subgroup, in one
-    order), the model axis's peer world with receive rows of
-    ``row_bytes``. Call :func:`close_mesh` on every rank when done."""
+    order), the model axis's peer worlds with the receive rows of
+    ``row_bytes`` (a :class:`WorldRows`, or the model world's bytes).
+    With ``moe``, an :class:`~repro_torch.parallel.plan.MoEPlan` whose ep
+    and etp are both above 1, the model axis gets its ``ep`` and ``etp``
+    subaxes: a process group for every group of ``moe.ep_groups`` and
+    ``moe.etp_groups`` on every model axis, this rank's index in each
+    its position in the JAX package's group tuple (``ep_idx``,
+    ``tp_idx``), and on the card a peer world each. Call
+    :func:`close_mesh` on every rank when done."""
+    rows = (row_bytes if isinstance(row_bytes, WorldRows)
+            else WorldRows(row_bytes))
     world = max(pod, 1) * data * model
     cuda = device.type == "cuda"
     if cuda:
@@ -127,7 +192,7 @@ def init_mesh(data: int, model: int, pod: int, rank: int,
                             world_size=world)
     sizes = (max(pod, 1), data, model)
     me = mesh_coord(rank, data, model)
-    axes = []
+    axes, lines = [], []
     for ax, size in enumerate(sizes):
         mine = None
         if size > 1:
@@ -138,10 +203,20 @@ def init_mesh(data: int, model: int, pod: int, rank: int,
                 ranks = [r for r in range(world)
                          if all(mesh_coord(r, data, model)[i] == c[i]
                                 for i in range(3) if i != ax)]
+                if ax == 2:
+                    lines.append(ranks)
                 pg = dist.new_group(ranks)
                 if rank in ranks:
                     mine = (pg, ranks.index(rank))
         axes.append(mine)
+    sub = _moe_subgroups(moe, lines, rank) if model > 1 else None
+
+    def peer_world(pg, r, nbytes):
+        if not cuda:
+            return None
+        from repro_torch.kernels.rdma import PeerWorld
+        return PeerWorld.from_group(pg, r, nbytes, device)
+
     out = []
     for ax, part in enumerate(axes):
         if part is None:
@@ -149,11 +224,19 @@ def init_mesh(data: int, model: int, pod: int, rank: int,
             continue
         pg, r = part
         peer = None
-        if cuda and ax != 1:                  # the model and pod axes
-            from repro_torch.kernels.rdma import PeerWorld
-            peer = PeerWorld.from_group(pg, r, row_bytes if ax == 2
-                                        else GRAD_ROW_BYTES, device)
-        out.append(ModelAxis(pg, r, sizes[ax], peer))
+        if ax != 1:                           # the model and pod axes
+            peer = peer_world(pg, r, rows.model if ax == 2
+                              else GRAD_ROW_BYTES)
+        subaxes = {}
+        if ax == 2 and sub is not None:
+            (ep_pg, ep_r), (etp_pg, etp_r) = sub
+            assert (ep_r, etp_r) == (r // moe.etp, r % moe.etp), (r, sub)
+            subaxes = {
+                "ep": ModelAxis(ep_pg, ep_r, moe.ep,
+                                peer_world(ep_pg, ep_r, rows.ep)),
+                "etp": ModelAxis(etp_pg, etp_r, moe.etp,
+                                 peer_world(etp_pg, etp_r, rows.etp))}
+        out.append(ModelAxis(pg, r, sizes[ax], peer, **subaxes))
     assert all(a is None or a.rank == me[i] for i, a in enumerate(out))
     return MeshAxes(model=out[2], data=out[1], pod=out[0],
                     multi_pod=pod > 0)
@@ -166,11 +249,13 @@ def barrier_all(mesh: MeshAxes) -> None:
 
 
 def close_mesh(mesh: MeshAxes) -> None:
-    """Wait for the card and every rank, close the peer worlds, leave the
-    process group (nothing for one process)."""
+    """Wait for the card and every rank, close the peer worlds (the axes'
+    and the model axis's subaxes'), leave the process group (nothing for
+    one process)."""
     axes = [a for a in (mesh.model, mesh.data, mesh.pod) if a is not None]
     if not axes:
         return
+    axes += [s for a in axes for s in (a.ep, a.etp) if s is not None]
     worlds = [a.world for a in axes if a.world is not None]
     if worlds:
         torch.cuda.synchronize(worlds[0].device)

@@ -266,7 +266,8 @@ def main(argv=None) -> Dict:
         device = mesh.rank_device(rank, device)
     axes = mesh.init_mesh(
         1, model, 0, rank, args.rendezvous, device,
-        mesh.site_row_bytes(cfg, plan, args.batch, args.prompt_len))
+        mesh.site_row_bytes(cfg, plan, args.batch, args.prompt_len),
+        plan.moe)
     axis = axes.model
     log = print if rank == 0 else (lambda *a, **k: None)
     try:

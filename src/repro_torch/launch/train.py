@@ -240,7 +240,7 @@ def main(argv=None) -> Optional[Dict]:
     b_loc = args.batch // (max(pod, 1) * data) or args.batch
     mesh = mesh_lib.init_mesh(
         data, model, pod, rank, args.rendezvous, device,
-        mesh_lib.site_row_bytes(cfg, plan, b_loc, args.seq))
+        mesh_lib.site_row_bytes(cfg, plan, b_loc, args.seq), plan.moe)
     log = print if rank == 0 else (lambda *a, **k: None)
     try:
         shape = {"data": data, "model": model}

@@ -8,7 +8,9 @@ and ``rank`` this rank's index in it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +30,26 @@ def tp_psum(x: torch.Tensor, policy: CommPolicy, group=None,
     cfg = policy.resolve("tp", layer) or NO_COMPRESSION
     bwd = policy.resolve("tp_bwd", layer)
     return compressed_psum(x, cfg, group, bwd)
+
+
+@functools.lru_cache(maxsize=None)
+def _gelu_consts(dtype: torch.dtype) -> Tuple[float, ...]:
+    """sqrt(2 / pi), 0.044715, 0.5 and 1 rounded to ``dtype``, as JAX's
+    weak-typed scalars are in an op with an array of that dtype."""
+    return tuple(torch.tensor(v, dtype=dtype).item()
+                 for v in (math.sqrt(2 / math.pi), 0.044715, 0.5, 1.0))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU of the JAX package (``jax.nn.gelu(approximate=True)``)
+    op for op in ``x``'s dtype, each op rounded to it: in bf16 JAX's bits
+    on the CPU. ``F.gelu(approximate="tanh")`` rounds once from float32
+    and differs from it in 39% of bf16 values, by up to 253 ulps near
+    its cancellation at large negative ``x``. In float32 the two tanh
+    implementations differ by at most 2^-22 max(|x|, 1)
+    (``tests/test_torch_moe_archs.py``)."""
+    c, a, half, one = _gelu_consts(x.dtype)
+    return x * (half * (one + torch.tanh(c * (x + a * x ** 3))))
 
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor,
@@ -144,10 +166,9 @@ def mlp_apply(p: Dict, x: torch.Tensor, act: str, policy: CommPolicy,
         g = x @ p["w3"]
         if use_bias:
             g = g + p["b3"]
-        h = (F.silu(h) if act == "swiglu"
-             else F.gelu(h, approximate="tanh")) * g
+        h = (F.silu(h) if act == "swiglu" else gelu(h)) * g
     else:
-        h = F.gelu(h, approximate="tanh")
+        h = gelu(h)
     y = tp_psum(h @ p["w2"], policy, group, layer)
     if use_bias:
         y = y + p["b2"]

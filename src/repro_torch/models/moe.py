@@ -10,8 +10,11 @@ the within-expert partial sums take the quantized TP AllReduce when
 ``etp > 1``.
 
 Process groups: ``group`` is the TP group. With ``etp == 1`` the dispatch
-runs over it; with ``ep == 1`` the within-expert AllReduce does. A plan
-with both above 1 needs subgroups, which this package does not build.
+runs over it; with ``ep == 1`` the within-expert AllReduce does. With
+both above 1, the dispatch, the combine and ``ep_slice``'s gather run
+over the axis's ``ep`` subaxis and the within-expert AllReduce over its
+``etp`` subaxis (the JAX package's ``axis_index_groups``), while the aux
+loss's mean stays over the whole axis, as JAX's ``lax.pmean``.
 
 Under autograd every collective has the JAX package's transpose: the
 dispatch's is the exact all-to-all (straight-through quantization), the
@@ -35,6 +38,8 @@ from repro_torch.core.collectives import (all_gather_rows, all_to_all_rows,
 from repro_torch.core.comm_config import NO_COMPRESSION
 from repro_torch.core.policy import CommPolicy
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import gelu
+from repro_torch.parallel.axis import ModelAxis
 from repro_torch.parallel.plan import ShardingPlan
 from repro_torch.parallel.shardings import ParamSpec
 
@@ -90,14 +95,19 @@ def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
 
 
 def _groups(plan: ShardingPlan, group):
-    """(dispatch group, within-expert group) for the TP group."""
+    """(dispatch group, within-expert group) for the TP group: the whole
+    axis where the other factor is 1, else the model axis's ``ep`` and
+    ``etp`` subaxes (:class:`~repro_torch.parallel.axis.ModelAxis`)."""
     mp = plan.moe
     if mp.etp == 1:
         return group, None
     if mp.ep == 1:
         return None, group
-    raise NotImplementedError(f"ep={mp.ep} x etp={mp.etp}: both above 1 "
-                              f"need subgroups")
+    if not isinstance(group, ModelAxis) or group.ep is None:
+        raise ValueError(f"ep={mp.ep} x etp={mp.etp}: the model axis needs "
+                         f"its ep and etp subaxes (launch/mesh.py "
+                         f"init_mesh)")
+    return group.ep, group.etp
 
 
 def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -160,11 +170,10 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     tok = tok.reshape(mp.e_loc, mp.ep * cap, d)
     h = torch.bmm(tok, p[prefix + "w1"])
     if cfg.act in ("swiglu", "geglu"):
-        act = (F.silu(h) if cfg.act == "swiglu"
-               else F.gelu(h, approximate="tanh"))
+        act = F.silu(h) if cfg.act == "swiglu" else gelu(h)
         h = act * torch.bmm(tok, p[prefix + "w3"])
     else:
-        h = F.gelu(h, approximate="tanh")
+        h = gelu(h)
     y = torch.bmm(h, p[prefix + "w2"])
     if mp.etp > 1:
         y = compressed_psum(y, tp_cfg, etp_group)

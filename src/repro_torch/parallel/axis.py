@@ -20,11 +20,21 @@ class ModelAxis(NamedTuple):
     ``two_step`` hop, exact sites, greedy decoding's gather); ``world``
     the :class:`~repro_torch.kernels.rdma.PeerWorld` of the ``fused``
     sites, or ``None``.
+
+    An MoE plan that factorises the axis ``tp = ep * etp`` with both
+    above 1 runs its collectives on subaxes, each a ``ModelAxis`` of its
+    own (its process group, this rank's index in it, size, peer world):
+    ``ep``, this rank's group of ``MoEPlan.ep_groups`` (the dispatch and
+    the combine; index ``ep_idx``), and ``etp``, its group of
+    ``MoEPlan.etp_groups`` (the within-expert AllReduce; index
+    ``tp_idx``). ``None`` otherwise.
     """
     pg: Any
     rank: int
     size: int
     world: Optional[Any] = None
+    ep: Optional["ModelAxis"] = None
+    etp: Optional["ModelAxis"] = None
 
 
 def axis_parts(group) -> Tuple[Any, int, Optional[Any]]:

@@ -109,7 +109,7 @@ def test_site_row_bytes_cover_the_dispatch(policy):
     plan = make_plan(cfg, tp=2)
     pol = {"paper": tpolicy.paper_policy,
            "aggressive": tpolicy.aggressive_policy}[policy]()
-    rows = mesh.site_row_bytes(cfg, plan, 4, 128)
+    rows = mesh.site_row_bytes(cfg, plan, 4, 128).model
     m = plan.moe.e_loc * capacity(4 * 128, cfg)
     assert (plan.moe.ep, m) == (2, 2048)
     a2a, tp_cfg = pol.resolve("a2a", 1), pol.resolve("tp", 1)
@@ -120,6 +120,64 @@ def test_site_row_bytes_cover_the_dispatch(policy):
     for tp in (1, 2, 4, 8):
         n = 4 * 128 * qwen.d_model
         assert mesh.site_row_bytes(qwen, make_plan(qwen, tp=tp), 4, 128) \
-            == 4 * -(-n // (tp * 128)) * 128
+            == (4 * -(-n // (tp * 128)) * 128, 0, 0)
     assert mesh.site_row_bytes(qwen, make_plan(qwen, tp=2), 4, 128) == \
-        5242880
+        (5242880, 0, 0)
+
+
+#: (arch, smoke config?, tp) of each world-rows case: grok-1 at tp = 16
+#: (ep 8, etp 2: all three worlds), llama4-maverick at tp = 16 (ep 16:
+#: the dispatch crosses the model world) and grok-1's smoke config at
+#: tp = 8 (ep 4, etp 2)
+WORLD_CASES = [("grok-1-314b", False, 16),
+               ("llama4-maverick-400b-a17b", False, 16),
+               ("grok-1-314b", True, 8)]
+
+
+@pytest.mark.parametrize("arch,smoke,tp", WORLD_CASES)
+@pytest.mark.parametrize("batch,seq", [(4, 128), (8, 512)])
+@pytest.mark.parametrize("policy", ["paper", "aggressive"])
+def test_site_row_bytes_cover_each_world(arch, smoke, tp, batch, seq,
+                                         policy):
+    """Each peer world's receive rows hold the largest wire that crosses
+    it, for a served prefill (batch 4 x prompt 128) and a training step's
+    local tokens (8 x 512): the model world a TP site's chunk forward and
+    backward (``tp_bwd``), and where the dispatch spans the whole axis
+    (etp = 1) the ``e_loc * capacity`` rows a peer of the dispatch; with
+    ep and etp both above 1, the ep world the dispatch and the etp world
+    the within-expert AllReduce's chunk of ``e_loc * ep * capacity *
+    d_model`` partial sums, each under the policy's configs (aggressive
+    slices the tokens by ep). No world is made where no subaxis is."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import policy as tpolicy
+    from repro_torch.launch import mesh
+    from repro_torch.models.moe import capacity
+    from repro_torch.parallel.plan import make_plan
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    plan = make_plan(cfg, tp=tp)
+    mp = plan.moe
+    pol = {"paper": tpolicy.paper_policy,
+           "aggressive": tpolicy.aggressive_policy}[policy]()
+    rows = mesh.site_row_bytes(cfg, plan, batch, seq)
+    t, d = batch * seq, cfg.d_model
+
+    def chunk(n, ranks, c):
+        return c.wire_bytes(-(-n // (ranks * c.group)) * c.group)
+
+    tp_wires = [chunk(t * d, tp, c) for c in (pol.resolve("tp", 1),
+                                               pol.resolve("tp_bwd", 1))
+                if c is not None]
+    cap = capacity(-(-t // mp.ep) if pol.ep_slice else t, cfg)
+    a2a = pol.resolve("a2a", 1)
+    dispatch = mp.e_loc * cap * a2a.wire_bytes(d)
+    psum = chunk(mp.e_loc * mp.ep * cap * d, mp.etp, pol.resolve("tp", 1))
+    assert rows.model >= max(tp_wires)
+    if mp.etp == 1:
+        assert rows.model >= dispatch and rows.ep == rows.etp == 0
+    else:
+        assert rows.ep >= dispatch and rows.etp >= psum
+    if (arch, smoke, tp, batch, policy) == ("grok-1-314b", False, 16, 4,
+                                            "paper"):
+        assert (mp.ep, mp.etp, mp.e_loc, cap) == (8, 2, 1, 160)
+        assert rows == (4 * 512 * 6144 // 16, 2 * 160 * 6144,
+                        4 * 8 * 160 * 6144 // 2)

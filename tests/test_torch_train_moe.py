@@ -93,7 +93,7 @@ def test_site_row_bytes_cover_the_training_step(policy):
     plan = make_plan(cfg, tp=2)
     pol = {"paper": tpolicy.paper_policy,
            "aggressive": tpolicy.aggressive_policy}[policy]()
-    rows = mesh.site_row_bytes(cfg, plan, 8, 512)
+    rows = mesh.site_row_bytes(cfg, plan, 8, 512).model
     tokens = 8 * 512 // (2 if pol.ep_slice else 1)
     m = plan.moe.e_loc * capacity(tokens, cfg)
     assert capacity(8 * 512, cfg) == 480
