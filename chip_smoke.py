@@ -114,7 +114,9 @@ Phases, each printing its lines; any failure exits non-zero:
              and DECODE_CHECK_STEPS decode steps' logits through the CUDA
              kernels equal those through the plain codec, bit for bit;
              then it serves BATCH x PROMPT_LEN + GEN tokens under the
-             policies of phase serve, with exact launch counts (a TP
+             policies of phase serve (SERVE_RUNS and bf16; its
+             aggressive/two_step run checked but not served, cut to pay
+             for phase rec), with exact launch counts (a TP
              site a block and the embedding's, a dispatch site an MoE
              block, a forward), and prints TTFT,
              ms/step and the routes dropped over capacity. Prefill and
@@ -150,14 +152,13 @@ Phases, each printing its lines; any failure exits non-zero:
              projections filled): paper/fused's prefill hidden states and
              DECODE_CHECK_STEPS decode logits bit-equal to
              paper/two_step's; then it serves BATCH x PROMPT_LEN + TP_GEN
-             tokens under TP_RUNS (qwen3-14b) and MOE_TP_RUNS (moonshot):
-             paper/fused (every TP site through fc_ar, every dispatch
-             through fc_a2a) and, for qwen3-14b, paper/two_step (the wire
-             kernels around the host-staged gloo hop), with exact launch
-             counts
-             (fused: fc_ar once a TP site, fc_a2a once a dispatch; no
-             wire kernel), the dense runs'
-             prefill/decode agreement and moonshot's dropped routes. Rank 0
+             tokens under DENSE_TP_RUNS (qwen3-14b) and MOE_TP_RUNS
+             (moonshot): paper/fused (every TP site through fc_ar, every
+             dispatch through fc_a2a), with exact launch counts (fc_ar
+             once a TP site, fc_a2a once a dispatch; no wire kernel), the
+             dense run's prefill/decode agreement and moonshot's dropped
+             routes (tp4, ep8 and rec also serve paper/two_step: the wire
+             kernels around the host-staged gloo hop). Rank 0
              prints TTFT and ms/step, every rank its peak memory; a failed
              rank fails the phase.
    tp4    -- glm4-9b at --mesh 1,GLM_TP (four rank processes on the card;
@@ -227,6 +228,32 @@ Phases, each printing its lines; any failure exits non-zero:
              EP_TRAIN_MESHES (paper/fused == paper/two_step over
              EP_TRAIN_STEPS steps, finite losses).
 
+13. rec    -- recurrentgemma-2b (RG-LRU + local attention, 26 blocks,
+             5.61 GB) and xlstm-125m (mLSTM / sLSTM, no positions, 12
+             blocks) at full width and full depth, tp = 1, weights from
+             seed SEED (the output projections and the recurrent
+             mixers' gate vectors and biases filled, so that the gates
+             depend on the data):
+             paper/two_step's prefill hidden states and
+             DECODE_CHECK_STEPS decode steps' logits through the CUDA
+             kernels equal the plain codec's bit for bit; REC_RUNS
+             served with exact launch counts (_tp_sites: 53 TP sites a
+             forward in recurrentgemma, 13 in xlstm), TTFT, ms/step, peak
+             memory and prefill/decode agreement (bf16 to
+             CACHE_REL_TOL). Between the two, recurrentgemma's (rec, rec,
+             local) repeat alone served REC_WINDOW_PROMPT tokens, past
+             its window of 2048, and REC_WINDOW_GEN more under bf16: the
+             local ring has exactly 2048 slots, each then within the
+             window (_rec_window). After each model's served runs, on
+             the same weights, the kernels one prefill and one decode
+             step launch (a torch.profiler trace of one call: count and
+             device time, beside the call's host time; _rec_census).
+             Then xlstm-125m
+             at --mesh 1,TP, its depth cut to XLSTM_TP_REPEATS repeats,
+             two rank processes as phase tp's: paper/fused ==
+             paper/two_step bit for bit on both ranks (prefill, decode
+             steps, tokens), fc_ar launches counted.
+
 In phase train, --mesh 1,1,2 also runs paper/two_step with
 ``--framed-bridge 8`` (policy.with_framed_bridge: the pod hop int8 g128
 hier_pp in frames, each wire row's CRC through fc_crc32c) for
@@ -246,8 +273,9 @@ moe_train's and ep8's, fc_ar's from phase tp's and tp4's served runs and
 phases train's, moe_train's and ep8's runs on rank 0;
 ``serve_launches``, ``ln_launches``, ``moe_launches``, ``tp_launches``,
 ``moe_tp_launches``, ``glm_tp_launches``, ``train_launches``,
-``moe_train_launches``, ``moe_archs_launches``, ``ep8_launches`` and
-``ep8_train_launches``: from those paths); the last line is ``{"ok":
+``moe_train_launches``, ``moe_archs_launches``, ``ep8_launches``,
+``ep8_train_launches`` and ``rec_launches``: from those paths); the last
+line is ``{"ok":
 true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -267,7 +295,8 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "wire_vectors.npz")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 PHASES = ("build", "codec", "crc", "stage", "time", "serve", "ln", "a2a",
-          "moe", "ar", "tp", "tp4", "train", "moe_train", "moe_archs", "ep8")
+          "moe", "ar", "tp", "tp4", "train", "moe_train", "moe_archs", "ep8",
+          "rec")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -299,6 +328,9 @@ BASELINE = ("bf16", "bf16", None)
 # for phases moe_archs and ep8 (its prefill and decode steps are still
 # held against the plain codec's bit for bit)
 SERVE_RUNS = RUNS[:2]
+# phase moe's served runs: its aggressive/two_step run was cut to pay for
+# phase rec (checked as phase serve's is)
+MOE_CHECK_ONLY = RUNS[2:]
 CACHE_REL_TOL = 0.1
 ARCH = "qwen3-14b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
@@ -325,11 +357,12 @@ TP_PROBE_CALLS = 100
 # phase tp's served runs of both models (its qwen3-14b bf16 run and 12
 # of its GEN generated tokens were cut to pay for phases ln, tp4 and
 # moe_train; moonshot's paper/two_step run to pay for phase train's
-# framed-bridge run: its prefill and decode steps are still held against
-# paper/fused's bit for bit before the served runs)
+# framed-bridge run, qwen3-14b's to pay for phase rec: their prefill and
+# decode steps are still held against paper/fused's bit for bit before
+# the served runs)
 TP_RUNS = (("paper/fused", "paper", "fused"),
            ("paper/two_step", "paper", None))
-MOE_TP_RUNS = TP_RUNS[:1]
+DENSE_TP_RUNS = MOE_TP_RUNS = TP_RUNS[:1]
 TP_GEN = 4
 TP_TIMEOUT_S = 900
 # phase tp's depth, cut to pay for phases moe_archs and ep8: qwen3-14b's
@@ -406,6 +439,31 @@ EP_TRAIN_MESHES = (("1,8", (("paper/two_step", "paper", None, None,
                              EP_TRAIN_STEPS),
                             ("paper/fused", "paper", "fused", None,
                              EP_TRAIN_STEPS))),)
+# phase rec: recurrentgemma-2b (RG-LRU + local attention) and xlstm-125m
+# (mLSTM / sLSTM) at full width and full depth, tp = 1, served under
+# REC_RUNS; recurrentgemma's (rec, rec, local) repeat alone (no suffix)
+# served REC_WINDOW_PROMPT tokens, past its window of 2048, under bf16;
+# xlstm-125m at --mesh 1,TP, its 6 repeats cut to XLSTM_TP_REPEATS
+REC_ARCH = "recurrentgemma-2b"
+XLSTM_ARCH = "xlstm-125m"
+REC_RUNS = (("paper/two_step", "paper", None), BASELINE)
+REC_WINDOW_PROMPT, REC_WINDOW_GEN = 2112, 8
+XLSTM_TP_REPEATS = 2
+#: the rank-process cells (phase_tp, tp_rank_main): tag -> (ranks, the
+#: world checks (torch, axis, dev, configs) -> dict or None, the parts
+#: served in turn, each (part, arch for _tp_cfg, runs, label, generated
+#: tokens))
+TP_CELLS = {
+    "tp": (TP, lambda t, a, d, c: _tp_world_checks(t, a, d),
+           (("dense", ARCH, DENSE_TP_RUNS, "tp", TP_GEN),
+            ("moe", MOE_ARCH, MOE_TP_RUNS, "moe tp", TP_GEN))),
+    "tp4": (GLM_TP, lambda t, a, d, c: _tp_world_checks(
+        t, a, d, GLM_PROBE_CALLS, a2a=False),
+            (("glm", GLM_ARCH, TP_RUNS, "tp4", TP_GEN),)),
+    "ep8": (EP_TP, lambda t, a, d, c: _ep_world_checks(t, a, d, c[0]),
+            (("ep", EP_ARCH, TP_RUNS, "ep8", EP_GEN),)),
+    "rec_tp": (TP, None, (("xlstm", XLSTM_ARCH, TP_RUNS, "rec tp",
+                           TP_GEN),))}
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
                                              scale_int=True)),
@@ -1133,24 +1191,31 @@ def phase_time(torch, np, card: str):
 
 def _fill_output_projections(torch, cfg, plan, params, seed: int,
                              rank: int = 0):
-    """Fill the zero-initialised output projections (attention, MLP and
-    experts) of every block from a fan-in normal (std 1/sqrt(fan_in)),
-    one stack slice at a time, so that every TP and dispatch site of
-    every layer carries data and every expert's output is non-zero (the
-    zero-initialised vectors, biases, stay zero). A TP rank ``rank``
-    folds its index into the seed, so that the ranks' shards differ."""
+    """Fill the zero-initialised output projections (attention, MLP,
+    experts and the recurrent mixers') of every block from a fan-in
+    normal (std 1/sqrt(fan_in)), one stack slice at a time, so that every
+    TP and dispatch site of every layer carries data and every expert's
+    output is non-zero. In a model with recurrent blocks the zero
+    vectors sharded over TP (RG-LRU's gate weights and biases and its
+    conv bias, sLSTM's gate biases) are filled from a standard normal
+    too, so that the gates depend on the data; other zero vectors
+    (biases) stay zero. A TP rank ``rank`` folds its index into the
+    seed, so that the ranks' shards differ."""
     from repro_torch.models.model import param_groups
+    vectors = bool(set(cfg.layer_kinds) & {"rec", "mlstm", "slstm"})
     names = [(g, n) for g, (_, specs) in sorted(param_groups(
         cfg, plan).items()) for n, sp in specs.items()
-             if sp.init == "zeros" and len(sp.shape) > 1]
+             if sp.init == "zeros" and (len(sp.shape) > 1 or (
+                 vectors and sp.tp_dim is not None))]
     t0 = params[names[0][0]][names[0][1]]
     gen = torch.Generator(device=t0.device)
     gen.manual_seed(seed + 1000003 * rank)
     for g, name in names:
         t = params[g][name]
+        std = t.shape[-2] ** -0.5 if t.dim() > 2 else 1.0
         for i in range(t.shape[0]):         # one float32 slice at a time
             t[i].copy_(torch.randn(t.shape[1:], generator=gen,
-                                   device=t.device).div_(t.shape[-2] ** 0.5))
+                                   device=t.device).mul_(std))
     return [f"{g}/{n}" for g, n in names]
 
 
@@ -1526,12 +1591,13 @@ def phase_moe(torch, np):
     torch.cuda.empty_cache()                   # the dense model is gone
     cfg = dataclasses.replace(get_config(MOE_ARCH),
                               pattern_repeats=MOE_REPEATS)
-    return _moe_serve(torch, np, cfg, RUNS + (BASELINE,), "moe")
+    return _serve_tp1(torch, np, cfg, SERVE_RUNS + (BASELINE,), "moe",
+                      checks=MOE_CHECK_ONLY)
 
 
 def phase_moe_archs(torch, np, card: str):
     """grok-1 and llama4-maverick at full width, tp = 1, their depth cut
-    to MOE_ARCHS' (_moe_serve under MOE_ARCH_RUNS, one model at a time)
+    to MOE_ARCHS' (_serve_tp1 under MOE_ARCH_RUNS, one model at a time)
     -> (the launches of both paths, {arch: served results})."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -1539,24 +1605,36 @@ def phase_moe_archs(torch, np, card: str):
     for arch, repeats in MOE_ARCHS:
         torch.cuda.empty_cache()               # the earlier models are gone
         cfg = dataclasses.replace(get_config(arch), pattern_repeats=repeats)
-        got, served[arch] = _moe_serve(torch, np, cfg, MOE_ARCH_RUNS,
+        got, served[arch] = _serve_tp1(torch, np, cfg, MOE_ARCH_RUNS,
                                        "moe_archs", card)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
     return launches, served
 
 
-def _moe_serve(torch, np, cfg, runs, tag: str, card: str = ""):
-    """MoE model ``cfg`` at full width on one card (weights from seed SEED,
-    the zero-initialised output projections, attention, MLP and experts,
-    filled): for each quantized run of ``runs`` the prefill's hidden
-    states and DECODE_CHECK_STEPS decode steps' logits through the CUDA
-    kernels equal those through the plain codec, bit for bit; then it
-    serves BATCH x PROMPT_LEN + GEN tokens under ``runs`` with exact
-    launch counts (a TP site: 2 encodes, 2 decodes, fused 1 decode and 1
-    decode+reduce; a dispatch: 1 of each) and prints TTFT, ms/step and the
-    routes dropped over capacity -> (launches over the served runs,
-    {label: served result})."""
+def _tp_sites(cfg) -> int:
+    """TP sites a forward: the embedding's, and a block's mixer's and
+    MLP's (an moe block's attention only: at tp = 1 its experts' sum
+    crosses no rank; an mlstm or slstm block has no MLP)."""
+    return 1 + sum(2 if k in ("dense", "local", "rec") else 1
+                   for k in cfg.layer_kinds)
+
+
+def _serve_tp1(torch, np, cfg, runs, tag: str, card: str = "",
+               census: bool = False, checks=()):
+    """Model ``cfg`` at full width on one card (weights from seed SEED,
+    the zero-initialised output projections, attention, MLP, experts and
+    the recurrent mixers', filled): for each quantized run of ``checks``
+    and ``runs`` the prefill's hidden states and DECODE_CHECK_STEPS decode steps' logits
+    through the CUDA kernels equal those through the plain codec, bit for
+    bit; then it serves BATCH x PROMPT_LEN + GEN tokens under ``runs``
+    with exact launch counts (a TP site: 2 encodes, 2 decodes, fused 1
+    decode and 1 decode+reduce; a dispatch: 1 of each) and prints TTFT,
+    ms/step, peak memory, and an MoE model's routes dropped over capacity
+    or another's prefill/decode agreement (the run without the codec to
+    CACHE_REL_TOL); with ``census``, then _rec_census on the same
+    weights -> (launches over the served runs, {label: served result,
+    "census": _rec_census's result})."""
     from repro_torch.kernels import rdma, stage, wire
     from repro_torch.launch.serve import build_policy, serve
     from repro_torch.models.model import forward
@@ -1575,16 +1653,20 @@ def _moe_serve(torch, np, cfg, runs, tag: str, card: str = ""):
     nbytes = sum(t.numel() * t.element_size() for g in params.values()
                  for t in g.values())
     kinds = cfg.layer_kinds
+    moe = cfg.moe is not None
+    blocks = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+    if moe:
+        blocks += (f"; {cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, "
+                   f"{cfg.act}")
     print(f"[{tag}] {cfg.name} full width, {cfg.n_layers} layers "
-          f"({kinds.count('dense')} dense, {kinds.count('moe')} MoE with "
-          f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, {cfg.act}): "
-          f"{nbytes / 1e9:.2f} GB bf16 weights from seed {SEED} ({filled} "
-          f"filled) in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"({blocks}): {nbytes / 1e9:.2f} GB bf16 weights from seed "
+          f"{SEED} ({filled} filled) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     prompts = torch.from_numpy(make_dataset(DataConfig(
         vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH,
         seed=SEED)).batch(0)["tokens"]).to(dev)
-    checked = [r for r in runs if r[1] != "bf16"]
+    checked = [r for r in checks + runs if r[1] != "bf16"]
     for label, pol, scheme in checked:
         pols = [build_policy(pol, backend=b, scheme=scheme)
                 for b in ("cuda", "ref")]
@@ -1611,10 +1693,10 @@ def _moe_serve(torch, np, cfg, runs, tag: str, card: str = ""):
           f"codec equal the plain codec's bit for bit "
           f"({', '.join(r[0] for r in checked)})", flush=True)
 
-    tp_sites = 1 + sum(2 if k == "dense" else 1 for k in kinds)
+    tp_sites = _tp_sites(cfg)
     a2a_sites = kinds.count("moe")
     forwards = 1 + PROMPT_LEN + GEN - 1
-    wire.reset_launches()                  # the moe path starts here
+    wire.reset_launches()                  # the path starts here
     stage.reset_launches()
     rdma.reset_launches()
     results, expected = {}, dict.fromkeys(wire.LAUNCHES, 0)
@@ -1634,20 +1716,30 @@ def _moe_serve(torch, np, cfg, runs, tag: str, card: str = ""):
         want = {k: 0 if pol == "bf16" else v * forwards
                 for k, v in per_fwd.items()}
         res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        extra = (f"routes dropped prefill {res['dropped_prefill']} of "
+                 f"{res['routes_prefill']}, decode {res['dropped_decode']} "
+                 f"of {res['routes_decode']}" if moe else
+                 f"prefill/decode logit divergence "
+                 f"{max(res['agreement']['rel_divergence']):.4f}")
         print(f"[{tag} {label}] {cfg.name}: launches {got} (expected "
               f"{want}; {tp_sites} TP and {a2a_sites} dispatch sites a "
               f"forward, {forwards} forwards); TTFT {res['ttft_ms']:.1f} ms, "
-              f"decode median {res['step_ms_median']:.2f} ms/step; routes "
-              f"dropped prefill {res['dropped_prefill']} of "
-              f"{res['routes_prefill']}, decode {res['dropped_decode']} of "
-              f"{res['routes_decode']}; peak memory {res['peak_gb']:.2f} GB"
-              + (f"  [{card}]" if card else ""), flush=True)
+              f"decode median {res['step_ms_median']:.2f} ms/step, p90 "
+              f"{res['step_ms_p90']:.2f}; {extra}; peak memory "
+              f"{res['peak_gb']:.2f} GB" + (f"  [{card}]" if card else ""),
+              flush=True)
         check(got == want, f"{tag} {label}: launches {got} != {want}")
-        check(res["agreement"] is None, f"{tag} {label}: agreement checked")
+        check((res["agreement"] is None) == moe,
+              f"{tag} {label}: prefill/decode check {res['agreement']}")
+        if pol == "bf16" and not moe:
+            rel = max(res["agreement"]["rel_divergence"])
+            check(rel <= CACHE_REL_TOL, f"{tag} {cfg.name}: unquantized "
+                  f"prefill/decode logit divergence {rel} > "
+                  f"{CACHE_REL_TOL}: cache drift")
         for k, v in want.items():
             expected[k] += v
         results[label] = res
-    launches = dict(wire.LAUNCHES)         # read right after the moe path
+    launches = dict(wire.LAUNCHES)         # read right after the path
     stage_launches = dict(stage.LAUNCHES)
     for k, v in launches.items():
         check(v > 0 or expected[k] == 0,
@@ -1661,6 +1753,9 @@ def _moe_serve(torch, np, cfg, runs, tag: str, card: str = ""):
               f"{tag}: fused and two_step generated different tokens")
         print(f"[{tag}] paper/fused generated the same tokens as "
               f"paper/two_step", flush=True)
+    if census:
+        results["census"] = _rec_census(torch, cfg, plan, params, prompts,
+                                        card)
     del params
     return launches, results
 
@@ -1997,8 +2092,8 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     dispatch through fc_a2a, no wire kernel; two_step, two encodes and
     two decodes a TP site or within-expert AllReduce (around the gloo
     hop), one of each a dispatch site; bf16, none. In replicate mode the
-    decode's ring merges (``attention.RING_MERGES``) number one a layer
-    and decode step."""
+    decode's ring merges (``attention.RING_MERGES``) number one an
+    attention layer and decode step."""
     from repro_torch.kernels import rdma, stage, wire
     from repro_torch.launch import mesh
     from repro_torch.models import attention
@@ -2060,12 +2155,12 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
         flush=True)
 
     kinds = cfg.layer_kinds
-    tp_sites = 1 + sum(2 if k == "dense" else 1 for k in kinds)
+    tp_sites = _tp_sites(cfg)
     a2a_sites = kinds.count("moe")
     etp_sites = a2a_sites if moe and plan.moe.etp > 1 else 0
     forwards = 1 + PROMPT_LEN + gen - 1
-    merges = (cfg.n_layers * (PROMPT_LEN + gen - 1)
-              if plan.kv_mode == "replicate" else 0)
+    merges = (sum(k in ("dense", "local", "moe") for k in kinds)
+              * (PROMPT_LEN + gen - 1) if plan.kv_mode == "replicate" else 0)
     wire.reset_launches()                  # the tp path starts here
     stage.reset_launches()
     rdma.reset_launches()
@@ -2137,58 +2232,48 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
 
 
 def _tp_cfg(arch: str):
-    """Phase tp's and tp4's configs at full width, their depth cut:
-    qwen3-14b to TP_REPEATS layers, moonshot to its dense block and
-    TP_MOE_REPEATS MoE blocks, glm4-9b to GLM_REPEATS layers."""
+    """The rank-process cells' configs (TP_CELLS): at full width, their
+    depth cut, qwen3-14b to TP_REPEATS layers, moonshot to its dense
+    block and TP_MOE_REPEATS MoE blocks, glm4-9b to GLM_REPEATS layers,
+    xlstm-125m to XLSTM_TP_REPEATS (mlstm, slstm) repeats; EP_ARCH at its
+    smoke config."""
     import dataclasses
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke_config
+    if arch == EP_ARCH:
+        return get_smoke_config(arch)
     repeats = {ARCH: TP_REPEATS, MOE_ARCH: TP_MOE_REPEATS,
-               GLM_ARCH: GLM_REPEATS}[arch]
+               GLM_ARCH: GLM_REPEATS, XLSTM_ARCH: XLSTM_TP_REPEATS}[arch]
     return dataclasses.replace(get_config(arch), pattern_repeats=repeats)
 
 
-def tp_rank_main(rank: int, size: int, rendezvous: str, out_dir: str) -> int:
-    """One rank process of phase tp (``chip_smoke.py --tp-rank``, ``size``
-    TP), tp4 (``size`` GLM_TP) or ep8 (``size`` EP_TP): the world checks,
-    then at TP ARCH and (its weights freed) MOE_ARCH, at GLM_TP GLM_ARCH,
-    at EP_TP EP_ARCH's smoke config (its mesh with the ep and etp
-    subaxes)."""
+def tp_rank_main(rank: int, tag: str, rendezvous: str, out_dir: str) -> int:
+    """One rank process (``chip_smoke.py --tp-rank``) of the cell ``tag``
+    of TP_CELLS: its world checks, if it has them, then its parts served
+    in turn, each part's weights freed before the next (the mesh has the
+    first part's ep and etp subaxes, if it has experts)."""
     import torch
-    from repro_torch.configs import get_smoke_config
     from repro_torch.launch import mesh
     from repro_torch.parallel.plan import make_plan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_grad_enabled(False)
+    size, world_checks, parts = TP_CELLS[tag]
     dev = mesh.rank_device(rank, torch.device("cuda"))
-    cfgs = ([get_smoke_config(EP_ARCH)] if size == EP_TP else
-            [_tp_cfg(a) for a in ((ARCH, MOE_ARCH) if size == TP
-                                  else (GLM_ARCH,))])
+    cfgs = [_tp_cfg(arch) for _, arch, _, _, _ in parts]
     plans = [make_plan(cfg, tp=size) for cfg in cfgs]
     row_bytes = max(mesh.site_row_bytes(cfg, plan, BATCH, PROMPT_LEN)
                     for cfg, plan in zip(cfgs, plans))
     axes = mesh.init_mesh(1, size, 0, rank, rendezvous, dev, row_bytes,
-                          plans[0].moe if size == EP_TP else None)
+                          plans[0].moe)
     axis = axes.model
     try:
         res = {"rank": rank, "device": str(dev),
                "row_bytes": row_bytes.model,
                "backend": str(torch.distributed.get_backend(axis.pg))}
-        if size == TP:
-            res["world"] = _tp_world_checks(torch, axis, dev)
-            res["dense"] = _tp_serve(torch, axis, dev, cfgs[0], TP_RUNS,
-                                     "tp", TP_GEN)
-            torch.cuda.empty_cache()           # the dense model is gone
-            res["moe"] = _tp_serve(torch, axis, dev, cfgs[1], MOE_TP_RUNS,
-                                   "moe tp", TP_GEN)
-        elif size == EP_TP:
-            res["worlds"] = _ep_world_checks(torch, axis, dev, cfgs[0])
-            res["ep"] = _tp_serve(torch, axis, dev, cfgs[0], TP_RUNS, "ep8",
-                                  EP_GEN)
-        else:
-            res["world"] = _tp_world_checks(torch, axis, dev,
-                                            GLM_PROBE_CALLS, a2a=False)
-            res["glm"] = _tp_serve(torch, axis, dev, cfgs[0], TP_RUNS,
-                                   "tp4", TP_GEN)
+        if world_checks is not None:
+            res["world"] = world_checks(torch, axis, dev, cfgs)
+        for (part, _, runs, label, gen), cfg in zip(parts, cfgs):
+            torch.cuda.empty_cache()           # the earlier part is gone
+            res[part] = _tp_serve(torch, axis, dev, cfg, runs, label, gen)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -2196,13 +2281,14 @@ def tp_rank_main(rank: int, size: int, rendezvous: str, out_dir: str) -> int:
     return 0
 
 
-def phase_tp(torch, card: str, size: int = TP):
-    """Phase tp (``size`` TP: qwen3-14b, then moonshot), tp4 (``size``
-    GLM_TP: glm4-9b) or ep8's serving (``size`` EP_TP: grok-1's smoke
-    config), one rank process a rank, all on the one card."""
+def phase_tp(torch, card: str, tag: str = "tp"):
+    """The rank-process cell ``tag`` of TP_CELLS: phase tp (qwen3-14b,
+    then moonshot), tp4 (glm4-9b), ep8's serving (grok-1's smoke config)
+    or rec's (xlstm-125m), one rank process a rank, all on the one
+    card."""
     from repro_torch.launch import mesh
     torch.cuda.empty_cache()                   # the earlier models are gone
-    tag = {TP: "tp", GLM_TP: "tp4", EP_TP: "ep8"}[size]
+    size, _, parts = TP_CELLS[tag]
     out_dir = os.path.join(ROOT, "chiprun_out", tag)
     os.makedirs(out_dir, exist_ok=True)
     for f in os.listdir(out_dir):
@@ -2210,7 +2296,7 @@ def phase_tp(torch, card: str, size: int = TP):
     t0 = time.perf_counter()
     mesh.run_ranks(lambda r, store: [
         sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
-        "--tp-size", str(size), "--rendezvous", store, "--out", out_dir],
+        "--tp-tag", tag, "--rendezvous", store, "--out", out_dir],
         size, timeout=TP_TIMEOUT_S)
     ranks = []
     for r in range(size):
@@ -2221,8 +2307,8 @@ def phase_tp(torch, card: str, size: int = TP):
         return (f"median {statistics.median(c):.4f}, min {c[0]:.4f}, max "
                 f"{c[-1]:.4f} ms a call")
 
-    for res in ranks if size == EP_TP else ():
-        ws = res["worlds"]
+    for res in (r for r in ranks if "ep" in r.get("world", {})):
+        ws = res["world"]
         print(f"[{tag}] rank {res['rank']} on {res['device']} "
               f"({res['backend']} groups): through PeerWorld.from_group, "
               f"bit-equal to the plain versions, pads exact, back to back "
@@ -2239,7 +2325,7 @@ def phase_tp(torch, card: str, size: int = TP):
                   f"peer) x {len(v)} {ms(v)}"
                   for shape, v in ws["ep"]["a2a_ms"].items())
               + f"  [{card}]", flush=True)
-    for res in ranks if size != EP_TP else ():
+    for res in (r for r in ranks if "caps" in r.get("world", {})):
         w = res["world"]
         caps = {k: sorted({v for c, v in w["caps"].items()
                            if ("a2a" in c) == (k == "fc_a2a")})
@@ -2258,10 +2344,7 @@ def phase_tp(torch, card: str, size: int = TP):
               + "".join(f"; fc_a2a {shape} x {len(v)} {ms(v)}"
                         for shape, v in w.get("a2a_ms", {}).items())
               + f" (ranks taking turns on one card)  [{card}]", flush=True)
-    parts = {TP: (("dense", TP_RUNS, "tp"), ("moe", MOE_TP_RUNS, "moe tp")),
-             GLM_TP: (("glm", TP_RUNS, "tp4"),),
-             EP_TP: (("ep", TP_RUNS, "ep8"),)}[size]
-    for part, runs, ptag in parts:
+    for part, _, runs, ptag, _ in parts:
         for label, _, _ in runs:
             r0 = ranks[0][part]["runs"][label]
             check(all(r[part]["runs"][label]["generated"] == r0["generated"]
@@ -2951,13 +3034,148 @@ def phase_moe_train(torch, card: str) -> dict:
     return res
 
 
+def _rec_window(torch, card: str) -> dict:
+    """recurrentgemma-2b's (rec, rec, local) repeat alone at full width
+    (no suffix), served REC_WINDOW_PROMPT tokens, past its window, and
+    REC_WINDOW_GEN more under bf16: the local block's ring holds exactly
+    ``window`` slots, and after the run every slot holds one of the last
+    ``window`` positions; prefill and decode agree to CACHE_REL_TOL."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wire
+    from repro_torch.launch.serve import build_policy, serve
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.parallel.shardings import init_params
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(REC_ARCH), pattern_repeats=1,
+                              suffix=())
+    plan = make_plan(cfg, tp=1)
+    params = init_params(cfg, plan, SEED, dev, torch.bfloat16)
+    _fill_output_projections(torch, cfg, plan, params, SEED + 1)
+    wire.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(params, cfg, plan, build_policy("bf16"), batch=BATCH,
+                prompt_len=REC_WINDOW_PROMPT, gen=REC_WINDOW_GEN,
+                device=dev, seed=SEED, label=" rec window bf16",
+                keep_caches=True)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    check(set(wire.LAUNCHES.values()) == {0},
+          f"rec window: wire kernels launched under bf16: {wire.LAUNCHES}")
+    ring = res.pop("caches")["layers"][cfg.layer_kinds.index("local")]
+    last = REC_WINDOW_PROMPT + REC_WINDOW_GEN - 2    # the last decoded
+    spos = ring["slot_pos"]
+    check(tuple(spos.shape) == (cfg.window,)
+          and ring["k"].shape[1] == cfg.window,
+          f"rec window: a ring of {tuple(spos.shape)} slots, not "
+          f"{cfg.window}")
+    check(bool((spos > last - cfg.window).all()), f"rec window: a slot "
+          f"outside the window: min {int(spos.min())} <= "
+          f"{last - cfg.window}")
+    rel = max(res["agreement"]["rel_divergence"])
+    check(rel <= CACHE_REL_TOL, f"rec window: prefill/decode logit "
+          f"divergence {rel} > {CACHE_REL_TOL}")
+    print(f"[rec window bf16] {cfg.name} ({', '.join(cfg.layer_kinds)}), "
+          f"window {cfg.window}: prompt {REC_WINDOW_PROMPT} + "
+          f"{REC_WINDOW_GEN} tokens x{BATCH}: TTFT {res['ttft_ms']:.1f} ms, "
+          f"decode median {res['step_ms_median']:.2f} ms/step, p90 "
+          f"{res['step_ms_p90']:.2f}; the ring's {cfg.window} slots hold "
+          f"positions {int(spos.min())}..{int(spos.max())}; prefill/decode "
+          f"logit divergence {rel:.4f}; peak memory {res['peak_gb']:.2f} GB"
+          f"  [{card}]", flush=True)
+    del params, ring, spos
+    return res
+
+
+def _rec_census(torch, cfg, plan, params, prompts, card: str) -> dict:
+    """The device operations (kernels and copies) that one prefill of
+    ``prompts`` and one decode step of ``cfg`` at tp = 1 launch under
+    paper/two_step (CUDA codec) on the served ``params``, counted in a
+    torch.profiler trace of one call, with their summed device time,
+    beside the call's time on the host's clock (synchronised, median of
+    3, outside the trace) -> {"prefill" | "decode": {...}}; the device's
+    idle share in a call is 1 - device / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import build_policy
+    from repro_torch.train.serve_step import (make_cache_init,
+                                              make_decode_step, make_prefill)
+    dev = prompts.device
+    policy = build_policy("paper")
+    prefill = make_prefill(cfg, plan, policy)
+    step = make_decode_step(cfg, plan, policy)
+    caches = make_cache_init(cfg, plan, BATCH, 8, dev)()
+    calls = {"prefill": lambda: prefill(params, prompts),
+             "decode": lambda: step(params, caches, prompts[:, :1])}
+    out = {}
+    for name, fn in calls.items():
+        walls = []
+        for _ in range(4):                 # a warm-up call, then 3 timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [(ev.count, getattr(ev, "self_device_time_total",
+                                  getattr(ev, "self_cuda_time_total", 0.0)))
+               for ev in prof.key_averages()]
+        evs = [(n, us) for n, us in evs if us > 0]
+        dev_ms = sum(us for _, us in evs) / 1e3
+        wall = statistics.median(walls[1:])
+        out[name] = {"kernels": sum(n for n, _ in evs),
+                     "device_ms": dev_ms, "wall_ms": wall}
+        print(f"[rec census] {cfg.name} paper/two_step {name} "
+              f"({BATCH} x {PROMPT_LEN if name == 'prefill' else 1} "
+              f"tokens): {out[name]['kernels']} device operations (kernels "
+              f"and copies) in a profiler trace of one call, {dev_ms:.2f} ms "
+              f"on the device, {wall:.2f} ms "
+              f"on the host's clock (idle share "
+              f"{1 - dev_ms / wall if wall else float('nan'):.3f})"
+              f"  [{card}]", flush=True)
+    del caches
+    return out
+
+
+def phase_rec(torch, np, card: str):
+    """recurrentgemma-2b and xlstm-125m (phase rec): at full width and
+    full depth, tp = 1 (_serve_tp1 under REC_RUNS, then, on the same
+    weights, the kernels a prefill and a decode step launch: _rec_census),
+    recurrentgemma's window run (_rec_window), then xlstm-125m at --mesh
+    1,TP (phase_tp's rank processes, XLSTM_TP_REPEATS repeats) -> (the
+    launches of the tp = 1 served runs and of rank 0's, {label:
+    results})."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+
+    def one(arch):
+        torch.cuda.empty_cache()               # the earlier models are gone
+        got, out[arch] = _serve_tp1(torch, np, get_config(arch), REC_RUNS,
+                                    "rec", card, census=True)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    one(REC_ARCH)
+    out["window"] = {"bf16": _rec_window(torch, card)}
+    one(XLSTM_ARCH)
+    ranks = phase_tp(torch, card, "rec_tp")
+    for k, v in ranks[0]["xlstm"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    out["tp"] = ranks
+    print(f"[rec] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches, out
+
+
 def phase_ep8(torch, card: str):
     """grok-1's smoke config at --mesh 1,EP_TP (ep 4 x etp 2): served
     (phase_tp's rank processes, EP_TP of them), then trained
     EP_TRAIN_MESHES -> (the serving ranks' results, {mesh: training
     ranks' results})."""
     t0 = time.perf_counter()
-    ranks = phase_tp(torch, card, EP_TP)
+    ranks = phase_tp(torch, card, "ep8")
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     trained = {spec: _train_ranks(torch, card, spec, arch=EP_ARCH)
@@ -2971,11 +3189,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
-    # a rank process of phase tp (started by phase tp itself)
+    # a rank process of phase tp, tp4, ep8 or rec (started by the phase)
     ap.add_argument("--tp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--tp-size", type=int, default=TP,
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-tag", default="tp", help=argparse.SUPPRESS)
     ap.add_argument("--rendezvous", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     # a rank process of phase train (started by phase train itself)
@@ -2986,7 +3203,7 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.tp_rank is not None:
-        return tp_rank_main(args.tp_rank, args.tp_size, args.rendezvous,
+        return tp_rank_main(args.tp_rank, args.tp_tag, args.rendezvous,
                             args.out)
     if args.train_rank is not None:
         sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3032,7 +3249,7 @@ def main(argv=None) -> int:
     if "ar" in phases:
         ar_launches, ar_timed = phase_ar(torch, card)
     tp_ranks = phase_tp(torch, card) if "tp" in phases else []
-    tp4_ranks = phase_tp(torch, card, GLM_TP) if "tp4" in phases else []
+    tp4_ranks = phase_tp(torch, card, "tp4") if "tp4" in phases else []
     trained = phase_train(torch, card) if "train" in phases else {}
     moe_trained = (phase_moe_train(torch, card) if "moe_train" in phases
                    else {})
@@ -3042,6 +3259,8 @@ def main(argv=None) -> int:
                                                                card)
     ep8_ranks, ep8_trained = (phase_ep8(torch, card) if "ep8" in phases
                               else ([], {}))
+    rec_launches, rec_out = ({}, {}) if "rec" not in phases else \
+        phase_rec(torch, np, card)
     ep8_launches = ep8_ranks[0]["ep"]["launches"] if ep8_ranks else {}
     ep8_train_launches = _train_launches(ep8_trained, EP_TRAIN_MESHES)
     train_launches = _train_launches(trained)
@@ -3077,7 +3296,8 @@ def main(argv=None) -> int:
                  + train_launches.get(name, 0)
                  + moe_train_launches.get(name, 0)
                  + ep8_launches.get(name, 0)
-                 + ep8_train_launches.get(name, 0))
+                 + ep8_train_launches.get(name, 0)
+                 + rec_launches.get(name, 0))
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
                 name, {})
@@ -3088,6 +3308,7 @@ def main(argv=None) -> int:
                  + moe_launches.get(name, 0) + train_launches.get(name, 0)
                  + moe_train_launches.get(name, 0)
                  + moe_archs_launches.get(name, 0)
+                 + rec_launches.get(name, 0)
                  if name in WIRE_KERNELS else stage_launches.get(name, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source,
@@ -3103,6 +3324,7 @@ def main(argv=None) -> int:
             "moe_archs_launches": moe_archs_launches.get(name, 0),
             "ep8_launches": ep8_launches.get(name, 0),
             "ep8_train_launches": ep8_train_launches.get(name, 0),
+            "rec_launches": rec_launches.get(name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -3126,7 +3348,10 @@ def main(argv=None) -> int:
               "moe_archs": {a: numbers(r) for a, r in
                             moe_archs_served.items()},
               "moe_archs_launches": moe_archs_launches,
-              "ep8": ep8_ranks, "ep8_train": ep8_trained}
+              "ep8": ep8_ranks, "ep8_train": ep8_trained,
+              "rec": {k: v if k == "tp" else numbers(v)
+                      for k, v in rec_out.items()},
+              "rec_launches": rec_launches}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

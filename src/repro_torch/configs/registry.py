@@ -9,7 +9,8 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = ("qwen3-14b", "moonshot-v1-16b-a3b", "llama3-8b", "glm4-9b",
-            "command-r-35b", "grok-1-314b", "llama4-maverick-400b-a17b")
+            "command-r-35b", "grok-1-314b", "llama4-maverick-400b-a17b",
+            "recurrentgemma-2b", "xlstm-125m")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

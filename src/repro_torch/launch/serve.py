@@ -138,7 +138,8 @@ def _full_logits(logits: torch.Tensor, group) -> torch.Tensor:
 
 def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
           prompt_len: int, gen: int, device: torch.device, seed: int = 0,
-          label: str = "", log=print, group=None) -> Dict:
+          label: str = "", log=print, group=None,
+          keep_caches: bool = False) -> Dict:
     """Prefill a batch of synthetic prompts, then decode: the prompt is
     teacher-forced through the cache, then ``gen`` tokens are generated.
     ``group`` is the model axis (``params`` this rank's shard); every
@@ -151,7 +152,8 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
     paths route with different capacities (``capacity(B * S)`` against
     ``capacity(B)``, which at decode drops routes that prefill keeps), so
     their logits differ by design; the routes dropped at prefill and at
-    decode are counted instead.
+    decode are counted instead. With ``keep_caches`` the result also
+    holds the decode caches as the last step left them (``"caches"``).
     """
     ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
                                  global_batch=batch, seed=seed))
@@ -220,7 +222,8 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
     return {"ttft_ms": ttft * 1000, "first_step_ms": step_ms[0],
             "step_ms_median": med, "step_ms_p90": p90, "decode_steps": steps,
             "first_tokens": first.cpu().numpy(), "generated": gen_toks,
-            "agreement": agree, **routes}
+            "agreement": agree, **routes,
+            **({"caches": caches} if keep_caches else {})}
 
 
 def main(argv=None) -> Dict:

@@ -58,7 +58,7 @@ from repro_torch.core.policy import (BF16_POLICY, CommPolicy,
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import param_groups
+from repro_torch.models.model import check_trainable, param_groups
 from repro_torch.parallel.axis import MeshAxes, axis_rank
 from repro_torch.parallel.plan import ShardingPlan, make_plan
 from repro_torch.parallel.shardings import init_store
@@ -220,6 +220,7 @@ def main(argv=None) -> Optional[Dict]:
             "--check runs the analyzer (commcheck), which is not ported: "
             "ROADMAP Queue A item 7")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    check_trainable(cfg)
     data, model, pod = mesh_lib.parse_train_mesh(args.mesh)
     device = resolve_device(args.device)
     world = max(pod, 1) * data * model

@@ -8,9 +8,15 @@ of tp; padded heads are masked, exact no-ops). kv heads are sharded when
 partial sums cross the ranks through :func:`repro_torch.models.layers.
 tp_psum`.
 
+A ``local`` block attends over the last ``window`` positions only (its
+key at ``p`` is seen from the query at ``q`` when ``q - window < p <=
+q``), at prefill and at decode.
+
 The decode cache is a ring: ``slot_pos[c]`` is the position held in slot
-``c`` (-1 when empty). In shard mode each rank holds every position of
-its kv heads, position ``pos`` in slot ``pos % cache_len``. In replicate
+``c`` (-1 when empty); a local block's ring has ``min(cache_len,
+window)`` slots, so it wraps once the sequence passes the window. In
+shard mode each rank holds every position of its kv heads, position
+``pos`` in slot ``pos % cache_len``. In replicate
 mode the ring is sharded by sequence: each rank holds ``cache_len / tp``
 positions of all kv heads, position ``pos`` goes to slot ``pos %
 cache_len`` of the whole ring, which rank ``slot // c_loc`` owns, and
@@ -22,14 +28,13 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core.collectives import (all_gather_rows, all_to_all_rows,
                                           sum_rows)
 from repro_torch.core.policy import CommPolicy
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rms_norm, rope, tp_psum
+from repro_torch.models.layers import inv_sqrt, rms_norm, rope, tp_psum
 from repro_torch.parallel.plan import ShardingPlan
 from repro_torch.parallel.shardings import ParamSpec
 
@@ -113,22 +118,17 @@ def _per_q_head(t: torch.Tensor, kvmap: List[int]) -> torch.Tensor:
                       for k, c in runs], dim=2)
 
 
-def _scale(hd: int) -> float:
-    """1/sqrt(hd) as float32 arithmetic gives it (as in the JAX code), as
-    a Python float (exact in float32) so that no host-to-device copy
-    synchronises the stream."""
-    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
-
-
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         qpos: torch.Tensor, kpos: torch.Tensor,
+                        window: Optional[int] = None,
                         chunk: int = KV_CHUNK) -> torch.Tensor:
     """Causal online-softmax attention over KV chunks. q (B,S,H,hd); k/v
-    (B,Skv,H,hd). kpos entries < 0 are masked (padding). The last chunk
-    is not padded: padded keys would add exact zeros."""
+    (B,Skv,H,hd). kpos entries < 0 are masked (padding); with ``window``
+    so are keys at ``window`` or more positions before the query. The
+    last chunk is not padded: padded keys would add exact zeros."""
     b, s, h, hd = q.shape
     skv = k.shape[1]
-    scale = _scale(hd)
+    scale = inv_sqrt(hd)
     qf = q.to(torch.float32)
     m = torch.full((b, s, h), _NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, s, h), dtype=torch.float32, device=q.device)
@@ -138,8 +138,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vb = v[:, c0:c0 + chunk].to(torch.float32)
         pb = kpos[c0:c0 + chunk]
         sc = torch.einsum("bshd,bchd->bshc", qf, kb) * scale
-        mask = ((pb >= 0)[None, :] & (pb[None, :] <= qpos[:, None])
-                )[None, :, None, :]
+        mask = (pb >= 0)[None, :] & (pb[None, :] <= qpos[:, None])
+        if window is not None:
+            mask = mask & (pb[None, :] > qpos[:, None] - window)
+        mask = mask[None, :, None, :]
         sc = torch.where(mask, sc, torch.full_like(sc, _NEG))
         m_new = torch.maximum(m, torch.amax(sc, dim=-1))
         p = torch.exp(sc - m_new[..., None])
@@ -196,12 +198,14 @@ def _finish(p, ctx, valid, policy: CommPolicy, cfg, layer, group):
 
 def self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
                    plan: ShardingPlan, policy: CommPolicy, *,
+                   window: Optional[int] = None,
                    cache: Optional[Dict] = None, pos: int = 0,
                    layer: Optional[int] = None, group=None, rank: int = 0
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Causal self-attention: full-sequence (cache=None; positions (S,))
-    or single-token cached decode (x (B,1,d) at position ``pos``; the
-    cache is written in place)."""
+    """Causal self-attention, over the last ``window`` positions when
+    given: full-sequence (cache=None; positions (S,)) or single-token
+    cached decode (x (B,1,d) at position ``pos``; the cache is written in
+    place)."""
     valid, kvmap = _head_maps(cfg, plan, rank, x.device)
     q, k, v = _project_qkv(p, x, cfg, plan)
 
@@ -210,7 +214,7 @@ def self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         ke, ve = (_per_q_head(t, kvmap) for t in (k, v))
-        ctx = blockwise_attention(q, ke, ve, positions, positions)
+        ctx = blockwise_attention(q, ke, ve, positions, positions, window)
         return _finish(p, ctx, valid, policy, cfg, layer, group), None
 
     if cfg.rope_theta is not None:
@@ -226,12 +230,15 @@ def self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
         cache["v"][:, slot % c_loc] = v[:, 0].to(cache["v"].dtype)
         cache["slot_pos"][slot % c_loc] = pos
     spos = cache["slot_pos"]
-    mask = ((spos >= 0) & (spos <= pos))[None, None, None, :]
+    mask = (spos >= 0) & (spos <= pos)
+    if window is not None:
+        mask = mask & (spos > pos - window)
+    mask = mask[None, None, None, :]
     if plan.kv_mode == "shard":
         ke = _per_q_head(cache["k"], kvmap)          # (B, C, hq_loc, hd)
         ve = _per_q_head(cache["v"], kvmap)
         sc = torch.einsum("bshd,bchd->bshc", q.to(torch.float32),
-                          ke.to(torch.float32)) * _scale(cfg.hd)
+                          ke.to(torch.float32)) * inv_sqrt(cfg.hd)
         sc = torch.where(mask, sc, torch.full_like(sc, _NEG))
         w = torch.softmax(sc, dim=-1)
         ctx = torch.einsum("bshc,bchd->bshd", w, ve.to(torch.float32))
@@ -266,7 +273,7 @@ def _ring_attention(q: torch.Tensor, cache: Dict, mask: torch.Tensor,
     ke = _per_q_head(cache["k"], every)              # (B, C_loc, hq_pad, hd)
     ve = _per_q_head(cache["v"], every)
     sc = torch.einsum("bshd,bchd->bshc", qa.to(torch.float32),
-                      ke.to(torch.float32)) * _scale(hd)
+                      ke.to(torch.float32)) * inv_sqrt(hd)
     sc = torch.where(mask, sc, torch.full_like(sc, _NEG))
     m_loc = torch.amax(sc, dim=-1)                   # (B, 1, hq_pad)
     pw = torch.exp(sc - m_loc[..., None])

@@ -2,9 +2,13 @@
 
 A model is a sequence of blocks: ``prefix + pattern * pattern_repeats +
 suffix``. This package runs the ``dense`` block (causal self-attention +
-dense MLP) and the ``moe`` block (causal self-attention + mixture of
-experts); the other kinds are named so that configs validate the same
-way, and :func:`repro_torch.models.model.forward` raises for them.
+dense MLP), the ``moe`` block (causal self-attention + mixture of
+experts), the ``local`` block (sliding-window self-attention over the
+last ``window`` positions + dense MLP), the ``rec`` block (RG-LRU
+recurrence + dense MLP) and the ``mlstm`` / ``slstm`` blocks (xLSTM's
+cells, no separate MLP); the encoder and cross-attention kinds are
+named so that configs validate the same way, and
+:func:`repro_torch.models.model.forward` raises for them.
 """
 from __future__ import annotations
 
@@ -41,9 +45,14 @@ class ModelConfig:
     norm: str = "rms"            # rms | ln
     use_bias: bool = False
     qk_norm: bool = False
-    rope_theta: Optional[float] = 10000.0
+    rope_theta: Optional[float] = 10000.0   # None -> learned/no positions
+    learned_pos: bool = True     # when rope is None: learned table vs none
+    max_pos: int = 524288        # learned-pos table size when rope is None
+    window: Optional[int] = None             # sliding window (local blocks)
     logit_softcap: Optional[float] = None
     moe: Optional[MoEConfig] = None
+    lru_width: Optional[int] = None          # rec blocks (default d_model)
+    conv_width: int = 4                      # temporal conv in rec blocks
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     source: str = ""

@@ -1,5 +1,5 @@
-"""Normalization (RMS and LayerNorm), RoPE, embeddings, vocab-parallel
-logits, dense MLP.
+"""Normalization (RMS and LayerNorm), activations, RoPE, embeddings,
+vocab-parallel logits, dense MLP.
 
 Every activation that crosses the TP ranks goes through
 :func:`tp_psum`, the paper's quantized AllReduce site (its backward the
@@ -12,6 +12,7 @@ import functools
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -50,6 +51,32 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     (``tests/test_torch_moe_archs.py``)."""
     c, a, half, one = _gelu_consts(x.dtype)
     return x * (half * (one + torch.tanh(c * (x + a * x ** 3))))
+
+
+def inv_sqrt(n: int) -> float:
+    """1/sqrt(n) as float32 arithmetic gives it (as in the JAX code), as
+    a Python float (exact in float32) so that no host-to-device copy
+    synchronises the stream."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(n)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``jnp.logaddexp(x, 0)``, that is ``max(x, 0) +
+    log1p(exp(-|x|))`` (NaN where ``x`` is NaN). ``F.softplus`` differs:
+    it is ``log1p(exp(x))`` below its threshold of 20 and ``x`` above."""
+    sp = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, sp)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)`` (not ``F.logsigmoid``)."""
+    return -softplus(-x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: ``lax.logistic``, which lowers to ``1 / (1 +
+    exp(-x))``, each op in ``x``'s dtype."""
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor,

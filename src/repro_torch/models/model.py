@@ -1,5 +1,14 @@
-"""Decoder of dense and MoE blocks: parameter layout, forward, decode
-caches, greedy next.
+"""Decoder of the dense, MoE, sliding-window and recurrent blocks:
+parameter layout, forward, decode caches, greedy next.
+
+Block kinds (:data:`SUPPORTED_KINDS`): ``dense`` (causal self-attention
++ MLP), ``moe`` (causal self-attention + mixture of experts), ``local``
+(self-attention over the last ``cfg.window`` positions + MLP), ``rec``
+(RG-LRU + MLP) and ``mlstm`` / ``slstm`` (xLSTM's cells, no MLP;
+:mod:`repro_torch.models.recurrent`). A model whose ``rope_theta`` is
+None and ``learned_pos`` False has no positions at all; learned
+positions (whisper) and the encoder and cross-attention kinds are not
+ported (ROADMAP Queue A item 4).
 
 Parameters are ``params[group][name]`` tensors of shape
 ``(n_stack, *local_shape)`` (see :mod:`repro_torch.parallel.shardings`),
@@ -11,7 +20,8 @@ site, and an MoE block's dispatch through the quantized All2All site,
 each resolved per ``(site, global block index)``.
 
 Serving runs :func:`forward` on resident weights (``fsdp == 1``).
-Training runs :func:`forward_train` on the flat ZeRO store of
+Training (the dense and MoE kinds, :data:`TRAINED_KINDS`) runs
+:func:`forward_train` on the flat ZeRO store of
 :mod:`repro_torch.parallel.shardings`: each block group is gathered over
 the data axis (the ``qag`` site) as the JAX package's ``forward`` does,
 and each block, its gather included, is recomputed in the backward
@@ -30,6 +40,7 @@ from repro_torch.core.policy import CommPolicy
 from repro_torch.core.collectives import all_gather_rows
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_norm, embed_lookup, mlp_apply,
                                        vocab_parallel_ce,
@@ -39,7 +50,12 @@ from repro_torch.parallel.plan import ShardingPlan
 from repro_torch.parallel.shardings import (ParamSpec, Params, Store,
                                             gather_group)
 
-SUPPORTED_KINDS = ("dense", "moe")
+SUPPORTED_KINDS = ("dense", "moe", "local", "rec", "mlstm", "slstm")
+#: the kinds :func:`forward_train` takes (the others serve only)
+TRAINED_KINDS = ("dense", "moe")
+#: the recurrent kinds' mixers
+_RECURRENT = {"rec": rec_mod.rglru_apply, "mlstm": rec_mod.mlstm_apply,
+              "slstm": rec_mod.slstm_apply}
 
 
 def _norm_specs(cfg: ModelConfig, name: str) -> Dict[str, ParamSpec]:
@@ -75,20 +91,30 @@ def _mlp_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
 def block_specs(kind: str, cfg: ModelConfig,
                 plan: ShardingPlan) -> Dict[str, ParamSpec]:
     if kind not in SUPPORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
+        raise NotImplementedError(f"block kind {kind!r} is not ported "
+                                  f"(ROADMAP Queue A item 4)")
     s = dict(_norm_specs(cfg, "n1_"))
-    s.update(attn.attn_specs(cfg, plan))
-    s.update(_norm_specs(cfg, "n2_"))
-    s.update(moe_mod.moe_specs(cfg, plan) if kind == "moe"
-             else _mlp_specs(cfg, plan))
+    if kind in ("dense", "local", "moe"):
+        s.update(attn.attn_specs(cfg, plan))
+    if kind in ("dense", "local", "moe", "rec"):
+        s.update(_norm_specs(cfg, "n2_"))
+        s.update(moe_mod.moe_specs(cfg, plan) if kind == "moe"
+                 else _mlp_specs(cfg, plan))
+    if kind == "rec":
+        s.update(rec_mod.rglru_specs(cfg, plan))
+    if kind == "mlstm":
+        s.update(rec_mod.mlstm_specs(cfg, plan))
+    if kind == "slstm":
+        s.update(rec_mod.slstm_specs(cfg, plan))
     return s
 
 
 def param_groups(cfg: ModelConfig, plan: ShardingPlan
                  ) -> Dict[str, Tuple[int, Dict[str, ParamSpec]]]:
     """{group_name: (n_stack, {param: spec})}, as in the JAX package."""
-    if cfg.rope_theta is None:
-        raise NotImplementedError("learned positions are not ported")
+    if cfg.rope_theta is None and cfg.learned_pos:
+        raise NotImplementedError("learned positions are not ported "
+                                  "(ROADMAP Queue A item 4)")
     d = cfg.d_model
     groups: Dict[str, Tuple[int, Dict[str, ParamSpec]]] = {
         "embed": (1, {"tok": ParamSpec((plan.vocab_pad, d), tp_dim=0)})}
@@ -144,17 +170,29 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
                 cache: Optional[Dict], pos: int = 0,
                 layer: Optional[int] = None, group=None,
                 rank: int = 0, stats: Optional[Dict] = None):
-    """x + attn(norm(x)), then x + mlp(norm(x)) (dense) or
-    x + moe(norm(x)) (moe) -> (x, aux_loss); aux is 0.0 for a dense
-    block. ``stats`` gathers the MoE routing counts
+    """x + mixer(norm(x)), then (but for mlstm and slstm) x +
+    mlp(norm(x)), or x + moe(norm(x)) in a moe block -> (x, aux_loss);
+    aux is 0.0 but for a moe block. The mixer is the causal
+    self-attention (dense, moe; local over the last ``cfg.window``
+    positions), RG-LRU (rec) or the xLSTM cell (mlstm, slstm). ``cache``
+    is the block's decode cache (:func:`init_block_cache`), advanced in
+    place. ``stats`` gathers the MoE routing counts
     (:func:`repro_torch.models.moe.moe_apply`)."""
     if kind not in SUPPORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
+        raise NotImplementedError(f"block kind {kind!r} is not ported "
+                                  f"(ROADMAP Queue A item 4)")
     h = _norm(p, x, cfg, "n1_")
-    a, _ = attn.self_attention(p, h, positions, cfg, plan, policy,
-                               cache=cache, pos=pos, layer=layer,
-                               group=group, rank=rank)
-    x = x + a
+    if kind in _RECURRENT:
+        x = x + _RECURRENT[kind](p, h, cfg, plan, policy, state=cache,
+                                 layer=layer, group=group)
+        if kind != "rec":
+            return x, 0.0
+    else:
+        a, _ = attn.self_attention(
+            p, h, positions, cfg, plan, policy,
+            window=cfg.window if kind == "local" else None, cache=cache,
+            pos=pos, layer=layer, group=group, rank=rank)
+        x = x + a
     h = _norm(p, x, cfg, "n2_")
     if kind == "moe":
         f, aux = moe_mod.moe_apply(p, h, cfg, plan, policy, layer=layer,
@@ -235,6 +273,16 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return x, unemb, aux, caches
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError if ``cfg`` has a block kind outside
+    :data:`TRAINED_KINDS` (ROADMAP Queue A item 9)."""
+    untrained = sorted(set(cfg.layer_kinds) - set(TRAINED_KINDS))
+    if untrained:
+        raise NotImplementedError(
+            f"training of block kinds {untrained} is not ported (ROADMAP "
+            f"Queue A item 9): they serve only")
+
+
 def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
                   plan: ShardingPlan, policy: CommPolicy, *,
                   dtype=torch.bfloat16, group=None, data_group=None,
@@ -253,8 +301,11 @@ def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
     the backward (``torch.utils.checkpoint``, the whole block replayed).
     An MoE block's aux loss enters ``aux_loss``; ``stats``, if given,
     gathers its routing counts (:func:`repro_torch.models.moe.moe_apply`)
-    in the forward.
+    in the forward. It raises for a block kind outside
+    :data:`TRAINED_KINDS`: the recurrent and sliding-window kinds' training
+    is not yet held against the JAX package (ROADMAP Queue A item 9).
     """
+    check_trainable(cfg)
     groups = param_groups(cfg, plan)
     qag = policy.bind(cfg.n_layers).resolve("qag")
 
@@ -283,13 +334,31 @@ def lm_loss(hidden: torch.Tensor, unemb: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll) + aux_weight * aux
 
 
+def init_block_cache(kind: str, cfg: ModelConfig, plan: ShardingPlan,
+                     batch: int, cache_len: int, dtype, device) -> Dict:
+    """A block's decode cache: an attention block's kv ring of
+    ``cache_len`` slots (a local block's of ``min(cache_len, window)``),
+    a rec block's RG-LRU state ``{h, conv}``, an mlstm block's ``{c, n,
+    m}``, an slstm block's ``{c, n, h, m}``."""
+    if kind == "rec":
+        return rec_mod.rglru_init_state(cfg, plan, batch, device)
+    if kind == "mlstm":
+        return rec_mod.mlstm_init_state(cfg, plan, batch, device)
+    if kind == "slstm":
+        return rec_mod.slstm_init_state(cfg, plan, batch, device)
+    if kind == "local" and cfg.window:
+        cache_len = min(cache_len, cfg.window)
+    return attn.init_kv_cache(cfg, plan, batch, cache_len, dtype, device)
+
+
 def init_caches(cfg: ModelConfig, plan: ShardingPlan, batch: int,
                 cache_len: int, dtype, device) -> Dict:
-    """{"pos": 0, "layers": [per-block kv cache]} for decoding."""
+    """{"pos": 0, "layers": [each block's cache]} for decoding
+    (:func:`init_block_cache`)."""
     return {"pos": 0,
-            "layers": [attn.init_kv_cache(cfg, plan, batch, cache_len,
-                                          dtype, device)
-                       for _ in cfg.layer_kinds]}
+            "layers": [init_block_cache(k, cfg, plan, batch, cache_len,
+                                        dtype, device)
+                       for k in cfg.layer_kinds]}
 
 
 def next_token_logits(hidden: torch.Tensor, unemb: torch.Tensor,

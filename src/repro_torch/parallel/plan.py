@@ -1,13 +1,16 @@
 """ShardingPlan: how a model maps onto tensor-parallel ranks.
 
-The port's copy of the JAX package's plan, for the dense and MoE blocks:
+The port's copy of the JAX package's plan:
 
 * q heads are sharded over ``tp`` ranks, padded up to a multiple of
   ``tp`` (padded heads are masked, exact no-ops);
 * kv heads are sharded when ``n_kv % tp == 0`` ("shard"), otherwise
   replicated per rank ("replicate");
-* the FFN hidden and the vocabulary are padded to ``tp`` multiples and
-  sharded;
+* the FFN hidden, the vocabulary and the RG-LRU width (``lru_width``,
+  else ``d_model``) are padded to ``tp`` multiples and sharded;
+* the xLSTM cells' heads are padded to a multiple of ``tp``
+  (``nh_lstm_pad``, ``nh_lstm_loc`` a rank; padded heads are masked,
+  exact no-ops);
 * experts (EP): the axis factorises ``tp = ep * etp`` (ep-major), with
   ``ep = gcd(n_experts, tp)``: rank ``m = ep_idx * etp + tp_idx`` owns
   experts ``[ep_idx * e_loc, (ep_idx + 1) * e_loc)``, each with its hidden
@@ -66,6 +69,9 @@ class ShardingPlan:
     f_loc: int                    # dense FFN hidden per rank
     vocab_pad: int
     v_loc: int
+    lru_loc: int                  # RG-LRU channels per rank
+    nh_lstm_pad: int              # xLSTM heads padded to tp
+    nh_lstm_loc: int
     moe: Optional[MoEPlan] = None
 
 
@@ -80,12 +86,16 @@ def make_plan(cfg: ModelConfig, tp: int, fsdp: int = 1) -> ShardingPlan:
         kv_mode, kv_loc = "replicate", cfg.n_kv_heads
     f_pad = pad_to(cfg.d_ff, tp)
     vocab_pad = pad_to(cfg.vocab, tp)
+    lru_pad = pad_to(cfg.lru_width or cfg.d_model, tp)
+    nh_lstm_pad = pad_to(max(cfg.n_heads, 1), tp)
     moe = (make_moe_plan(cfg.moe.n_experts, cfg.moe.d_ff, tp)
            if cfg.moe is not None else None)
     return ShardingPlan(tp=tp, fsdp=fsdp, hq_pad=hq_pad,
                         hq_loc=hq_pad // tp, kv_mode=kv_mode, kv_loc=kv_loc,
                         f_loc=f_pad // tp, vocab_pad=vocab_pad,
-                        v_loc=vocab_pad // tp, moe=moe)
+                        v_loc=vocab_pad // tp, lru_loc=lru_pad // tp,
+                        nh_lstm_pad=nh_lstm_pad,
+                        nh_lstm_loc=nh_lstm_pad // tp, moe=moe)
 
 
 def flat_store_len(numel_loc: int, fsdp: int) -> int:

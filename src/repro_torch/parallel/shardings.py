@@ -46,7 +46,7 @@ class ParamSpec:
     """Global logical shape + how it maps to a TP rank."""
     shape: Tuple[int, ...]
     tp_dim: Optional[int] = None      # dim sharded over the TP ranks
-    init: str = "fan_in"              # fan_in | zeros | ones
+    init: str = "fan_in"              # fan_in | zeros | ones | lru_lambda
     # experts: "in" = (E, d, F) with F over etp; "out" = (E, F, d).
     # E is sharded over ep; rank m = ep_idx*etp + tp_idx.
     moe_fold: Optional[str] = None
@@ -84,7 +84,11 @@ def init_params(cfg, plan: ShardingPlan, seed: int, device,
 
     The JAX package's init rules: ``fan_in`` specs are normal with std
     1/sqrt(fan_in), ``zeros`` specs (the attention and MLP output
-    projections) zeros, ``ones`` specs (norm gains) ones. Each tensor has
+    projections) zeros, ``ones`` specs (norm gains) ones, ``lru_lambda``
+    specs (RG-LRU's decay) the inverse softplus of ``-log(u) / 8`` for
+    ``u`` uniform on [0.9, 0.999], so that the recurrence's weight
+    ``exp(-8 softplus(lambda))`` at a full gate is ``u``; any other
+    init raises ValueError (:func:`_draw`). Each tensor has
     its own generator, seeded by a crc32 of (seed, group, name, stack
     index, rank), so the weights are the same in every process.
     Replicated parameters draw the same values on every rank; sliced ones
@@ -115,14 +119,20 @@ def init_params(cfg, plan: ShardingPlan, seed: int, device,
 
 def _draw(spec: ParamSpec, plan: ShardingPlan, seed: int, gname: str,
           name: str, stack: int, rank: int, device) -> torch.Tensor:
-    """One stack slice of a ``fan_in`` parameter, float32 (see
-    :func:`init_params`)."""
+    """One stack slice of a ``fan_in`` or ``lru_lambda`` parameter,
+    float32 (see :func:`init_params`); ValueError for any other init."""
+    if spec.init not in ("fan_in", "lru_lambda"):
+        raise ValueError(f"{gname}/{name}: unknown init {spec.init!r}")
     shape = spec.local_shape(plan)
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    std = 1.0 / math.sqrt(max(fan_in, 1))
     r = rank if (spec.tp_dim is not None or spec.moe_fold is not None) else 0
     gen = torch.Generator(device=device)
     gen.manual_seed(_seed(seed, gname, name, stack, r))
+    if spec.init == "lru_lambda":
+        u = torch.rand(shape, generator=gen, device=device,
+                       dtype=torch.float32).mul_(0.999 - 0.9).add_(0.9)
+        return torch.log(torch.exp(-torch.log(u) / 8.0) - 1.0)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
     return torch.randn(shape, generator=gen, device=device,
                        dtype=torch.float32).mul_(std)
 

@@ -66,7 +66,10 @@ def make_decode_step(cfg: ModelConfig, plan: ShardingPlan,
 
 def make_cache_init(cfg: ModelConfig, plan: ShardingPlan, batch: int,
                     cache_len: int, device):
-    """init() -> fresh decode caches on ``device``."""
+    """init() -> fresh decode caches on ``device``: a kv ring an
+    attention block (a local block's of at most its window's slots), a
+    recurrent state a rec, mlstm or slstm block
+    (:func:`repro_torch.models.model.init_block_cache`)."""
     dtype = _dtype(cfg)
 
     def init():

@@ -37,6 +37,14 @@ MODE ``serve_moe``: the same for the moonshot smoke config (float32;
 ``tests/test_torch_serve_tp_moe.py`` writes its ``jax.npz``), its experts
 spread over the ranks (ep = WORLD), with the routes dropped over
 capacity at prefill and decode.
+
+MODE ``serve_rec``: the same for the recurrentgemma-2b and xlstm-125m
+smoke configs, one after the other (``tests/test_torch_serve_tp_recurrent.
+py`` writes ``OUT_DIR/ARCH/jax.npz``; each rank saves
+``OUT_DIR/ARCH/rank{RANK}.npz``), recurrentgemma's window cut to
+:data:`REC_WINDOW` so that the decode's local ring wraps within the
+prompt, with the logits of the decode steps through the prompt
+(:func:`decode_logits`) for both.
 """
 import os
 import sys
@@ -135,6 +143,10 @@ def run_moe(rank: int, world: int) -> dict:
 
 
 SERVE_B, SERVE_S, SERVE_GEN = 2, 12, 3
+REC_ARCHS = ("recurrentgemma-2b", "xlstm-125m")
+#: mode serve_rec's local window (the smoke config's 64 cut), shorter
+#: than the prompt, so that the decode's local ring wraps
+REC_WINDOW = 8
 SERVE_RUNS = {"paper/two_step": ("paper", None),
               "paper/fused": ("paper", "fused"),
               "bf16": ("bf16", None)}
@@ -155,9 +167,13 @@ def serve_gen(plan) -> int:
 
 
 def serve_config(arch: str = "qwen3-14b"):
+    """The smoke config of ``arch`` in float32 (a local window cut to
+    :data:`REC_WINDOW`)."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
-    return dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    cfg = get_smoke_config(arch)
+    return dataclasses.replace(cfg, dtype="float32", window=cfg.window
+                               and REC_WINDOW)
 
 
 def tie_logits(rank: int) -> torch.Tensor:
@@ -214,7 +230,7 @@ def run_serve(rank: int, world: int, out_dir: str,
                         group=axis)
             out[f"{name}/generated"] = res["generated"]
             out[f"{name}/ring_merges"] = np.array(attention.RING_MERGES)
-            if plan.kv_mode == "replicate":
+            if plan.kv_mode == "replicate" or arch in REC_ARCHS:
                 out[f"{name}/decode_logits"] = decode_logits(
                     params, cfg, plan, policy, axis, toks)
             if cfg.moe is not None:
@@ -258,6 +274,12 @@ def main():
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
+        if mode == "serve_rec":
+            for arch in REC_ARCHS:
+                d = os.path.join(out_dir, arch)
+                np.savez(os.path.join(d, f"rank{rank}.npz"),
+                         **run_serve(rank, world, d, arch))
+            return
         if mode == "moe":
             out = run_moe(rank, world)
         elif mode in SERVE_ARCHS:
