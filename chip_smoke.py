@@ -247,12 +247,36 @@ Phases, each printing its lines; any failure exits non-zero:
              window (_rec_window). After each model's served runs, on
              the same weights, the kernels one prefill and one decode
              step launch (a torch.profiler trace of one call: count and
-             device time, beside the call's host time; _rec_census).
+             device time, beside the call's host time; _census).
              Then xlstm-125m
              at --mesh 1,TP, its depth cut to XLSTM_TP_REPEATS repeats,
              two rank processes as phase tp's: paper/fused ==
              paper/two_step bit for bit on both ranks (prefill, decode
-             steps, tokens), fc_ar launches counted.
+             steps), paper/fused served (XLSTM_TP_RUNS), fc_ar launches
+             counted.
+14. xattn  -- whisper-tiny (encoder-decoder: 4 enc blocks over 1500
+             frames, 4 dec blocks, learned positions, LayerNorm, biases;
+             0.14 GB) at full width and depth, and llama-3.2-vision-11b
+             (image cross-attention over 1600 patches) at full width,
+             its depth cut to VISION_REPEATS of 8 (xattn, dense x 4)
+             repeats, tp = 1, weights from seed SEED (the output
+             projections and, whisper's, every bias filled); the stub
+             frontend's embeddings from the data stream (_serve_inputs)
+             in every forward, the decode steps' too (the encoder runs
+             again each step, as in the JAX package): paper/two_step's
+             prefill hidden states and DECODE_CHECK_STEPS decode steps'
+             logits through the CUDA kernels equal the plain codec's bit
+             for bit; XATTN_RUNS served with exact launch counts
+             (_tp_sites: 21 TP sites a forward in each, whisper's 8
+             encoder sites included), TTFT, ms/step, peak memory and
+             prefill/decode agreement (bf16 to CACHE_REL_TOL); then
+             _census on the same weights (whisper's encoder pass alone
+             beside its decode step). Then whisper-tiny at --mesh 1,TP,
+             full depth, two rank processes as phase tp's (the peer
+             world's rows sized for BATCH x 1500 encoder tokens):
+             paper/fused == paper/two_step bit for bit on both ranks
+             (prefill, decode steps), paper/fused served
+             (XATTN_TP_RUNS) with one fc_ar launch a TP site.
 
 In phase train, --mesh 1,1,2 also runs paper/two_step with
 ``--framed-bridge 8`` (policy.with_framed_bridge: the pod hop int8 g128
@@ -267,14 +291,16 @@ and no NaN in any parameter.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the wire kernels' from the serve, ln, moe, train,
-moe_train and moe_archs paths, the stage kernels' from their entry
-points, fc_a2a's from phase tp's moonshot runs on rank 0 and phases
-moe_train's and ep8's, fc_ar's from phase tp's and tp4's served runs and
-phases train's, moe_train's and ep8's runs on rank 0;
+moe_train, moe_archs, rec and xattn paths, the stage kernels' from their
+entry points, fc_a2a's from phase tp's moonshot runs on rank 0 and
+phases moe_train's and ep8's, fc_ar's from phase tp's and tp4's served
+runs and phases train's, moe_train's, ep8's, rec's and xattn's runs on
+rank 0;
 ``serve_launches``, ``ln_launches``, ``moe_launches``, ``tp_launches``,
 ``moe_tp_launches``, ``glm_tp_launches``, ``train_launches``,
 ``moe_train_launches``, ``moe_archs_launches``, ``ep8_launches``,
-``ep8_train_launches`` and ``rec_launches``: from those paths); the last
+``ep8_train_launches``, ``rec_launches`` and ``xattn_launches``: from
+those paths); a ``[phase] NAME: SECONDS`` line follows each phase; the last
 line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -296,7 +322,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 PHASES = ("build", "codec", "crc", "stage", "time", "serve", "ln", "a2a",
           "moe", "ar", "tp", "tp4", "train", "moe_train", "moe_archs", "ep8",
-          "rec")
+          "rec", "xattn")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -332,6 +358,8 @@ SERVE_RUNS = RUNS[:2]
 # phase rec (checked as phase serve's is)
 MOE_CHECK_ONLY = RUNS[2:]
 CACHE_REL_TOL = 0.1
+# the std of a biased model's filled biases (_fill_output_projections)
+BIAS_STD = 0.05
 ARCH = "qwen3-14b"
 MOE_ARCH = "moonshot-v1-16b-a3b"
 BATCH, PROMPT_LEN, GEN, SEED = 4, 128, 16, 0
@@ -371,8 +399,8 @@ TP_TIMEOUT_S = 900
 TP_REPEATS = 20
 TP_MOE_REPEATS = 15
 # phase moe's moonshot (tp = 1): its 47 MoE blocks cut to MOE_REPEATS,
-# for the same reason
-MOE_REPEATS = 23
+# for the same reason (23, then 11 to pay for phase xattn)
+MOE_REPEATS = 11
 # phase tp4: glm4-9b at --mesh 1,GLM_TP, its two kv heads replicated (the
 # decode cache a sequence-sharded ring), its 40 layers cut to GLM_REPEATS
 GLM_ARCH = "glm4-9b"
@@ -449,6 +477,22 @@ XLSTM_ARCH = "xlstm-125m"
 REC_RUNS = (("paper/two_step", "paper", None), BASELINE)
 REC_WINDOW_PROMPT, REC_WINDOW_GEN = 2112, 8
 XLSTM_TP_REPEATS = 2
+# xlstm's --mesh 1,TP served runs: its paper/two_step served run was cut
+# to pay for phase xattn (still held against paper/fused bit for bit
+# before the served run)
+XLSTM_TP_RUNS = TP_RUNS[:1]
+# phase xattn: whisper-tiny (encoder-decoder: 4 enc + 4 dec blocks over
+# 1500 frames) at full width and depth and llama-3.2-vision-11b (image
+# cross-attention over 1600 patches) at full width, its 8 (xattn, dense x
+# 4) repeats cut to VISION_REPEATS (10 of 40 blocks, 2 of them xattn),
+# tp = 1, served under XATTN_RUNS; whisper at --mesh 1,TP, full depth
+WHISPER_ARCH = "whisper-tiny"
+VISION_ARCH = "llama-3.2-vision-11b"
+VISION_REPEATS = 2
+XATTN_RUNS = (("paper/two_step", "paper", None), BASELINE)
+# whisper at --mesh 1,TP: paper/fused served (fc_ar once a TP site, the
+# encoder's included); paper/two_step held against it bit for bit only
+XATTN_TP_RUNS = TP_RUNS[:1]
 #: the rank-process cells (phase_tp, tp_rank_main): tag -> (ranks, the
 #: world checks (torch, axis, dev, configs) -> dict or None, the parts
 #: served in turn, each (part, arch for _tp_cfg, runs, label, generated
@@ -462,8 +506,10 @@ TP_CELLS = {
             (("glm", GLM_ARCH, TP_RUNS, "tp4", TP_GEN),)),
     "ep8": (EP_TP, lambda t, a, d, c: _ep_world_checks(t, a, d, c[0]),
             (("ep", EP_ARCH, TP_RUNS, "ep8", EP_GEN),)),
-    "rec_tp": (TP, None, (("xlstm", XLSTM_ARCH, TP_RUNS, "rec tp",
-                           TP_GEN),))}
+    "rec_tp": (TP, None, (("xlstm", XLSTM_ARCH, XLSTM_TP_RUNS, "rec tp",
+                           TP_GEN),)),
+    "xattn_tp": (TP, None, (("whisper", WHISPER_ARCH, XATTN_TP_RUNS,
+                             "xattn tp", TP_GEN),))}
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
                                              scale_int=True)),
@@ -1198,25 +1244,34 @@ def _fill_output_projections(torch, cfg, plan, params, seed: int,
     output is non-zero. In a model with recurrent blocks the zero
     vectors sharded over TP (RG-LRU's gate weights and biases and its
     conv bias, sLSTM's gate biases) are filled from a standard normal
-    too, so that the gates depend on the data; other zero vectors
-    (biases) stay zero. A TP rank ``rank`` folds its index into the
-    seed, so that the ranks' shards differ."""
+    too, so that the gates depend on the data; in a model with biases
+    (``use_bias``) every zero vector (the projections' biases and the
+    LayerNorm biases) from a normal of std BIAS_STD; other zero vectors
+    stay zero. A TP rank ``rank`` folds its index into the seed of the
+    tensors sliced over TP, so that the ranks' shards differ; a
+    replicated tensor draws from a generator of its own, the same on
+    every rank."""
     from repro_torch.models.model import param_groups
     vectors = bool(set(cfg.layer_kinds) & {"rec", "mlstm", "slstm"})
-    names = [(g, n) for g, (_, specs) in sorted(param_groups(
-        cfg, plan).items()) for n, sp in specs.items()
-             if sp.init == "zeros" and (len(sp.shape) > 1 or (
-                 vectors and sp.tp_dim is not None))]
+    names = [(g, n, sp.tp_dim is None and sp.moe_fold is None)
+             for g, (_, specs) in sorted(param_groups(cfg, plan).items())
+             for n, sp in specs.items()
+             if sp.init == "zeros" and (len(sp.shape) > 1 or cfg.use_bias
+                                        or (vectors
+                                            and sp.tp_dim is not None))]
     t0 = params[names[0][0]][names[0][1]]
     gen = torch.Generator(device=t0.device)
     gen.manual_seed(seed + 1000003 * rank)
-    for g, name in names:
+    rgen = torch.Generator(device=t0.device)
+    rgen.manual_seed(seed + 2000003)
+    for g, name, replicated in names:
         t = params[g][name]
-        std = t.shape[-2] ** -0.5 if t.dim() > 2 else 1.0
+        std = (t.shape[-2] ** -0.5 if t.dim() > 2
+               else BIAS_STD if cfg.use_bias else 1.0)
         for i in range(t.shape[0]):         # one float32 slice at a time
-            t[i].copy_(torch.randn(t.shape[1:], generator=gen,
-                                   device=t.device).mul_(std))
-    return [f"{g}/{n}" for g, n in names]
+            t[i].copy_(torch.randn(t.shape[1:], generator=rgen if replicated
+                                   else gen, device=t.device).mul_(std))
+    return [f"{g}/{n}" for g, n, _ in names]
 
 
 def phase_serve(torch, np):
@@ -1612,12 +1667,31 @@ def phase_moe_archs(torch, np, card: str):
     return launches, served
 
 
+def _serve_inputs(torch, cfg, dev):
+    """The served prompts (BATCH, PROMPT_LEN) from the data stream of
+    seed SEED, and, for a model with an encoder or cross-attention, the
+    stub frontend's embeddings (BATCH, n_ctx, d_model) drawn after them
+    (None otherwise), on ``dev``: what ``serve`` gives the model."""
+    from repro_torch.train.data import DataConfig, make_dataset
+    enc = cfg.encoder.n_ctx if (cfg.is_enc_dec or cfg.has_cross) else None
+    batch = make_dataset(DataConfig(
+        vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH, seed=SEED,
+        enc_ctx=enc, d_model=cfg.d_model)).batch(0)
+    return (torch.from_numpy(batch["tokens"]).to(dev),
+            torch.from_numpy(batch["enc_embeds"]).to(dev) if enc else None)
+
+
 def _tp_sites(cfg) -> int:
     """TP sites a forward: the embedding's, and a block's mixer's and
     MLP's (an moe block's attention only: at tp = 1 its experts' sum
-    crosses no rank; an mlstm or slstm block has no MLP)."""
-    return 1 + sum(2 if k in ("dense", "local", "rec") else 1
-                   for k in cfg.layer_kinds)
+    crosses no rank; an mlstm or slstm block has no MLP; a dec block's
+    self-attention, cross-attention and MLP), and an encoder's 2 a block
+    (the encoder runs in every forward, a decode step's too)."""
+    enc = 2 * cfg.encoder.n_layers if cfg.is_enc_dec else 0
+    return 1 + enc + sum(
+        3 if k == "dec" else
+        2 if k in ("dense", "local", "rec", "enc", "xattn") else 1
+        for k in cfg.layer_kinds)
 
 
 def _serve_tp1(torch, np, cfg, runs, tag: str, card: str = "",
@@ -1632,15 +1706,16 @@ def _serve_tp1(torch, np, cfg, runs, tag: str, card: str = "",
     decode and 1 decode+reduce; a dispatch: 1 of each) and prints TTFT,
     ms/step, peak memory, and an MoE model's routes dropped over capacity
     or another's prefill/decode agreement (the run without the codec to
-    CACHE_REL_TOL); with ``census``, then _rec_census on the same
+    CACHE_REL_TOL); with ``census``, then _census on the same
     weights -> (launches over the served runs, {label: served result,
-    "census": _rec_census's result})."""
+    "census": _census's result}). A model with an encoder or
+    cross-attention is given the stream's embeddings (_serve_inputs) in
+    every forward."""
     from repro_torch.kernels import rdma, stage, wire
     from repro_torch.launch.serve import build_policy, serve
     from repro_torch.models.model import forward
     from repro_torch.parallel.plan import make_plan
     from repro_torch.parallel.shardings import init_params
-    from repro_torch.train.data import DataConfig, make_dataset
     from repro_torch.train.serve_step import (make_cache_init,
                                               make_decode_step)
     torch.set_grad_enabled(False)
@@ -1655,6 +1730,9 @@ def _serve_tp1(torch, np, cfg, runs, tag: str, card: str = "",
     kinds = cfg.layer_kinds
     moe = cfg.moe is not None
     blocks = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+    if cfg.encoder is not None:
+        blocks += (f"; {cfg.encoder.n_layers} enc blocks, "
+                   f"{cfg.encoder.n_ctx} encoder positions")
     if moe:
         blocks += (f"; {cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, "
                    f"{cfg.act}")
@@ -1663,15 +1741,14 @@ def _serve_tp1(torch, np, cfg, runs, tag: str, card: str = "",
           f"{SEED} ({filled} filled) in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    prompts = torch.from_numpy(make_dataset(DataConfig(
-        vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH,
-        seed=SEED)).batch(0)["tokens"]).to(dev)
+    prompts, embeds = _serve_inputs(torch, cfg, dev)
     checked = [r for r in checks + runs if r[1] != "bf16"]
     for label, pol, scheme in checked:
         pols = [build_policy(pol, backend=b, scheme=scheme)
                 for b in ("cuda", "ref")]
         h_cuda, h_plain = (forward(params, prompts, cfg, plan, p,
-                                   dtype=torch.bfloat16)[0] for p in pols)
+                                   dtype=torch.bfloat16,
+                                   enc_embeds=embeds)[0] for p in pols)
         check(bool(torch.isfinite(h_cuda).all()),
               f"{tag} prefill {label}: hidden states not finite")
         check(_bits_equal(torch, h_cuda, h_plain),
@@ -1682,7 +1759,7 @@ def _serve_tp1(torch, np, cfg, runs, tag: str, card: str = "",
                                   dev)() for _ in pols]
         for i in range(DECODE_CHECK_STEPS):
             (lc, caches[0]), (lr, caches[1]) = (
-                st(params, c, prompts[:, i:i + 1])
+                st(params, c, prompts[:, i:i + 1], embeds)
                 for st, c in zip(steps, caches))
             check(_bits_equal(torch, lc, lr),
                   f"{tag} decode {label} step {i}: logits through the CUDA "
@@ -1754,8 +1831,8 @@ def _serve_tp1(torch, np, cfg, runs, tag: str, card: str = "",
         print(f"[{tag}] paper/fused generated the same tokens as "
               f"paper/two_step", flush=True)
     if census:
-        results["census"] = _rec_census(torch, cfg, plan, params, prompts,
-                                        card)
+        results["census"] = _census(torch, cfg, plan, params, prompts,
+                                    embeds, tag, card)
     del params
     return launches, results
 
@@ -2101,7 +2178,6 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     from repro_torch.models.model import forward
     from repro_torch.parallel.plan import make_plan
     from repro_torch.parallel.shardings import init_params
-    from repro_torch.train.data import DataConfig, make_dataset
     from repro_torch.train.serve_step import (make_cache_init,
                                               make_decode_step)
     rank, tp = axis.rank, axis.size
@@ -2128,13 +2204,11 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
 
     # paper/fused (the peer-push kernels) against paper/two_step (the
     # wire kernels around the gloo hop), bit for bit on this rank
-    prompts = torch.from_numpy(make_dataset(DataConfig(
-        vocab=cfg.vocab, seq_len=PROMPT_LEN, global_batch=BATCH,
-        seed=SEED)).batch(0)["tokens"]).to(dev)
+    prompts, embeds = _serve_inputs(torch, cfg, dev)
     pols = [build_policy("paper", scheme=s) for s in ("fused", "two_step")]
     mesh.barrier(axis)
     hf, ht = (forward(params, prompts, cfg, plan, p, dtype=torch.bfloat16,
-                      group=axis)[0] for p in pols)
+                      group=axis, enc_embeds=embeds)[0] for p in pols)
     check(bool(torch.isfinite(hf).all()),
           f"{tag} rank {rank}: prefill hidden states not finite")
     check(_bits_equal(torch, hf, ht), f"{tag} rank {rank}: prefill hidden "
@@ -2144,7 +2218,7 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     caches = [make_cache_init(cfg, plan, BATCH, clen, dev)() for _ in pols]
     for i in range(DECODE_CHECK_STEPS):
         (lf, caches[0]), (lt, caches[1]) = (
-            st(params, c, prompts[:, i:i + 1])
+            st(params, c, prompts[:, i:i + 1], embeds)
             for st, c in zip(steps, caches))
         check(_bits_equal(torch, lf, lt), f"{tag} rank {rank}: decode step "
               f"{i} logits under paper/fused differ from paper/two_step")
@@ -2159,7 +2233,7 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     a2a_sites = kinds.count("moe")
     etp_sites = a2a_sites if moe and plan.moe.etp > 1 else 0
     forwards = 1 + PROMPT_LEN + gen - 1
-    merges = (sum(k in ("dense", "local", "moe") for k in kinds)
+    merges = (sum(k in ("dense", "local", "moe", "dec") for k in kinds)
               * (PROMPT_LEN + gen - 1) if plan.kv_mode == "replicate" else 0)
     wire.reset_launches()                  # the tp path starts here
     stage.reset_launches()
@@ -2236,11 +2310,13 @@ def _tp_cfg(arch: str):
     depth cut, qwen3-14b to TP_REPEATS layers, moonshot to its dense
     block and TP_MOE_REPEATS MoE blocks, glm4-9b to GLM_REPEATS layers,
     xlstm-125m to XLSTM_TP_REPEATS (mlstm, slstm) repeats; EP_ARCH at its
-    smoke config."""
+    smoke config; whisper-tiny at full depth."""
     import dataclasses
     from repro_torch.configs import get_config, get_smoke_config
     if arch == EP_ARCH:
         return get_smoke_config(arch)
+    if arch == WHISPER_ARCH:
+        return get_config(arch)
     repeats = {ARCH: TP_REPEATS, MOE_ARCH: TP_MOE_REPEATS,
                GLM_ARCH: GLM_REPEATS, XLSTM_ARCH: XLSTM_TP_REPEATS}[arch]
     return dataclasses.replace(get_config(arch), pattern_repeats=repeats)
@@ -3087,16 +3163,21 @@ def _rec_window(torch, card: str) -> dict:
     return res
 
 
-def _rec_census(torch, cfg, plan, params, prompts, card: str) -> dict:
+def _census(torch, cfg, plan, params, prompts, embeds, tag: str,
+            card: str) -> dict:
     """The device operations (kernels and copies) that one prefill of
     ``prompts`` and one decode step of ``cfg`` at tp = 1 launch under
-    paper/two_step (CUDA codec) on the served ``params``, counted in a
+    paper/two_step (CUDA codec) on the served ``params`` (given
+    ``embeds``, a model with an encoder or cross-attention), counted in a
     torch.profiler trace of one call, with their summed device time,
     beside the call's time on the host's clock (synchronised, median of
-    3, outside the trace) -> {"prefill" | "decode": {...}}; the device's
-    idle share in a call is 1 - device / wall."""
+    3, outside the trace); for an encoder-decoder model also one pass of
+    its encoder alone, which every decode step runs again -> {"prefill" |
+    "decode" | "encoder": {...}}; the device's idle share in a call is
+    1 - device / wall."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import build_policy
+    from repro_torch.models.model import _encode
     from repro_torch.train.serve_step import (make_cache_init,
                                               make_decode_step, make_prefill)
     dev = prompts.device
@@ -3104,10 +3185,20 @@ def _rec_census(torch, cfg, plan, params, prompts, card: str) -> dict:
     prefill = make_prefill(cfg, plan, policy)
     step = make_decode_step(cfg, plan, policy)
     caches = make_cache_init(cfg, plan, BATCH, 8, dev)()
-    calls = {"prefill": lambda: prefill(params, prompts),
-             "decode": lambda: step(params, caches, prompts[:, :1])}
+    calls = {"prefill": (lambda: prefill(params, prompts, embeds),
+                         f"{BATCH} x {PROMPT_LEN} tokens"),
+             "decode": (lambda: step(params, caches, prompts[:, :1],
+                                     embeds), f"{BATCH} x 1 tokens")}
+    if cfg.is_enc_dec:
+        def encode():
+            return _encode(lambda g, i: {k: v[i] for k, v in
+                                         params[g].items()},
+                           embeds.to(torch.bfloat16), cfg, plan,
+                           policy.bind(cfg.n_layers), group=None, rank=0)
+        calls["encoder"] = (encode, f"{BATCH} x {cfg.encoder.n_ctx} frames, "
+                            f"{cfg.encoder.n_layers} enc blocks")
     out = {}
-    for name, fn in calls.items():
+    for name, (fn, what) in calls.items():
         walls = []
         for _ in range(4):                 # a warm-up call, then 3 timed
             torch.cuda.synchronize()
@@ -3126,14 +3217,21 @@ def _rec_census(torch, cfg, plan, params, prompts, card: str) -> dict:
         wall = statistics.median(walls[1:])
         out[name] = {"kernels": sum(n for n, _ in evs),
                      "device_ms": dev_ms, "wall_ms": wall}
-        print(f"[rec census] {cfg.name} paper/two_step {name} "
-              f"({BATCH} x {PROMPT_LEN if name == 'prefill' else 1} "
-              f"tokens): {out[name]['kernels']} device operations (kernels "
-              f"and copies) in a profiler trace of one call, {dev_ms:.2f} ms "
-              f"on the device, {wall:.2f} ms "
-              f"on the host's clock (idle share "
-              f"{1 - dev_ms / wall if wall else float('nan'):.3f})"
+        print(f"[{tag} census] {cfg.name} paper/two_step {name} ({what}): "
+              f"{out[name]['kernels']} device operations (kernels and "
+              f"copies) in a profiler trace of one call, {dev_ms:.2f} ms "
+              f"on the device, {wall:.2f} ms on the host's clock (idle "
+              f"share {1 - dev_ms / wall if wall else float('nan'):.3f})"
               f"  [{card}]", flush=True)
+    if cfg.is_enc_dec:
+        out["encoder_share"] = {k: out["encoder"][k] / out["decode"][k]
+                                for k in ("kernels", "device_ms",
+                                          "wall_ms")}
+        print(f"[{tag} census] {cfg.name}: the encoder re-run in a decode "
+              f"step is {out['encoder_share']['kernels']:.3f} of its "
+              f"device operations, {out['encoder_share']['device_ms']:.3f} "
+              f"of its device time and {out['encoder_share']['wall_ms']:.3f} "
+              f"of its host time  [{card}]", flush=True)
     del caches
     return out
 
@@ -3141,7 +3239,7 @@ def _rec_census(torch, cfg, plan, params, prompts, card: str) -> dict:
 def phase_rec(torch, np, card: str):
     """recurrentgemma-2b and xlstm-125m (phase rec): at full width and
     full depth, tp = 1 (_serve_tp1 under REC_RUNS, then, on the same
-    weights, the kernels a prefill and a decode step launch: _rec_census),
+    weights, the kernels a prefill and a decode step launch: _census),
     recurrentgemma's window run (_rec_window), then xlstm-125m at --mesh
     1,TP (phase_tp's rank processes, XLSTM_TP_REPEATS repeats) -> (the
     launches of the tp = 1 served runs and of rank 0's, {label:
@@ -3165,6 +3263,34 @@ def phase_rec(torch, np, card: str):
         launches[k] = launches.get(k, 0) + v
     out["tp"] = ranks
     print(f"[rec] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches, out
+
+
+def phase_xattn(torch, np, card: str):
+    """whisper-tiny (full width and depth) and llama-3.2-vision-11b (full
+    width, VISION_REPEATS repeats) at tp = 1 (_serve_tp1 under XATTN_RUNS,
+    then _census on the same weights), then whisper-tiny at --mesh 1,TP
+    (phase_tp's rank processes, full depth) -> (the launches of the tp = 1
+    served runs and of rank 0's, {label: results})."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    for arch, cfg in ((WHISPER_ARCH, get_config(WHISPER_ARCH)),
+                      (VISION_ARCH, dataclasses.replace(
+                          get_config(VISION_ARCH),
+                          pattern_repeats=VISION_REPEATS))):
+        torch.cuda.empty_cache()               # the earlier models are gone
+        got, out[arch] = _serve_tp1(torch, np, cfg, XATTN_RUNS, "xattn",
+                                    card, census=True)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    ranks = phase_tp(torch, card, "xattn_tp")
+    for k, v in ranks[0]["whisper"]["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    out["tp"] = ranks
+    print(f"[xattn] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return launches, out
 
@@ -3227,40 +3353,43 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def run(name, fn, skipped):
+        """Phase ``name`` (fn()) if it was asked for, else ``skipped``;
+        its seconds printed and kept."""
+        if name not in phases:
+            return skipped
+        t0 = time.perf_counter()
+        res = fn()
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[phase] {name}: {phase_s[name]:.1f} s", flush=True)
+        return res
+
     card = phase_build(torch)
-    if "codec" in phases:
-        phase_codec(torch, np)
-    crc_timed = phase_crc(torch, card) if "crc" in phases else {}
-    stage_launches = phase_stage(torch, np) if "stage" in phases else {}
-    timing = phase_time(torch, np, card) if "time" in phases else {}
-    launches, served = {}, {}
-    if "serve" in phases:
-        launches, served = phase_serve(torch, np)
-    ln_launches, ln_served = {}, {}
-    if "ln" in phases:
-        ln_launches, ln_served = phase_ln(torch, np)
-    a2a_launches, a2a_timed = {}, {}
-    if "a2a" in phases:
-        a2a_launches, a2a_timed = phase_a2a(torch, card)
-    moe_launches, moe_served = {}, {}
-    if "moe" in phases:
-        moe_launches, moe_served = phase_moe(torch, np)
-    ar_launches, ar_timed = {}, {}
-    if "ar" in phases:
-        ar_launches, ar_timed = phase_ar(torch, card)
-    tp_ranks = phase_tp(torch, card) if "tp" in phases else []
-    tp4_ranks = phase_tp(torch, card, "tp4") if "tp4" in phases else []
-    trained = phase_train(torch, card) if "train" in phases else {}
-    moe_trained = (phase_moe_train(torch, card) if "moe_train" in phases
-                   else {})
-    moe_archs_launches, moe_archs_served = {}, {}
-    if "moe_archs" in phases:
-        moe_archs_launches, moe_archs_served = phase_moe_archs(torch, np,
-                                                               card)
-    ep8_ranks, ep8_trained = (phase_ep8(torch, card) if "ep8" in phases
-                              else ([], {}))
-    rec_launches, rec_out = ({}, {}) if "rec" not in phases else \
-        phase_rec(torch, np, card)
+    run("codec", lambda: phase_codec(torch, np), None)
+    crc_timed = run("crc", lambda: phase_crc(torch, card), {})
+    stage_launches = run("stage", lambda: phase_stage(torch, np), {})
+    timing = run("time", lambda: phase_time(torch, np, card), {})
+    launches, served = run("serve", lambda: phase_serve(torch, np), ({}, {}))
+    ln_launches, ln_served = run("ln", lambda: phase_ln(torch, np), ({}, {}))
+    a2a_launches, a2a_timed = run("a2a", lambda: phase_a2a(torch, card),
+                                  ({}, {}))
+    moe_launches, moe_served = run("moe", lambda: phase_moe(torch, np),
+                                   ({}, {}))
+    ar_launches, ar_timed = run("ar", lambda: phase_ar(torch, card), ({}, {}))
+    tp_ranks = run("tp", lambda: phase_tp(torch, card), [])
+    tp4_ranks = run("tp4", lambda: phase_tp(torch, card, "tp4"), [])
+    trained = run("train", lambda: phase_train(torch, card), {})
+    moe_trained = run("moe_train", lambda: phase_moe_train(torch, card), {})
+    moe_archs_launches, moe_archs_served = run(
+        "moe_archs", lambda: phase_moe_archs(torch, np, card), ({}, {}))
+    ep8_ranks, ep8_trained = run("ep8", lambda: phase_ep8(torch, card),
+                                 ([], {}))
+    rec_launches, rec_out = run("rec", lambda: phase_rec(torch, np, card),
+                                ({}, {}))
+    xattn_launches, xattn_out = run(
+        "xattn", lambda: phase_xattn(torch, np, card), ({}, {}))
     ep8_launches = ep8_ranks[0]["ep"]["launches"] if ep8_ranks else {}
     ep8_train_launches = _train_launches(ep8_trained, EP_TRAIN_MESHES)
     train_launches = _train_launches(trained)
@@ -3297,7 +3426,8 @@ def main(argv=None) -> int:
                  + moe_train_launches.get(name, 0)
                  + ep8_launches.get(name, 0)
                  + ep8_train_launches.get(name, 0)
-                 + rec_launches.get(name, 0))
+                 + rec_launches.get(name, 0)
+                 + xattn_launches.get(name, 0))
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
                 name, {})
@@ -3309,6 +3439,7 @@ def main(argv=None) -> int:
                  + moe_train_launches.get(name, 0)
                  + moe_archs_launches.get(name, 0)
                  + rec_launches.get(name, 0)
+                 + xattn_launches.get(name, 0)
                  if name in WIRE_KERNELS else stage_launches.get(name, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source,
@@ -3325,6 +3456,7 @@ def main(argv=None) -> int:
             "ep8_launches": ep8_launches.get(name, 0),
             "ep8_train_launches": ep8_train_launches.get(name, 0),
             "rec_launches": rec_launches.get(name, 0),
+            "xattn_launches": xattn_launches.get(name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -3337,7 +3469,8 @@ def main(argv=None) -> int:
                     if isinstance(v, (int, float, bool, dict))}
                 for k, r in runs.items()}
 
-    record = {"card": card, "timing": timing, "launches": launches,
+    record = {"card": card, "phase_s": phase_s, "timing": timing,
+              "launches": launches,
               "stage_launches": stage_launches, "a2a": a2a_timed,
               "a2a_launches": a2a_launches, "moe_launches": moe_launches,
               "serve": numbers(served), "moe": numbers(moe_served),
@@ -3351,7 +3484,10 @@ def main(argv=None) -> int:
               "ep8": ep8_ranks, "ep8_train": ep8_trained,
               "rec": {k: v if k == "tp" else numbers(v)
                       for k, v in rec_out.items()},
-              "rec_launches": rec_launches}
+              "rec_launches": rec_launches,
+              "xattn": {k: v if k == "tp" else numbers(v)
+                        for k, v in xattn_out.items()},
+              "xattn_launches": xattn_launches}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,6 +1,6 @@
 """Architecture registry: full configs and reduced smoke variants.
 
-Only the architectures whose blocks this package runs are listed.
+Every architecture of the JAX package's registry.
 """
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = ("qwen3-14b", "moonshot-v1-16b-a3b", "llama3-8b", "glm4-9b",
             "command-r-35b", "grok-1-314b", "llama4-maverick-400b-a17b",
-            "recurrentgemma-2b", "xlstm-125m")
+            "recurrentgemma-2b", "xlstm-125m", "whisper-tiny",
+            "llama-3.2-vision-11b")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

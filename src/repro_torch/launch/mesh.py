@@ -93,7 +93,9 @@ def site_row_bytes(cfg, plan, batch: int, seq: int) -> WorldRows:
     config of at most 8 bits of what crosses it:
 
     * a TP site: ``batch * seq * d_model`` values padded to a
-      ``tp * 128`` multiple, the f32 bytes of a rank's chunk;
+      ``tp * 128`` multiple, the f32 bytes of a rank's chunk; in an
+      encoder-decoder model ``batch * max(seq, n_ctx)`` tokens, as its
+      encoder's sites carry ``batch * n_ctx``;
     * the MoE dispatch (experts spread over ranks, ep > 1): the
       ``e_loc * capacity(batch * seq)`` rows of ``d_model`` values (a
       128 multiple) that a rank sends a peer, 2 bytes a value (a policy
@@ -109,7 +111,8 @@ def site_row_bytes(cfg, plan, batch: int, seq: int) -> WorldRows:
     dispatch and the ``etp`` world the AllReduce.
     """
     t, d = batch * seq, cfg.d_model
-    model = _chunk_bytes(t * d, plan.tp, _TP_VALUE_BYTES)
+    enc_t = batch * cfg.encoder.n_ctx if cfg.is_enc_dec else 0
+    model = _chunk_bytes(max(t, enc_t) * d, plan.tp, _TP_VALUE_BYTES)
     mp = plan.moe
     if mp is None or plan.tp == 1:
         return WorldRows(model)

@@ -146,6 +146,10 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
     rank of it calls this, and a host barrier precedes the prefill and
     the decode loop.
 
+    A model with an encoder or cross-attention is
+    given the stream's ``enc_embeds`` (B, n_ctx, d_model) at the prefill
+    and at every decode step.
+
     Checks that decode's first generated token agrees with prefill's
     prediction (:func:`prefill_decode_agreement`): a mismatch means the
     cache was seeded or rolled wrong. Not for an MoE model: there the two
@@ -155,9 +159,16 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
     decode are counted instead. With ``keep_caches`` the result also
     holds the decode caches as the last step left them (``"caches"``).
     """
-    ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
-                                 global_batch=batch, seed=seed))
-    prompts = torch.from_numpy(ds.batch(0)["tokens"]).to(device)
+    enc = cfg.encoder.n_ctx if (cfg.is_enc_dec or cfg.has_cross) else None
+    data = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
+                                   global_batch=batch, seed=seed,
+                                   enc_ctx=enc,
+                                   d_model=cfg.d_model)).batch(0)
+    prompts = torch.from_numpy(data["tokens"]).to(device)
+    # the stub frontend's embeddings, given to the prefill and to every
+    # decode step
+    embeds = (torch.from_numpy(data["enc_embeds"]).to(device)
+              if enc else None)
 
     moe = cfg.moe is not None
     pstats, dstats = {}, {}
@@ -165,7 +176,7 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
     _sync(device)
     mesh.barrier(group)
     t0 = time.perf_counter()
-    prefill_logits = prefill(params, prompts)
+    prefill_logits = prefill(params, prompts, embeds)
     first = greedy_next_token(prefill_logits, plan, group)
     _sync(device)
     ttft = time.perf_counter() - t0
@@ -183,7 +194,7 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
     for i in range(steps):
         _sync(device)
         t0 = time.perf_counter()
-        logits, caches = step(params, caches, tok)
+        logits, caches = step(params, caches, tok, embeds)
         nt = greedy_next_token(logits, plan, group)
         _sync(device)
         step_ms.append((time.perf_counter() - t0) * 1000)

@@ -10,7 +10,11 @@ tp_psum`.
 
 A ``local`` block attends over the last ``window`` positions only (its
 key at ``p`` is seen from the query at ``q`` when ``q - window < p <=
-q``), at prefill and at decode.
+q``), at prefill and at decode. An ``enc`` block's self-attention is
+not causal; :func:`cross_attention` (``dec`` and ``xattn`` blocks)
+attends from the decoder's positions to every position of the encoder's
+output, with its own parameters (``xwq`` ... ``xwo``) and its own TP
+site.
 
 The decode cache is a ring: ``slot_pos[c]`` is the position held in slot
 ``c`` (-1 when empty); a local block's ring has ``min(cache_len,
@@ -51,7 +55,11 @@ def reset_ring_merges() -> None:
     RING_MERGES = 0
 
 
-def attn_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
+def attn_specs(cfg: ModelConfig, plan: ShardingPlan,
+               prefix: str = "") -> Dict[str, ParamSpec]:
+    """The attention's parameters, named ``prefix + name``: ``""`` for
+    the self-attention, ``"x"`` for the cross-attention (``xwq`` ...
+    ``xbo``)."""
     d, hd = cfg.d_model, cfg.hd
     kv_dim = cfg.n_kv_heads * hd
     kv_tp = 1 if plan.kv_mode == "shard" else None
@@ -70,7 +78,7 @@ def attn_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
     if cfg.qk_norm:
         s["qnorm"] = ParamSpec((hd,), init="ones")
         s["knorm"] = ParamSpec((hd,), init="ones")
-    return s
+    return {prefix + k: v for k, v in s.items()}
 
 
 def _kv_map(cfg: ModelConfig, plan: ShardingPlan, rank: int) -> List[int]:
@@ -121,11 +129,13 @@ def _per_q_head(t: torch.Tensor, kvmap: List[int]) -> torch.Tensor:
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         qpos: torch.Tensor, kpos: torch.Tensor,
                         window: Optional[int] = None,
-                        chunk: int = KV_CHUNK) -> torch.Tensor:
-    """Causal online-softmax attention over KV chunks. q (B,S,H,hd); k/v
-    (B,Skv,H,hd). kpos entries < 0 are masked (padding); with ``window``
-    so are keys at ``window`` or more positions before the query. The
-    last chunk is not padded: padded keys would add exact zeros."""
+                        chunk: int = KV_CHUNK,
+                        causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention over KV chunks. q (B,S,H,hd); k/v
+    (B,Skv,H,hd). kpos entries < 0 are masked (padding); with ``causal``
+    so are keys after the query, and with ``window`` keys at ``window``
+    or more positions before it. The last chunk is not padded: padded
+    keys would add exact zeros."""
     b, s, h, hd = q.shape
     skv = k.shape[1]
     scale = inv_sqrt(hd)
@@ -138,7 +148,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vb = v[:, c0:c0 + chunk].to(torch.float32)
         pb = kpos[c0:c0 + chunk]
         sc = torch.einsum("bshd,bchd->bshc", qf, kb) * scale
-        mask = (pb >= 0)[None, :] & (pb[None, :] <= qpos[:, None])
+        mask = (pb >= 0)[None, :].expand(s, -1)
+        if causal:
+            mask = mask & (pb[None, :] <= qpos[:, None])
         if window is not None:
             mask = mask & (pb[None, :] > qpos[:, None] - window)
         mask = mask[None, :, None, :]
@@ -171,50 +183,58 @@ def init_kv_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int,
                                    device=device)}
 
 
-def _project_qkv(p, x, cfg, plan):
+def _project_qkv(p, x, kv_src, cfg, plan, prefix=""):
+    """q from ``x``, k and v from ``kv_src`` (``x`` itself in a
+    self-attention, the encoder's output in a cross-attention), with the
+    parameters ``prefix + name``."""
     b = x.shape[0]
     hd = cfg.hd
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q = x @ p[prefix + "wq"]
+    k, v = kv_src @ p[prefix + "wk"], kv_src @ p[prefix + "wv"]
     if cfg.use_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = (q + p[prefix + "bq"], k + p[prefix + "bk"],
+                   v + p[prefix + "bv"])
     q = q.reshape(b, -1, plan.hq_loc, hd)
     k = k.reshape(b, -1, plan.kv_loc, hd)
     v = v.reshape(b, -1, plan.kv_loc, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["qnorm"])
-        k = rms_norm(k, p["knorm"])
+        q = rms_norm(q, p[prefix + "qnorm"])
+        k = rms_norm(k, p[prefix + "knorm"])
     return q, k, v
 
 
-def _finish(p, ctx, valid, policy: CommPolicy, cfg, layer, group):
+def _finish(p, ctx, valid, policy: CommPolicy, cfg, layer, group,
+            prefix=""):
     """Mask padded heads, out-project, quantized TP AllReduce."""
     b, s = ctx.shape[0], ctx.shape[1]
     ctx = ctx * valid.to(ctx.dtype)[None, None, :, None]
-    y = tp_psum(ctx.reshape(b, s, -1) @ p["wo"], policy, group, layer)
+    y = tp_psum(ctx.reshape(b, s, -1) @ p[prefix + "wo"], policy, group,
+                layer)
     if cfg.use_bias:
-        y = y + p["bo"]
+        y = y + p[prefix + "bo"]
     return y
 
 
 def self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
                    plan: ShardingPlan, policy: CommPolicy, *,
-                   window: Optional[int] = None,
+                   causal: bool = True, window: Optional[int] = None,
                    cache: Optional[Dict] = None, pos: int = 0,
                    layer: Optional[int] = None, group=None, rank: int = 0
                    ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Causal self-attention, over the last ``window`` positions when
-    given: full-sequence (cache=None; positions (S,)) or single-token
-    cached decode (x (B,1,d) at position ``pos``; the cache is written in
-    place)."""
+    """Self-attention, causal unless ``causal`` is False (the encoder's),
+    over the last ``window`` positions when given: full-sequence
+    (cache=None; positions (S,)) or single-token cached decode (x
+    (B,1,d) at position ``pos``; the cache is written in place)."""
     valid, kvmap = _head_maps(cfg, plan, rank, x.device)
-    q, k, v = _project_qkv(p, x, cfg, plan)
+    q, k, v = _project_qkv(p, x, x, cfg, plan)
 
     if cache is None:
         if cfg.rope_theta is not None:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         ke, ve = (_per_q_head(t, kvmap) for t in (k, v))
-        ctx = blockwise_attention(q, ke, ve, positions, positions, window)
+        ctx = blockwise_attention(q, ke, ve, positions, positions, window,
+                                  causal=causal)
         return _finish(p, ctx, valid, policy, cfg, layer, group), None
 
     if cfg.rope_theta is not None:
@@ -289,3 +309,22 @@ def _ring_attention(q: torch.Tensor, cache: Dict, mask: torch.Tensor,
     l_g = sum_rows(l_all * corr, 0)
     return (sum_rows(a_all * corr[..., None], 0)
             / torch.clamp(l_g, min=1e-20)[..., None])
+
+
+def cross_attention(p: Dict, x: torch.Tensor, enc: torch.Tensor,
+                    cfg: ModelConfig, plan: ShardingPlan,
+                    policy: CommPolicy, prefix: str = "x",
+                    layer: Optional[int] = None, group=None,
+                    rank: int = 0) -> torch.Tensor:
+    """Cross-attention of x (B, S, d) onto the encoder's output or the
+    image embeddings ``enc`` (B, Senc, d): q from ``x``, k and v from
+    ``enc`` (parameters ``prefix + name``), no rotation (the absolute
+    positions are in the embeddings), never causal, no cache (``enc`` is
+    the same at every step), then the quantized TP site."""
+    valid, kvmap = _head_maps(cfg, plan, rank, x.device)
+    q, k, v = _project_qkv(p, x, enc, cfg, plan, prefix)
+    kpos = torch.arange(enc.shape[1], device=x.device)
+    qpos = torch.zeros((x.shape[1],), dtype=torch.int64, device=x.device)
+    ke, ve = (_per_q_head(t, kvmap) for t in (k, v))
+    ctx = blockwise_attention(q, ke, ve, qpos, kpos, causal=False)
+    return _finish(p, ctx, valid, policy, cfg, layer, group, prefix)

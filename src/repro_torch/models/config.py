@@ -1,14 +1,27 @@
 """Model configuration (the port's copy of the JAX package's schema).
 
 A model is a sequence of blocks: ``prefix + pattern * pattern_repeats +
-suffix``. This package runs the ``dense`` block (causal self-attention +
-dense MLP), the ``moe`` block (causal self-attention + mixture of
-experts), the ``local`` block (sliding-window self-attention over the
-last ``window`` positions + dense MLP), the ``rec`` block (RG-LRU
-recurrence + dense MLP) and the ``mlstm`` / ``slstm`` blocks (xLSTM's
-cells, no separate MLP); the encoder and cross-attention kinds are
-named so that configs validate the same way, and
-:func:`repro_torch.models.model.forward` raises for them.
+suffix``. Every kind of :data:`BLOCK_KINDS` is served:
+
+  kind     mixer                      ffn
+  -------  -------------------------  -----------
+  dense    causal self-attention      dense MLP
+  local    sliding-window self-attn   dense MLP
+  moe      causal self-attention      MoE
+  xattn    cross-attention (no self)  dense MLP     (VLM image layers)
+  enc      bidirectional self-attn    dense MLP     (whisper encoder)
+  dec      causal self + cross-attn   dense MLP     (whisper decoder)
+  rec      RG-LRU recurrence          dense MLP     (recurrentgemma)
+  mlstm    matrix-LSTM (internal up-proj, no separate MLP)
+  slstm    scalar-LSTM (internal proj, no separate MLP)
+
+An encoder-decoder model (``encoder.n_layers > 0``) runs ``n_layers``
+``enc`` blocks over the frontend's embeddings before the decoder; a
+model with ``xattn`` or ``dec`` blocks attends to the encoder's output,
+or, with no encoder layers, to the embeddings themselves. The frontends
+(audio convolutions, a ViT and its projector) are stubs, as in the JAX
+package: the caller gives precomputed ``(batch, n_ctx, d_model)``
+embeddings.
 """
 from __future__ import annotations
 
@@ -26,6 +39,14 @@ class MoEConfig:
     d_ff: int                    # per-expert hidden width
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01   # load-balance loss weight
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Audio/vision frontend stub: the caller feeds precomputed
+    frame/patch embeddings of shape (batch, n_ctx, d_model)."""
+    n_layers: int = 0            # encoder transformer layers (whisper)
+    n_ctx: int = 1500            # frames (whisper) / patches (vlm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +72,7 @@ class ModelConfig:
     window: Optional[int] = None             # sliding window (local blocks)
     logit_softcap: Optional[float] = None
     moe: Optional[MoEConfig] = None
+    encoder: Optional[EncoderConfig] = None  # enc-dec (whisper) / vlm stub
     lru_width: Optional[int] = None          # rec blocks (default d_model)
     conv_width: int = 4                      # temporal conv in rec blocks
     tie_embeddings: bool = False
@@ -74,3 +96,11 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def is_enc_dec(self) -> bool:
+        return self.encoder is not None and self.encoder.n_layers > 0
+
+    @property
+    def has_cross(self) -> bool:
+        return any(k in ("xattn", "dec") for k in self.layer_kinds)

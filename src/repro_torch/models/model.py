@@ -1,23 +1,32 @@
-"""Decoder of the dense, MoE, sliding-window and recurrent blocks:
-parameter layout, forward, decode caches, greedy next.
+"""Encoder and decoder of every block kind: parameter layout, forward,
+decode caches, greedy next.
 
 Block kinds (:data:`SUPPORTED_KINDS`): ``dense`` (causal self-attention
 + MLP), ``moe`` (causal self-attention + mixture of experts), ``local``
 (self-attention over the last ``cfg.window`` positions + MLP), ``rec``
-(RG-LRU + MLP) and ``mlstm`` / ``slstm`` (xLSTM's cells, no MLP;
-:mod:`repro_torch.models.recurrent`). A model whose ``rope_theta`` is
-None and ``learned_pos`` False has no positions at all; learned
-positions (whisper) and the encoder and cross-attention kinds are not
-ported (ROADMAP Queue A item 4).
+(RG-LRU + MLP), ``mlstm`` / ``slstm`` (xLSTM's cells, no MLP;
+:mod:`repro_torch.models.recurrent`), ``enc`` (non-causal
+self-attention + MLP: the encoder's), ``dec`` (causal self-attention,
+cross-attention onto the encoder's output, MLP) and ``xattn``
+(cross-attention onto the image embeddings + MLP). Positions are rotary
+(``rope_theta``), a learned table ``pos`` added to the token embeddings
+(``rope_theta`` None and ``learned_pos``), or none.
 
 Parameters are ``params[group][name]`` tensors of shape
 ``(n_stack, *local_shape)`` (see :mod:`repro_torch.parallel.shardings`),
-grouped as in the JAX package: ``embed`` (``tok``), ``out`` (``nf_gain``,
-``unemb``) and ``pattern`` (the repeated blocks, names prefixed ``L{j}_``),
-plus ``pre{i}_{kind}`` / ``suf{i}_{kind}`` for unrepeated blocks. Every
+grouped as in the JAX package: ``embed`` (``tok``, and ``pos`` when
+learned), ``out`` (``nf_gain``, ``unemb``) and ``pattern`` (the repeated
+blocks, names prefixed ``L{j}_``), plus ``pre{i}_{kind}`` /
+``suf{i}_{kind}`` for unrepeated blocks, and for an encoder-decoder
+model ``encoder`` (its ``enc`` blocks stacked) and ``encoder_extra``
+(the final norm ``ef_`` and the learned table ``enc_pos``). Every
 activation crossing the TP ranks goes through the quantized AllReduce
 site, and an MoE block's dispatch through the quantized All2All site,
-each resolved per ``(site, global block index)``.
+each resolved per ``(site, global block index)``; the encoder's sites
+resolve at ``layer=None``, as the JAX package's do.
+
+The encoder runs in every :func:`forward`, the decode steps' too, as in
+the JAX package, whose decode step is given the embeddings at every step.
 
 Serving runs :func:`forward` on resident weights (``fsdp == 1``).
 Training (the dense and MoE kinds, :data:`TRAINED_KINDS`) runs
@@ -41,7 +50,7 @@ from repro_torch.core.collectives import all_gather_rows
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import BLOCK_KINDS, ModelConfig
 from repro_torch.models.layers import (apply_norm, embed_lookup, mlp_apply,
                                        vocab_parallel_ce,
                                        vocab_parallel_logits)
@@ -50,7 +59,7 @@ from repro_torch.parallel.plan import ShardingPlan
 from repro_torch.parallel.shardings import (ParamSpec, Params, Store,
                                             gather_group)
 
-SUPPORTED_KINDS = ("dense", "moe", "local", "rec", "mlstm", "slstm")
+SUPPORTED_KINDS = BLOCK_KINDS
 #: the kinds :func:`forward_train` takes (the others serve only)
 TRAINED_KINDS = ("dense", "moe")
 #: the recurrent kinds' mixers
@@ -90,13 +99,14 @@ def _mlp_specs(cfg: ModelConfig, plan: ShardingPlan) -> Dict[str, ParamSpec]:
 
 def block_specs(kind: str, cfg: ModelConfig,
                 plan: ShardingPlan) -> Dict[str, ParamSpec]:
-    if kind not in SUPPORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported "
-                                  f"(ROADMAP Queue A item 4)")
     s = dict(_norm_specs(cfg, "n1_"))
-    if kind in ("dense", "local", "moe"):
+    if kind in ("dense", "local", "moe", "enc", "dec"):
         s.update(attn.attn_specs(cfg, plan))
-    if kind in ("dense", "local", "moe", "rec"):
+    if kind in ("dec", "xattn"):
+        s.update(attn.attn_specs(cfg, plan, prefix="x"))
+    if kind == "dec":
+        s.update(_norm_specs(cfg, "n3_"))
+    if kind not in ("mlstm", "slstm"):
         s.update(_norm_specs(cfg, "n2_"))
         s.update(moe_mod.moe_specs(cfg, plan) if kind == "moe"
                  else _mlp_specs(cfg, plan))
@@ -112,16 +122,21 @@ def block_specs(kind: str, cfg: ModelConfig,
 def param_groups(cfg: ModelConfig, plan: ShardingPlan
                  ) -> Dict[str, Tuple[int, Dict[str, ParamSpec]]]:
     """{group_name: (n_stack, {param: spec})}, as in the JAX package."""
-    if cfg.rope_theta is None and cfg.learned_pos:
-        raise NotImplementedError("learned positions are not ported "
-                                  "(ROADMAP Queue A item 4)")
     d = cfg.d_model
-    groups: Dict[str, Tuple[int, Dict[str, ParamSpec]]] = {
-        "embed": (1, {"tok": ParamSpec((plan.vocab_pad, d), tp_dim=0)})}
+    emb = {"tok": ParamSpec((plan.vocab_pad, d), tp_dim=0)}
+    if cfg.rope_theta is None and cfg.learned_pos:
+        emb["pos"] = ParamSpec((cfg.max_pos, d))
+    groups: Dict[str, Tuple[int, Dict[str, ParamSpec]]] = {"embed": (1, emb)}
     out = dict(_norm_specs(cfg, "nf_"))
     if not cfg.tie_embeddings:
         out["unemb"] = ParamSpec((plan.vocab_pad, d), tp_dim=0)
     groups["out"] = (1, out)
+    if cfg.is_enc_dec:
+        groups["encoder"] = (cfg.encoder.n_layers,
+                             block_specs("enc", cfg, plan))
+        extra = dict(_norm_specs(cfg, "ef_"))
+        extra["enc_pos"] = ParamSpec((cfg.encoder.n_ctx, d))
+        groups["encoder_extra"] = (1, extra)
     for i, kind in enumerate(cfg.prefix):
         groups[f"pre{i}_{kind}"] = (1, block_specs(kind, cfg, plan))
     if cfg.pattern_repeats:
@@ -169,30 +184,38 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
                 cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
                 cache: Optional[Dict], pos: int = 0,
                 layer: Optional[int] = None, group=None,
-                rank: int = 0, stats: Optional[Dict] = None):
+                rank: int = 0, stats: Optional[Dict] = None,
+                enc_out: Optional[torch.Tensor] = None):
     """x + mixer(norm(x)), then (but for mlstm and slstm) x +
     mlp(norm(x)), or x + moe(norm(x)) in a moe block -> (x, aux_loss);
     aux is 0.0 but for a moe block. The mixer is the causal
-    self-attention (dense, moe; local over the last ``cfg.window``
-    positions), RG-LRU (rec) or the xLSTM cell (mlstm, slstm). ``cache``
-    is the block's decode cache (:func:`init_block_cache`), advanced in
-    place. ``stats`` gathers the MoE routing counts
+    self-attention (dense, moe, dec; local over the last ``cfg.window``
+    positions; enc's not causal), the cross-attention onto ``enc_out``
+    (xattn; a dec block's follows its self-attention, through its own
+    norm ``n3_``), RG-LRU (rec) or the xLSTM cell (mlstm, slstm).
+    ``cache`` is the block's decode cache (:func:`init_block_cache`),
+    advanced in place. ``stats`` gathers the MoE routing counts
     (:func:`repro_torch.models.moe.moe_apply`)."""
-    if kind not in SUPPORTED_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported "
-                                  f"(ROADMAP Queue A item 4)")
     h = _norm(p, x, cfg, "n1_")
     if kind in _RECURRENT:
         x = x + _RECURRENT[kind](p, h, cfg, plan, policy, state=cache,
                                  layer=layer, group=group)
         if kind != "rec":
             return x, 0.0
+    elif kind == "xattn":
+        x = x + attn.cross_attention(p, h, enc_out, cfg, plan, policy,
+                                     layer=layer, group=group, rank=rank)
     else:
         a, _ = attn.self_attention(
-            p, h, positions, cfg, plan, policy,
+            p, h, positions, cfg, plan, policy, causal=kind != "enc",
             window=cfg.window if kind == "local" else None, cache=cache,
             pos=pos, layer=layer, group=group, rank=rank)
         x = x + a
+        if kind == "dec":
+            h = _norm(p, x, cfg, "n3_")
+            x = x + attn.cross_attention(p, h, enc_out, cfg, plan, policy,
+                                         layer=layer, group=group,
+                                         rank=rank)
     h = _norm(p, x, cfg, "n2_")
     if kind == "moe":
         f, aux = moe_mod.moe_apply(p, h, cfg, plan, policy, layer=layer,
@@ -202,15 +225,37 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
                          group=group), 0.0
 
 
+def _encode(get, enc_embeds: torch.Tensor, cfg: ModelConfig,
+            plan: ShardingPlan, policy: CommPolicy, *, group,
+            rank: int) -> torch.Tensor:
+    """The encoder over the stub frontend's embeddings (B, n, d): the
+    learned ``enc_pos[:n]`` added, the ``enc`` blocks in order (their
+    sites at ``layer=None``, as the JAX package's), then the ``ef_``
+    norm."""
+    px = get("encoder_extra", 0)
+    n = enc_embeds.shape[1]
+    x = enc_embeds + px["enc_pos"][None, :n].to(enc_embeds.dtype)
+    positions = torch.arange(n, device=x.device)
+    for i in range(cfg.encoder.n_layers):
+        x, _ = apply_block("enc", get("encoder", i), x, positions=positions,
+                           cfg=cfg, plan=plan, policy=policy, cache=None,
+                           group=group, rank=rank)
+    return _norm(px, x, cfg, "ef_")
+
+
 def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
              plan: ShardingPlan, policy: CommPolicy, *, dtype, group,
              caches: Optional[Dict] = None, stats: Optional[Dict] = None,
-             recompute: bool = False):
+             recompute: bool = False,
+             enc_embeds: Optional[torch.Tensor] = None):
     """The one decoder loop of :func:`forward` and :func:`forward_train`:
     ``get(group, stack)`` gives a parameter group's tensors at one stack
     index; with ``recompute`` each block group, its ``get`` included, is
     recomputed in the backward (``torch.utils.checkpoint``), and ``stats``
-    counts the routes of the forward only, not of the replay."""
+    counts the routes of the forward only, not of the replay.
+    ``enc_embeds`` (B, n_ctx, d) feed the encoder of an encoder-decoder
+    model, or the cross-attention of a model with ``xattn`` blocks
+    directly; such a model raises ValueError without them."""
     policy = policy.bind(cfg.n_layers)
     rank = axis_rank(group)
     decode = caches is not None
@@ -219,6 +264,19 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
     pos = caches["pos"] if decode else 0
     positions = None if decode else torch.arange(tokens.shape[1],
                                                  device=tokens.device)
+    if cfg.rope_theta is None and cfg.learned_pos:
+        # replicated: no TP site; a decode step reads row ``pos``, clipped
+        # to the table as the JAX package clips it
+        x = x + (pe["pos"][min(max(pos, 0), cfg.max_pos - 1)] if decode
+                 else pe["pos"][None, :tokens.shape[1]]).to(dtype)
+    enc_out = None
+    if cfg.is_enc_dec or cfg.has_cross:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} attends to encoder embeddings "
+                             f"(B, n_ctx, d_model): enc_embeds is required")
+        enc_out = (_encode(get, enc_embeds.to(dtype), cfg, plan, policy,
+                           group=group, rank=rank) if cfg.is_enc_dec
+                   else enc_embeds.to(dtype))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = 0
     for gname, stack, kinds in _block_order(cfg):
@@ -232,7 +290,7 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
                     cfg=cfg, plan=plan, policy=policy,
                     cache=caches["layers"][layer0 + j] if decode else None,
                     pos=pos, layer=layer0 + j, group=group, rank=rank,
-                    stats=st)
+                    stats=st, enc_out=enc_out)
                 aux = aux + a
             return cx, aux
         if recompute:
@@ -253,10 +311,13 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             plan: ShardingPlan, policy: CommPolicy, *,
             caches: Optional[Dict] = None, dtype=torch.bfloat16,
-            group=None, stats: Optional[Dict] = None):
+            group=None, stats: Optional[Dict] = None,
+            enc_embeds: Optional[torch.Tensor] = None):
     """tokens (B, S) -> (hidden (B, S, d), unemb, aux_loss, caches), this
     rank's shard of the model axis ``group`` (its rank read from it), on
-    resident weights.
+    resident weights. ``enc_embeds`` (B, n_ctx, d): the stub frontend's
+    embeddings, which a model with an encoder or ``xattn`` blocks needs
+    at prefill and at every decode step (the encoder runs each time).
 
     ``aux_loss`` is the MoE blocks' load-balance loss, summed (serving
     ignores it).
@@ -269,13 +330,15 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         return {k: v[stack] for k, v in params[gname].items()}
 
     x, unemb, aux = _decoder(get, tokens, cfg, plan, policy, dtype=dtype,
-                             group=group, caches=caches, stats=stats)
+                             group=group, caches=caches, stats=stats,
+                             enc_embeds=enc_embeds)
     return x, unemb, aux, caches
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise NotImplementedError if ``cfg`` has a block kind outside
-    :data:`TRAINED_KINDS` (ROADMAP Queue A item 9)."""
+    :data:`TRAINED_KINDS` (ROADMAP Queue A item 9: the recurrent,
+    sliding-window, encoder and cross-attention kinds)."""
     untrained = sorted(set(cfg.layer_kinds) - set(TRAINED_KINDS))
     if untrained:
         raise NotImplementedError(
@@ -302,8 +365,9 @@ def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
     An MoE block's aux loss enters ``aux_loss``; ``stats``, if given,
     gathers its routing counts (:func:`repro_torch.models.moe.moe_apply`)
     in the forward. It raises for a block kind outside
-    :data:`TRAINED_KINDS`: the recurrent and sliding-window kinds' training
-    is not yet held against the JAX package (ROADMAP Queue A item 9).
+    :data:`TRAINED_KINDS`: the recurrent, sliding-window, encoder and
+    cross-attention kinds' training is not yet held against the JAX
+    package (ROADMAP Queue A item 9).
     """
     check_trainable(cfg)
     groups = param_groups(cfg, plan)
@@ -336,10 +400,13 @@ def lm_loss(hidden: torch.Tensor, unemb: torch.Tensor, labels: torch.Tensor,
 
 def init_block_cache(kind: str, cfg: ModelConfig, plan: ShardingPlan,
                      batch: int, cache_len: int, dtype, device) -> Dict:
-    """A block's decode cache: an attention block's kv ring of
+    """A block's decode cache: a self-attention block's kv ring of
     ``cache_len`` slots (a local block's of ``min(cache_len, window)``),
     a rec block's RG-LRU state ``{h, conv}``, an mlstm block's ``{c, n,
-    m}``, an slstm block's ``{c, n, h, m}``."""
+    m}``, an slstm block's ``{c, n, h, m}``; an xattn block has none
+    (``{}``: its keys are the encoder's, recomputed each step)."""
+    if kind == "xattn":
+        return {}
     if kind == "rec":
         return rec_mod.rglru_init_state(cfg, plan, batch, device)
     if kind == "mlstm":

@@ -3,12 +3,14 @@
 A deterministic per-step mixture of a sparse Markov chain over the first
 ``min(vocab, 512)`` tokens and 5% noise tokens; numpy only, so the same
 seed gives the same prompts in both packages (the JAX package's
-``kind="markov"`` stream).
+``kind="markov"`` stream). With ``enc_ctx`` set, a batch also holds
+the stub frontend's embeddings ``enc_embeds`` (B, enc_ctx, d_model),
+drawn from the same generator after the tokens, as JAX's are.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -19,6 +21,8 @@ class DataConfig:
     seq_len: int
     global_batch: int
     seed: int = 0
+    enc_ctx: Optional[int] = None   # audio/vision stub frames per sample
+    d_model: Optional[int] = None
 
 
 class SyntheticLM:
@@ -43,7 +47,11 @@ class SyntheticLM:
         for t in range(s):
             nxt = self._succ[toks[:, t] % self._k, choices[:, t]]
             toks[:, t + 1] = np.where(noise[:, t], noise_tok[:, t], nxt)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.enc_ctx:
+            out["enc_embeds"] = rng.standard_normal(
+                (b, cfg.enc_ctx, cfg.d_model)).astype(np.float32) * 0.02
+        return out
 
 
 def make_dataset(cfg: DataConfig) -> SyntheticLM:

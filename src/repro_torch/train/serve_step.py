@@ -30,16 +30,19 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def make_prefill(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
                  group=None, stats: Optional[Dict] = None):
-    """prefill(params, tokens (B, S)) -> (B, v_loc) f32 logits of the
-    next token; :func:`repro_torch.models.model.greedy_next_token` picks
-    it."""
+    """prefill(params, tokens (B, S), enc_embeds=None) -> (B, v_loc) f32
+    logits of the next token; :func:`repro_torch.models.model.
+    greedy_next_token` picks it. ``enc_embeds`` (B, n_ctx, d_model): the
+    stub frontend's embeddings, for a model with an encoder or
+    cross-attention."""
     dtype = _dtype(cfg)
     rank = axis_rank(group)
 
     @torch.no_grad()
-    def prefill(params, tokens):
+    def prefill(params, tokens, enc_embeds=None):
         hidden, unemb, _, _ = forward(params, tokens, cfg, plan, policy,
-                                      dtype=dtype, group=group, stats=stats)
+                                      dtype=dtype, group=group, stats=stats,
+                                      enc_embeds=enc_embeds)
         return next_token_logits(hidden, unemb, cfg, plan, rank)
 
     return prefill
@@ -48,17 +51,21 @@ def make_prefill(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
 def make_decode_step(cfg: ModelConfig, plan: ShardingPlan,
                      policy: CommPolicy, group=None,
                      stats: Optional[Dict] = None):
-    """step(params, caches, tokens (B, 1)) -> ((B, v_loc) f32 logits of
-    the next token, caches); the caches are updated in place."""
+    """step(params, caches, tokens (B, 1), enc_embeds=None) -> ((B, v_loc)
+    f32 logits of the next token, caches); the caches are updated in
+    place. A model with an encoder or cross-attention takes its
+    ``enc_embeds`` at every step, as the JAX package's step does (the
+    encoder runs again each step)."""
     dtype = _dtype(cfg)
     rank = axis_rank(group)
 
     @torch.no_grad()
-    def step(params, caches, tokens):
+    def step(params, caches, tokens, enc_embeds=None):
         hidden, unemb, _, caches = forward(params, tokens, cfg, plan,
                                            policy, caches=caches,
                                            dtype=dtype, group=group,
-                                           stats=stats)
+                                           stats=stats,
+                                           enc_embeds=enc_embeds)
         return next_token_logits(hidden, unemb, cfg, plan, rank), caches
 
     return step
@@ -66,10 +73,10 @@ def make_decode_step(cfg: ModelConfig, plan: ShardingPlan,
 
 def make_cache_init(cfg: ModelConfig, plan: ShardingPlan, batch: int,
                     cache_len: int, device):
-    """init() -> fresh decode caches on ``device``: a kv ring an
-    attention block (a local block's of at most its window's slots), a
-    recurrent state a rec, mlstm or slstm block
-    (:func:`repro_torch.models.model.init_block_cache`)."""
+    """init() -> fresh decode caches on ``device``: a kv ring a
+    self-attention block (a local block's of at most its window's
+    slots), a recurrent state a rec, mlstm or slstm block, none an xattn
+    block (:func:`repro_torch.models.model.init_block_cache`)."""
     dtype = _dtype(cfg)
 
     def init():

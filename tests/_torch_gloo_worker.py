@@ -45,6 +45,14 @@ py`` writes ``OUT_DIR/ARCH/jax.npz``; each rank saves
 :data:`REC_WINDOW` so that the decode's local ring wraps within the
 prompt, with the logits of the decode steps through the prompt
 (:func:`decode_logits`) for both.
+
+MODE ``serve_xattn``: the same for the whisper-tiny and llama-3.2-vision-11b
+smoke configs, each forward given the data stream's ``enc_embeds`` (B,
+n_ctx, d_model), with the logits of the decode steps through the prompt
+(:func:`decode_logits`) for both; the weights are :func:`numpy_store`'s,
+made here (``tests/test_torch_serve_tp_xattn.py`` makes the same for the
+JAX side, which runs beside the ranks), and each rank saves its store's
+:func:`store_digest`.
 """
 import os
 import sys
@@ -144,6 +152,10 @@ def run_moe(rank: int, world: int) -> dict:
 
 SERVE_B, SERVE_S, SERVE_GEN = 2, 12, 3
 REC_ARCHS = ("recurrentgemma-2b", "xlstm-125m")
+XATTN_ARCHS = ("whisper-tiny", "llama-3.2-vision-11b")
+#: the modes that serve several archs, one after the other, each in its
+#: own ``OUT_DIR/ARCH``
+MULTI_MODES = {"serve_rec": REC_ARCHS, "serve_xattn": XATTN_ARCHS}
 #: mode serve_rec's local window (the smoke config's 64 cut), shorter
 #: than the prompt, so that the decode's local ring wraps
 REC_WINDOW = 8
@@ -154,6 +166,39 @@ SERVE_RUNS = {"paper/two_step": ("paper", None),
 
 SERVE_ARCHS = {"serve": "qwen3-14b", "serve_llama": "llama3-8b",
                "serve_glm4": "glm4-9b", "serve_moe": "moonshot-v1-16b-a3b"}
+
+
+def numpy_store(groups, plan, seed: int = 7) -> dict:
+    """Weights in the JAX package's store layout, ``{group: {name:
+    (n_stack, tp, flat_len)}}`` float32, for ``groups`` (either package's
+    ``param_groups``: the same names and specs), from a seeded normal: a
+    norm gain 1 + 0.05 N, a matrix N / sqrt(fan_in) (``shape[-2]``, as
+    JAX's init), any other array (the biases) 0.05 N, so that no array is
+    zero; a replicated parameter the same on every rank. Unlike JAX's
+    ``build_store`` it compiles nothing."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for g, (n, specs) in sorted(groups.items()):
+        out[g] = {}
+        for name, sp in sorted(specs.items()):
+            flat = sp.flat_len(plan)
+            sliced = sp.tp_dim is not None or sp.moe_fold is not None
+            a = rng.standard_normal((n, plan.tp if sliced else 1, flat))
+            if sp.init == "ones":
+                a = 1.0 + 0.05 * a
+            elif len(sp.shape) > 1:
+                a = a / np.sqrt(sp.local_shape(plan)[-2])
+            else:
+                a = 0.05 * a
+            out[g][name] = np.broadcast_to(
+                a, (n, plan.tp, flat)).astype(np.float32)
+    return out
+
+
+def store_digest(store: dict) -> np.ndarray:
+    """Each array's float64 sum, in sorted (group, name) order."""
+    return np.array([a.astype(np.float64).sum() for g in sorted(store)
+                     for _, a in sorted(store[g].items())])
 
 
 def serve_gen(plan) -> int:
@@ -187,7 +232,7 @@ def tie_logits(rank: int) -> torch.Tensor:
 
 
 def run_serve(rank: int, world: int, out_dir: str,
-              arch: str = "qwen3-14b") -> dict:
+              arch: str = "qwen3-14b", store=None) -> dict:
     import types
     from repro_torch.launch.serve import build_policy, serve
     from repro_torch.models import attention
@@ -197,20 +242,25 @@ def run_serve(rank: int, world: int, out_dir: str,
     from repro_torch.parallel.shardings import load_jax_store
     from repro_torch.train.data import DataConfig, make_dataset
     from repro_torch.train.serve_step import make_prefill
-    data = np.load(os.path.join(out_dir, "jax.npz"))
-    store = {}
-    for key in data.files:
-        if key.startswith("store/"):
-            _, g, name = key.split("/")
-            store.setdefault(g, {})[name] = data[key]
+    if store is None:
+        data = np.load(os.path.join(out_dir, "jax.npz"))
+        store = {}
+        for key in data.files:
+            if key.startswith("store/"):
+                _, g, name = key.split("/")
+                store.setdefault(g, {})[name] = data[key]
     cfg = serve_config(arch)
     plan = make_plan(cfg, tp=world)
     params = load_jax_store(store, cfg, plan, "cpu", torch.float32,
                             rank=rank)
     axis = ModelAxis(dist.group.WORLD, rank, world)
-    toks = torch.from_numpy(make_dataset(DataConfig(
-        vocab=cfg.vocab, seq_len=SERVE_S,
-        global_batch=SERVE_B)).batch(0)["tokens"])
+    batch = make_dataset(DataConfig(
+        vocab=cfg.vocab, seq_len=SERVE_S, global_batch=SERVE_B,
+        enc_ctx=cfg.encoder.n_ctx if cfg.has_cross else None,
+        d_model=cfg.d_model)).batch(0)
+    toks = torch.from_numpy(batch["tokens"])
+    emb = (torch.from_numpy(batch["enc_embeds"]) if "enc_embeds" in batch
+           else None)
     out = {"tie": greedy_next_token(
         tie_logits(rank), types.SimpleNamespace(tp=world, v_loc=3),
         axis).numpy()}
@@ -219,9 +269,10 @@ def run_serve(rank: int, world: int, out_dir: str,
             policy = build_policy(pol, scheme=scheme)
             out[f"{name}/hidden"] = forward(
                 params, toks, cfg, plan, policy, dtype=torch.float32,
-                group=axis)[0].numpy()
+                group=axis, enc_embeds=emb)[0].numpy()
             out[f"{name}/token"] = greedy_next_token(
-                make_prefill(cfg, plan, policy, group=axis)(params, toks),
+                make_prefill(cfg, plan, policy, group=axis)(params, toks,
+                                                            emb),
                 plan, axis).numpy()
             attention.reset_ring_merges()
             res = serve(params, cfg, plan, policy, batch=SERVE_B,
@@ -230,18 +281,21 @@ def run_serve(rank: int, world: int, out_dir: str,
                         group=axis)
             out[f"{name}/generated"] = res["generated"]
             out[f"{name}/ring_merges"] = np.array(attention.RING_MERGES)
-            if plan.kv_mode == "replicate" or arch in REC_ARCHS:
+            if (plan.kv_mode == "replicate"
+                    or arch in REC_ARCHS + XATTN_ARCHS):
                 out[f"{name}/decode_logits"] = decode_logits(
-                    params, cfg, plan, policy, axis, toks)
+                    params, cfg, plan, policy, axis, toks, emb)
             if cfg.moe is not None:
                 out[f"{name}/dropped"] = np.array(
                     [res["dropped_prefill"], res["dropped_decode"]])
     return out
 
 
-def decode_logits(params, cfg, plan, policy, axis, toks) -> np.ndarray:
-    """The decode steps through the prompt ``toks`` (B, S) -> the logits
-    after each position over the whole vocabulary (B, S, vocab)."""
+def decode_logits(params, cfg, plan, policy, axis, toks,
+                  emb=None) -> np.ndarray:
+    """The decode steps through the prompt ``toks`` (B, S) (each given
+    the encoder's embeddings ``emb``, if any) -> the logits after each
+    position over the whole vocabulary (B, S, vocab)."""
     from repro_torch.core.collectives import all_gather_rows
     from repro_torch.train.serve_step import (make_cache_init,
                                               make_decode_step)
@@ -250,7 +304,7 @@ def decode_logits(params, cfg, plan, policy, axis, toks) -> np.ndarray:
     caches = make_cache_init(cfg, plan, b, s + serve_gen(plan), "cpu")()
     out = []
     for i in range(s):
-        logits, caches = step(params, caches, toks[:, i:i + 1])
+        logits, caches = step(params, caches, toks[:, i:i + 1], emb)
         full = all_gather_rows(logits, axis).transpose(0, 1).reshape(b, -1)
         out.append(full[:, :cfg.vocab].numpy())
     return np.stack(out, 1)
@@ -274,11 +328,20 @@ def main():
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world)
     try:
-        if mode == "serve_rec":
-            for arch in REC_ARCHS:
+        if mode in MULTI_MODES:
+            for arch in MULTI_MODES[mode]:
                 d = os.path.join(out_dir, arch)
+                store, extra = None, {}
+                if mode == "serve_xattn":
+                    from repro_torch.models.model import param_groups
+                    from repro_torch.parallel.plan import make_plan
+                    cfg = serve_config(arch)
+                    plan = make_plan(cfg, tp=world)
+                    store = numpy_store(param_groups(cfg, plan), plan)
+                    extra["store_digest"] = store_digest(store)
+                    os.makedirs(d, exist_ok=True)
                 np.savez(os.path.join(d, f"rank{rank}.npz"),
-                         **run_serve(rank, world, d, arch))
+                         **run_serve(rank, world, d, arch, store), **extra)
             return
         if mode == "moe":
             out = run_moe(rank, world)
