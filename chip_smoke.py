@@ -81,7 +81,15 @@ Phases, each printing its lines; any failure exits non-zero:
              each stage kernel none, and prefill and decode must agree on
              the first generated token
              (``repro_torch.launch.serve.prefill_decode_agreement``; the
-             run without the codec to CACHE_REL_TOL).
+             run without the codec to CACHE_REL_TOL). Then
+             ``window_override`` (_serve_window): every block given a
+             window of WINDOW, the prefill over PROMPT_LEN positions and
+             DECODE_CHECK_STEPS decode steps on a ring of WINDOW_CHECK
+             slots (wrapped) through the CUDA codec equal to the plain
+             codec's bit for bit (paper), then served under bf16 with a
+             ring of WINDOW slots that the prompt wraps: prefill/decode
+             agreement to CACHE_REL_TOL, every ring holding the last
+             WINDOW positions.
    ln     -- command-r-35b (LayerNorm) at full width, its depth cut to
              LN_REPEATS layers (weights from seed SEED, output
              projections filled): paper/two_step's prefill hidden states
@@ -151,7 +159,7 @@ Phases, each printing its lines; any failure exits non-zero:
              width, weights from seed SEED (init_params(rank=r), output
              projections filled): paper/fused's prefill hidden states and
              DECODE_CHECK_STEPS decode logits bit-equal to
-             paper/two_step's; then it serves BATCH x PROMPT_LEN + TP_GEN
+             paper/two_step's; then it serves BATCH x TP_PROMPT + TP_GEN
              tokens under DENSE_TP_RUNS (qwen3-14b) and MOE_TP_RUNS
              (moonshot): paper/fused (every TP site through fc_ar, every
              dispatch through fc_a2a), with exact launch counts (fc_ar
@@ -277,6 +285,33 @@ Phases, each printing its lines; any failure exits non-zero:
              paper/fused == paper/two_step bit for bit on both ranks
              (prefill, decode steps), paper/fused served
              (XATTN_TP_RUNS) with one fc_ar launch a TP site.
+15. dp     -- data-parallel serving (--mesh D,M, D > 1; DP_CELLS):
+             qwen3-14b at full width, DP_LAYERS layers, a float32 flat
+             store from seed SEED (output projections filled; _dp_store)
+             sharded over the data axis, BATCH rows split over the
+             replicas, DP_PROMPT prompt tokens + DP_GEN; one rank process
+             a rank on the card (dp_rank_main), every prefill and decode
+             step gathering every block group over the data axis (gloo,
+             staged through host memory), as the JAX package's serve
+             does. --mesh 2,1: aggressive (the qag site at int4 g32
+             scale_int): the prefill's and DP_CHECK_STEPS decode steps'
+             logits through the CUDA codec equal the plain codec's bit
+             for bit; paper/two_step and aggressive served; every
+             logits of the served paper/two_step run (the gather exact)
+             equal, bit for bit, its replica's rows served alone at
+             --mesh 1,1 from the whole store on the gather road
+             (fsdp = 1), the same tokens fed (_dp_alone, in this
+             process). --mesh 2,2: paper/fused (fc_ar at the TP sites)
+             served, its prefill's and first DP_CHECK_STEPS decode
+             steps' logits equal paper/two_step's bit for bit. Every
+             served run with exact launch counts (a TP site's two
+             encodes and two decodes, or one fc_ar; one fc_encode_wire
+             and one fc_decode_wire a qag gather, _qag_gathers a
+             forward), TTFT, ms/step (rank 0's clock) and peak memory a
+             rank. Then fc_encode_wire and fc_decode_wire at the largest
+             qag shape (embed/tok's shard at fsdp = 2, (1, 388956160) f32,
+             and its two wires decoded) against their plain versions and
+             the bound (_dp_qag_time).
 
 In phase train, --mesh 1,1,2 also runs paper/two_step with
 ``--framed-bridge 8`` (policy.with_framed_bridge: the pod hop int8 g128
@@ -291,16 +326,16 @@ and no NaN in any parameter.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the wire kernels' from the serve, ln, moe, train,
-moe_train, moe_archs, rec and xattn paths, the stage kernels' from their
-entry points, fc_a2a's from phase tp's moonshot runs on rank 0 and
+moe_train, moe_archs, rec, xattn and dp paths, the stage kernels' from
+their entry points, fc_a2a's from phase tp's moonshot runs on rank 0 and
 phases moe_train's and ep8's, fc_ar's from phase tp's and tp4's served
-runs and phases train's, moe_train's, ep8's, rec's and xattn's runs on
-rank 0;
+runs and phases train's, moe_train's, ep8's, rec's, xattn's and dp's
+runs on rank 0;
 ``serve_launches``, ``ln_launches``, ``moe_launches``, ``tp_launches``,
 ``moe_tp_launches``, ``glm_tp_launches``, ``train_launches``,
 ``moe_train_launches``, ``moe_archs_launches``, ``ep8_launches``,
-``ep8_train_launches``, ``rec_launches`` and ``xattn_launches``: from
-those paths); a ``[phase] NAME: SECONDS`` line follows each phase; the last
+``ep8_train_launches``, ``rec_launches``, ``xattn_launches`` and
+``dp_launches``: from those paths); a ``[phase] NAME: SECONDS`` line follows each phase; the last
 line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -322,7 +357,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 PHASES = ("build", "codec", "crc", "stage", "time", "serve", "ln", "a2a",
           "moe", "ar", "tp", "tp4", "train", "moe_train", "moe_archs", "ep8",
-          "rec", "xattn")
+          "rec", "xattn", "dp")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -392,12 +427,19 @@ TP_RUNS = (("paper/fused", "paper", "fused"),
            ("paper/two_step", "paper", None))
 DENSE_TP_RUNS = MOE_TP_RUNS = TP_RUNS[:1]
 TP_GEN = 4
+# the rank-process cells' served runs (TP_CELLS): BATCH x TP_PROMPT prompt
+# tokens (cut from PROMPT_LEN to pay for phase dp: each prompt token is
+# a decode step of turns on the card), the checks before them
+# still at PROMPT_LEN; TP_PROMPT + the generated tokens a multiple of tp
+# in replicate mode (the ring)
+TP_PROMPT = 32
 TP_TIMEOUT_S = 900
 # phase tp's depth, cut to pay for phases moe_archs and ep8: qwen3-14b's
-# 40 layers to TP_REPEATS, moonshot's 47 MoE blocks (after its dense one)
-# to TP_MOE_REPEATS
-TP_REPEATS = 20
-TP_MOE_REPEATS = 15
+# 40 layers to TP_REPEATS (20, then 10 to pay for phase dp), moonshot's 47
+# MoE blocks (after its dense one) to TP_MOE_REPEATS (15, then 5 for
+# phase dp)
+TP_REPEATS = 10
+TP_MOE_REPEATS = 5
 # phase moe's moonshot (tp = 1): its 47 MoE blocks cut to MOE_REPEATS,
 # for the same reason (23, then 11 to pay for phase xattn)
 MOE_REPEATS = 11
@@ -456,7 +498,7 @@ MOE_ARCHS = (("grok-1-314b", 4), ("llama4-maverick-400b-a17b", 1))
 MOE_ARCH_RUNS = (("paper/two_step", "paper", None), BASELINE)
 # phase ep8: grok-1's smoke config at --mesh 1,EP_TP (ep 4 x etp 2, its two
 # kv heads replicated: the decode ring at tp = 8), EP_TP rank processes on
-# the card; EP_GEN tokens generated (PROMPT_LEN + EP_GEN a multiple of
+# the card; EP_GEN tokens generated (TP_PROMPT + EP_GEN a multiple of
 # EP_TP, as the ring needs), then trained EP_TRAIN_MESHES
 EP_ARCH = "grok-1-314b"
 EP_TP = 8
@@ -484,11 +526,12 @@ XLSTM_TP_RUNS = TP_RUNS[:1]
 # phase xattn: whisper-tiny (encoder-decoder: 4 enc + 4 dec blocks over
 # 1500 frames) at full width and depth and llama-3.2-vision-11b (image
 # cross-attention over 1600 patches) at full width, its 8 (xattn, dense x
-# 4) repeats cut to VISION_REPEATS (10 of 40 blocks, 2 of them xattn),
-# tp = 1, served under XATTN_RUNS; whisper at --mesh 1,TP, full depth
+# 4) repeats cut to VISION_REPEATS (2: 10 of 40 blocks, 2 of them xattn;
+# then 1, 5 blocks, to pay for phase dp), tp = 1, served under
+# XATTN_RUNS; whisper at --mesh 1,TP, full depth
 WHISPER_ARCH = "whisper-tiny"
 VISION_ARCH = "llama-3.2-vision-11b"
-VISION_REPEATS = 2
+VISION_REPEATS = 1
 XATTN_RUNS = (("paper/two_step", "paper", None), BASELINE)
 # whisper at --mesh 1,TP: paper/fused served (fc_ar once a TP site, the
 # encoder's included); paper/two_step held against it bit for bit only
@@ -510,6 +553,34 @@ TP_CELLS = {
                            TP_GEN),)),
     "xattn_tp": (TP, None, (("whisper", WHISPER_ARCH, XATTN_TP_RUNS,
                              "xattn tp", TP_GEN),))}
+
+# phase dp: data-parallel serving, qwen3-14b at full width, DP_LAYERS of
+# its 40 layers (a float32 flat store of ~8.9 GB in all, sharded over the
+# data axis), BATCH rows split over the replicas; every prefill and
+# decode step gathers every block group over the data axis (gloo, host
+# staged: the rank processes share the card), as the JAX package's does
+DP_LAYERS = 2
+DP_PROMPT = 2
+DP_GEN = 2
+#: decode steps of each check (each step gathers the whole store; at most
+#: DP_PROMPT: the check's steps are teacher-forced)
+DP_CHECK_STEPS = 1
+DP_TIMEOUT_S = 900
+#: mesh -> (the check there, the runs served there); the checks: "alone"
+#: (each replica's logits == its rows served alone at --mesh 1,1 from the
+#: whole store, on the gather road at fsdp = 1: run in this process after
+#: the ranks), "codec" (aggressive's qag: the CUDA codec == the plain
+#: codec), "fused" (paper/fused == paper/two_step)
+DP_CELLS = {"2,1": (("alone", "codec"),
+                    (("paper/two_step", "paper", None),
+                     ("aggressive/two_step", "aggressive", None))),
+            "2,2": (("fused",), (("paper/fused", "paper", "fused"),))}
+#: the windowed run of phase serve: qwen3-14b at tp = 1 with a window of
+#: WINDOW on every block and a ring of WINDOW slots, PROMPT_LEN past it
+#: (the ring wraps), served under bf16; the CUDA == plain check's decode
+#: steps on a ring of WINDOW_CHECK slots, so that they wrap it too
+WINDOW = 64
+WINDOW_CHECK = DECODE_CHECK_STEPS // 2
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
                                              scale_int=True)),
@@ -1131,11 +1202,14 @@ def _max_abs_err(torch, a, b) -> float:
     return max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
 
 
-def _time_row(torch, name, label, shape, kern, plain, nbytes, flops, card):
-    """Time a kernel beside its plain version; the row of the record."""
+def _time_row(torch, name, label, shape, kern, plain, nbytes, flops, card,
+              runs: int = 25):
+    """Time a kernel beside its plain version (``runs`` calls a timing);
+    the row of the record."""
     err = _max_abs_err(torch, kern(), plain())
-    call_ms, plain_call_ms = _time_ms(torch, kern), _time_ms(torch, plain)
-    dev, plain_dev = _device_ms(torch, kern), _device_ms(torch, plain)
+    call_ms, plain_call_ms = (_time_ms(torch, f, runs, min(5, runs))
+                              for f in (kern, plain))
+    dev, plain_dev = (_device_ms(torch, f, runs) for f in (kern, plain))
     dev_ms, plain_dev_ms = (d[0] if d else None for d in (dev, plain_dev))
     ms = dev_ms if dev_ms is not None else call_ms
     plain_ms = plain_dev_ms if plain_dev_ms is not None else plain_call_ms
@@ -1389,7 +1463,71 @@ def phase_serve(torch, np):
           "fused and two_step generated different tokens")
     print("[serve] paper/fused generated the same tokens as "
           "paper/two_step", flush=True)
+    results["window"] = _serve_window(torch, cfg, plan, params, prompts, dev)
     return launches, results
+
+
+def _serve_window(torch, cfg, plan, params, prompts, dev) -> dict:
+    """window_override on qwen3-14b at tp = 1 (every block windowed, none
+    of them local): the prefill's hidden states with a window of WINDOW
+    over the PROMPT_LEN prompt, and DECODE_CHECK_STEPS decode steps'
+    logits on a ring of WINDOW_CHECK slots with that window (so that
+    they wrap it), through the CUDA codec equal the plain codec's bit
+    for bit (paper); then BATCH x PROMPT_LEN + GEN tokens served under
+    bf16 with a window and a ring of WINDOW slots (the prompt wraps it):
+    prefill/decode agreement to CACHE_REL_TOL, every ring holding the
+    last WINDOW positions."""
+    from repro_torch.launch.serve import build_policy, serve
+    from repro_torch.models.model import forward
+    from repro_torch.train.serve_step import (make_cache_init,
+                                              make_decode_step)
+    pols = [build_policy("paper", backend=b) for b in ("cuda", "ref")]
+    h = [forward(params, prompts, cfg, plan, p, dtype=torch.bfloat16,
+                 window_override=WINDOW)[0] for p in pols]
+    check(_bits_equal(torch, *h), "windowed prefill: hidden states through "
+          "the CUDA codec differ from the plain codec's")
+    del h
+    steps = [make_decode_step(cfg, plan, p, window_override=WINDOW_CHECK)
+             for p in pols]
+    caches = [make_cache_init(cfg, plan, BATCH, WINDOW_CHECK, dev)()
+              for _ in pols]
+    for i in range(DECODE_CHECK_STEPS):
+        (lc, caches[0]), (lr, caches[1]) = (
+            st(params, c, prompts[:, i:i + 1])
+            for st, c in zip(steps, caches))
+        check(_bits_equal(torch, lc, lr), f"windowed decode step {i} (a "
+              f"ring of {WINDOW_CHECK} slots): logits through the CUDA "
+              f"codec differ from the plain codec's")
+    del caches
+    print(f"[serve window] prefill hidden states (window {WINDOW} over "
+          f"{PROMPT_LEN} positions) and {DECODE_CHECK_STEPS} decode steps' "
+          f"logits (window and ring of {WINDOW_CHECK}, wrapped) through the "
+          f"CUDA codec equal the plain codec's bit for bit (paper)",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    res = serve(params, cfg, plan, build_policy("bf16"),
+                batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN, device=dev,
+                seed=SEED, label=f" window {WINDOW} bf16",
+                window_override=WINDOW, cache_len=WINDOW, keep_caches=True)
+    caches = res.pop("caches")
+    last = PROMPT_LEN + GEN - 2
+    for layer in caches["layers"]:
+        got = sorted(layer["slot_pos"].tolist())
+        check(got == list(range(last - WINDOW + 1, last + 1)),
+              f"windowed ring: slots {got[:3]}... hold other positions "
+              f"than the last {WINDOW}")
+    rel = max(res["agreement"]["rel_divergence"])
+    check(rel <= CACHE_REL_TOL, f"windowed bf16 prefill/decode logit "
+          f"divergence {rel} > {CACHE_REL_TOL}")
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[serve window {WINDOW} bf16] {cfg.name}: TTFT "
+          f"{res['ttft_ms']:.1f} ms, decode median "
+          f"{res['step_ms_median']:.2f} ms/step, p90 "
+          f"{res['step_ms_p90']:.2f}; every ring ({len(caches['layers'])}) "
+          f"holds positions {last - WINDOW + 1}..{last}; prefill/decode "
+          f"logit divergence {rel:.4f} <= {CACHE_REL_TOL}; peak memory "
+          f"{res['peak_gb']:.2f} GB", flush=True)
+    return res
 
 
 def phase_ln(torch, np):
@@ -2164,7 +2302,8 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     size): weights from SEED (output projections filled), paper/fused ==
     paper/two_step bit for bit (the prefill's hidden states,
     DECODE_CHECK_STEPS decode steps' logits), then the served ``runs``
-    (``gen`` tokens generated) with exact counts: fused, every TP site
+    (TP_PROMPT prompt tokens, ``gen`` generated) with exact counts:
+    fused, every TP site
     and every within-expert AllReduce (etp > 1) through fc_ar and every
     dispatch through fc_a2a, no wire kernel; two_step, two encodes and
     two decodes a TP site or within-expert AllReduce (around the gloo
@@ -2232,9 +2371,9 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
     tp_sites = _tp_sites(cfg)
     a2a_sites = kinds.count("moe")
     etp_sites = a2a_sites if moe and plan.moe.etp > 1 else 0
-    forwards = 1 + PROMPT_LEN + gen - 1
+    forwards = 1 + TP_PROMPT + gen - 1
     merges = (sum(k in ("dense", "local", "moe", "dec") for k in kinds)
-              * (PROMPT_LEN + gen - 1) if plan.kv_mode == "replicate" else 0)
+              * (TP_PROMPT + gen - 1) if plan.kv_mode == "replicate" else 0)
     wire.reset_launches()                  # the tp path starts here
     stage.reset_launches()
     rdma.reset_launches()
@@ -2245,7 +2384,7 @@ def _tp_serve(torch, axis, dev, cfg, runs, tag: str, gen: int) -> dict:
         attention.reset_ring_merges()
         torch.cuda.reset_peak_memory_stats()
         res = serve(params, cfg, plan, build_policy(pol, scheme=scheme),
-                    batch=BATCH, prompt_len=PROMPT_LEN, gen=gen, device=dev,
+                    batch=BATCH, prompt_len=TP_PROMPT, gen=gen, device=dev,
                     seed=SEED, label=f" {tag}={tp} {label}", log=log,
                     group=axis)
         got = {k: v - before[k] for k, v in _tp_counts().items()}
@@ -3311,6 +3450,322 @@ def phase_ep8(torch, card: str):
     return ranks, trained
 
 
+# ---------------------------------------------------------------------------
+# phase dp: data-parallel serving (--mesh D,M, D > 1)
+# ---------------------------------------------------------------------------
+
+def _dp_cfg():
+    """Phase dp's qwen3-14b: full width, DP_LAYERS layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH), pattern_repeats=DP_LAYERS)
+
+
+def _dp_store(torch, cfg, plan, dev, model_rank: int, data_rank: int):
+    """The float32 flat store of (model ``model_rank``, data
+    ``data_rank``) on ``plan``: init_store's weights from SEED, the
+    zero-initialised 2-D output projections filled from a fan-in normal
+    (a generator a (group, name, stack, model rank): the same values at
+    any fsdp), so that every TP site carries data."""
+    import zlib
+    from repro_torch.models.model import param_groups
+    from repro_torch.parallel.shardings import init_store
+    store = init_store(cfg, plan, SEED, dev, model_rank, data_rank)
+    for g, (n_stack, specs) in sorted(param_groups(cfg, plan).items()):
+        for name, sp in sorted(specs.items()):
+            if sp.init != "zeros" or len(sp.shape) < 2:
+                continue
+            shape = sp.local_shape(plan)
+            t = store[g][name]
+            lo = data_rank * t.shape[1]
+            for i in range(n_stack):
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(zlib.crc32(
+                    f"{SEED}/{g}/{name}/{i}/{model_rank}".encode()))
+                v = torch.randn(shape, generator=gen, device=dev).mul_(
+                    shape[-2] ** -0.5).reshape(-1)[lo:lo + t.shape[1]]
+                t[i, :v.numel()] = v
+                del v
+    return store
+
+
+def _qag_gathers(cfg, plan) -> int:
+    """Parameters a forward gathers over the data axis: each one group's
+    at each stack index, one qag encode and one decode each."""
+    from repro_torch.models.model import param_groups
+    return sum(n * len(specs) for n, specs in
+               param_groups(cfg, plan).values())
+
+
+def dp_rank_main(rank: int, mesh_spec: str, rendezvous: str,
+                 out_dir: str) -> int:
+    """One rank process (``chip_smoke.py --dp-rank``) of phase dp's mesh
+    ``mesh_spec``: its shard of the flat store, the mesh's checks, then
+    its served runs with exact launch counts."""
+    import torch
+    from repro_torch.kernels import rdma, stage, wire
+    from repro_torch.launch import mesh
+    from repro_torch.launch.serve import build_policy, serve
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.train.data import DataConfig, make_dataset
+    from repro_torch.train.serve_step import (local_rows, make_cache_init,
+                                              make_decode_step, make_prefill)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    checks, runs = DP_CELLS[mesh_spec]
+    data, model = mesh.parse_mesh(mesh_spec)
+    cfg = _dp_cfg()
+    plan = make_plan(cfg, tp=model, fsdp=data)
+    _, d, m = mesh.mesh_coord(rank, data, model)
+    dev = mesh.rank_device(rank, torch.device("cuda"))
+    b_loc = BATCH // data if BATCH % data == 0 else BATCH
+    axes = mesh.init_mesh(data, model, 0, rank, rendezvous, dev,
+                          mesh.site_row_bytes(cfg, plan, b_loc, DP_PROMPT))
+    rows = local_rows(BATCH, axes.data)
+    log = print if rank == 0 else (lambda *a, **k: None)
+    kw = dict(group=axes.model, data_group=axes.data)
+    try:
+        t0 = time.perf_counter()
+        store = _dp_store(torch, cfg, plan, dev, m, d)
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * 4 for g in store.values()
+                     for t in g.values())
+        log(f"[dp {mesh_spec}] {cfg.name} full width, {cfg.n_layers} "
+            f"layers at --mesh {mesh_spec}: {nbytes / 1e9:.2f} GB float32 "
+            f"store a rank ({nbytes * data * model / 1e9:.2f} GB in all) "
+            f"from seed {SEED} in {time.perf_counter() - t0:.1f} s; "
+            f"{b_loc} of {BATCH} rows a replica", flush=True)
+        prompts = torch.from_numpy(make_dataset(DataConfig(
+            vocab=cfg.vocab, seq_len=DP_PROMPT, global_batch=BATCH,
+            seed=SEED)).batch(0)["tokens"][rows]).to(dev)
+        res = {"rank": rank, "coord": [d, m], "rows": [rows.start, rows.stop]}
+
+        def logits_of(policy):
+            """This replica's prefill logits, then DP_CHECK_STEPS
+            decode steps' logits (f32 (b_loc, v_loc) each), on rings of
+            the served runs' length."""
+            out = [make_prefill(cfg, plan, policy, **kw)(store, prompts)]
+            step = make_decode_step(cfg, plan, policy, **kw)
+            caches = make_cache_init(cfg, plan, b_loc, DP_PROMPT + DP_GEN,
+                                     dev)()
+            for i in range(DP_CHECK_STEPS):
+                lg, caches = step(store, caches, prompts[:, i:i + 1])
+                out.append(lg)
+            return out
+
+        mesh.barrier_all(axes)
+        if "codec" in checks:
+            a, b = (logits_of(build_policy("aggressive", backend=be))
+                    for be in ("cuda", "ref"))
+            check(all(_bits_equal(torch, x, y) for x, y in zip(a, b)),
+                  f"dp {mesh_spec} rank {rank}: aggressive logits through "
+                  f"the CUDA codec differ from the plain codec's")
+            log(f"[dp {mesh_spec}] every rank: aggressive (qag int4 g32 "
+                f"scale_int at every gather) prefill logits and "
+                f"{DP_CHECK_STEPS} decode steps' logits through the CUDA "
+                f"codec equal the plain codec's bit for bit", flush=True)
+        if "fused" in checks:                  # held against the served run
+            two_step = logits_of(build_policy("paper", scheme="two_step"))
+
+        sites = _tp_sites(cfg)
+        qag = _qag_gathers(cfg, plan)
+        forwards = 1 + DP_PROMPT + DP_GEN - 1
+        wire.reset_launches()                  # the dp path starts here
+        stage.reset_launches()
+        rdma.reset_launches()
+        res["runs"] = {}
+        for label, pol, scheme in runs:
+            before = _tp_counts()
+            torch.cuda.reset_peak_memory_stats()
+            logits = []
+            r = serve(store, cfg, plan, build_policy(pol, scheme=scheme),
+                      batch=BATCH, prompt_len=DP_PROMPT, gen=DP_GEN,
+                      device=dev, seed=SEED, label=f" dp {mesh_spec} {label}",
+                      log=log, record=logits, **kw)
+            got = {k: v - before[k] for k, v in _tp_counts().items()}
+            want = dict.fromkeys(got, 0)
+            gathers = qag if pol == "aggressive" else 0
+            if scheme == "fused":
+                want["ar"] = sites * forwards
+            else:
+                want["encode_wire"] = want["decode_wire"] = (
+                    2 * sites + gathers) * forwards
+            log(f"[dp {mesh_spec} {label}] rank {rank} launches "
+                f"{ {k: v for k, v in got.items() if v} } (expected "
+                f"{sites} TP sites x {2 if scheme != 'fused' else 1} and "
+                f"{gathers} qag gathers x 1 a forward, {forwards} "
+                f"forwards)", flush=True)
+            check(got == want, f"dp {mesh_spec} rank {rank} {label}: "
+                  f"launches {got} != {want}")
+            check(r["agreement"] is not None, f"dp {mesh_spec} {label}: no "
+                  f"prefill/decode check")
+            check(all(bool(torch.isfinite(t).all()) for t in logits),
+                  f"dp {mesh_spec} rank {rank} {label}: logits not finite")
+            if "alone" in checks and label == "paper/two_step":
+                torch.save({"logits": [t.cpu() for t in logits],
+                            "generated": torch.from_numpy(
+                                r["generated"][rows])},
+                           os.path.join(out_dir, f"alone{rank}.pt"))
+            if scheme == "fused":
+                check(all(_bits_equal(torch, x, y)
+                          for x, y in zip(logits, two_step)),
+                      f"dp {mesh_spec} rank {rank}: paper/fused logits "
+                      f"differ from paper/two_step's")
+                log(f"[dp {mesh_spec}] every rank: paper/fused (fc_ar at "
+                    f"the TP sites) prefill logits and {DP_CHECK_STEPS} "
+                    f"decode steps' logits equal paper/two_step's bit for "
+                    f"bit", flush=True)
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            r["launches"] = got
+            res["runs"][label] = {k: (v.tolist() if hasattr(v, "tolist")
+                                      else v) for k, v in r.items()}
+        res["launches"] = _tp_counts()         # read right after the path
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        mesh.close_mesh(axes)
+    return 0
+
+
+def _dp_alone(torch, out_dir: str, data: int) -> None:
+    """Check "alone" of phase dp: each replica's rows of the batch served
+    alone at --mesh 1,1 from the whole store (fsdp = 1, the gather road:
+    the flat values reshaped, no communication), the prompt teacher-forced
+    and then the replica's generated tokens fed back, as its served
+    paper/two_step run did -> every forward's logits bit-equal to that
+    run's (saved by the replica's rank)."""
+    from repro_torch.launch.serve import build_policy
+    from repro_torch.parallel.plan import make_plan
+    from repro_torch.train.data import DataConfig, make_dataset
+    from repro_torch.train.serve_step import (make_cache_init,
+                                              make_decode_step, make_prefill)
+    dev = torch.device("cuda")
+    cfg = _dp_cfg()
+    plan = make_plan(cfg, tp=1, fsdp=1)
+    store = _dp_store(torch, cfg, plan, dev, 0, 0)
+    policy = build_policy("paper")
+    toks = torch.from_numpy(make_dataset(DataConfig(
+        vocab=cfg.vocab, seq_len=DP_PROMPT, global_batch=BATCH,
+        seed=SEED)).batch(0)["tokens"]).to(dev)
+    prefill = make_prefill(cfg, plan, policy, flat=True)
+    step = make_decode_step(cfg, plan, policy, flat=True)
+    b_loc = BATCH // data
+    steps = DP_PROMPT + DP_GEN - 1
+    for r in range(data):
+        saved = torch.load(os.path.join(out_dir, f"alone{r}.pt"))
+        mine = toks[r * b_loc:(r + 1) * b_loc]
+        fed = torch.cat([mine, saved["generated"].to(dev)], 1)
+        got = [prefill(store, mine)]
+        caches = make_cache_init(cfg, plan, b_loc, steps + 1, dev)()
+        for i in range(steps):
+            lg, caches = step(store, caches, fed[:, i:i + 1])
+            got.append(lg)
+        check(len(got) == len(saved["logits"]) and all(
+            _bits_equal(torch, a.cpu(), b)
+            for a, b in zip(got, saved["logits"])),
+              f"dp replica {r}: logits at --mesh {data},1 differ from its "
+              f"rows served alone at --mesh 1,1")
+    del store
+    print(f"[dp {data},1] paper/two_step: each replica's served logits "
+          f"(prefill and {steps} decode steps) equal its rows' served "
+          f"alone at --mesh 1,1 from the whole store (fsdp = 1) bit for "
+          f"bit", flush=True)
+
+
+def _dp_qag_time(torch, np, card: str) -> dict:
+    """fc_encode_wire and fc_decode_wire at the largest qag shape of
+    phase dp (qwen3-14b's embed/tok shard at fsdp = 2: one row of
+    388,956,160 f32 values; its decode: the two replicas' wires to f32),
+    aggressive's qag config, against their plain versions and the bound
+    (3 calls a timing: the plain versions take 37-48 ms a call here)."""
+    from repro_torch.core.policy import aggressive_policy
+    from repro_torch.kernels import wire
+    from repro_torch.models.model import param_groups
+    from repro_torch.parallel.plan import make_plan
+    cfg = _dp_cfg()
+    plan = make_plan(cfg, tp=1, fsdp=2)
+    spec = param_groups(cfg, plan)["embed"][1]["tok"]
+    n = spec.flat_len(plan) // 2
+    qcfg = aggressive_policy().resolve("qag")
+    dev = torch.device("cuda")
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, n)).astype(np.float32) * 0.01).to(dev)
+    buf = torch.cat([wire.encode_wire(x, qcfg)] * 2)
+    label = "int4 g32 scale_int"
+    rows = {}
+    for name, r, kern, plain in (
+            ("encode_wire", 1, lambda: wire.encode_wire(x, qcfg),
+             lambda: wire.encode_plain(x, qcfg)),
+            ("decode_wire", 2, lambda: wire.decode_wire(buf, qcfg, n),
+             lambda: wire.decode_plain(buf, qcfg, n))):
+        rows[name] = _time_row(torch, name, label, (r, n), kern, plain,
+                               wire.bound_bytes(name, qcfg, r, n),
+                               wire.bound_flops(name, qcfg, r, n), card,
+                               runs=3)
+    return rows
+
+
+def _dp_ranks(torch, mesh_spec: str) -> list:
+    """Phase dp's mesh ``mesh_spec``: one rank process a rank on the one
+    card (dp_rank_main) -> their results."""
+    from repro_torch.launch import mesh
+    data, model = mesh.parse_mesh(mesh_spec)
+    out_dir = os.path.join(ROOT, "chiprun_out", "dp")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in os.listdir(out_dir):
+        os.unlink(os.path.join(out_dir, f))
+    mesh.run_ranks(lambda r, store: [
+        sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+        "--dp-mesh", mesh_spec, "--rendezvous", store, "--out", out_dir],
+        data * model, timeout=DP_TIMEOUT_S)
+    ranks = []
+    for r in range(data * model):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if "alone" in DP_CELLS[mesh_spec][0]:
+        _dp_alone(torch, out_dir, data)
+    return ranks
+
+
+def phase_dp(torch, np, card: str):
+    """Data-parallel serving at --mesh D,M (DP_CELLS), one rank process a
+    rank on the card, then the qag kernels' time at the largest gather
+    shape -> (rank 0's launches over the served runs, the results)."""
+    torch.cuda.empty_cache()                   # the earlier models are gone
+    t0 = time.perf_counter()
+    launches, out = {}, {}
+    for mesh_spec, (_, runs) in DP_CELLS.items():
+        t1 = time.perf_counter()
+        ranks = _dp_ranks(torch, mesh_spec)
+        out[mesh_spec] = ranks
+        for k, v in ranks[0]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for label, _, _ in runs:
+            r0 = ranks[0]["runs"][label]
+            check(all(r["runs"][label]["generated"] == r0["generated"]
+                      for r in ranks), f"dp {mesh_spec} {label}: ranks "
+                  f"hold different generated tokens")
+            peaks = ", ".join(f"rank {r['rank']} "
+                              f"{r['runs'][label]['peak_gb']:.2f}"
+                              for r in ranks)
+            rel = max(max(r["runs"][label]["agreement"]["rel_divergence"])
+                      for r in ranks)
+            print(f"[dp {mesh_spec} {label}] {_dp_cfg().name} "
+                  f"({DP_LAYERS} layers, {BATCH} x {DP_PROMPT} prompt "
+                  f"tokens + {DP_GEN}): TTFT {r0['ttft_ms']:.1f} ms, "
+                  f"decode median {r0['step_ms_median']:.2f} ms/step, p90 "
+                  f"{r0['step_ms_p90']:.2f} (rank 0's clock; {len(ranks)} "
+                  f"ranks taking turns on one card, every step gathering "
+                  f"the store over gloo); prefill/decode logit divergence "
+                  f"{rel:.4f} (every replica); peak memory {peaks} GB  "
+                  f"[{card}]", flush=True)
+        print(f"[dp {mesh_spec}] {len(ranks)} rank processes done in "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    out["qag_time"] = _dp_qag_time(torch, np, card)
+    print(f"[dp] phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3327,6 +3782,10 @@ def main(argv=None) -> int:
     ap.add_argument("--train-mesh", help=argparse.SUPPRESS)
     ap.add_argument("--train-arch", default=TRAIN_ARCH,
                     help=argparse.SUPPRESS)
+    # a rank process of phase dp (started by the phase)
+    ap.add_argument("--dp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dp-mesh", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.tp_rank is not None:
         return tp_rank_main(args.tp_rank, args.tp_tag, args.rendezvous,
@@ -3335,6 +3794,10 @@ def main(argv=None) -> int:
         sys.path.insert(0, os.path.join(ROOT, "src"))
         return train_rank_main(args.train_rank, args.train_mesh,
                                args.rendezvous, args.out, args.train_arch)
+    if args.dp_rank is not None:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        return dp_rank_main(args.dp_rank, args.dp_mesh, args.rendezvous,
+                            args.out)
     phases = args.phases.split(",")
 
     import numpy as np
@@ -3390,6 +3853,8 @@ def main(argv=None) -> int:
                                 ({}, {}))
     xattn_launches, xattn_out = run(
         "xattn", lambda: phase_xattn(torch, np, card), ({}, {}))
+    dp_launches, dp_out = run("dp", lambda: phase_dp(torch, np, card),
+                              ({}, {}))
     ep8_launches = ep8_ranks[0]["ep"]["launches"] if ep8_ranks else {}
     ep8_train_launches = _train_launches(ep8_trained, EP_TRAIN_MESHES)
     train_launches = _train_launches(trained)
@@ -3427,7 +3892,8 @@ def main(argv=None) -> int:
                  + ep8_launches.get(name, 0)
                  + ep8_train_launches.get(name, 0)
                  + rec_launches.get(name, 0)
-                 + xattn_launches.get(name, 0))
+                 + xattn_launches.get(name, 0)
+                 + dp_launches.get(name, 0))
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
                 name, {})
@@ -3440,6 +3906,7 @@ def main(argv=None) -> int:
                  + moe_archs_launches.get(name, 0)
                  + rec_launches.get(name, 0)
                  + xattn_launches.get(name, 0)
+                 + dp_launches.get(name, 0)
                  if name in WIRE_KERNELS else stage_launches.get(name, 0))
         kernels.append({
             "name": name, "route": "cuda", "source": CSRC + source,
@@ -3457,6 +3924,7 @@ def main(argv=None) -> int:
             "ep8_train_launches": ep8_train_launches.get(name, 0),
             "rec_launches": rec_launches.get(name, 0),
             "xattn_launches": xattn_launches.get(name, 0),
+            "dp_launches": dp_launches.get(name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
@@ -3487,7 +3955,8 @@ def main(argv=None) -> int:
               "rec_launches": rec_launches,
               "xattn": {k: v if k == "tp" else numbers(v)
                         for k, v in xattn_out.items()},
-              "xattn_launches": xattn_launches}
+              "xattn_launches": xattn_launches,
+              "dp": dp_out, "dp_launches": dp_launches}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

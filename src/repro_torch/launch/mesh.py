@@ -26,9 +26,12 @@ row-major order:
   the pod axis's :data:`GRAD_ROW_BYTES` (a larger gradient leaf crosses
   in pieces).
 
-Serving takes ``--mesh 1,TP`` (:func:`parse_mesh`: data-parallel serving,
-``DATA > 1``, is not ported); training takes ``--mesh DATA,MODEL[,POD]``
-(:func:`parse_train_mesh`).
+Serving takes ``--mesh DATA,MODEL`` (:func:`parse_mesh`: ``DATA``
+data-parallel replicas of ``MODEL`` TP ranks each, the weights' flat
+store sharded over the data axis); training takes ``--mesh
+DATA,MODEL[,POD]`` (:func:`parse_train_mesh`). The data axis has no peer
+world: its gathers take the process group (host-staged over gloo when
+the ranks share a card).
 """
 from __future__ import annotations
 
@@ -58,14 +61,12 @@ _TP_VALUE_BYTES, _DISPATCH_VALUE_BYTES = 4, 2
 
 
 def parse_mesh(text: str) -> Tuple[int, int]:
-    """``"DATA,MODEL"`` -> (data, model); only ``data == 1`` is served."""
-    data, model = (int(v) for v in text.split(","))
-    if data < 1 or model < 1:
-        raise ValueError(f"--mesh {text}: sizes must be positive")
-    if data != 1:
-        raise NotImplementedError(f"--mesh {text}: data-parallel serving "
-                                  f"(data > 1) is not ported")
-    return data, model
+    """``"DATA,MODEL"`` -> (data, model), both positive."""
+    dims = [int(v) for v in text.split(",")]
+    if len(dims) != 2 or any(v < 1 for v in dims):
+        raise ValueError(f"--mesh {text}: expected DATA,MODEL positive "
+                         f"sizes")
+    return dims[0], dims[1]
 
 
 class WorldRows(NamedTuple):
@@ -86,7 +87,8 @@ def _chunk_bytes(n: int, ranks: int, value_bytes: int) -> int:
 def site_row_bytes(cfg, plan, batch: int, seq: int) -> WorldRows:
     """Receive-row bytes of each peer world that carries model ``cfg``'s
     sites on ``plan`` at ``batch`` x ``seq`` tokens a forward (a prefill
-    served, or a training step's ``b_loc`` x ``seq`` local tokens: the TP
+    served, ``batch`` the rows of one data replica, or a training step's
+    ``b_loc`` x ``seq`` local tokens: the TP
     sites' backward, ``tp_bwd``, has their forward's shape, and the
     backwards of the dispatch and of the within-expert AllReduce are
     exact, over the process groups), each more than the wire of any
@@ -282,9 +284,10 @@ def barrier(axis: Optional[ModelAxis]) -> None:
         dist.barrier(group=axis.pg)
 
 
-def run_ranks(cmd_of: Callable[[int, str], List[str]], model: int,
+def run_ranks(cmd_of: Callable[[int, str], List[str]], world: int,
               timeout: Optional[float] = None) -> None:
-    """Run ``model`` rank processes, ``cmd_of(rank, rendezvous)`` each,
+    """Run ``world`` rank processes, ``cmd_of(rank, rendezvous)`` each
+    (every rank of the mesh: ``data * model`` to serve),
     that meet at a ``FileStore`` file in a temporary directory. They
     inherit this process's output. When one fails (or ``timeout`` seconds
     pass), the others are killed and RuntimeError is raised."""
@@ -296,7 +299,7 @@ def run_ranks(cmd_of: Callable[[int, str], List[str]], model: int,
     with tempfile.TemporaryDirectory(prefix="fc_mesh_") as tmp:
         store = os.path.join(tmp, "store")
         procs = [subprocess.Popen(cmd_of(r, store), env=env)
-                 for r in range(model)]
+                 for r in range(world)]
         t0 = time.monotonic()
         try:
             while True:

@@ -18,6 +18,18 @@ cpu`` the ranks run on gloo. For example::
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch moonshot-v1-16b-a3b --mesh 1,2 --batch 4 --prompt-len 128 \\
       --gen 16 --comm-scheme fused
+
+``--mesh DATA,MODEL`` with ``DATA > 1`` serves DATA data-parallel
+replicas of MODEL TP ranks each, ``DATA * MODEL`` rank processes: as the
+JAX package's launcher does, the weights are a float32 flat store
+sharded over the data axis (``make_plan(cfg, tp=MODEL, fsdp=DATA)``),
+every block group gathered over it at every prefill and decode step (the
+``qag`` site: quantized under the aggressive policy), and each replica
+serves its rows of the batch (all of them when DATA does not divide
+it). For example (two replicas on gloo)::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
+      --smoke --device cpu --mesh 2,1 --policy aggressive
 """
 from __future__ import annotations
 
@@ -39,11 +51,12 @@ from repro_torch.core.policy import (BF16_POLICY, CommPolicy,
                                      with_backend, with_scheme)
 from repro_torch.launch import mesh
 from repro_torch.models.model import greedy_next_token
+from repro_torch.parallel.axis import MeshAxes
 from repro_torch.parallel.plan import make_plan
-from repro_torch.parallel.shardings import init_params
+from repro_torch.parallel.shardings import init_params, init_store
 from repro_torch.train.data import DataConfig, make_dataset
-from repro_torch.train.serve_step import (make_cache_init, make_decode_step,
-                                          make_prefill)
+from repro_torch.train.serve_step import (local_rows, make_cache_init,
+                                          make_decode_step, make_prefill)
 
 POLICIES = {"paper": paper_policy, "bf16": lambda: BF16_POLICY,
             "aggressive": aggressive_policy}
@@ -136,15 +149,37 @@ def _full_logits(logits: torch.Tensor, group) -> torch.Tensor:
     return shards.transpose(0, 1).reshape(logits.shape[0], -1)
 
 
+def _gather_rows(x: torch.Tensor, batch: int, data_group) -> np.ndarray:
+    """This replica's rows (B_loc, ...) -> the global batch's (B, ...),
+    gathered over the data axis (a replicated batch: replica 0's)."""
+    if data_group is None:
+        return x.cpu().numpy()
+    rows = all_gather_rows(x, data_group).cpu().numpy()
+    return rows.reshape(-1, *x.shape[1:])[:batch]
+
+
 def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
           prompt_len: int, gen: int, device: torch.device, seed: int = 0,
           label: str = "", log=print, group=None,
-          keep_caches: bool = False) -> Dict:
+          keep_caches: bool = False, data_group=None,
+          window_override: Optional[int] = None,
+          cache_len: Optional[int] = None,
+          record: Optional[list] = None) -> Dict:
     """Prefill a batch of synthetic prompts, then decode: the prompt is
     teacher-forced through the cache, then ``gen`` tokens are generated.
-    ``group`` is the model axis (``params`` this rank's shard); every
-    rank of it calls this, and a host barrier precedes the prefill and
-    the decode loop.
+    ``group`` is the model axis (``params`` this rank's shard);
+    at ``plan.fsdp > 1`` ``params`` is this rank's shard of the flat
+    store, gathered over the data axis ``data_group``
+    (:func:`repro_torch.train.serve_step.make_prefill`), and each data
+    replica serves its rows of the batch
+    (:func:`repro_torch.train.serve_step.local_rows`). Every rank
+    of the mesh calls this, and a barrier over all of them precedes the
+    prefill and the decode loop; the times are this rank's clock.
+    ``window_override`` windows every self-attention block but a local
+    one; ``cache_len`` (default ``prompt_len + gen``) sizes the decode
+    rings, so a ``cache_len`` of the window makes them wrap. ``record``,
+    if given, gets each forward's (B_loc, v_loc) logits appended, the
+    prefill's first.
 
     A model with an encoder or cross-attention is
     given the stream's ``enc_embeds`` (B, n_ctx, d_model) at the prefill
@@ -156,46 +191,61 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
     paths route with different capacities (``capacity(B * S)`` against
     ``capacity(B)``, which at decode drops routes that prefill keeps), so
     their logits differ by design; the routes dropped at prefill and at
-    decode are counted instead. With ``keep_caches`` the result also
-    holds the decode caches as the last step left them (``"caches"``).
+    decode are counted instead. The agreement is checked on each
+    replica's rows; the first and generated tokens returned are the
+    global batch's, gathered over the data axis. With ``keep_caches`` the
+    result also holds the decode caches as the last step left them
+    (``"caches"``).
     """
     enc = cfg.encoder.n_ctx if (cfg.is_enc_dec or cfg.has_cross) else None
     data = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=prompt_len,
                                    global_batch=batch, seed=seed,
                                    enc_ctx=enc,
                                    d_model=cfg.d_model)).batch(0)
-    prompts = torch.from_numpy(data["tokens"]).to(device)
+    rows = local_rows(batch, data_group)
+    prompts = torch.from_numpy(data["tokens"][rows]).to(device)
     # the stub frontend's embeddings, given to the prefill and to every
     # decode step
-    embeds = (torch.from_numpy(data["enc_embeds"]).to(device)
+    embeds = (torch.from_numpy(data["enc_embeds"][rows]).to(device)
               if enc else None)
+    b_loc = prompts.shape[0]
+    axes = MeshAxes(model=group, data=data_group)
+    kw = dict(group=group, data_group=data_group,
+              window_override=window_override)
 
     moe = cfg.moe is not None
     pstats, dstats = {}, {}
-    prefill = make_prefill(cfg, plan, policy, group=group, stats=pstats)
+    prefill = make_prefill(cfg, plan, policy, stats=pstats, **kw)
     _sync(device)
-    mesh.barrier(group)
+    mesh.barrier_all(axes)
     t0 = time.perf_counter()
     prefill_logits = prefill(params, prompts, embeds)
     first = greedy_next_token(prefill_logits, plan, group)
+    if record is not None:
+        record.append(prefill_logits)
     _sync(device)
     ttft = time.perf_counter() - t0
-    log(f"[serve{label}] TTFT (prefill {prompt_len} toks x{batch}): "
-        f"{ttft * 1000:.1f} ms")
+    replicas = "" if data_group is None else (
+        f", {b_loc} a replica" if b_loc < batch else ", every replica all")
+    log(f"[serve{label}] TTFT (prefill {prompt_len} toks x{batch}"
+        f"{replicas}): {ttft * 1000:.1f} ms")
 
-    caches = make_cache_init(cfg, plan, batch, prompt_len + gen, device)()
-    step = make_decode_step(cfg, plan, policy, group=group, stats=dstats)
+    caches = make_cache_init(cfg, plan, batch, cache_len or prompt_len + gen,
+                             device, data_group)()
+    step = make_decode_step(cfg, plan, policy, stats=dstats, **kw)
     out, agree = [], None
     tok = prompts[:, :1]
     step_ms = []
     steps = prompt_len + gen - 1
     _sync(device)
-    mesh.barrier(group)
+    mesh.barrier_all(axes)
     for i in range(steps):
         _sync(device)
         t0 = time.perf_counter()
         logits, caches = step(params, caches, tok, embeds)
         nt = greedy_next_token(logits, plan, group)
+        if record is not None:
+            record.append(logits)
         _sync(device)
         step_ms.append((time.perf_counter() - t0) * 1000)
         if i + 1 < prompt_len:
@@ -206,8 +256,10 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
                     _full_logits(prefill_logits, group),
                     _full_logits(logits, group), first, nt, cfg.vocab)
             tok = nt[:, None]
-            out.append(nt.cpu().numpy())
-    gen_toks = np.stack(out, 1) if out else np.zeros((batch, 0), np.int64)
+            out.append(nt)
+    gen_toks = _gather_rows(
+        torch.stack(out, 1) if out else torch.zeros(
+            (b_loc, 0), dtype=torch.int64, device=device), batch, data_group)
     steady = np.asarray(step_ms[1:]) if steps > 1 else np.full(1, np.nan)
     med, p90 = float(np.median(steady)), float(np.percentile(steady, 90))
     log(f"[serve{label}] {steps} decode steps: first {step_ms[0]:.1f} ms; "
@@ -216,7 +268,7 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
     if agree is not None:
         log(f"[serve{label}] prefill/decode agreement: logit divergence "
             f"{agree['rel_divergence']}; first generated token matches "
-            f"prefill in the {agree['rows_held']} of {batch} rows held "
+            f"prefill in the {agree['rows_held']} of {b_loc} rows held "
             f"(top-2 margins {agree['margin']})")
     routes = {}
     if moe:
@@ -232,7 +284,8 @@ def serve(params, cfg, plan, policy: CommPolicy, *, batch: int,
     log(f"[serve{label}] generated tokens (first row): {gen_toks[0][:16]}")
     return {"ttft_ms": ttft * 1000, "first_step_ms": step_ms[0],
             "step_ms_median": med, "step_ms_p90": p90, "decode_steps": steps,
-            "first_tokens": first.cpu().numpy(), "generated": gen_toks,
+            "first_tokens": _gather_rows(first, batch, data_group),
+            "generated": gen_toks,
             "agreement": agree, **routes,
             **({"caches": caches} if keep_caches else {})}
 
@@ -258,44 +311,51 @@ def main(argv=None) -> Dict:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and the prompts")
     ap.add_argument("--mesh", default="1,1",
-                    help="DATA,MODEL: MODEL > 1 serves one TP rank a "
-                         "process (DATA > 1 is not ported)")
+                    help="DATA,MODEL: DATA * MODEL > 1 serves one rank a "
+                         "process, DATA > 1 data-parallel replicas "
+                         "gathering their store over the data axis")
     # set by the launcher for each rank process it starts
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
-    _, model = mesh.parse_mesh(args.mesh)
+    data, model = mesh.parse_mesh(args.mesh)
+    world = data * model
     device = resolve_device(args.device)
-    if model > 1 and args.rank is None:
+    if world > 1 and args.rank is None:
         argv = list(sys.argv[1:] if argv is None else argv)
         mesh.run_ranks(lambda r, store: [
             sys.executable, "-m", "repro_torch.launch.serve", *argv,
-            "--rank", str(r), "--rendezvous", store], model)
-        return {"ranks": model}
+            "--rank", str(r), "--rendezvous", store], world)
+        return {"ranks": world}
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    plan = make_plan(cfg, tp=model)
+    plan = make_plan(cfg, tp=model, fsdp=data)
     rank = args.rank or 0
-    if model > 1:
+    _, data_rank, model_rank = mesh.mesh_coord(rank, data, model)
+    if world > 1:
         device = mesh.rank_device(rank, device)
+    rows = args.batch // data if args.batch % data == 0 else args.batch
     axes = mesh.init_mesh(
-        1, model, 0, rank, args.rendezvous, device,
-        mesh.site_row_bytes(cfg, plan, args.batch, args.prompt_len),
-        plan.moe)
-    axis = axes.model
+        data, model, 0, rank, args.rendezvous, device,
+        mesh.site_row_bytes(cfg, plan, rows, args.prompt_len), plan.moe)
     log = print if rank == 0 else (lambda *a, **k: None)
     try:
         policy = build_policy(args.policy, args.policy_file,
                               args.codec_backend, args.comm_scheme)
         log(describe_policy(policy, cfg.n_layers))
-        params = init_params(cfg, plan, args.seed, device,
-                             getattr(torch, cfg.dtype), rank=rank)
+        if data > 1:          # this rank's shard of the float32 flat store
+            params = init_store(cfg, plan, args.seed, device,
+                                rank=model_rank, data_rank=data_rank)
+        else:
+            params = init_params(cfg, plan, args.seed, device,
+                                 getattr(torch, cfg.dtype), rank=model_rank)
         res = serve(params, cfg, plan, policy, batch=args.batch,
                     prompt_len=args.prompt_len, gen=args.gen, device=device,
-                    seed=args.seed, log=log, group=axis)
+                    seed=args.seed, log=log, group=axes.model,
+                    data_group=axes.data)
     finally:
         mesh.close_mesh(axes)
-    log(f"[serve] OK{f' (rank 0 of {model})' if model > 1 else ''}")
+    log(f"[serve] OK{f' (rank 0 of {world})' if world > 1 else ''}")
     return res
 
 

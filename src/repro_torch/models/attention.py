@@ -10,8 +10,11 @@ tp_psum`.
 
 A ``local`` block attends over the last ``window`` positions only (its
 key at ``p`` is seen from the query at ``q`` when ``q - window < p <=
-q``), at prefill and at decode. An ``enc`` block's self-attention is
-not causal; :func:`cross_attention` (``dec`` and ``xattn`` blocks)
+q``), at prefill and at decode; so does any other self-attention block
+given a window (the model's ``window_override``). An ``enc`` block's
+self-attention is not causal; with a window it sees the keys after the
+query and those fewer than ``window`` positions before it, as the JAX
+package's does. :func:`cross_attention` (``dec`` and ``xattn`` blocks)
 attends from the decoder's positions to every position of the encoder's
 output, with its own parameters (``xwq`` ... ``xwo``) and its own TP
 site.
@@ -20,7 +23,9 @@ The decode cache is a ring: ``slot_pos[c]`` is the position held in slot
 ``c`` (-1 when empty); a local block's ring has ``min(cache_len,
 window)`` slots, so it wraps once the sequence passes the window. In
 shard mode each rank holds every position of its kv heads, position
-``pos`` in slot ``pos % cache_len``. In replicate
+``pos`` in slot ``pos % cache_len``; a ring of ``window`` slots (a
+window given with ``cache_len`` = window) wraps likewise, each slot then
+within the window. In replicate
 mode the ring is sharded by sequence: each rank holds ``cache_len / tp``
 positions of all kv heads, position ``pos`` goes to slot ``pos %
 cache_len`` of the whole ring, which rank ``slot // c_loc`` owns, and
@@ -251,7 +256,7 @@ def self_attention(p: Dict, x: torch.Tensor, positions, cfg: ModelConfig,
         cache["slot_pos"][slot % c_loc] = pos
     spos = cache["slot_pos"]
     mask = (spos >= 0) & (spos <= pos)
-    if window is not None:
+    if causal and window is not None:
         mask = mask & (spos > pos - window)
     mask = mask[None, None, None, :]
     if plan.kv_mode == "shard":

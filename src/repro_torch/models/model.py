@@ -28,12 +28,19 @@ resolve at ``layer=None``, as the JAX package's do.
 The encoder runs in every :func:`forward`, the decode steps' too, as in
 the JAX package, whose decode step is given the embeddings at every step.
 
-Serving runs :func:`forward` on resident weights (``fsdp == 1``).
+Serving runs :func:`forward` on resident weights (``fsdp == 1``), or
+with ``flat`` on the flat ZeRO store of
+:mod:`repro_torch.parallel.shardings` (data-parallel serving, ``fsdp >
+1``): there, as in the JAX package's ``forward``, each block group is
+gathered over the data axis at every prefill and decode step, the
+embedding's first, then the encoder's, the blocks' in layer order and
+the output's, quantized at the ``qag`` site, with no autograd graph
+kept. ``window_override`` gives every self-attention block but a
+``local`` one (whose window is ``cfg.window``) a window; the encoder's
+blocks get none, as in the JAX package.
 Training (the dense and MoE kinds, :data:`TRAINED_KINDS`) runs
-:func:`forward_train` on the flat ZeRO store of
-:mod:`repro_torch.parallel.shardings`: each block group is gathered over
-the data axis (the ``qag`` site) as the JAX package's ``forward`` does,
-and each block, its gather included, is recomputed in the backward
+:func:`forward_train` on the flat store, gathered the same way, and
+each block, its gather included, is recomputed in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint``), so the backward
 replays the block's forward sites before it runs their backward sites.
 :func:`lm_loss` is the vocabulary-parallel cross-entropy.
@@ -185,12 +192,14 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
                 cache: Optional[Dict], pos: int = 0,
                 layer: Optional[int] = None, group=None,
                 rank: int = 0, stats: Optional[Dict] = None,
-                enc_out: Optional[torch.Tensor] = None):
+                enc_out: Optional[torch.Tensor] = None,
+                window_override: Optional[int] = None):
     """x + mixer(norm(x)), then (but for mlstm and slstm) x +
     mlp(norm(x)), or x + moe(norm(x)) in a moe block -> (x, aux_loss);
     aux is 0.0 but for a moe block. The mixer is the causal
     self-attention (dense, moe, dec; local over the last ``cfg.window``
-    positions; enc's not causal), the cross-attention onto ``enc_out``
+    positions, the others over the last ``window_override`` when it is
+    given; enc's not causal), the cross-attention onto ``enc_out``
     (xattn; a dec block's follows its self-attention, through its own
     norm ``n3_``), RG-LRU (rec) or the xLSTM cell (mlstm, slstm).
     ``cache`` is the block's decode cache (:func:`init_block_cache`),
@@ -208,8 +217,8 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
     else:
         a, _ = attn.self_attention(
             p, h, positions, cfg, plan, policy, causal=kind != "enc",
-            window=cfg.window if kind == "local" else None, cache=cache,
-            pos=pos, layer=layer, group=group, rank=rank)
+            window=cfg.window if kind == "local" else window_override,
+            cache=cache, pos=pos, layer=layer, group=group, rank=rank)
         x = x + a
         if kind == "dec":
             h = _norm(p, x, cfg, "n3_")
@@ -247,7 +256,8 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
              plan: ShardingPlan, policy: CommPolicy, *, dtype, group,
              caches: Optional[Dict] = None, stats: Optional[Dict] = None,
              recompute: bool = False,
-             enc_embeds: Optional[torch.Tensor] = None):
+             enc_embeds: Optional[torch.Tensor] = None,
+             window_override: Optional[int] = None):
     """The one decoder loop of :func:`forward` and :func:`forward_train`:
     ``get(group, stack)`` gives a parameter group's tensors at one stack
     index; with ``recompute`` each block group, its ``get`` included, is
@@ -255,7 +265,9 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
     counts the routes of the forward only, not of the replay.
     ``enc_embeds`` (B, n_ctx, d) feed the encoder of an encoder-decoder
     model, or the cross-attention of a model with ``xattn`` blocks
-    directly; such a model raises ValueError without them."""
+    directly; such a model raises ValueError without them.
+    ``window_override`` goes to every decoder block
+    (:func:`apply_block`)."""
     policy = policy.bind(cfg.n_layers)
     rank = axis_rank(group)
     decode = caches is not None
@@ -290,7 +302,8 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
                     cfg=cfg, plan=plan, policy=policy,
                     cache=caches["layers"][layer0 + j] if decode else None,
                     pos=pos, layer=layer0 + j, group=group, rank=rank,
-                    stats=st, enc_out=enc_out)
+                    stats=st, enc_out=enc_out,
+                    window_override=window_override)
                 aux = aux + a
             return cx, aux
         if recompute:
@@ -308,16 +321,47 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
     return x, unemb, aux_total
 
 
+def _store_get(store: Store, cfg: ModelConfig, plan: ShardingPlan,
+               policy: CommPolicy, dtype, data_group,
+               grad_deltas: Optional[Store] = None):
+    """``get(group, stack)`` over the flat store: the group's shards at
+    one stack index gathered over the data axis ``data_group``
+    (:func:`~repro_torch.parallel.shardings.gather_group`; quantized at
+    the ``qag`` site), each ``grad_deltas`` leaf added when given."""
+    groups = param_groups(cfg, plan)
+    qag = policy.bind(cfg.n_layers).resolve("qag")
+
+    def get(gname: str, stack: int) -> Dict[str, torch.Tensor]:
+        views = {k: v[stack] for k, v in store[gname].items()}
+        deltas = None if grad_deltas is None else {
+            k: v[stack] for k, v in grad_deltas[gname].items()}
+        return gather_group(views, groups[gname][1], plan, dtype, qag,
+                            data_group, deltas)
+
+    return get
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             plan: ShardingPlan, policy: CommPolicy, *,
             caches: Optional[Dict] = None, dtype=torch.bfloat16,
             group=None, stats: Optional[Dict] = None,
-            enc_embeds: Optional[torch.Tensor] = None):
+            enc_embeds: Optional[torch.Tensor] = None,
+            window_override: Optional[int] = None, flat: bool = False,
+            data_group=None):
     """tokens (B, S) -> (hidden (B, S, d), unemb, aux_loss, caches), this
-    rank's shard of the model axis ``group`` (its rank read from it), on
-    resident weights. ``enc_embeds`` (B, n_ctx, d): the stub frontend's
-    embeddings, which a model with an encoder or ``xattn`` blocks needs
-    at prefill and at every decode step (the encoder runs each time).
+    rank's shard of the model axis ``group`` (its rank read from it).
+    ``enc_embeds`` (B, n_ctx, d): the stub frontend's embeddings, which a
+    model with an encoder or ``xattn`` blocks needs at prefill and at
+    every decode step (the encoder runs each time). ``window_override``:
+    the window of every self-attention block but a local one
+    (:func:`apply_block`).
+
+    ``params``: resident weights (``params[g][name]`` of shape ``(n_stack,
+    *local_shape)``), or with ``flat`` this rank's flat store (``(n_stack,
+    flat / fsdp)`` float32 shards, :func:`~repro_torch.parallel.
+    shardings.init_store`), every block group gathered over the data axis
+    ``data_group`` in this call (the ``qag`` site; at ``fsdp == 1`` the
+    flat values reshaped and cast to ``dtype``), no autograd graph kept.
 
     ``aux_loss`` is the MoE blocks' load-balance loss, summed (serving
     ignores it).
@@ -326,12 +370,20 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     token sits at ``caches["pos"]``, and the caches are updated in place
     (``pos`` advances by one).
     """
-    def get(gname: str, stack: int) -> Dict[str, torch.Tensor]:
-        return {k: v[stack] for k, v in params[gname].items()}
+    if flat:
+        gather = _store_get(params, cfg, plan, policy, dtype, data_group)
+
+        def get(gname: str, stack: int) -> Dict[str, torch.Tensor]:
+            with torch.no_grad():
+                return gather(gname, stack)
+    else:
+        def get(gname: str, stack: int) -> Dict[str, torch.Tensor]:
+            return {k: v[stack] for k, v in params[gname].items()}
 
     x, unemb, aux = _decoder(get, tokens, cfg, plan, policy, dtype=dtype,
                              group=group, caches=caches, stats=stats,
-                             enc_embeds=enc_embeds)
+                             enc_embeds=enc_embeds,
+                             window_override=window_override)
     return x, unemb, aux, caches
 
 
@@ -370,16 +422,8 @@ def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
     package (ROADMAP Queue A item 9).
     """
     check_trainable(cfg)
-    groups = param_groups(cfg, plan)
-    qag = policy.bind(cfg.n_layers).resolve("qag")
-
-    def get(gname: str, stack: int) -> Dict[str, torch.Tensor]:
-        views = {k: v[stack] for k, v in store[gname].items()}
-        deltas = None if grad_deltas is None else {
-            k: v[stack] for k, v in grad_deltas[gname].items()}
-        return gather_group(views, groups[gname][1], plan, dtype, qag,
-                            data_group, deltas)
-
+    get = _store_get(store, cfg, plan, policy, dtype, data_group,
+                     grad_deltas)
     return _decoder(get, tokens, cfg, plan, policy, dtype=dtype,
                     group=group, stats=stats, recompute=True)
 
@@ -401,7 +445,9 @@ def lm_loss(hidden: torch.Tensor, unemb: torch.Tensor, labels: torch.Tensor,
 def init_block_cache(kind: str, cfg: ModelConfig, plan: ShardingPlan,
                      batch: int, cache_len: int, dtype, device) -> Dict:
     """A block's decode cache: a self-attention block's kv ring of
-    ``cache_len`` slots (a local block's of ``min(cache_len, window)``),
+    ``cache_len`` slots (a local block's of ``min(cache_len, window)``;
+    as in the JAX package, a ``window_override`` cuts no ring: its caller
+    passes ``cache_len`` = the window),
     a rec block's RG-LRU state ``{h, conv}``, an mlstm block's ``{c, n,
     m}``, an slstm block's ``{c, n, h, m}``; an xattn block has none
     (``{}``: its keys are the encoder's, recomputed each step)."""

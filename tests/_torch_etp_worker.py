@@ -15,7 +15,8 @@ package's smoke config, so that both run the same model.
 ``serve``: one rank of ``tests/test_torch_serve_moe_etp.py``. It joins
 the mesh (``launch/mesh.py::init_mesh`` with the plan's MoE subgroups,
 gloo), loads its shard of the JAX-initialised weights that
-``OUT_DIR/jax.npz`` holds (``store/GROUP/NAME``), and for each run of
+``OUT_DIR/store.npz`` holds (``store/GROUP/NAME``; the JAX side, which
+runs beside the ranks, writes it before its own work), and for each run of
 :data:`RUNS` saves the prefill's hidden states and the routes it dropped,
 serve's generated tokens and dropped routes, and (for :data:`DECODED`)
 the logits of the decode steps through the prompt, as
@@ -89,7 +90,7 @@ def run_serve(rank: int, world: int, init_file: str, out_dir: str) -> None:
     from repro_torch.models.model import forward
     from repro_torch.parallel.plan import make_plan
     from repro_torch.parallel.shardings import load_jax_store
-    from _torch_train_worker import read_store
+    from _torch_train_worker import read_store, wait_load
     cfg = etp_config(get_smoke_config(ARCH))
     plan = make_plan(cfg, tp=world)
     cpu = torch.device("cpu")
@@ -97,8 +98,8 @@ def run_serve(rank: int, world: int, init_file: str, out_dir: str) -> None:
                               plan.moe)
     axis = mesh.model
     try:
-        params = load_jax_store(read_store(np.load(
-            os.path.join(out_dir, "jax.npz"))), cfg, plan, cpu,
+        params = load_jax_store(read_store(wait_load(
+            os.path.join(out_dir, "store.npz"))), cfg, plan, cpu,
             torch.float32, rank=rank)
         toks = torch.from_numpy(prompts())
         out = {"ep_ranks": np.array(dist.get_process_group_ranks(

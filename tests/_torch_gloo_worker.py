@@ -17,8 +17,9 @@ each rank holds its slice of every expert's hidden (key ``etp``).
 
 MODE ``serve``: the qwen3-14b smoke config (float32) at tp = WORLD, each
 rank holding its shard of the JAX-initialised weights that
-``OUT_DIR/jax.npz`` holds (``store/GROUP/NAME`` keys, written by
-``tests/test_torch_serve_tp.py``), on a
+``OUT_DIR/store.npz`` holds (``store/GROUP/NAME`` keys, written by
+``tests/test_torch_serve_tp.py``'s JAX side, which runs beside the
+ranks, before its own work), on a
 :class:`~repro_torch.parallel.axis.ModelAxis` over the gloo group: for
 each run of :data:`SERVE_RUNS`, the prefill's hidden states, its greedy
 next token over the vocabulary shards, and ``serve``'s decode loop (the
@@ -40,7 +41,7 @@ capacity at prefill and decode.
 
 MODE ``serve_rec``: the same for the recurrentgemma-2b and xlstm-125m
 smoke configs, one after the other (``tests/test_torch_serve_tp_recurrent.
-py`` writes ``OUT_DIR/ARCH/jax.npz``; each rank saves
+py`` writes ``OUT_DIR/ARCH/store.npz``; each rank saves
 ``OUT_DIR/ARCH/rank{RANK}.npz``), recurrentgemma's window cut to
 :data:`REC_WINDOW` so that the decode's local ring wraps within the
 prompt, with the logits of the decode steps through the prompt
@@ -71,6 +72,26 @@ N = 1024
 CONFIGS = {"int8": dict(bits=8, group=128),
            "int5_si": dict(bits=5, group=128, scale_int=True),
            "int2_sr": dict(bits=2, group=32, spike=True)}
+
+
+def save_npz(path: str, **arrays) -> None:
+    """``np.savez`` to ``path`` by a rename, so that a reader never sees
+    it half written."""
+    tmp = path[:-len(".npz")] + ".part.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def wait_load(path: str, timeout: float = 240):
+    """``np.load(path)`` once the JAX side has written it (the JAX side
+    runs beside the ranks; a test kills the ranks when it fails)."""
+    import time
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{path} never came")
+        time.sleep(0.05)
+    return np.load(path)
 
 
 def inputs(world: int) -> np.ndarray:
@@ -242,8 +263,8 @@ def run_serve(rank: int, world: int, out_dir: str,
     from repro_torch.parallel.shardings import load_jax_store
     from repro_torch.train.data import DataConfig, make_dataset
     from repro_torch.train.serve_step import make_prefill
-    if store is None:
-        data = np.load(os.path.join(out_dir, "jax.npz"))
+    if store is None:                 # the JAX side writes it first
+        data = wait_load(os.path.join(out_dir, "store.npz"))
         store = {}
         for key in data.files:
             if key.startswith("store/"):

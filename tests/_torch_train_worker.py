@@ -84,6 +84,26 @@ def read_store(npz) -> dict:
     return store
 
 
+def save_npz(path: str, **arrays) -> None:
+    """``np.savez`` to ``path`` by a rename, so that a reader never sees
+    it half written."""
+    tmp = path[:-len(".npz")] + ".part.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def wait_load(path: str, timeout: float = 240):
+    """``np.load(path)`` once the JAX side has written it (it fails the
+    run when it fails: the test kills the ranks then)."""
+    import time
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{path} never came")
+        time.sleep(0.05)
+    return np.load(path)
+
+
 def leaf_stats(got: np.ndarray, want: np.ndarray,
                start: np.ndarray = None) -> np.ndarray:
     """One leaf of the port's state against JAX's -> [rel, ratio]: the L2
@@ -159,23 +179,25 @@ def run(out_dir: str, mesh_spec: str, names, timeout: float = 240,
     me = os.path.abspath(__file__)
     env = dict(os.environ, OMP_NUM_THREADS="1", XLA_FLAGS=(
         f"--xla_force_host_platform_device_count={world}"))
+    # the JAX side and the ranks at once: a rank waits for each file of
+    # the JAX side when it first needs it (:func:`wait_load`)
     cmds = [[sys.executable, me, "jax", mesh_spec, out_dir, ",".join(names),
              arch]]
-    cmds.append(None)
     cmds += [[sys.executable, me, str(r), mesh_spec,
               os.path.join(out_dir, "rendezvous"), out_dir, ",".join(names),
               arch] for r in range(world)]
-    for batch in (cmds[:1], cmds[2:]):
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, env=env)
-                 for c in batch]
-        logs = []
-        for p in procs:
-            try:
-                logs.append(p.communicate(timeout=timeout)[0].decode())
-            finally:
-                p.kill()
-        assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env)
+             for c in cmds]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=timeout)[0].decode())
+        finally:
+            for q in procs if p.returncode else ():
+                q.kill()
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
     return ([np.load(os.path.join(out_dir, f"rank{r}.npz"))
              for r in range(world)],
             {n: np.load(os.path.join(out_dir, f"jax_{n}.npz"))
@@ -305,7 +327,7 @@ def jax_reference(mesh_spec: str, out_dir: str, names,
             if not a.any():                      # zero-init projections
                 a = (rng.standard_normal(a.shape) * 0.05).astype(np.float32)
             store_np[g][name] = init[f"store/{g}/{name}"] = a
-    np.savez(os.path.join(out_dir, "init.npz"), **init)
+    save_npz(os.path.join(out_dir, "init.npz"), **init)
     pols = {"bf16": jpolicy.BF16_POLICY, "paper": jpolicy.paper_policy(),
             "depth": jpolicy.depth_policy(),
             "aggressive": jpolicy.aggressive_policy()}
@@ -343,7 +365,7 @@ def jax_reference(mesh_spec: str, out_dir: str, names,
             flat(store, f"{i}/store/", res)
             flat({k: v for k, v in opt.items() if k != "step"}, f"{i}/",
                  res)
-        np.savez(os.path.join(out_dir, f"jax_{name}.npz"), **res)
+        save_npz(os.path.join(out_dir, f"jax_{name}.npz"), **res)
 
 
 COLL_N, COLL_K = 2048, 512
@@ -619,7 +641,7 @@ def main():
     cfg = train_config(*sys.argv[6:7])
     plan = make_plan(cfg, tp=model, fsdp=data)
     m, d = axis_rank(mesh.model), axis_rank(mesh.data)
-    init = np.load(os.path.join(out_dir, "init.npz"))
+    init = wait_load(os.path.join(out_dir, "init.npz"))
     store_np = read_store(init)
     ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
                                  global_batch=BATCH))
@@ -628,7 +650,7 @@ def main():
     try:
         for name in names:
             policy = policies()[name]
-            want = np.load(os.path.join(out_dir, f"jax_{name}.npz"))
+            want = None                   # JAX's, waited for when needed
             store = load_jax_store(store_np, cfg, plan, cpu, rank=m,
                                    data_rank=d)
             opt = init_opt_state(store, opt_config(),
@@ -647,6 +669,9 @@ def main():
                         src[f"{start}/{g}/{n}"], plan, m, d)))
                 store, opt, metrics = step(store, opt, local_batch(
                     ds.batch(i), mesh, cpu))
+                if want is None:
+                    want = wait_load(os.path.join(out_dir,
+                                                  f"jax_{name}.npz"))
                 for k, v in metrics.items():
                     out[f"{name}/{i}/{k}"] = v.numpy()
                 for tree, st in ef_sums(calls, opt, mesh).items():

@@ -33,6 +33,7 @@ from repro_torch.kernels import ops, protocol, rdma
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_gloo_worker as worker  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 CFGS = {"int8 g128": dict(bits=8, group=128),
         "int5 g128 scale_int": dict(bits=5, group=128, scale_int=True),

@@ -31,6 +31,7 @@ from repro_torch.kernels import ops, wire
 sys.path.insert(0, os.path.join(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))), "scripts"))
 from gen_golden_wire import golden_cfg  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 GOLDEN = np.load(os.path.join(os.path.dirname(__file__), "golden",
                               "wire_vectors.npz"))

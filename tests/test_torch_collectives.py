@@ -29,6 +29,7 @@ from repro_torch.core.comm_config import NO_COMPRESSION, CommConfig
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_gloo_worker as worker  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 CFGS = [dict(bits=8, group=128), dict(bits=5, group=128, scale_int=True),
         dict(bits=2, group=32, spike=True), dict(bits=3, group=32)]
@@ -115,6 +116,9 @@ def test_two_rank_gloo_matches_jax_replay(tmp_path):
                                str(init), str(tmp_path)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for r in range(world)]
+    x_all = worker.inputs(world)     # the replay, while the ranks run
+    wants = {name: _replay(x_all, JConfig(backend="ref", **kw))
+             for name, kw in worker.CONFIGS.items()}
     logs = []
     for p in procs:
         try:
@@ -122,9 +126,7 @@ def test_two_rank_gloo_matches_jax_replay(tmp_path):
         finally:
             p.kill()
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)
-    x_all = worker.inputs(world)
-    for name, kw in worker.CONFIGS.items():
-        want = _replay(x_all, JConfig(backend="ref", **kw))
+    for name, want in wants.items():
         for r in range(world):
             res = np.load(tmp_path / f"rank{r}.npz")
             for scheme in ("two_step", "fused"):

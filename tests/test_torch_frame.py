@@ -51,6 +51,7 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from gen_golden_wire import golden_cfg  # noqa: E402
 import _torch_train_worker as worker  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 _DATA = np.load(os.path.join(ROOT, "tests", "golden", "wire_vectors.npz"))
 FRAME_KEYS = sorted(k for k in _DATA.files if k.startswith("frame_"))

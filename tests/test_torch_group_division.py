@@ -22,6 +22,7 @@ from fractions import Fraction
 
 import numpy as np
 import pytest
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 LO, HI = 2.0 ** -100, 2.0 ** 100     # codec.cuh group_div: the fast range
 

@@ -33,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from chip_smoke import _tie_input  # noqa: E402
 from test_torch_codec import _assert_within_fma_rounding  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 # (bits, group) of tests/test_kernels.py
 SWEEP = [(8, 128), (6, 128), (5, 128), (4, 32), (3, 32), (2, 32), (7, 128)]

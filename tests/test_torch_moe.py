@@ -57,6 +57,7 @@ from repro_torch.train import serve_step
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_gloo_worker as worker  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCH = "moonshot-v1-16b-a3b"
 B, S, DECODE_STEPS = 2, 8, 3

@@ -45,6 +45,7 @@ from repro_torch.parallel.plan import make_plan
 from repro_torch.parallel.shardings import load_jax_store
 from repro_torch.train import serve_step
 from repro_torch.train.data import DataConfig, make_dataset
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b")
 B, S, GEN = 2, 12, 3

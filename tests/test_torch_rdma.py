@@ -25,6 +25,7 @@ from repro.core.comm_config import CommConfig as JConfig
 from repro.kernels import protocol as jprotocol
 from repro_torch.core.comm_config import CommConfig
 from repro_torch.kernels import ops, protocol, rdma
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 CFGS = {"int4 g32": dict(bits=4, group=32),
         "int4 g32 scale_int": dict(bits=4, group=32, scale_int=True),

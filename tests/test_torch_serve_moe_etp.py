@@ -7,12 +7,14 @@ The model is ``tests/_torch_etp_worker.py``'s (grok-1's smoke config with
 subprocess of this file (``python tests/test_torch_serve_moe_etp.py jax
 OUT_DIR``): it builds the weights (``build_store`` at tp = 4 with a crc32
 in place of the salted ``hash``, float32, the zero-initialised output
-projections filled from a seeded normal), the prefill's hidden states
+projections filled from a seeded normal; saved first, ``store.npz``),
+the prefill's hidden states
 under ``shard_map`` for each policy with the routes each device dropped
 (its routing lines replayed on each MoE layer's input, the count sent
 out by ``jax.debug.callback``), and its decode steps' tokens through the
-prompt. Four rank processes of the port (``_torch_etp_worker.py serve``)
-then load their shards with ``load_jax_store(rank=r)``, join the mesh
+prompt. Four rank processes of the port (``_torch_etp_worker.py serve``),
+started beside it, load their shards with ``load_jax_store(rank=r)``
+once the store is there, join the mesh
 with the plan's ep and etp subgroups, and serve under paper/two_step,
 paper/fused (the emulated fused schedules around the gloo hops of the
 subgroups), aggressive (``ep_slice``) and bf16.
@@ -36,6 +38,8 @@ JAX_POLICY = {"paper/two_step": "paper", "paper/fused": "paper",
 def _jax_reference(out_dir: str) -> None:
     """The JAX side (its own process, four fake CPU devices)."""
     import zlib
+
+    from _torch_train_worker import save_npz
 
     import jax
     import jax.numpy as jnp
@@ -68,6 +72,8 @@ def _jax_reference(out_dir: str) -> None:
             if not a.any():                      # zero-init projections
                 a = (rng.standard_normal(a.shape) * 0.05).astype(np.float32)
             store_np[g][name] = out[f"store/{g}/{name}"] = a
+    # the ranks, started beside this process, wait for the store
+    save_npz(os.path.join(out_dir, "store.npz"), **out)
     jstore = jax.tree_util.tree_map(jnp.asarray, store_np)
     toks = jnp.asarray(worker.prompts())
     drops = []
@@ -132,16 +138,16 @@ def _jax_reference(out_dir: str) -> None:
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    """The JAX reference, then four gloo ranks serving from its weights:
-    (jax.npz, [rank0.npz, ...])."""
+    """The JAX reference and, beside it, four gloo ranks serving from its
+    weights once it has saved them: (jax.npz, [rank0.npz, ...])."""
     out = tmp_path_factory.mktemp("serve_moe_etp")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                XLA_FLAGS=f"--xla_force_host_platform_device_count="
                          f"{worker.TP}")
-    _run([[sys.executable, os.path.abspath(__file__), "jax", str(out)]], env)
     script = os.path.join(ROOT, "_torch_etp_worker.py")
-    _run([[sys.executable, script, "serve", str(r), str(worker.TP),
-           str(out / "store"), str(out)] for r in range(worker.TP)], env)
+    _run([[sys.executable, os.path.abspath(__file__), "jax", str(out)]]
+         + [[sys.executable, script, "serve", str(r), str(worker.TP),
+             str(out / "rdv"), str(out)] for r in range(worker.TP)], env)
     return (np.load(out / "jax.npz"),
             [np.load(out / f"rank{r}.npz") for r in range(worker.TP)])
 

@@ -9,13 +9,15 @@ devices (``XLA_FLAGS=--xla_force_host_platform_device_count=TP``): it
 builds the
 weights (``build_store`` at tp = 2, float32, the zero-initialised output
 projections filled from a seeded normal so that every TP site carries
-data), the prefill's hidden states and greedy next tokens under
+data) and saves them first (``store.npz``), then the prefill's hidden
+states and greedy next tokens under
 ``shard_map``, its jitted ``fused`` AllReduce on the gloo worker's
 inputs, and (in replicate mode) its decode steps' tokens through the
 prompt, and saves them. tp gloo ranks (``tests/_torch_gloo_worker.py`` mode
-``serve``, ``serve_llama`` or ``serve_glm4``) then load their shards of
-the same weights with ``load_jax_store(rank=r)`` and serve under
-paper/two_step, paper/fused and bf16.
+``serve``, ``serve_llama`` or ``serve_glm4``), started beside it, load
+their shards of the same weights with ``load_jax_store(rank=r)`` once
+``store.npz`` is there and serve under paper/two_step, paper/fused and
+bf16.
 """
 import os
 import subprocess
@@ -28,6 +30,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_gloo_worker as worker  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 TP = 2
 
@@ -72,6 +75,8 @@ def _jax_reference(out_dir: str, arch: str = "qwen3-14b",
             if not a.any():                      # zero-init projections
                 a = (rng.standard_normal(a.shape) * 0.05).astype(np.float32)
             store_np[g][name] = out[f"store/{g}/{name}"] = a
+    # the ranks, started beside this process, wait for the store
+    worker.save_npz(os.path.join(out_dir, "store.npz"), **out)
     jstore = jax.tree_util.tree_map(jnp.asarray, store_np)
     toks = jnp.asarray(make_dataset(DataConfig(
         vocab=cfg.vocab, seq_len=worker.SERVE_S,
@@ -119,6 +124,8 @@ def _jax_decode(serve_step, cfg, plan, pol, mesh, jstore, toks):
 
 
 def _run(cmd, env, timeout=240):
+    """Run the commands ``cmd`` at once; when one fails, kill the others
+    (a rank may be waiting for a file of the one that failed)."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, env=env)
              for c in cmd]
@@ -127,6 +134,8 @@ def _run(cmd, env, timeout=240):
         try:
             logs.append(p.communicate(timeout=timeout)[0].decode())
         finally:
+            for q in procs if p.returncode else ():
+                q.kill()
             p.kill()
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)
     return logs
@@ -141,18 +150,19 @@ _SERVED = {}
 
 
 def _serve(arch: str, tmp_path_factory):
-    """The JAX reference, then tp gloo ranks serving from its weights, for
-    ``arch`` (made once a process): (jax.npz, [rank0.npz, ...])."""
+    """The JAX reference and, beside it, tp gloo ranks serving from its
+    weights (each waits for its ``store.npz``), for ``arch`` (made once a
+    process): (jax.npz, [rank0.npz, ...])."""
     if arch not in _SERVED:
         mode, tp = ARCH_MODES[arch]
         out = tmp_path_factory.mktemp("serve_tp")
         env = dict(os.environ, OMP_NUM_THREADS="1",
                    XLA_FLAGS=f"--xla_force_host_platform_device_count={tp}")
-        _run([[sys.executable, os.path.abspath(__file__), "jax", str(out),
-               arch, str(tp)]], env)
         script = os.path.join(ROOT, "tests", "_torch_gloo_worker.py")
-        _run([[sys.executable, script, str(r), str(tp), str(out / "store"),
-               str(out), mode] for r in range(tp)], env)
+        _run([[sys.executable, os.path.abspath(__file__), "jax", str(out),
+               arch, str(tp)]]
+             + [[sys.executable, script, str(r), str(tp), str(out / "rdv"),
+                 str(out), mode] for r in range(tp)], env)
         _SERVED[arch] = (np.load(out / "jax.npz"),
                          [np.load(out / f"rank{r}.npz") for r in range(tp)])
     return _SERVED[arch]
@@ -320,8 +330,10 @@ def test_plain_allreduce_matches_jax_fused(served, name):
 
 def test_serve_cli_mesh_cpu():
     """``--mesh 1,2 --device cpu`` serves end to end in two rank
-    processes; ``--mesh 2,1`` (data parallelism) is refused."""
-    from repro_torch.launch import serve as tserve
+    processes. ``--mesh`` takes DATA,MODEL of positive sizes, data
+    parallelism (DATA > 1) included (``tests/test_torch_serve_dp.py``
+    serves it); anything else is refused."""
+    from repro_torch.launch.mesh import parse_mesh
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.path.join(ROOT, "src"))
     log = _run([[sys.executable, "-m", "repro_torch.launch.serve",
@@ -329,9 +341,10 @@ def test_serve_cli_mesh_cpu():
                  "--mesh", "1,2", "--batch", "2", "--prompt-len", "6",
                  "--gen", "2", "--comm-scheme", "fused"]], env)[0]
     assert "[serve] OK (rank 0 of 2)" in log and "TTFT" in log
-    with pytest.raises(NotImplementedError, match="data > 1"):
-        tserve.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
-                     "--mesh", "2,1"])
+    assert parse_mesh("2,1") == (2, 1) and parse_mesh("4,2") == (4, 2)
+    for bad in ("2,0", "0,1", "1,2,2"):
+        with pytest.raises(ValueError, match="DATA,MODEL"):
+            parse_mesh(bad)
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["jax"]:

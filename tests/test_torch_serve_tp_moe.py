@@ -7,8 +7,8 @@ for this config (``build_store`` at tp = 2 with a crc32 in place of the
 salted ``hash``, float32, the zero-initialised output projections
 filled from a seeded normal, so that every TP and dispatch site carries
 data). Two gloo ranks (``tests/_torch_gloo_worker.py`` mode
-``serve_moe``) load their shards with ``load_jax_store(rank=r)`` and
-serve under paper/two_step, paper/fused (the emulated schedule of the
+``serve_moe``), started beside it, load their shards with
+``load_jax_store(rank=r)`` once it has saved the store, and serve under paper/two_step, paper/fused (the emulated schedule of the
 fused AllReduce and All2All around the gloo hops) and bf16. This is the
 first whole MoE model at ep > 1 held against JAX.
 """
@@ -27,17 +27,17 @@ ARCH = "moonshot-v1-16b-a3b"
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    """The JAX reference, then two gloo ranks serving from its weights:
-    (jax.npz, [rank0.npz, rank1.npz])."""
+    """The JAX reference and, beside it, two gloo ranks serving from its
+    weights once it has saved them: (jax.npz, [rank0.npz, rank1.npz])."""
     out = tmp_path_factory.mktemp("serve_tp_moe")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    script = os.path.join(ROOT, "tests", "_torch_gloo_worker.py")
     _run([[sys.executable, os.path.join(ROOT, "tests",
                                         "test_torch_serve_tp.py"),
-           "jax", str(out), ARCH]], env)
-    script = os.path.join(ROOT, "tests", "_torch_gloo_worker.py")
-    _run([[sys.executable, script, str(r), str(TP), str(out / "store"),
-           str(out), "serve_moe"] for r in range(TP)], env)
+           "jax", str(out), ARCH]]
+         + [[sys.executable, script, str(r), str(TP), str(out / "rdv"),
+             str(out), "serve_moe"] for r in range(TP)], env)
     return (np.load(out / "jax.npz"),
             [np.load(out / f"rank{r}.npz") for r in range(TP)])
 

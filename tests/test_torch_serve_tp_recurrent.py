@@ -14,12 +14,13 @@ CPU devices): for each it builds the weights (``build_store`` at tp = 2,
 float32, with a crc32 in place of the salted ``hash``; every
 zero-initialised array, RG-LRU's gate vectors included, filled from a
 seeded normal, the same values on every rank for a replicated one, as
-xlstm's LayerNorm biases), the prefill's
-hidden states under paper and bf16, and for xlstm its decode steps'
-tokens (the prompt teacher-forced, then greedy), and saves them in
-``OUT_DIR/ARCH/jax.npz``. Two gloo ranks (``tests/_torch_gloo_worker.py``
-mode ``serve_rec``) then load their shards with ``load_jax_store(rank=r)``
-and serve both archs under paper/two_step, paper/fused and bf16.
+xlstm's LayerNorm biases) and saves them first (``OUT_DIR/ARCH/
+store.npz``), then the prefill's hidden states under paper and bf16, and
+for xlstm its decode steps' tokens (the prompt teacher-forced, then
+greedy), in ``OUT_DIR/ARCH/jax.npz``. Two gloo ranks
+(``tests/_torch_gloo_worker.py`` mode ``serve_rec``), started beside it,
+load their shards with ``load_jax_store(rank=r)`` once the stores are
+there and serve both archs under paper/two_step, paper/fused and bf16.
 """
 import os
 import sys
@@ -56,8 +57,9 @@ def _jax_reference(out_dir: str) -> None:
     mesh = make_test_mesh(1, TP)
     # a crc32 in place of the per-process salted hash(name) of build_store
     jshard.hash = lambda s: zlib.crc32(s.encode())
-    for arch in ARCHS:
-        cfg = get_smoke_config(arch)
+    made = {}
+    for arch in ARCHS:                # every arch's store first: the ranks,
+        cfg = get_smoke_config(arch)  # started beside this, wait for them
         cfg = dataclasses.replace(cfg, dtype="float32", window=cfg.window
                                   and worker.REC_WINDOW)
         plan = make_plan(cfg, tp=TP, fsdp=1)
@@ -79,6 +81,11 @@ def _jax_reference(out_dir: str) -> None:
                         (n, tp if sliced else 1, flat)) * 0.05,
                         a.shape).astype(np.float32)
                 store_np[g][name] = out[f"store/{g}/{name}"] = a
+        os.makedirs(os.path.join(out_dir, arch), exist_ok=True)
+        worker.save_npz(os.path.join(out_dir, arch, "store.npz"), **out)
+        made[arch] = cfg, plan, store_np, out
+    for arch in ARCHS:
+        cfg, plan, store_np, out = made[arch]
         jstore = jax.tree_util.tree_map(jnp.asarray, store_np)
         toks = make_dataset(DataConfig(
             vocab=cfg.vocab, seq_len=worker.SERVE_S,
@@ -96,7 +103,6 @@ def _jax_reference(out_dir: str) -> None:
             if plan.kv_mode == "shard":         # JAX's ring decode is wrong
                 out[f"{name}/decode_tokens"] = _jax_decode(
                     serve_step, cfg, plan, pol, mesh, jstore, toks)
-        os.makedirs(os.path.join(out_dir, arch), exist_ok=True)
         np.savez(os.path.join(out_dir, arch, "jax.npz"), **out)
 
 
@@ -120,15 +126,16 @@ def _jax_decode(serve_step, cfg, plan, pol, mesh, jstore, toks):
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    """The JAX reference, then two gloo ranks serving from its weights:
-    {arch: (jax.npz, [rank0.npz, rank1.npz])}."""
+    """The JAX reference and, beside it, two gloo ranks serving from its
+    weights once it has saved them: {arch: (jax.npz, [rank0.npz,
+    rank1.npz])}."""
     out = tmp_path_factory.mktemp("serve_tp_rec")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={TP}")
-    _run([[sys.executable, os.path.abspath(__file__), "jax", str(out)]], env)
     script = os.path.join(ROOT, "tests", "_torch_gloo_worker.py")
-    _run([[sys.executable, script, str(r), str(TP), str(out / "store"),
-           str(out), "serve_rec"] for r in range(TP)], env)
+    _run([[sys.executable, os.path.abspath(__file__), "jax", str(out)]]
+         + [[sys.executable, script, str(r), str(TP), str(out / "rdv"),
+             str(out), "serve_rec"] for r in range(TP)], env)
     return {a: (np.load(out / a / "jax.npz"),
                 [np.load(out / a / f"rank{r}.npz") for r in range(TP)])
             for a in ARCHS}

@@ -31,6 +31,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _torch_train_worker as worker  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLD = 4
 

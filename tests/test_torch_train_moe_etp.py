@@ -35,29 +35,31 @@ POLICIES = ("bf16", "paper")
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    """(ranks, {policy: JAX's}): JAX's steps, then the four ranks'."""
+    """(ranks, {policy: JAX's}): JAX's steps and, beside them, the four
+    ranks' (each waits for the JAX side's files when it needs them)."""
     out = str(tmp_path_factory.mktemp("train_moe_etp"))
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "_torch_etp_worker.py")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={etp.TP}")
     names = ",".join(POLICIES)
-    batches = [[[sys.executable, script, "train", "jax", MESH, out, names,
-                 etp.ARCH]],
-               [[sys.executable, script, "train", str(r), MESH,
-                 os.path.join(out, "rendezvous"), out, names, etp.ARCH]
-                for r in range(etp.TP)]]
-    for cmds in batches:
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, env=env)
-                 for c in cmds]
-        logs = []
-        for p in procs:
-            try:
-                logs.append(p.communicate(timeout=300)[0].decode())
-            finally:
-                p.kill()
-        assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    cmds = ([[sys.executable, script, "train", "jax", MESH, out, names,
+              etp.ARCH]]
+            + [[sys.executable, script, "train", str(r), MESH,
+                os.path.join(out, "rendezvous"), out, names, etp.ARCH]
+               for r in range(etp.TP)])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env)
+             for c in cmds]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=300)[0].decode())
+        finally:
+            for q in procs if p.returncode else ():
+                q.kill()
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
     return ([np.load(os.path.join(out, f"rank{r}.npz"))
              for r in range(etp.TP)],
             {n: np.load(os.path.join(out, f"jax_{n}.npz"))
