@@ -285,6 +285,29 @@ Phases, each printing its lines; any failure exits non-zero:
              paper/fused == paper/two_step bit for bit on both ranks
              (prefill, decode steps), paper/fused served
              (XATTN_TP_RUNS) with one fc_ar launch a TP site.
+   kinds_train -- the recurrent, sliding-window, encoder and
+             cross-attention kinds trained at full width, TRAIN_BATCH
+             rows a step (KINDS_TRAIN): recurrentgemma-2b (its (rec,
+             rec, local) repeat and (rec, rec) suffix, 5 of 26 blocks),
+             xlstm-125m (12 blocks; KINDS_XLSTM_SEQ tokens a row, its
+             cells a Python loop over the sequence), whisper-tiny (4 enc
+             + 4 dec blocks) and llama-3.2-vision-11b (one (xattn, dense
+             x 4) repeat of 8) at TRAIN_SEQ, float32 store and AdamW
+             moments from seed SEED (init_store; the zero output
+             projections, gate vectors and biases filled), the encoder
+             archs on the stream's stub embeddings. Each at --mesh 1,1
+             in this process: bf16, paper through the CUDA codec and
+             paper through the plain codec for TRAIN_CHECK_STEPS steps:
+             loss, grad norm and every parameter bit-equal, paper's
+             step-0 loss within KINDS_LOSS_REL of bf16's; then
+             whisper-tiny at --mesh 1,2 (KINDS_TRAIN_MESHES), two rank
+             processes: paper/fused (every TP site through fc_ar, the
+             encoder's 8 and their replay and tp_bwd included) ==
+             paper/two_step bit for bit on both ranks. Every run: the
+             launches of every step exact (_train_expected: KIND_SITES
+             a block, the encoder's at their own b_loc x n_ctx x
+             d_model), ms/step (median and p90 of the steps after the
+             first), tokens/s, peak memory a rank.
 15. dp     -- data-parallel serving (--mesh D,M, D > 1; DP_CELLS):
              qwen3-14b at full width, DP_LAYERS layers, a float32 flat
              store from seed SEED (output projections filled; _dp_store)
@@ -326,16 +349,16 @@ and no NaN in any parameter.
 
 The line before the last is a JSON object with one entry per kernel
 (``launches``: the wire kernels' from the serve, ln, moe, train,
-moe_train, moe_archs, rec, xattn and dp paths, the stage kernels' from
-their entry points, fc_a2a's from phase tp's moonshot runs on rank 0 and
-phases moe_train's and ep8's, fc_ar's from phase tp's and tp4's served
-runs and phases train's, moe_train's, ep8's, rec's, xattn's and dp's
-runs on rank 0;
+moe_train, moe_archs, rec, xattn, kinds_train and dp paths, the stage
+kernels' from their entry points, fc_a2a's from phase tp's moonshot runs
+on rank 0 and phases moe_train's and ep8's, fc_ar's from phase tp's and
+tp4's served runs and phases train's, moe_train's, ep8's, rec's,
+xattn's, kinds_train's and dp's runs on rank 0;
 ``serve_launches``, ``ln_launches``, ``moe_launches``, ``tp_launches``,
 ``moe_tp_launches``, ``glm_tp_launches``, ``train_launches``,
 ``moe_train_launches``, ``moe_archs_launches``, ``ep8_launches``,
-``ep8_train_launches``, ``rec_launches``, ``xattn_launches`` and
-``dp_launches``: from those paths); a ``[phase] NAME: SECONDS`` line follows each phase; the last
+``ep8_train_launches``, ``rec_launches``, ``xattn_launches``,
+``kinds_train_launches`` and ``dp_launches``: from those paths); a ``[phase] NAME: SECONDS`` line follows each phase; the last
 line is ``{"ok":
 true, "device": {...}}``.
 """
@@ -357,7 +380,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 PHASES = ("build", "codec", "crc", "stage", "time", "serve", "ln", "a2a",
           "moe", "ar", "tp", "tp4", "train", "moe_train", "moe_archs", "ep8",
-          "rec", "xattn", "dp")
+          "rec", "xattn", "kinds_train", "dp")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -428,37 +451,41 @@ TP_RUNS = (("paper/fused", "paper", "fused"),
 DENSE_TP_RUNS = MOE_TP_RUNS = TP_RUNS[:1]
 TP_GEN = 4
 # the rank-process cells' served runs (TP_CELLS): BATCH x TP_PROMPT prompt
-# tokens (cut from PROMPT_LEN to pay for phase dp: each prompt token is
-# a decode step of turns on the card), the checks before them
-# still at PROMPT_LEN; TP_PROMPT + the generated tokens a multiple of tp
-# in replicate mode (the ring)
-TP_PROMPT = 32
+# tokens (cut from PROMPT_LEN to 32 to pay for phase dp, then to 16 for
+# phase kinds_train: each prompt token is a decode step of turns on the
+# card), the checks before them still at PROMPT_LEN; TP_PROMPT + the
+# generated tokens a multiple of tp in replicate mode (the ring)
+TP_PROMPT = 16
 TP_TIMEOUT_S = 900
 # phase tp's depth, cut to pay for phases moe_archs and ep8: qwen3-14b's
-# 40 layers to TP_REPEATS (20, then 10 to pay for phase dp), moonshot's 47
-# MoE blocks (after its dense one) to TP_MOE_REPEATS (15, then 5 for
-# phase dp)
-TP_REPEATS = 10
+# 40 layers to TP_REPEATS (20, then 10 to pay for phase dp, then 6 for
+# phase kinds_train), moonshot's 47 MoE blocks (after its dense one) to
+# TP_MOE_REPEATS (15, then 5 for phase dp)
+TP_REPEATS = 6
 TP_MOE_REPEATS = 5
 # phase moe's moonshot (tp = 1): its 47 MoE blocks cut to MOE_REPEATS,
-# for the same reason (23, then 11 to pay for phase xattn)
-MOE_REPEATS = 11
+# for the same reason (23, then 11 to pay for phase xattn, then 5 for
+# phase kinds_train)
+MOE_REPEATS = 5
 # phase tp4: glm4-9b at --mesh 1,GLM_TP, its two kv heads replicated (the
 # decode cache a sequence-sharded ring), its 40 layers cut to GLM_REPEATS
+# (4, then 2 to pay for phase kinds_train)
 GLM_ARCH = "glm4-9b"
 GLM_TP = 4
-GLM_REPEATS = 4
+GLM_REPEATS = 2
 GLM_PROBE_CALLS = 25
 # phase ln: command-r-35b (LayerNorm) at tp = 1, its 40 layers cut to
-# LN_REPEATS
+# LN_REPEATS (8, then 4 to pay for phase kinds_train)
 LN_ARCH = "command-r-35b"
-LN_REPEATS = 8
+LN_REPEATS = 4
 LN_RUNS = (("paper/two_step", "paper", None), BASELINE)
 DECODE_CHECK_STEPS = 4
-# phase train: llama3-8b at full width, its 32 layers cut to TRAIN_REPEATS
+# phase train: llama3-8b at full width, its 32 layers cut to TRAIN_REPEATS;
+# TRAIN_STEPS steps a run (4, then 2 to pay for phase kinds_train: ms/step
+# is then the second step's)
 TRAIN_ARCH = "llama3-8b"
 TRAIN_REPEATS = 2
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 2
 TRAIN_CHECK_STEPS = 2              # CUDA == plain codec, fused == two_step
 # paper's step-0 loss against bf16's at --mesh 1,1, relative: 9.0e-6 on
 # the H100; 2.0e-4 with every decoded value one code step high (a fault
@@ -517,7 +544,8 @@ EP_TRAIN_MESHES = (("1,8", (("paper/two_step", "paper", None, None,
 REC_ARCH = "recurrentgemma-2b"
 XLSTM_ARCH = "xlstm-125m"
 REC_RUNS = (("paper/two_step", "paper", None), BASELINE)
-REC_WINDOW_PROMPT, REC_WINDOW_GEN = 2112, 8
+# (REC_WINDOW_GEN 8, then 4 to pay for phase kinds_train)
+REC_WINDOW_PROMPT, REC_WINDOW_GEN = 2112, 4
 XLSTM_TP_REPEATS = 2
 # xlstm's --mesh 1,TP served runs: its paper/two_step served run was cut
 # to pay for phase xattn (still held against paper/fused bit for bit
@@ -536,6 +564,34 @@ XATTN_RUNS = (("paper/two_step", "paper", None), BASELINE)
 # whisper at --mesh 1,TP: paper/fused served (fc_ar once a TP site, the
 # encoder's included); paper/two_step held against it bit for bit only
 XATTN_TP_RUNS = TP_RUNS[:1]
+# phase kinds_train: the recurrent, sliding-window, encoder and
+# cross-attention kinds trained at full width, arch -> its pattern repeats
+# (None: its full depth): recurrentgemma-2b's (rec, rec, local) repeat and
+# its (rec, rec) suffix (5 of 26 blocks: 1.60 B parameters at 16 B each of
+# store, gradient and moments), xlstm-125m and whisper-tiny whole,
+# llama-3.2-vision-11b's (xattn, dense x 4) repeat (5 of 40 blocks, 2.14 B
+# parameters); bf16, paper through the CUDA codec and paper through the
+# plain codec at --mesh 1,1, TRAIN_CHECK_STEPS steps each, then
+# KINDS_TRAIN_MESHES (whisper-tiny) as rank processes
+KINDS_TRAIN = (("recurrentgemma-2b", 1), ("xlstm-125m", None),
+               ("whisper-tiny", None), ("llama-3.2-vision-11b", 1))
+# xlstm's tokens a row: its mLSTM and sLSTM run a Python loop over the
+# sequence, ~30 device operations a token and block (45,976 operations in
+# a 4 x 128 prefill), replayed in the backward and differentiated, so
+# TRAIN_SEQ would take ~4x as long as this; its widths stay whole
+KINDS_XLSTM_SEQ = 128
+# paper's step-0 loss against bf16's at --mesh 1,1, relative, per arch, on
+# the H100
+# (sound: 0, 1.5e-6, 1.6e-6 and 7.4e-6; with every value one code step of
+# its row's range further from zero, a fault planted in a copy: 2.5e-5,
+# 3.6e-5, 7.1e-5 and 3.9e-5; a constant step instead, which a LayerNorm
+# removes: 3.0e-4, 3.5e-6, 1.8e-6 and 4.3e-4)
+KINDS_LOSS_REL = {"recurrentgemma-2b": 1e-5, "xlstm-125m": 1e-5,
+                  "whisper-tiny": 1e-5, "llama-3.2-vision-11b": 2e-5}
+KINDS_TRAIN_MESHES = (("1,2", (("paper/two_step", "paper", None, None,
+                                TRAIN_CHECK_STEPS),
+                               ("paper/fused", "paper", "fused", None,
+                                TRAIN_CHECK_STEPS))),)
 #: the rank-process cells (phase_tp, tp_rank_main): tag -> (ranks, the
 #: world checks (torch, axis, dev, configs) -> dict or None, the parts
 #: served in turn, each (part, arch for _tp_cfg, runs, label, generated
@@ -561,7 +617,10 @@ TP_CELLS = {
 # staged: the rank processes share the card), as the JAX package's does
 DP_LAYERS = 2
 DP_PROMPT = 2
-DP_GEN = 2
+# tokens generated a served run (2, then 1 to pay for phase kinds_train:
+# a forward of --mesh 2,1 paper/two_step gathers 8.87 GB through host
+# memory, ~15 s)
+DP_GEN = 1
 #: decode steps of each check (each step gathers the whole store; at most
 #: DP_PROMPT: the check's steps are teacher-forced)
 DP_CHECK_STEPS = 1
@@ -581,6 +640,10 @@ DP_CELLS = {"2,1": (("alone", "codec"),
 #: steps on a ring of WINDOW_CHECK slots, so that they wrap it too
 WINDOW = 64
 WINDOW_CHECK = DECODE_CHECK_STEPS // 2
+# the windowed run's served prompt and generated tokens (PROMPT_LEN + GEN
+# until cut to pay for phase kinds_train): past WINDOW, so that every
+# ring wraps; the CUDA == plain check's prefill stays at PROMPT_LEN
+WINDOW_PROMPT, WINDOW_GEN = WINDOW + 8, 4
 TIME_CONFIGS = (("int8 g128", dict(bits=8, group=128)),
                 ("int5 g128 scale_int", dict(bits=5, group=128,
                                              scale_int=True)),
@@ -1473,8 +1536,9 @@ def _serve_window(torch, cfg, plan, params, prompts, dev) -> dict:
     over the PROMPT_LEN prompt, and DECODE_CHECK_STEPS decode steps'
     logits on a ring of WINDOW_CHECK slots with that window (so that
     they wrap it), through the CUDA codec equal the plain codec's bit
-    for bit (paper); then BATCH x PROMPT_LEN + GEN tokens served under
-    bf16 with a window and a ring of WINDOW slots (the prompt wraps it):
+    for bit (paper); then BATCH x WINDOW_PROMPT + WINDOW_GEN tokens
+    served under bf16 with a window and a ring of WINDOW slots (the
+    prompt wraps it):
     prefill/decode agreement to CACHE_REL_TOL, every ring holding the
     last WINDOW positions."""
     from repro_torch.launch.serve import build_policy, serve
@@ -1506,11 +1570,11 @@ def _serve_window(torch, cfg, plan, params, prompts, dev) -> dict:
           flush=True)
     torch.cuda.reset_peak_memory_stats()
     res = serve(params, cfg, plan, build_policy("bf16"),
-                batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN, device=dev,
-                seed=SEED, label=f" window {WINDOW} bf16",
+                batch=BATCH, prompt_len=WINDOW_PROMPT, gen=WINDOW_GEN,
+                device=dev, seed=SEED, label=f" window {WINDOW} bf16",
                 window_override=WINDOW, cache_len=WINDOW, keep_caches=True)
     caches = res.pop("caches")
-    last = PROMPT_LEN + GEN - 2
+    last = WINDOW_PROMPT + WINDOW_GEN - 2
     for layer in caches["layers"]:
         got = sorted(layer["slot_pos"].tolist())
         check(got == list(range(last - WINDOW + 1, last + 1)),
@@ -2593,18 +2657,32 @@ def phase_tp(torch, card: str, tag: str = "tp"):
 def _train_cfg(arch: str = TRAIN_ARCH):
     """Phase train's llama3-8b (TRAIN_REPEATS layers) or phase
     moe_train's moonshot (its dense prefix block and TRAIN_MOE_REPEATS
-    MoE blocks), at full width; phase ep8's grok-1 smoke config."""
+    MoE blocks), at full width; phase ep8's grok-1 smoke config; phase
+    kinds_train's archs at full width, their depth KINDS_TRAIN's."""
     import dataclasses
     from repro_torch.configs import get_config, get_smoke_config
     if arch == EP_ARCH:
         return get_smoke_config(arch)
+    kinds = dict(KINDS_TRAIN)
+    if arch in kinds:
+        return get_config(arch) if kinds[arch] is None else \
+            dataclasses.replace(get_config(arch),
+                                pattern_repeats=kinds[arch])
     return dataclasses.replace(get_config(arch), pattern_repeats=(
         TRAIN_REPEATS if arch == TRAIN_ARCH else TRAIN_MOE_REPEATS))
 
 
 def _train_tag(arch: str) -> str:
+    if arch in dict(KINDS_TRAIN):
+        return "kinds_train"
     return {TRAIN_ARCH: "train", MOE_ARCH: "moe_train",
             EP_ARCH: "ep8_train"}[arch]
+
+
+def _train_seq(arch: str) -> int:
+    """Tokens a row of a training run: TRAIN_SEQ, xlstm's
+    KINDS_XLSTM_SEQ."""
+    return KINDS_XLSTM_SEQ if arch == XLSTM_ARCH else TRAIN_SEQ
 
 
 def _sections(lay):
@@ -2787,22 +2865,35 @@ def _train_store(torch, cfg, plan, dev, rank: int = 0, data_rank: int = 0):
     """This rank's store from SEED (init_store), its zero-initialised
     output projections filled from a fan-in normal (seeded by SEED + 1 and
     the TP rank, drawn whole and sharded), so that every TP site carries
-    data from step 0."""
+    data from step 0; the zero vectors as _fill_output_projections fills
+    them (a recurrent model's gate vectors and biases sharded over TP
+    from a standard normal, a biased model's every bias from a normal of
+    std BIAS_STD), a replicated one from a generator of its own, the same
+    on every rank."""
     from repro_torch.models.model import param_groups
     from repro_torch.parallel.shardings import init_store
     store = init_store(cfg, plan, SEED, dev, rank, data_rank)
+    vectors = bool(set(cfg.layer_kinds) & {"rec", "mlstm", "slstm"})
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1 + 1000003 * rank)
+    rgen = torch.Generator(device=dev)
+    rgen.manual_seed(SEED + 2000003)
     for g, (_, specs) in sorted(param_groups(cfg, plan).items()):
         for name, sp in sorted(specs.items()):
-            if sp.init != "zeros":
+            if sp.init != "zeros" or not (
+                    len(sp.shape) > 1 or cfg.use_bias
+                    or (vectors and sp.tp_dim is not None)):
                 continue
+            replicated = sp.tp_dim is None and sp.moe_fold is None
             t = store[g][name]
             shape = sp.local_shape(plan)
+            std = (shape[-2] ** -0.5 if len(shape) > 1
+                   else BIAS_STD if cfg.use_bias else 1.0)
             lo = data_rank * t.shape[1]
             for i in range(t.shape[0]):
-                v = (torch.randn(shape, generator=gen, device=dev)
-                     / shape[-2] ** 0.5).reshape(-1)[lo:lo + t.shape[1]]
+                v = (torch.randn(shape, generator=rgen if replicated else gen,
+                                 device=dev) * std
+                     ).reshape(-1)[lo:lo + t.shape[1]]
                 t[i, :v.shape[0]] = v
     return store
 
@@ -2819,12 +2910,23 @@ def _world_rows(axis):
         axis.world.row_bytes
 
 
-def _train_expected(cfg, plan, policy, mesh) -> dict:
+#: TP sites a block of each kind (a moe block's attention: its experts'
+#: outputs cross the ranks in the dispatch; an mlstm or slstm block has no
+#: MLP; a dec block's self-attention, cross-attention and MLP), and an
+#: encoder's enc block's (at layer=None)
+KIND_SITES = {"dense": 2, "moe": 1, "local": 2, "rec": 2, "mlstm": 1,
+              "slstm": 1, "enc": 2, "dec": 3, "xattn": 2}
+
+
+def _train_expected(cfg, plan, policy, mesh, seq: int = TRAIN_SEQ) -> dict:
     """The launches of each kernel in one train step of ``policy`` on
-    ``mesh``: every TP site of the forward, the checkpointed blocks' sites
-    again as the backward replays them, the tp_bwd sites, the qag gathers
-    (forward and replay), the qgrad_rs reduce-scatters, the pod grad site
-    of every leaf. A two_step site: 2 encodes and 2 decodes; ``fused``
+    ``mesh`` at ``seq`` tokens a row: every TP site of the forward
+    (KIND_SITES a block; the encoder's at layer=None, each at its own
+    b_loc x n_ctx x d_model), the checkpointed blocks' sites again as the
+    backward replays them (the embedding's is not replayed), the tp_bwd
+    sites, the qag gathers (forward, and the replay of every block group
+    and of the encoder's blocks), the qgrad_rs reduce-scatters, the pod
+    grad site of every leaf. A two_step site: 2 encodes and 2 decodes; ``fused``
     over one rank: 2 encodes, a decode+reduce and a decode; ``fused``
     through an axis's peer world: fc_ar once a piece of its rows. A framed
     site (the bridge): fc_crc32c once an encode and once a decode. An MoE
@@ -2868,16 +2970,21 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
 
     b_loc = TRAIN_BATCH // (group_size(mesh.data) * (
         group_size(mesh.pod) if mesh.multi_pod else 1))
-    act = b_loc * TRAIN_SEQ * cfg.d_model
+    act = b_loc * seq * cfg.d_model
     tp, rows = plan.tp, _world_rows(mesh.model)
     sub = mesh.model is not None and mesh.model.ep is not None
     a2a_rows = _world_rows(mesh.model.ep) if sub else rows
     kinds = cfg.layer_kinds
-    for layer in [None] + [l for l in range(cfg.n_layers)
-                           for _ in range(2 if kinds[l] == "dense" else 1)]:
-        psum(pol.resolve("tp", layer), act, tp, rows,
-             times=1 if layer is None else 2)      # replayed in backward
-        psum(pol.resolve("tp_bwd", layer), act, tp, rows)
+    # (layer, values, times in the forward and its replay) of each site
+    sites = [(None, act, 1)]                   # the embedding's
+    if cfg.is_enc_dec:
+        sites += [(None, b_loc * cfg.encoder.n_ctx * cfg.d_model, 2)] * (
+            KIND_SITES["enc"] * cfg.encoder.n_layers)
+    sites += [(layer, act, 2) for layer in range(cfg.n_layers)
+              for _ in range(KIND_SITES[kinds[layer]])]
+    for layer, n, times in sites:
+        psum(pol.resolve("tp", layer), n, tp, rows, times=times)
+        psum(pol.resolve("tp_bwd", layer), n, tp, rows)
     for layer in range(cfg.n_layers):
         c = pol.resolve("a2a", layer)
         if kinds[layer] != "moe" or c is None or not c.enabled or \
@@ -2890,7 +2997,7 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
             want["decode_wire"] += 2
         mp = plan.moe
         if mp.etp > 1:
-            t = b_loc * TRAIN_SEQ
+            t = b_loc * seq
             cap = capacity(-(-t // mp.ep) if pol.ep_slice and mp.ep > 1
                            else t, cfg)
             psum(pol.resolve("tp", layer), mp.e_loc * mp.ep * cap
@@ -2900,7 +3007,9 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
     qag = pol.resolve("qag")
     if plan.fsdp > 1 and qag is not None and qag.enabled:
         for g, (n_stack, specs) in groups.items():
-            k = len(specs) * n_stack * (2 if g == "pattern" else 1)
+            # a block group's gather is replayed with its blocks
+            k = len(specs) * n_stack * (
+                1 if g in ("embed", "out", "encoder_extra") else 2)
             want["encode_wire"] += k
             want["decode_wire"] += k
     leaves = [(g, sp) for g, (n_stack, specs) in groups.items()
@@ -2927,8 +3036,9 @@ def _train_expected(cfg, plan, policy, mesh) -> dict:
 
 def _train_one(torch, cfg, plan, mesh, dev, label: str, policy,
                steps: int, tag: str, log, card: str, expected=None,
-               snapshot: bool = False) -> dict:
-    """Train ``steps`` steps of ``policy`` from the filled SEED store;
+               snapshot: bool = False, seq: int = TRAIN_SEQ) -> dict:
+    """Train ``steps`` steps of ``policy`` from the filled SEED store,
+    TRAIN_BATCH x ``seq`` tokens a step;
     per-step launch counts (each must equal ``expected``), ms/step
     (median and p90 of steps 1-3, host clock, synchronised), tokens/s,
     peak memory, an MoE model's routes dropped over capacity; with
@@ -2964,7 +3074,7 @@ def _train_one(torch, cfg, plan, mesh, dev, label: str, policy,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     res = train(cfg, plan, policy, opt_cfg, mesh, batch=TRAIN_BATCH,
-                seq=TRAIN_SEQ, steps=steps, device=dev, seed=SEED,
+                seq=seq, steps=steps, device=dev, seed=SEED,
                 log_every=steps, log=lambda *a, **k: None, store=store,
                 on_step=on_step, stats=stats)
     routes = (int(stats["routes"]), int(stats["dropped"])) if stats else None
@@ -2981,12 +3091,12 @@ def _train_one(torch, cfg, plan, mesh, dev, label: str, policy,
     timed = step_ms[1:] or step_ms
     med = statistics.median(timed)
     p90 = float(sorted(timed)[max(0, -(-9 * len(timed) // 10) - 1)])
-    tps = TRAIN_BATCH * TRAIN_SEQ * 1e3 / med
+    tps = TRAIN_BATCH * seq * 1e3 / med
     losses = [m["loss"] for m in metrics]
     check(all(math.isfinite(v) for v in losses),
           f"{tag} {label}: loss not finite: {losses}")
     log(f"[{tag} {label}] {cfg.name} ({cfg.n_layers} layers, full width), "
-        f"global batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: loss "
+        f"global batch {TRAIN_BATCH} x seq {seq}: loss "
         f"{[round(v, 6) for v in losses]}, grad norm "
         f"{[round(m['grad_norm'], 4) for m in metrics]}; {len(timed)} "
         f"steps after the first: median {med:.1f} ms/step, p90 {p90:.1f} "
@@ -3013,30 +3123,32 @@ def _snap_equal(torch, a: dict, b: dict) -> bool:
 
 def _train_single(torch, card: str, dev=None, arch: str = TRAIN_ARCH
                   ) -> dict:
-    """--mesh 1,1 in this process: bf16 (llama3-8b only), then paper
-    through the CUDA codec, then paper through the plain codec (2 steps):
-    loss, grad norm and the store after TRAIN_CHECK_STEPS steps
-    bit-equal; llama3-8b's paper step-0 loss within TRAIN_LOSS_REL of
-    bf16's."""
+    """--mesh 1,1 in this process: bf16 (llama3-8b and phase
+    kinds_train's archs), then paper through the CUDA codec, then paper
+    through the plain codec (TRAIN_CHECK_STEPS steps): loss, grad norm
+    and the store after TRAIN_CHECK_STEPS steps bit-equal; paper's step-0
+    loss within TRAIN_LOSS_REL (llama3-8b) or KINDS_LOSS_REL (phase
+    kinds_train) of bf16's."""
     from repro_torch.launch.train import build_policy
     from repro_torch.parallel.axis import MeshAxes
     from repro_torch.parallel.plan import make_plan
-    cfg, mesh = _train_cfg(arch), MeshAxes()
-    dense = arch == TRAIN_ARCH
-    tag = "train 1,1" if dense else "moe_train 1,1"
+    cfg, mesh, seq = _train_cfg(arch), MeshAxes(), _train_seq(arch)
+    dense, kinds = arch == TRAIN_ARCH, arch in dict(KINDS_TRAIN)
+    tag = f"{_train_tag(arch)} 1,1" + (f" {arch}" if kinds else "")
+    steps = TRAIN_CHECK_STEPS if kinds else TRAIN_STEPS
     dev = dev or torch.device("cuda")
     plan = make_plan(cfg, tp=1, fsdp=1)
     runs = {}
-    for label, pol, backend, steps in (
-            (("bf16", "bf16", "auto", TRAIN_STEPS),) if dense else ()) + (
-            ("paper", "paper", "auto", TRAIN_STEPS),
+    for label, pol, backend, n in (
+            (("bf16", "bf16", "auto", steps),) if dense or kinds else ()) + (
+            ("paper", "paper", "auto", steps),
             ("paper/plain codec", "paper", "ref", TRAIN_CHECK_STEPS)):
         policy = build_policy(pol, backend=backend)
-        expected = _train_expected(cfg, plan, policy, mesh) \
+        expected = _train_expected(cfg, plan, policy, mesh, seq) \
             if backend != "ref" else dict.fromkeys(_train_counts(), 0)
         runs[label] = _train_one(torch, cfg, plan, mesh, dev, label, policy,
-                                 steps, tag, print, card, expected,
-                                 snapshot=pol == "paper")
+                                 n, tag, print, card, expected,
+                                 snapshot=pol == "paper", seq=seq)
     (cuda, snap_c), (plain, snap_p) = runs["paper"], runs["paper/plain codec"]
     k = TRAIN_CHECK_STEPS
     check(cuda["metrics"][:k] == plain["metrics"][:k] and
@@ -3044,27 +3156,28 @@ def _train_single(torch, card: str, dev=None, arch: str = TRAIN_ARCH
           f"{tag}: paper through the CUDA codec differs from the plain "
           f"codec over {k} steps: {cuda['metrics'][:k]} vs "
           f"{plain['metrics'][:k]}")
-    if not dense:
-        print(f"[{tag}] paper through the CUDA codec equals the plain codec "
-              f"over {k} steps (loss, grad norm, every parameter, bit for "
-              f"bit)", flush=True)
-        del snap_c, snap_p
-        return {label: r for label, (r, _) in runs.items()}
-    l0, b0 = cuda["metrics"][0]["loss"], runs["bf16"][0]["metrics"][0]["loss"]
-    check(abs(l0 - b0) <= TRAIN_LOSS_REL * abs(b0),
-          f"train 1,1: paper's step-0 loss {l0} is not within "
-          f"{TRAIN_LOSS_REL} of bf16's {b0}")
-    print(f"[train 1,1] paper through the CUDA codec equals the plain codec "
-          f"over {k} steps (loss, grad norm, every parameter, bit for bit); "
-          f"its step-0 loss {l0:.6f} within {TRAIN_LOSS_REL} x bf16's "
-          f"{b0:.6f}", flush=True)
     del snap_c, snap_p
+    same = (f"[{tag}] paper through the CUDA codec equals the plain codec "
+            f"over {k} steps (loss, grad norm, every parameter, bit for "
+            f"bit)")
+    if not (dense or kinds):
+        print(same, flush=True)
+        return {label: r for label, (r, _) in runs.items()}
+    bound = TRAIN_LOSS_REL if dense else KINDS_LOSS_REL[arch]
+    l0, b0 = cuda["metrics"][0]["loss"], runs["bf16"][0]["metrics"][0]["loss"]
+    print(f"{same}; its step-0 loss {l0:.6f} against bf16's {b0:.6f}: "
+          f"{abs(l0 - b0) / abs(b0):.3e} relative (bound {bound})",
+          flush=True)
+    check(abs(l0 - b0) <= bound * abs(b0),
+          f"{tag}: paper's step-0 loss {l0} is not within {bound} of "
+          f"bf16's {b0}")
     return {label: r for label, (r, _) in runs.items()}
 
 
 def _train_meshes(arch: str):
     return dict({TRAIN_ARCH: TRAIN_MESHES, MOE_ARCH: TRAIN_MOE_MESHES,
-                 EP_ARCH: EP_TRAIN_MESHES}[arch])
+                 EP_ARCH: EP_TRAIN_MESHES,
+                 WHISPER_ARCH: KINDS_TRAIN_MESHES}.get(arch, ()))
 
 
 def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
@@ -3081,16 +3194,18 @@ def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
     torch.backends.cuda.matmul.allow_tf32 = False
     data, model, pod = mesh_lib.parse_train_mesh(mesh_spec)
     dev = mesh_lib.rank_device(rank, torch.device("cuda"))
-    cfg = _train_cfg(arch)
+    cfg, seq = _train_cfg(arch), _train_seq(arch)
     plan = make_plan(cfg, tp=model, fsdp=data)
     b_loc = TRAIN_BATCH // (data * max(pod, 1))
     mesh = mesh_lib.init_mesh(data, model, pod, rank, rendezvous, dev,
                               mesh_lib.site_row_bytes(cfg, plan, b_loc,
-                                                      TRAIN_SEQ), plan.moe)
+                                                      seq), plan.moe)
     log = print if rank == 0 else (lambda *a, **k: None)
     tag = f"{_train_tag(arch)} {mesh_spec}"
     sites = ("the TP sites through fc_ar, the dispatch through fc_a2a"
-             if cfg.moe is not None else "the grad site through fc_ar")
+             if cfg.moe is not None else
+             "every TP site through fc_ar, the encoder's included"
+             if model > 1 else "the grad site through fc_ar")
     if cfg.moe is not None and plan.moe.etp > 1:
         sites += (" over the ep world, the within-expert AllReduce through "
                   "fc_ar over the etp world")
@@ -3099,10 +3214,11 @@ def train_rank_main(rank: int, mesh_spec: str, rendezvous: str,
         for label, pol, scheme, bridge, steps in \
                 _train_meshes(arch)[mesh_spec]:
             policy = build_policy(pol, scheme=scheme, framed_bridge=bridge)
-            expected = _train_expected(cfg, plan, policy, mesh)
+            expected = _train_expected(cfg, plan, policy, mesh, seq)
             runs[label], snap = _train_one(
                 torch, cfg, plan, mesh, dev, label, policy, steps, tag,
-                log, "", expected, snapshot=label.startswith("paper/"))
+                log, "", expected, snapshot=label.startswith("paper/"),
+                seq=seq)
             if snap:
                 snaps[label] = snap
         if "paper/fused" in runs:
@@ -3224,6 +3340,47 @@ def phase_train(torch, card: str) -> dict:
     print(f"[train] phase done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return res
+
+
+def phase_kinds_train(torch, card: str) -> dict:
+    """The recurrent, sliding-window, encoder and cross-attention kinds
+    trained at full width (KINDS_TRAIN), each arch: --mesh 1,1 in this
+    process (bf16, paper through the CUDA codec == the plain codec,
+    paper's step-0 loss within KINDS_LOSS_REL of bf16's), then its
+    KINDS_TRAIN_MESHES as rank processes (whisper-tiny at --mesh 1,2:
+    paper/fused, every TP site through fc_ar, == paper/two_step) ->
+    {arch: {mesh: runs}}."""
+    from repro_torch.launch.train import param_count
+    t0 = time.perf_counter()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    res = {}
+    for arch, _ in KINDS_TRAIN:
+        torch.cuda.empty_cache()               # the earlier models are gone
+        cfg = _train_cfg(arch)
+        print(f"[kinds_train] {arch} at full width, {cfg.n_layers} "
+              f"blocks ({', '.join(cfg.layer_kinds)})"
+              + (f" and {cfg.encoder.n_layers} enc blocks over "
+                 f"{cfg.encoder.n_ctx} frames" if cfg.is_enc_dec else "")
+              + f": {param_count(cfg) / 1e9:.3f} B parameters, global batch "
+              f"{TRAIN_BATCH} x seq {_train_seq(arch)}", flush=True)
+        res[arch] = {"1,1": _train_single(torch, card, arch=arch)}
+        torch.cuda.empty_cache()
+        for spec, _ in KINDS_TRAIN_MESHES if arch == WHISPER_ARCH else ():
+            res[arch][spec] = _train_ranks(torch, card, spec, arch=arch)
+    print(f"[kinds_train] phase done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return res
+
+
+def _kinds_train_launches(trained: dict) -> dict:
+    """Each kernel's launches over phase kinds_train's runs (rank 0's of
+    the rank-process runs), every step's."""
+    total: dict = {}
+    for arch, runs in trained.items():
+        for k, v in _train_launches(runs, KINDS_TRAIN_MESHES).items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def phase_moe_train(torch, card: str) -> dict:
@@ -3853,12 +4010,15 @@ def main(argv=None) -> int:
                                 ({}, {}))
     xattn_launches, xattn_out = run(
         "xattn", lambda: phase_xattn(torch, np, card), ({}, {}))
+    kinds_trained = run("kinds_train",
+                        lambda: phase_kinds_train(torch, card), {})
     dp_launches, dp_out = run("dp", lambda: phase_dp(torch, np, card),
                               ({}, {}))
     ep8_launches = ep8_ranks[0]["ep"]["launches"] if ep8_ranks else {}
     ep8_train_launches = _train_launches(ep8_trained, EP_TRAIN_MESHES)
     train_launches = _train_launches(trained)
     moe_train_launches = _train_launches(moe_trained, TRAIN_MOE_MESHES)
+    kinds_train_launches = _kinds_train_launches(kinds_trained)
     tp_launches = tp_ranks[0]["dense"]["launches"] if tp_ranks else {}
     moe_tp_launches = tp_ranks[0]["moe"]["launches"] if tp_ranks else {}
     glm_tp_launches = tp4_ranks[0]["glm"]["launches"] if tp4_ranks else {}
@@ -3893,6 +4053,7 @@ def main(argv=None) -> int:
                  + ep8_train_launches.get(name, 0)
                  + rec_launches.get(name, 0)
                  + xattn_launches.get(name, 0)
+                 + kinds_train_launches.get(name, 0)
                  + dp_launches.get(name, 0))
         else:
             t = timing.get("prefill", {}).get(main_cfg[name], {}).get(
@@ -3906,6 +4067,7 @@ def main(argv=None) -> int:
                  + moe_archs_launches.get(name, 0)
                  + rec_launches.get(name, 0)
                  + xattn_launches.get(name, 0)
+                 + kinds_train_launches.get(name, 0)
                  + dp_launches.get(name, 0)
                  if name in WIRE_KERNELS else stage_launches.get(name, 0))
         kernels.append({
@@ -3924,6 +4086,7 @@ def main(argv=None) -> int:
             "ep8_train_launches": ep8_train_launches.get(name, 0),
             "rec_launches": rec_launches.get(name, 0),
             "xattn_launches": xattn_launches.get(name, 0),
+            "kinds_train_launches": kinds_train_launches.get(name, 0),
             "dp_launches": dp_launches.get(name, 0),
             "max_abs_err": max([e for e in errs if e is not None],
                                default=None),
@@ -3956,6 +4119,8 @@ def main(argv=None) -> int:
               "xattn": {k: v if k == "tp" else numbers(v)
                         for k, v in xattn_out.items()},
               "xattn_launches": xattn_launches,
+              "kinds_train": kinds_trained,
+              "kinds_train_launches": kinds_train_launches,
               "dp": dp_out, "dp_launches": dp_launches}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,5 +1,5 @@
-"""Training launcher: a decoder of dense and MoE blocks on a
-``DATA,MODEL[,POD]`` mesh of rank processes.
+"""Training launcher: a model of any block kind on a ``DATA,MODEL[,POD]``
+mesh of rank processes.
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU it raises
 rather than run on the CPU. The flags are the JAX launcher's. Example
@@ -24,6 +24,14 @@ and its load-balance loss enters the loss at weight 0.01. For example
 
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch moonshot-v1-16b-a3b --smoke --device cpu --steps 3 --mesh 1,2
+
+A model with an encoder or cross-attention blocks (whisper-tiny,
+llama-3.2-vision-11b) trains on the stream's stub frontend embeddings
+(``enc_embeds``, B x n_ctx x d_model float32, drawn after each batch's
+tokens), as the JAX launcher's; for example::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+      --smoke --device cpu --steps 2 --seq 32 --batch 2
 
 ``--framed-bridge BITS`` runs the pod hop of the gradient sync at its
 own width, in self-describing frames (header + CRC32C a row,
@@ -58,7 +66,7 @@ from repro_torch.core.policy import (BF16_POLICY, CommPolicy,
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import check_trainable, param_groups
+from repro_torch.models.model import param_groups
 from repro_torch.parallel.axis import MeshAxes, axis_rank
 from repro_torch.parallel.plan import ShardingPlan, make_plan
 from repro_torch.parallel.shardings import init_store
@@ -143,8 +151,10 @@ def train(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
         start = 0
     step_fn = make_train_step_fn(cfg, plan, policy, opt_cfg, mesh, n_micro,
                                  stats)
+    enc = cfg.encoder.n_ctx if (cfg.is_enc_dec or cfg.has_cross) else None
     ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=seq,
-                                 global_batch=batch, seed=seed))
+                                 global_batch=batch, seed=seed, enc_ctx=enc,
+                                 d_model=cfg.d_model))
     history: List[Dict] = []
     step_ms: List[float] = []
     t0 = time.time()
@@ -220,7 +230,6 @@ def main(argv=None) -> Optional[Dict]:
             "--check runs the analyzer (commcheck), which is not ported: "
             "ROADMAP Queue A item 7")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    check_trainable(cfg)
     data, model, pod = mesh_lib.parse_train_mesh(args.mesh)
     device = resolve_device(args.device)
     world = max(pod, 1) * data * model

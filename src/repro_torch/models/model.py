@@ -38,11 +38,12 @@ the output's, quantized at the ``qag`` site, with no autograd graph
 kept. ``window_override`` gives every self-attention block but a
 ``local`` one (whose window is ``cfg.window``) a window; the encoder's
 blocks get none, as in the JAX package.
-Training (the dense and MoE kinds, :data:`TRAINED_KINDS`) runs
-:func:`forward_train` on the flat store, gathered the same way, and
-each block, its gather included, is recomputed in the backward
-(``torch.utils.checkpoint``, as ``jax.checkpoint``), so the backward
-replays the block's forward sites before it runs their backward sites.
+Training (every kind) runs :func:`forward_train` on the flat store,
+gathered the same way, and each block, its gather included, is
+recomputed in the backward (``torch.utils.checkpoint``, as
+``jax.checkpoint``), an encoder's ``enc`` blocks each on its own, as the
+JAX package's scan of a checkpointed body; so the backward replays the
+block's forward sites before it runs their backward sites.
 :func:`lm_loss` is the vocabulary-parallel cross-entropy.
 """
 from __future__ import annotations
@@ -67,8 +68,6 @@ from repro_torch.parallel.shardings import (ParamSpec, Params, Store,
                                             gather_group)
 
 SUPPORTED_KINDS = BLOCK_KINDS
-#: the kinds :func:`forward_train` takes (the others serve only)
-TRAINED_KINDS = ("dense", "moe")
 #: the recurrent kinds' mixers
 _RECURRENT = {"rec": rec_mod.rglru_apply, "mlstm": rec_mod.mlstm_apply,
               "slstm": rec_mod.slstm_apply}
@@ -234,21 +233,38 @@ def apply_block(kind: str, p: Dict, x: torch.Tensor, *, positions,
                          group=group), 0.0
 
 
+def _recomputed(fn, recompute: bool, *args):
+    """``fn(*args)``; with ``recompute``, its activations are recomputed in
+    the backward (``torch.utils.checkpoint``: the whole of ``fn``
+    replayed, as ``jax.checkpoint``)."""
+    if not recompute:
+        return fn(*args)
+    with ckpt.set_checkpoint_early_stop(False):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+
+
 def _encode(get, enc_embeds: torch.Tensor, cfg: ModelConfig,
             plan: ShardingPlan, policy: CommPolicy, *, group,
-            rank: int) -> torch.Tensor:
+            rank: int, recompute: bool = False) -> torch.Tensor:
     """The encoder over the stub frontend's embeddings (B, n, d): the
     learned ``enc_pos[:n]`` added, the ``enc`` blocks in order (their
     sites at ``layer=None``, as the JAX package's), then the ``ef_``
-    norm."""
+    norm. ``encoder_extra`` is gathered once, outside the blocks; with
+    ``recompute`` each block, its ``get("encoder", i)`` included, is
+    recomputed in the backward."""
     px = get("encoder_extra", 0)
     n = enc_embeds.shape[1]
     x = enc_embeds + px["enc_pos"][None, :n].to(enc_embeds.dtype)
     positions = torch.arange(n, device=x.device)
+
+    def body(cx, i):
+        return apply_block("enc", get("encoder", i), cx,
+                           positions=positions, cfg=cfg, plan=plan,
+                           policy=policy, cache=None, group=group,
+                           rank=rank)[0]
+
     for i in range(cfg.encoder.n_layers):
-        x, _ = apply_block("enc", get("encoder", i), x, positions=positions,
-                           cfg=cfg, plan=plan, policy=policy, cache=None,
-                           group=group, rank=rank)
+        x = _recomputed(body, recompute, x, i)
     return _norm(px, x, cfg, "ef_")
 
 
@@ -287,8 +303,8 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
             raise ValueError(f"{cfg.name} attends to encoder embeddings "
                              f"(B, n_ctx, d_model): enc_embeds is required")
         enc_out = (_encode(get, enc_embeds.to(dtype), cfg, plan, policy,
-                           group=group, rank=rank) if cfg.is_enc_dec
-                   else enc_embeds.to(dtype))
+                           group=group, rank=rank, recompute=recompute)
+                   if cfg.is_enc_dec else enc_embeds.to(dtype))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     layer = 0
     for gname, stack, kinds in _block_order(cfg):
@@ -306,12 +322,7 @@ def _decoder(get, tokens: torch.Tensor, cfg: ModelConfig,
                     window_override=window_override)
                 aux = aux + a
             return cx, aux
-        if recompute:
-            with ckpt.set_checkpoint_early_stop(False):
-                x, aux_total = ckpt.checkpoint(body, x, aux_total,
-                                               use_reentrant=False)
-        else:
-            x, aux_total = body(x, aux_total)
+        x, aux_total = _recomputed(body, recompute, x, aux_total)
         layer += len(kinds)
     if decode:
         caches["pos"] = pos + 1
@@ -387,24 +398,16 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return x, unemb, aux, caches
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError if ``cfg`` has a block kind outside
-    :data:`TRAINED_KINDS` (ROADMAP Queue A item 9: the recurrent,
-    sliding-window, encoder and cross-attention kinds)."""
-    untrained = sorted(set(cfg.layer_kinds) - set(TRAINED_KINDS))
-    if untrained:
-        raise NotImplementedError(
-            f"training of block kinds {untrained} is not ported (ROADMAP "
-            f"Queue A item 9): they serve only")
-
-
 def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
                   plan: ShardingPlan, policy: CommPolicy, *,
                   dtype=torch.bfloat16, group=None, data_group=None,
                   grad_deltas: Optional[Store] = None,
-                  stats: Optional[Dict] = None):
+                  stats: Optional[Dict] = None,
+                  enc_embeds: Optional[torch.Tensor] = None):
     """The training forward: tokens (B_loc, S) -> (hidden (B_loc, S, d),
-    unemb, aux_loss).
+    unemb, aux_loss); ``enc_embeds`` (B_loc, n_ctx, d), the stub
+    frontend's embeddings of these rows, feed a model with an encoder or
+    ``xattn`` blocks (:func:`_decoder`).
 
     ``store`` is this rank's flat ZeRO store (``store[g][name]`` of shape
     ``(n_stack, flat / fsdp)``); every block group is gathered over the
@@ -416,16 +419,13 @@ def forward_train(store: Store, tokens: torch.Tensor, cfg: ModelConfig,
     the backward (``torch.utils.checkpoint``, the whole block replayed).
     An MoE block's aux loss enters ``aux_loss``; ``stats``, if given,
     gathers its routing counts (:func:`repro_torch.models.moe.moe_apply`)
-    in the forward. It raises for a block kind outside
-    :data:`TRAINED_KINDS`: the recurrent, sliding-window, encoder and
-    cross-attention kinds' training is not yet held against the JAX
-    package (ROADMAP Queue A item 9).
+    in the forward.
     """
-    check_trainable(cfg)
     get = _store_get(store, cfg, plan, policy, dtype, data_group,
                      grad_deltas)
     return _decoder(get, tokens, cfg, plan, policy, dtype=dtype,
-                    group=group, stats=stats, recompute=True)
+                    group=group, stats=stats, recompute=True,
+                    enc_embeds=enc_embeds)
 
 
 def lm_loss(hidden: torch.Tensor, unemb: torch.Tensor, labels: torch.Tensor,

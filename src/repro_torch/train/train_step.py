@@ -61,10 +61,14 @@ def batch_slice(global_batch: int, mesh: MeshAxes) -> slice:
 
 def local_batch(batch: Dict[str, np.ndarray], mesh: MeshAxes,
                 device) -> Dict[str, torch.Tensor]:
-    """The global batch (numpy) -> this rank's rows, int64 on ``device``."""
+    """The global batch (numpy) -> this rank's rows of every key on
+    ``device``: the tokens and labels int64, the stub frontend's
+    ``enc_embeds`` float32."""
     sl = batch_slice(batch["tokens"].shape[0], mesh)
     return {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(
-        device=device, dtype=torch.int64) for k, v in batch.items()}
+        device=device,
+        dtype=torch.float32 if k == "enc_embeds" else torch.int64)
+        for k, v in batch.items()}
 
 
 def _replicated_mask(cfg: ModelConfig, plan: ShardingPlan) -> Dict:
@@ -79,23 +83,27 @@ def make_loss_fn(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
                  aux_weight: float = 0.01, stats: Optional[Dict] = None):
     """(store, deltas, batch) -> (seed loss, raw loss) of this rank; an
     MoE model's aux loss enters at ``aux_weight``, and ``stats``, if
-    given, gathers its routing counts in the forward."""
+    given, gathers its routing counts in the forward. The batch's
+    ``enc_embeds``, when it has them, go to the forward, sliced with the
+    tokens under ``n_micro > 1``."""
     dtype = getattr(torch, cfg.dtype)
     denom = group_size(mesh.model) * group_size(mesh.data)
     if mesh.multi_pod:
         denom *= group_size(mesh.pod)
 
-    def one_micro(store, deltas, tokens, labels):
+    def one_micro(store, deltas, tokens, labels, enc):
         hidden, unemb, aux = forward_train(
             store, tokens, cfg, plan, policy, dtype=dtype, group=mesh.model,
-            data_group=mesh.data, grad_deltas=deltas, stats=stats)
+            data_group=mesh.data, grad_deltas=deltas, stats=stats,
+            enc_embeds=enc)
         return lm_loss(hidden, unemb, labels, cfg, plan, aux, aux_weight,
                        group=mesh.model)
 
     def loss_fn(store, deltas, batch):
         tokens, labels = batch["tokens"], batch["labels"]
+        enc = batch.get("enc_embeds")
         if n_micro == 1:
-            raw = one_micro(store, deltas, tokens, labels)
+            raw = one_micro(store, deltas, tokens, labels, enc)
         else:
             b = tokens.shape[0]
             assert b % n_micro == 0, (b, n_micro)
@@ -103,7 +111,8 @@ def make_loss_fn(cfg: ModelConfig, plan: ShardingPlan, policy: CommPolicy,
             raw = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i in range(n_micro):
                 sl = slice(i * mb, (i + 1) * mb)
-                raw = raw + one_micro(store, deltas, tokens[sl], labels[sl])
+                raw = raw + one_micro(store, deltas, tokens[sl], labels[sl],
+                                      None if enc is None else enc[sl])
             raw = raw / n_micro
         return raw / denom, raw
 

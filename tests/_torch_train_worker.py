@@ -1,14 +1,18 @@
 """One rank of the port's training run on gloo, held against JAX's.
 
     python tests/_torch_train_worker.py RANK MESH INIT_FILE OUT_DIR \
-        POLICIES [ARCH]
-    python tests/_torch_train_worker.py jax MESH OUT_DIR POLICIES [ARCH]
+        POLICIES [ARCH [SEQ]]
+    python tests/_torch_train_worker.py jax MESH OUT_DIR POLICIES \
+        [ARCH [SEQ]]
     python tests/_torch_train_worker.py coll RANK WORLD INIT_FILE OUT_DIR
 
 ``MESH`` is ``DATA,MODEL[,POD]`` (as the launchers take it), ``POLICIES``
 a comma-separated list of :data:`POLICIES` keys, ``ARCH`` the smoke
 config trained (:data:`ARCH` by default; an MoE model's aux loss enters
-the loss). ``OUT_DIR`` holds the
+the loss), ``SEQ`` its sequence length (:data:`SEQ` by default). A model
+with an encoder or cross-attention blocks trains on the stream's stub
+frontend embeddings (``enc_embeds``) on both sides
+(:func:`data_config`). ``OUT_DIR`` holds the
 JAX side (written by ``tests/test_torch_train*.py``): ``init.npz``, the
 global store both packages start from (``store/GROUP/NAME``, JAX's
 ``(n_stack, tp, flat)`` arrays), and ``jax_POLICY.npz``, JAX's metrics and
@@ -73,6 +77,16 @@ def train_config(arch: str = ARCH):
 def opt_config():
     from repro_torch.train.optim import OptimConfig
     return OptimConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+
+
+def data_config(config_cls, cfg, seq: int = SEQ):
+    """The stream of a run (``config_cls``: either package's
+    ``DataConfig``): BATCH x ``seq`` tokens, and for a model with an
+    encoder or cross-attention blocks the stub frontend's embeddings
+    (BATCH, n_ctx, d_model), as both launchers give them."""
+    enc = cfg.encoder.n_ctx if (cfg.is_enc_dec or cfg.has_cross) else None
+    return config_cls(vocab=cfg.vocab, seq_len=seq, global_batch=BATCH,
+                      enc_ctx=enc, d_model=cfg.d_model)
 
 
 def read_store(npz) -> dict:
@@ -169,10 +183,10 @@ def ef_sums(calls: list, opt: dict, mesh) -> dict:
 
 
 def run(out_dir: str, mesh_spec: str, names, timeout: float = 240,
-        arch: str = ARCH):
+        arch: str = ARCH, seq: int = SEQ):
     """The JAX reference, then the port's ranks, of ``names`` on
-    ``mesh_spec`` for ``arch``'s smoke config -> ([rank npz, ...], {name:
-    jax npz})."""
+    ``mesh_spec`` for ``arch``'s smoke config at ``seq`` tokens a row ->
+    ([rank npz, ...], {name: jax npz})."""
     import subprocess
     dims = [int(v) for v in mesh_spec.split(",")]
     world = dims[0] * dims[1] * (dims[2] if len(dims) > 2 else 1)
@@ -182,10 +196,10 @@ def run(out_dir: str, mesh_spec: str, names, timeout: float = 240,
     # the JAX side and the ranks at once: a rank waits for each file of
     # the JAX side when it first needs it (:func:`wait_load`)
     cmds = [[sys.executable, me, "jax", mesh_spec, out_dir, ",".join(names),
-             arch]]
+             arch, str(seq)]]
     cmds += [[sys.executable, me, str(r), mesh_spec,
               os.path.join(out_dir, "rendezvous"), out_dir, ",".join(names),
-              arch] for r in range(world)]
+              arch, str(seq)] for r in range(world)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, env=env)
              for c in cmds]
@@ -215,13 +229,27 @@ BOUNDS = {"bf16": dict(loss=1e-6, grad_norm=1e-6, store=1e-2, moments=1e-4),
                              moments=0.4)}
 BOUNDS["aggressive_ef"] = BOUNDS["aggressive"]
 BOUNDS["framed"] = BOUNDS["paper"]
+#: per arch, the leaves whose gradient is zero in exact arithmetic, so
+#: that both packages' are float32 rounding noise and Adam turns it into
+#: steps of either sign: a key bias (``bk``, ``xbk``: the softmax over
+#: the keys is invariant to adding ``q . bk`` to every score) and the
+#: sLSTM's input-gate bias (``sl_bi``: a constant added to every input
+#: gate scales every weight of the normaliser ``c / n`` alike). Their
+#: ``m`` is held by its size (:data:`ZERO_GRAD`) in place of its
+#: difference, and their ``v`` and store change by none
+ZERO_GRAD_LEAVES = {"xlstm-125m": ("pattern/L1_sl_bi",),
+                    "whisper-tiny": ("encoder/bk", "pattern/L0_bk",
+                                     "pattern/L0_xbk")}
+#: such a leaf's ``m`` norm, the port's and JAX's, over the norm of
+#: JAX's whole ``m``
+ZERO_GRAD = 1e-5
 #: the EF residuals' sum rule (:func:`ef_sums`), relative
 EF_SUM = 1e-6
 #: each EF residual leaf's L2 norm within this factor of JAX's
 EF_NORM = 4.0
 
 
-def check(ranks, want, name: str) -> None:
+def check(ranks, want, name: str, arch: str = ARCH) -> None:
     """Hold every rank's run of policy ``name`` against JAX's ``want``,
     every step (each step starts from JAX's weights, so the runs cannot
     drift apart; the moments and residuals are each package's own).
@@ -249,9 +277,29 @@ def check(ranks, want, name: str) -> None:
     fed back 0.41, ``qef`` not carried 6e-3) and by their size (each
     leaf's norm within 4x of JAX's; measured 0.32-2.7), and they exist
     exactly where JAX's do.
+
+    The store's change is compared over the parameters, not the flat
+    store's padding (the rank's main loop drops it): a shard that holds
+    both, as whisper-tiny's biases at (2, 2), quantizes the padding's zero
+    gradient to a fraction of a code step of either sign, which Adam
+    turns into a step of +-lr (whisper's ``encoder/bv`` at step 0: 0.998
+    with the padding, 0.17 without; its ``m`` 0.012).
+
+    A leaf of :data:`ZERO_GRAD_LEAVES` (``arch``'s) has a gradient of
+    rounding noise on both sides (measured: xlstm's ``sl_bi`` 2.7e-7
+    against 8-230 for the other leaves of its block, one sLSTM on the
+    CPU; in training its ``m`` 6.2e-10 of the whole ``m`` in JAX, 2.6e-10
+    in the port): its ``m`` must stay within :data:`ZERO_GRAD` of the
+    whole ``m`` on both sides, and its other differences are not held.
     """
     bd = BOUNDS[name]
+    zero = set(ZERO_GRAD_LEAVES.get(arch, ()))
     for i in range(STEPS):
+        rows = {t: sorted(tuple(f.split("/")[2:]) for f in want.files
+                          if f.startswith(f"{i}/{t}/")) for t in TREES}
+        m_all = np.sqrt(sum(float(np.sum(want[f"{i}/m/{g}/{n}"]
+                                         .astype(np.float64) ** 2))
+                            for g, n in rows["m"]))
         for r, res in enumerate(ranks):
             tag = f"{name} step {i} rank {r}"
             for k in ("loss", "grad_norm"):
@@ -272,9 +320,19 @@ def check(ranks, want, name: str) -> None:
                     assert (ratio.min() >= 1 / EF_NORM
                             and ratio.max() <= EF_NORM), (
                         tag, tree, ratio.min(), ratio.max())
-                else:
-                    b = bd["store" if tree == "store" else "moments"]
-                    assert rel.max() <= b, (tag, tree, rel.max(), b)
+                    continue
+                held = np.array([f"{g}/{n}" not in zero
+                                 for g, n in rows[tree]])
+                assert len(held) == len(rel), (tag, tree)
+                b = bd["store" if tree == "store" else "moments"]
+                assert rel[held].max() <= b, (tag, tree, rel[held].max(), b)
+                if tree != "m":
+                    continue
+                for j in np.flatnonzero(~held):
+                    g, n = rows[tree][j]
+                    jm = float(np.linalg.norm(want[f"{i}/m/{g}/{n}"]))
+                    assert max(jm, jm * ratio[j]) <= ZERO_GRAD * m_all, (
+                        tag, g, n, jm, ratio[j], m_all)
 
 
 def leaves(tree) -> list:
@@ -291,7 +349,7 @@ def local(arr: np.ndarray, plan, m: int, d: int) -> np.ndarray:
 
 
 def jax_reference(mesh_spec: str, out_dir: str, names,
-                  arch: str = ARCH) -> None:
+                  arch: str = ARCH, seq: int = SEQ) -> None:
     """The JAX side (its own process, with enough fake devices)."""
     import zlib
 
@@ -335,8 +393,7 @@ def jax_reference(mesh_spec: str, out_dir: str, names,
                                                 grad_ef=True)
     pols["framed"] = jpolicy.with_framed_bridge(pols["paper"], 8)
     sh = NamedSharding(mesh, jshard.STORE_SPEC)
-    ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
-                                 global_batch=BATCH))
+    ds = make_dataset(data_config(DataConfig, cfg, seq))
 
     def put(x):                   # placed as the step returns them
         return jax.device_put(x, sh if x.ndim == 3
@@ -359,7 +416,10 @@ def jax_reference(mesh_spec: str, out_dir: str, names,
             qgrad_ef=wants_qgrad_ef(pol, plan), fsdp=plan.fsdp))
         res = {}
         for i in range(STEPS):
-            store, opt, m = step(store, opt, to_device(ds.batch(i)))
+            # the stub embeddings at the model's float32, as the port takes
+            # them (to_device's default rounds them to bf16)
+            store, opt, m = step(store, opt, to_device(ds.batch(i),
+                                                       jnp.float32))
             for k, v in m.items():
                 res[f"{i}/{k}"] = np.asarray(v)
             flat(store, f"{i}/store/", res)
@@ -586,8 +646,7 @@ def framed_equality(mesh) -> dict:
     cpu = torch.device("cpu")
     cfg = train_config()
     plan = make_plan(cfg, tp=1, fsdp=1)
-    ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
-                                 global_batch=BATCH))
+    ds = make_dataset(data_config(DataConfig, cfg))
     calls = [0]
     crc_rows = ops.crc32c_rows
 
@@ -623,11 +682,13 @@ def main():
                          sys.argv[5])
     if sys.argv[1] == "jax":
         return jax_reference(sys.argv[2], sys.argv[3],
-                             sys.argv[4].split(","), *sys.argv[5:6])
+                             sys.argv[4].split(","), *sys.argv[5:6],
+                             *map(int, sys.argv[6:7]))
     rank, mesh_spec = int(sys.argv[1]), sys.argv[2]
     init_file, out_dir = sys.argv[3], sys.argv[4]
     names = sys.argv[5].split(",")
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.model import param_groups
     from repro_torch.parallel.axis import axis_rank
     from repro_torch.parallel.plan import make_plan
     from repro_torch.parallel.shardings import load_jax_store
@@ -639,12 +700,14 @@ def main():
     cpu = torch.device("cpu")
     mesh = mesh_lib.init_mesh(data, model, pod, rank, init_file, cpu, 0)
     cfg = train_config(*sys.argv[6:7])
+    seq = int(sys.argv[7]) if len(sys.argv) > 7 else SEQ
     plan = make_plan(cfg, tp=model, fsdp=data)
     m, d = axis_rank(mesh.model), axis_rank(mesh.data)
     init = wait_load(os.path.join(out_dir, "init.npz"))
     store_np = read_store(init)
-    ds = make_dataset(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
-                                 global_batch=BATCH))
+    ds = make_dataset(data_config(DataConfig, cfg, seq))
+    numel = {g: {n: sp.numel_loc(plan) for n, sp in specs.items()}
+             for g, (_, specs) in param_groups(cfg, plan).items()}
     out, calls = {}, []
     ef_tap(calls)
     try:
@@ -684,11 +747,19 @@ def main():
                     stats = []
                     for g, n in leaves(state[tree]):
                         sl = local(want[f"{i}/{tree}/{g}/{n}"], plan, m, d)
-                        s0 = (local(src[f"{start}/{g}/{n}"], plan, m, d)
-                              if tree == "store" else None)
-                        stats.append(leaf_stats(
-                            state[tree][g][n].numpy().reshape(sl.shape), sl,
-                            s0))
+                        got = state[tree][g][n].numpy().reshape(sl.shape)
+                        s0 = None
+                        if tree == "store":
+                            # the parameters' change: the flat store's
+                            # padding is no parameter, and Adam moves it by
+                            # +-lr on the sign of its decoded gradient, a
+                            # fraction of a code step of zero on each side
+                            s0 = local(src[f"{start}/{g}/{n}"], plan, m, d)
+                            k = sl.shape[1]
+                            keep = np.arange(d * k, (d + 1) * k) < numel[g][n]
+                            got, sl, s0 = got[:, keep], sl[:, keep], \
+                                s0[:, keep]
+                        stats.append(leaf_stats(got, sl, s0))
                     out[f"{name}/{i}/{tree}"] = np.stack(stats)
         if "framed" in names and mesh_spec == "1,1,2":
             out.update(framed_equality(mesh))

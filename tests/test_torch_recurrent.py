@@ -409,19 +409,23 @@ def test_lru_lambda_init_and_unknown_init():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_raises_for_the_recurrent_kinds(arch):
-    """Training of the recurrent and sliding-window kinds is not held
-    against JAX yet, so ``forward_train`` and the training CLI refuse
-    them (naming ROADMAP Queue A item 9) rather than train unchecked."""
+    """The training CLI trains the recurrent and sliding-window kinds
+    (``python -m repro_torch.launch.train --arch ARCH --smoke --device
+    cpu --steps 2``): finite losses and grad norms; and ``--n-micro 2``
+    gives ``--n-micro 1``'s step-0 loss within 1e-6 relative (the two
+    halves' mean losses averaged). ``tests/test_torch_train_recurrent.py``
+    holds the steps against JAX's."""
     from repro_torch.launch import train as tlaunch
-    cfg = get_smoke_config(arch)
-    plan = make_plan(cfg, tp=1)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmodel.forward_train({}, torch.zeros((1, 4), dtype=torch.long),
-                             cfg, plan, BF16_POLICY)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
-                      "--steps", "1"])
-    tmodel.check_trainable(get_smoke_config("llama3-8b"))
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+            "--seq", "32", "--batch", "4", "--log-every", "1"]
+    losses = []
+    for n_micro in ("1", "2"):
+        hist = tlaunch.main(argv + ["--n-micro", n_micro])["history"]
+        assert len(hist) == 2
+        assert all(np.isfinite([h["loss"], h["grad_norm"]]).all()
+                   for h in hist)
+        losses.append(hist[0]["loss"])
+    assert abs(losses[1] - losses[0]) <= 1e-6 * abs(losses[0])
 
 
 def _jax_hidden(s, jpol):

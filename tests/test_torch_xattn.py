@@ -479,17 +479,37 @@ def test_site_row_bytes_counts_encoder_tokens():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_raises_for_the_cross_kinds(arch):
-    """Training of the ``enc``, ``dec`` and ``xattn`` kinds is not held
-    against JAX yet: ``check_trainable``, ``forward_train`` and the
-    training CLI refuse them, naming ROADMAP Queue A item 9."""
+    """The training CLI trains the ``enc``, ``dec`` and ``xattn`` kinds
+    (``python -m repro_torch.launch.train --arch ARCH --smoke --device
+    cpu --steps 2``): finite losses and grad norms, the batch's stub
+    embeddings reaching the model float32 at (rows, n_ctx, d_model) in
+    every forward; and ``--n-micro 2`` gives ``--n-micro 1``'s step-0
+    loss within 1e-6 relative, each half with its rows' embeddings.
+    ``tests/test_torch_train_xattn.py`` holds the steps against JAX's."""
     from repro_torch.launch import train as tlaunch
+    from repro_torch.train import train_step
     cfg = get_smoke_config(arch)
-    for kinds in (cfg.pattern, ("enc",)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tmodel.check_trainable(dataclasses.replace(cfg, pattern=kinds))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmodel.forward_train({}, torch.zeros((1, 4), dtype=torch.long),
-                             cfg, make_plan(cfg, tp=1), BF16_POLICY)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
-                      "--steps", "1"])
+    seen = []
+    fwd = train_step.forward_train
+
+    def recorded(*a, enc_embeds=None, **k):
+        seen.append((enc_embeds.dtype, tuple(enc_embeds.shape)))
+        return fwd(*a, enc_embeds=enc_embeds, **k)
+
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+            "--seq", "32", "--batch", "4", "--log-every", "1"]
+    losses = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_step, "forward_train", recorded)
+        for n_micro in (1, 2):
+            seen.clear()
+            hist = tlaunch.main(argv + ["--n-micro", str(n_micro)])[
+                "history"]
+            assert len(hist) == 2
+            assert all(np.isfinite([h["loss"], h["grad_norm"]]).all()
+                       for h in hist)
+            assert seen == [(torch.float32, (4 // n_micro,
+                                             cfg.encoder.n_ctx,
+                                             cfg.d_model))] * 2 * n_micro
+            losses.append(hist[0]["loss"])
+    assert abs(losses[1] - losses[0]) <= 1e-6 * abs(losses[0])
