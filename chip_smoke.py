@@ -335,6 +335,27 @@ Phases, each printing its lines; any failure exits non-zero:
              qag shape (embed/tok's shard at fsdp = 2, (1, 388956160) f32,
              and its two wires decoded) against their plain versions and
              the bound (_dp_qag_time).
+16. check  -- the static comm-safety analyzer (repro_torch.analysis) on
+             the card: every kernel instantiation's attributes read from
+             the built libraries (fc_<source>_attrs) held to the
+             declared table (the block each was built for) and, with
+             their static and the launch's dynamic shared bytes, the
+             card's limits, one line each; fc_ar's and fc_a2a's
+             cooperative residency (rdma._blocks_per_rank) for 1, 2, 4
+             and 8 ranks on the card; core_report() and
+             all_report(card=True) with no error, their counts and
+             seconds; the trace lane's resolve log of qwen3-14b's smoke
+             train step on the card equal to the CPU's; the
+             fused-request guard quiet on every fused launch of this
+             script (fused_launches) and refusing one (group 16 under
+             fused at --mesh 1,2: the serve launcher exits 2 with
+             SITE-FUSED-MESH before any rank process starts), timed.
+             Phase tp first runs the serve launcher itself
+             (_tp_launcher): qwen3-14b's smoke config at --mesh 1,TP,
+             paper/fused with --check (the pass and the guard on the
+             card in the launcher's process, then its rank processes)
+             and paper/two_step, the same tokens, and rank 0's launches
+             phase tp's per site and forward.
 
 In phase train, --mesh 1,1,2 also runs paper/two_step with
 ``--framed-bridge 8`` (policy.with_framed_bridge: the pod hop int8 g128
@@ -380,7 +401,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
 PHASES = ("build", "codec", "crc", "stage", "time", "serve", "ln", "a2a",
           "moe", "ar", "tp", "tp4", "train", "moe_train", "moe_archs", "ep8",
-          "rec", "xattn", "kinds_train", "dp")
+          "rec", "xattn", "kinds_train", "dp", "check")
 CSRC = "src/repro_torch/kernels/csrc/"
 WIRE_KERNELS = ("encode_wire", "decode_wire", "decode_reduce")
 STAGE_KERNELS = ("quant_pack", "dequant_unpack", "spike_pack")
@@ -609,6 +630,38 @@ TP_CELLS = {
                            TP_GEN),)),
     "xattn_tp": (TP, None, (("whisper", WHISPER_ARCH, XATTN_TP_RUNS,
                              "xattn tp", TP_GEN),))}
+
+def fused_launches():
+    """Every fused launch this script makes, at its full width (its depth
+    cuts change no site's payload): (arch, mesh shape, policy, shapes of
+    ``commcheck.check_fused_request``); each under the paper policy with
+    every site fused. Phase check holds the guard quiet on each, as
+    tests/test_torch_analysis.py does at the H100's limits."""
+    def serve(batch, seq):
+        return dict(global_batch=batch, seq=seq, mode="prefill")
+    train = dict(global_batch=TRAIN_BATCH, seq=TRAIN_SEQ, mode="train")
+    out = [(arch, {"data": 1, "model": size}, "paper",
+            serve(BATCH, PROMPT_LEN))
+           for size, _, parts in TP_CELLS.values()
+           for _, arch, _, _, _ in parts]
+    for arch, meshes in ((TRAIN_ARCH, TRAIN_MESHES),
+                         (MOE_ARCH, TRAIN_MOE_MESHES),
+                         (EP_ARCH, EP_TRAIN_MESHES),
+                         ("whisper-tiny", KINDS_TRAIN_MESHES)):
+        for spec, runs in meshes:
+            if any(r[2] == "fused" for r in runs):
+                dims = [int(v) for v in spec.split(",")]
+                shape = {"data": dims[0], "model": dims[1]}
+                if len(dims) == 3:
+                    shape = {"pod": dims[2], **shape}
+                out.append((arch, shape, "paper", train))
+    for spec, (_, runs) in DP_CELLS.items():
+        if any(r[2] == "fused" for r in runs):
+            data, model = (int(v) for v in spec.split(","))
+            out.append((ARCH, {"data": data, "model": model}, "paper",
+                        serve(BATCH, DP_PROMPT)))
+    return out
+
 
 # phase dp: data-parallel serving, qwen3-14b at full width, DP_LAYERS of
 # its 40 layers (a float32 flat store of ~8.9 GB in all, sharded over the
@@ -2560,6 +2613,67 @@ def tp_rank_main(rank: int, tag: str, rendezvous: str, out_dir: str) -> int:
     return 0
 
 
+def _tp_launcher(card: str) -> dict:
+    """qwen3-14b's smoke config served by the serve launcher itself at
+    --mesh 1,TP (its process runs the pre-launch pass and the guard on
+    the card, then run_ranks starts the rank processes): paper/fused with
+    --check, and paper/two_step. The guard passes, --check's report has
+    no error, the first row's tokens are the same under both, and rank
+    0's launches are phase tp's: fused, every TP site through fc_ar once
+    a forward; two_step, two encodes and two decodes a site and forward
+    (_tp_serve). The launches are the rank processes' own, so the main
+    path's counts do not include them."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(ARCH)
+    forwards = 1 + TP_PROMPT + TP_GEN - 1
+    sites = _tp_sites(cfg) * forwards
+    want = {"fused": {"ar": sites},
+            "two_step": {"encode_wire": 2 * sites, "decode_wire": 2 * sites}}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = {}
+    for scheme, check_flag in (("fused", ["--check"]), ("two_step", [])):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             ARCH, "--smoke", "--mesh", f"1,{TP}", "--comm-scheme", scheme,
+             "--batch", str(BATCH), "--prompt-len", str(TP_PROMPT), "--gen",
+             str(TP_GEN), "--seed", str(SEED), *check_flag],
+            capture_output=True, text=True, env=env, timeout=300)
+        sec = time.perf_counter() - t0
+        log = res.stdout + res.stderr
+        check(res.returncode == 0, f"[tp] the serve launcher, paper/{scheme}"
+              f" at --mesh 1,{TP}, exited {res.returncode}:\n{log[-3000:]}")
+        lines = {key: [ln for ln in res.stdout.splitlines() if key in ln]
+                 for key in ("[serve] commcheck", "PASS: ", "FAIL: ",
+                             "guard passed", "kernel launches",
+                             "generated tokens")}
+        fused = scheme == "fused"          # the guard runs at a fused site
+        n_check = {"[serve] commcheck": len(check_flag),
+                   "PASS: ": len(check_flag), "FAIL: ": 0,
+                   "guard passed": int(fused)}
+        check(all(len(v) == n_check.get(k, 1) for k, v in lines.items()),
+              f"[tp] the serve launcher's lines {lines}:\n{log[-3000:]}")
+        check(all("card=True" in ln for ln in lines["guard passed"]),
+              f"[tp] the guard ran off the card: {lines['guard passed']}")
+        got = json.loads(lines["kernel launches"][0].split("launches ", 1)[1])
+        check(got == want[scheme], f"[tp] the serve launcher's paper/"
+              f"{scheme} launches {got} != {want[scheme]}")
+        out[scheme] = {"seconds": sec, "launches": got,
+                       "tokens": lines["generated tokens"][0].split(": ")[1],
+                       "report": lines["PASS: "]}
+        print(f"[tp] serve launcher {ARCH} --smoke --mesh 1,{TP} paper/"
+              f"{scheme}{' --check' * bool(check_flag)}: exit 0 in "
+              f"{sec:.2f} s; "
+              + "".join(f"--check {ln.strip()}; " for ln in lines["PASS: "])
+              + "".join(f"{ln.strip()}; " for ln in lines["guard passed"])
+              + f"rank 0 launches {got}, tokens {out[scheme]['tokens']}  "
+              f"[{card}]", flush=True)
+    check(out["fused"]["tokens"] == out["two_step"]["tokens"],
+          f"[tp] the serve launcher generated {out['fused']['tokens']} under "
+          f"paper/fused and {out['two_step']['tokens']} under two_step")
+    return out
+
+
 def phase_tp(torch, card: str, tag: str = "tp"):
     """The rank-process cell ``tag`` of TP_CELLS: phase tp (qwen3-14b,
     then moonshot), tp4 (glm4-9b), ep8's serving (grok-1's smoke config)
@@ -2567,6 +2681,8 @@ def phase_tp(torch, card: str, tag: str = "tp"):
     card."""
     from repro_torch.launch import mesh
     torch.cuda.empty_cache()                   # the earlier models are gone
+    if tag == "tp":
+        _tp_launcher(card)
     size, _, parts = TP_CELLS[tag]
     out_dir = os.path.join(ROOT, "chiprun_out", tag)
     os.makedirs(out_dir, exist_ok=True)
@@ -3350,7 +3466,6 @@ def phase_kinds_train(torch, card: str) -> dict:
     KINDS_TRAIN_MESHES as rank processes (whisper-tiny at --mesh 1,2:
     paper/fused, every TP site through fc_ar, == paper/two_step) ->
     {arch: {mesh: runs}}."""
-    from repro_torch.launch.train import param_count
     t0 = time.perf_counter()
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
@@ -3362,7 +3477,7 @@ def phase_kinds_train(torch, card: str) -> dict:
               f"blocks ({', '.join(cfg.layer_kinds)})"
               + (f" and {cfg.encoder.n_layers} enc blocks over "
                  f"{cfg.encoder.n_ctx} frames" if cfg.is_enc_dec else "")
-              + f": {param_count(cfg) / 1e9:.3f} B parameters, global batch "
+              + f": {cfg.param_count() / 1e9:.3f} B parameters, global batch "
               f"{TRAIN_BATCH} x seq {_train_seq(arch)}", flush=True)
         res[arch] = {"1,1": _train_single(torch, card, arch=arch)}
         torch.cuda.empty_cache()
@@ -3388,13 +3503,12 @@ def phase_moe_train(torch, card: str) -> dict:
     in this process (the CUDA codec == the plain codec), then
     TRAIN_MOE_MESHES as rank processes (ep = 2: paper/fused, the dispatch
     through fc_a2a, == paper/two_step)."""
-    from repro_torch.launch.train import param_count
     torch.cuda.empty_cache()                   # the earlier models are gone
     t0 = time.perf_counter()
     cfg = _train_cfg(MOE_ARCH)
     print(f"[moe_train] {MOE_ARCH} at full width, {cfg.n_layers} of its 48 "
           f"layers ({', '.join(cfg.layer_kinds)}): "
-          f"{param_count(cfg) / 1e9:.3f} B parameters", flush=True)
+          f"{cfg.param_count() / 1e9:.3f} B parameters", flush=True)
     res = {"1,1": _train_single(torch, card, arch=MOE_ARCH)}
     torch.cuda.empty_cache()
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
@@ -3923,6 +4037,153 @@ def phase_dp(torch, np, card: str):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# phase check: the comm-safety analyzer on the card
+# ---------------------------------------------------------------------------
+
+#: ranks on the card of phase check's residency query
+CHECK_RANKS = (1, 2, 4, 8)
+
+
+def _refused_launch(card: str) -> dict:
+    """One fused request the guard must refuse: qwen3-14b served at
+    --mesh 1,2 with every TP site fused at group 16 (no fc_ar
+    instantiation). The serve launcher exits 2 with SITE-FUSED-MESH, and
+    its temporary directory stays empty: run_ranks made no rendezvous,
+    so no rank process started."""
+    import tempfile
+    work = os.path.join(ROOT, "chiprun_out", "check")
+    os.makedirs(work, exist_ok=True)
+    pol = os.path.join(work, "fused_g16.json")
+    with open(pol, "w") as f:
+        json.dump({"sites": {"tp": {"schedule": "uniform", "config": {
+            "group": 16, "scheme": "fused"}}}}, f)
+    with tempfile.TemporaryDirectory(prefix="check_tmp_") as tmp:
+        env = dict(os.environ, TMPDIR=tmp, PYTHONPATH=os.path.join(
+            ROOT, "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             ARCH, "--mesh", "1,2", "--policy-file", pol],
+            capture_output=True, text=True, env=env, timeout=300)
+        sec = time.perf_counter() - t0
+        left = os.listdir(tmp)
+    out = res.stdout + res.stderr
+    check(res.returncode == 2, f"[check] the refused launch exited "
+          f"{res.returncode}, not 2:\n{out[-2000:]}")
+    check("SITE-FUSED-MESH" in out and "CARD-CODEC" in out,
+          f"[check] the refused launch's diagnostics:\n{out[-2000:]}")
+    check(not left, f"[check] the refused launch left {left}: a rank "
+          f"process was started")
+    diag = [ln for ln in out.splitlines() if "SITE-FUSED-MESH" in ln][0]
+    print(f"[check] refused: serve {ARCH} --mesh 1,2, tp fused at group "
+          f"16: exit 2 in {sec:.2f} s (the launcher's process alone, no "
+          f"rank process): {diag.strip()}  [{card}]", flush=True)
+    return {"seconds": sec, "diagnostic": diag.strip()}
+
+
+def phase_check(torch, card: str) -> dict:
+    """The analyzer on the card (module docstring, phase 16)."""
+    from repro_torch.analysis import commcheck, sites, smem
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_policy, with_scheme
+    from repro_torch.kernels import rdma
+    from repro_torch.parallel.plan import make_plan
+    out = {}
+    limits = smem.card_limits()
+    print(f"[check] limits {limits._asdict()}  [{card}]", flush=True)
+    t0 = time.perf_counter()
+    attrs = smem.read_attrs()
+    diags, n = smem.check_attrs(attrs, limits)
+    diags += smem.check_instances(smem.INSTANCES, limits)
+    rows = []
+    for source in smem.SOURCES:
+        decl = [k for k in smem.INSTANCES if k.source == source]
+        for k, a in zip(decl, attrs[source]):
+            rows.append({"source": source, "kernel": k.kernel,
+                         **a._asdict(), "threads": k.threads,
+                         "dynamic_smem": k.dynamic_smem,
+                         "min_blocks": k.min_blocks})
+            print(f"[check] {source} {k.kernel}: {a.regs} registers a "
+                  f"thread, {a.local_bytes} local bytes, {a.static_smem} "
+                  f"static + {k.dynamic_smem} dynamic shared bytes, "
+                  f"{k.threads} threads (built for {a.max_threads}), "
+                  f"__launch_bounds__ minimum {k.min_blocks} blocks",
+                  flush=True)
+    errors = [d.format() for d in diags if d.severity == "error"]
+    check(not errors and n == len(smem.INSTANCES),
+          f"[check] {n} of {len(smem.INSTANCES)} instantiations read; "
+          + "\n".join(errors))
+    for d in diags:
+        print(f"[check] {d.format()}", flush=True)
+    out["attrs"] = rows
+    out["attrs_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    resident = {}
+
+    def blocks(key, dev, ranks):
+        resident[f"{key} x{ranks}"] = rdma._blocks_per_rank(key, dev, ranks)
+        return resident[f"{key} x{ranks}"]
+    for ranks in CHECK_RANKS:
+        for name, keys in (("fc_ar", rdma.AR_MODES),
+                           ("fc_a2a", rdma.A2A_MODES)):
+            bad = smem.check_residency(keys, ranks,
+                                       torch.cuda.current_device(), blocks)
+            check(not bad, f"[check] {[d.format() for d in bad]}")
+            got = [resident[f"{k} x{ranks}"] for k in keys]
+            print(f"[check] {name}, {ranks} ranks on the card: {min(got)}-"
+                  f"{max(got)} blocks a rank resident over its "
+                  f"{len(keys)} instantiations", flush=True)
+    out["resident"] = resident
+    out["resident_s"] = time.perf_counter() - t0
+
+    for name, fn in (("core_report", commcheck.core_report),
+                     ("all_report", lambda: commcheck.all_report(
+                         card=True, limits=limits))):
+        t0 = time.perf_counter()
+        rep = fn()
+        sec = time.perf_counter() - t0
+        check(rep.ok, f"[check] {name}: {rep.format(max_warnings=5)}")
+        print(f"[check] {name}{'(card=True)' * (name == 'all_report')}: "
+              f"{rep.checked} subjects, {len(rep.errors)} errors, "
+              f"{len(rep.warnings)} warnings in {sec:.2f} s  [{card}]",
+              flush=True)
+        out[name] = {"checked": rep.checked, "errors": len(rep.errors),
+                     "warnings": len(rep.warnings), "seconds": sec}
+
+    t0 = time.perf_counter()
+    log_cpu = sites.record_train_sites(ARCH, paper_policy(), "cpu")
+    log_card = sites.record_train_sites(ARCH, paper_policy(), "cuda")
+    from repro_torch.configs import get_smoke_config
+    trace = sites.check_trace_log(get_smoke_config(ARCH), log_card, ARCH)
+    check(log_card == log_cpu and not trace,
+          f"[check] trace lane on the card: {sorted(log_card, key=str)} "
+          f"against the CPU's {sorted(log_cpu, key=str)}; {trace}")
+    out["trace_s"] = time.perf_counter() - t0
+    print(f"[check] trace lane: {ARCH}'s smoke train step on the card "
+          f"resolved {len(log_card)} (site, layer) pairs, the CPU's log "
+          f"exactly, in {out['trace_s']:.2f} s", flush=True)
+
+    t0 = time.perf_counter()
+    launches = fused_launches()
+    for arch, mesh_shape, policy, kw in launches:
+        cfg = get_config(arch)
+        plan = make_plan(cfg, tp=mesh_shape["model"],
+                         fsdp=mesh_shape.get("data", 1))
+        pol = with_scheme(commcheck.shipped_policies()[policy], "fused")
+        try:
+            commcheck.check_fused_request(cfg, plan, pol, mesh_shape,
+                                          card=True, limits=limits, **kw)
+        except commcheck.CommCheckError as e:
+            fail(f"[check] the guard refused {arch} {mesh_shape}: {e}")
+    out["guard_s"] = time.perf_counter() - t0
+    print(f"[check] guard quiet on this script's {len(launches)} fused "
+          f"launches in {out['guard_s']:.2f} s", flush=True)
+    out["refused"] = _refused_launch(card)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -4014,6 +4275,7 @@ def main(argv=None) -> int:
                         lambda: phase_kinds_train(torch, card), {})
     dp_launches, dp_out = run("dp", lambda: phase_dp(torch, np, card),
                               ({}, {}))
+    checked = run("check", lambda: phase_check(torch, card), {})
     ep8_launches = ep8_ranks[0]["ep"]["launches"] if ep8_ranks else {}
     ep8_train_launches = _train_launches(ep8_trained, EP_TRAIN_MESHES)
     train_launches = _train_launches(trained)
@@ -4121,7 +4383,8 @@ def main(argv=None) -> int:
               "xattn_launches": xattn_launches,
               "kinds_train": kinds_trained,
               "kinds_train_launches": kinds_train_launches,
-              "dp": dp_out, "dp_launches": dp_launches}
+              "dp": dp_out, "dp_launches": dp_launches,
+              "check": checked}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -1,3 +1,4 @@
 """Architecture configs."""
 from repro_torch.configs.registry import (  # noqa: F401
-    ARCH_IDS, get_config, get_smoke_config)
+    ARCH_IDS, LoweringPlan, all_pairs, get_config, get_smoke_config,
+    lowering_plan)

@@ -157,6 +157,15 @@ class CommConfig:
         """Same config routed through a different codec backend."""
         return dataclasses.replace(self, backend=backend)
 
+    def with_rotation(self, on: bool = True) -> "CommConfig":
+        """Same transport with the Hadamard-rotated quantizer toggled.
+
+        Turning rotation on drops spike reserving (the two are exclusive
+        outlier treatments: rotation makes the reserved sections
+        redundant and the wire shorter)."""
+        return dataclasses.replace(
+            self, rotation=on, spike=False if on else self.spike)
+
     def with_scheme(self, scheme: str) -> "CommConfig":
         """Same config routed through a different collective schedule."""
         return dataclasses.replace(self, scheme=scheme)

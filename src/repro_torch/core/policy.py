@@ -214,6 +214,21 @@ def paper_policy(tp_bits: int = 8, a2a_bits: int = 4,
     )
 
 
+def optimized_policy(backend: str = "auto") -> CommPolicy:
+    """Beyond the paper (the JAX package's hill-climb result): the
+    paper's wire everywhere it wins (ZeRO++-style INT8 weight gather,
+    INT8 backward cotangent AllReduce, EP token slicing), with the
+    paper's widths at the accuracy-sensitive sites."""
+    return CommPolicy(
+        tp=default_comm_config(8, backend=backend),
+        a2a=default_comm_config(4, backend=backend),
+        grad=default_comm_config(8, scheme="hierarchical", backend=backend),
+        qag=default_comm_config(8, backend=backend),
+        tp_bwd=default_comm_config(8, backend=backend),
+        ep_slice=True,
+    )
+
+
 def aggressive_policy(backend: str = "auto") -> CommPolicy:
     """Everything compressed as hard as accuracy allows: INT5 g128 TP with
     Eq.-1 scales (the 4+1 bit split), scale_int elsewhere."""
@@ -248,6 +263,18 @@ def depth_policy(edge_bits: int = 8, mid_bits: int = 4, k: int = 1,
 # JSON (the files in configs/policies/)
 # ---------------------------------------------------------------------------
 
+def _cfg_to_dict(cfg: Optional[CommConfig]) -> Optional[Dict]:
+    """The fields of ``cfg`` that differ from their defaults."""
+    if cfg is None:
+        return None
+    out = {}
+    for f in dataclasses.fields(CommConfig):
+        v = getattr(cfg, f.name)
+        if v != f.default:
+            out[f.name] = v
+    return out
+
+
 def _cfg_from_dict(d: Optional[Dict]) -> Optional[CommConfig]:
     if d is None:
         return None
@@ -255,6 +282,21 @@ def _cfg_from_dict(d: Optional[Dict]) -> Optional[CommConfig]:
     bad = set(d) - known
     assert not bad, f"unknown CommConfig fields {sorted(bad)}"
     return CommConfig(**d)
+
+
+def _schedule_to_dict(s: Schedule) -> Optional[Dict]:
+    if s.kind == "uniform":
+        if s.base is None:
+            return None
+        return {"schedule": "uniform", "config": _cfg_to_dict(s.base)}
+    if s.kind == "first_last":
+        return {"schedule": "first_last", "k": s.k,
+                "edge": _cfg_to_dict(s.edge), "mid": _cfg_to_dict(s.base)}
+    if s.kind == "per_layer":
+        return {"schedule": "per_layer",
+                "configs": [_cfg_to_dict(c) for c in s.configs]}
+    return {"schedule": "depth_interp", "base": _cfg_to_dict(s.base),
+            "start_bits": s.start_bits, "end_bits": s.end_bits}
 
 
 def _schedule_from_dict(d: Optional[Dict]) -> Schedule:
@@ -275,6 +317,16 @@ def _schedule_from_dict(d: Optional[Dict]) -> Schedule:
     raise ValueError(f"unknown schedule kind {kind!r}")
 
 
+def policy_to_json(policy: CommPolicy, indent: int = 2) -> str:
+    """The policy as the JSON of ``configs/policies/`` (the JAX package's
+    text, byte for byte)."""
+    doc = {"sites": {s: _schedule_to_dict(getattr(policy, s))
+                     for s in SITES},
+           "ep_slice": policy.ep_slice,
+           "grad_ef": policy.grad_ef}
+    return json.dumps(doc, indent=indent) + "\n"
+
+
 def policy_from_json(text: str) -> CommPolicy:
     doc = json.loads(text)
     sites = doc.get("sites", {})
@@ -289,6 +341,11 @@ def policy_from_json(text: str) -> CommPolicy:
 def load_policy_file(path: str) -> CommPolicy:
     with open(path) as f:
         return policy_from_json(f.read())
+
+
+def save_policy_file(path: str, policy: CommPolicy) -> None:
+    with open(path, "w") as f:
+        f.write(policy_to_json(policy))
 
 
 # ---------------------------------------------------------------------------

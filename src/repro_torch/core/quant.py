@@ -156,3 +156,10 @@ def dequantize(codes: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
     z = zero.to(torch.float32)[..., None]
     xg = codes.to(torch.float32) * s + z
     return cast_out(group_unreshape(xg), out_dtype)
+
+
+def qdq(x: torch.Tensor, bits: int, group: int,
+        meta_dtype="bfloat16") -> torch.Tensor:
+    """quantize-dequantize (simulation helper for accuracy benches)."""
+    codes, s, z = quantize(x, bits, group, meta_dtype)
+    return dequantize(codes, s, z, out_dtype=x.dtype)

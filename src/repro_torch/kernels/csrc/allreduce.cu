@@ -279,4 +279,14 @@ int fc_ar(const void* x, void* out, const long long* params, const unsigned* thr
   return (int)cudaGetLastError();
 }
 
+// Every instantiation's attributes (repro_torch/analysis/smem.py
+// INSTANCES order: AR_MODES) -> the count.
+int fc_allreduce_attrs(int* out, int cap) {
+  int k = 0;
+#define FC_A_AR(G, S, R) FC_ATTRS(ar_kernel<G, S, R>);
+  FC_EACH_MODE(FC_A_AR)
+#undef FC_A_AR
+  return k;
+}
+
 }  // extern "C"

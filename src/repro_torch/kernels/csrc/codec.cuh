@@ -969,4 +969,38 @@ inline int use_device_of(const void* ptr) {
   return (int)cudaSetDevice(attr.device);
 }
 
+// The modes of FC_BY_MODE, in its order (rdma.py AR_MODES): CALL(G,
+// SPIKE, ROT) for each instantiated (group, spike, rotation).
+#define FC_EACH_MODE(CALL)                                                  \
+  CALL(32, false, false) CALL(32, true, false) CALL(32, false, true)        \
+  CALL(64, false, false) CALL(64, true, false) CALL(64, false, true)        \
+  CALL(128, false, false) CALL(128, true, false) CALL(128, false, true)
+
+// cudaFuncGetAttributes of one kernel for the analyzer
+// (repro_torch/analysis/smem.py read_attrs): maxThreadsPerBlock, numRegs,
+// sharedSizeBytes, localSizeBytes, maxDynamicSharedSizeBytes.
+constexpr int kAttrInts = 5;
+inline int func_attrs(const void* fn, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.maxThreadsPerBlock;
+  out[1] = a.numRegs;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = a.maxDynamicSharedSizeBytes;
+  return 0;
+}
+
+// In an fc_<source>_attrs(int* out, int cap) entry point: the attributes
+// of kernel __VA_ARGS__ into row k of out (cap rows), then the next row;
+// on an error the entry point returns its negated code.
+#define FC_ATTRS(...)                                                         \
+  do {                                                                        \
+    if (k >= cap) return -(int)cudaErrorInvalidValue;                         \
+    if (const int rc_ = fc::func_attrs((const void*)(__VA_ARGS__), out + fc::kAttrInts * k)) \
+      return -rc_;                                                            \
+    ++k;                                                                      \
+  } while (0)
+
 }  // namespace fc

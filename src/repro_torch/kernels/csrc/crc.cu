@@ -355,4 +355,15 @@ int fc_crc32c(const void* src, void* scratch, void* out, const long long* params
   return (int)cudaGetLastError();
 }
 
+// Every instantiation's attributes (repro_torch/analysis/smem.py
+// INSTANCES order: the ring's and the synchronous path's tiles, then the
+// rows) -> the count.
+int fc_crc_attrs(int* out, int cap) {
+  int k = 0;
+  FC_ATTRS(crc_tiles<true>);
+  FC_ATTRS(crc_tiles<false>);
+  FC_ATTRS(crc_rows);
+  return k;
+}
+
 }  // extern "C"

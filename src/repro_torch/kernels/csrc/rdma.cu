@@ -243,4 +243,16 @@ int fc_peer_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
 
 int fc_peer_free(void* ptr) { return (int)cudaFree(ptr); }
 
+// Every instantiation's attributes (repro_torch/analysis/smem.py
+// INSTANCES order: A2A_MODES, float then bf16 payloads) -> the count.
+int fc_rdma_attrs(int* out, int cap) {
+  int k = 0;
+#define FC_A_A2A(G, S, R)                         \
+  FC_ATTRS(a2a_kernel<G, S, R, float>);           \
+  FC_ATTRS(a2a_kernel<G, S, R, __nv_bfloat16>);
+  FC_EACH_MODE(FC_A_A2A)
+#undef FC_A_A2A
+  return k;
+}
+
 }  // extern "C"

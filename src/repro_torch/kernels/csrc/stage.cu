@@ -311,4 +311,24 @@ int fc_dequant_unpack(const void* payload, const void* scale, const void* zero, 
   return (int)cudaGetLastError();
 }
 
+// Every instantiation's attributes (repro_torch/analysis/smem.py
+// INSTANCES order: the packs by group, spike, input type, then the
+// unpacks) -> the count.
+int fc_stage_attrs(int* out, int cap) {
+  int k = 0;
+#define FC_A_PACK(G)                                  \
+  FC_ATTRS(pack_kernel<G, false, float>);             \
+  FC_ATTRS(pack_kernel<G, false, __nv_bfloat16>);     \
+  FC_ATTRS(pack_kernel<G, true, float>);              \
+  FC_ATTRS(pack_kernel<G, true, __nv_bfloat16>);
+  FC_A_PACK(32)
+  FC_A_PACK(64)
+  FC_A_PACK(128)
+#undef FC_A_PACK
+  FC_ATTRS(unpack_kernel<32>);
+  FC_ATTRS(unpack_kernel<64>);
+  FC_ATTRS(unpack_kernel<128>);
+  return k;
+}
+
 }  // extern "C"

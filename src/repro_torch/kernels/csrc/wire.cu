@@ -215,4 +215,26 @@ int fc_decode_reduce(const void* wire, void* out, const long long* params, const
   return (int)cudaGetLastError();
 }
 
+// Every instantiation's attributes (repro_torch/analysis/smem.py
+// INSTANCES order: the encodes, the decodes by output kind, the
+// decode+reduces by rows in flight, each by mode) -> the count.
+int fc_wire_attrs(int* out, int cap) {
+  int k = 0;
+#define FC_A_ENCODE(G, S, R) FC_ATTRS(encode_kernel<G, S, R>);
+#define FC_A_DECODE(G, S, R)                 \
+  FC_ATTRS(decode_kernel<G, S, R, 0>);       \
+  FC_ATTRS(decode_kernel<G, S, R, 1>);       \
+  FC_ATTRS(decode_kernel<G, S, R, 2>);
+#define FC_A_REDUCE(G, S, R)                 \
+  FC_ATTRS(decode_reduce_kernel<G, S, R, 1>); \
+  FC_ATTRS(decode_reduce_kernel<G, S, R, kRowsInFlight>);
+  FC_EACH_MODE(FC_A_ENCODE)
+  FC_EACH_MODE(FC_A_DECODE)
+  FC_EACH_MODE(FC_A_REDUCE)
+#undef FC_A_REDUCE
+#undef FC_A_DECODE
+#undef FC_A_ENCODE
+  return k;
+}
+
 }  // extern "C"

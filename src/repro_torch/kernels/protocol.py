@@ -4,7 +4,8 @@ Every peer-push kernel declares its per-rank protocol -- barrier
 signalling, per-peer signal slots, buffer roles, the collective id -- as
 a :class:`KernelProtocol` value, field for field the JAX package's
 declarations (``tests/test_torch_rdma.py`` holds them equal), so one
-choreography is checked by the JAX package's analyzer and executed here:
+choreography is checked by the analyzer
+(:mod:`repro_torch.analysis.choreography`) and executed here:
 
 * :mod:`repro_torch.kernels.rdma` sizes the receive rows and the signal
   pads of a :class:`~repro_torch.kernels.rdma.PeerWorld` from

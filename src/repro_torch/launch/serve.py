@@ -30,10 +30,18 @@ it). For example (two replicas on gloo)::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --smoke --device cpu --mesh 2,1 --policy aggressive
+
+Before it builds weights or starts a rank process, the launcher runs the
+fused-request guard (:func:`repro_torch.analysis.commcheck.
+check_fused_request`, where a site resolves to ``fused``) and, with
+``--check``, the whole pre-launch pass (``launch_report``); on the card
+both hold the launch to the hand kernels' budget. Either one's error
+exits with code 2.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from typing import Dict, Optional
@@ -41,6 +49,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import commcheck
 from repro_torch.configs.registry import ARCH_IDS, get_config, \
     get_smoke_config
 from repro_torch.core.collectives import all_gather_rows
@@ -69,6 +78,15 @@ POLICIES = {"paper": paper_policy, "bf16": lambda: BF16_POLICY,
 #: earlier positions' values or slots gives more than 1
 #: (``tests/test_torch_serve.py``).
 AGREEMENT_REL_TOL = 0.5
+
+
+def kernel_launches() -> Dict[str, int]:
+    """This process's launches of each hand kernel that launched, from
+    its wrapper's count (none on the CPU)."""
+    from repro_torch.kernels import crc, rdma, stage, wire
+    counts = {**wire.LAUNCHES, **stage.LAUNCHES, **rdma.LAUNCHES,
+              **crc.LAUNCHES}
+    return {k: v for k, v in counts.items() if v}
 
 
 def resolve_device(name: Optional[str]) -> torch.device:
@@ -314,6 +332,11 @@ def main(argv=None) -> Dict:
                     help="DATA,MODEL: DATA * MODEL > 1 serves one rank a "
                          "process, DATA > 1 data-parallel replicas "
                          "gathering their store over the data axis")
+    ap.add_argument("--check", action="store_true",
+                    help="run the full commcheck pre-launch pass (site "
+                         "lint, choreography, layouts, the card's budget) "
+                         "and exit 2 before building anything if a rule "
+                         "fires")
     # set by the launcher for each rank process it starts
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
@@ -322,14 +345,23 @@ def main(argv=None) -> Dict:
     data, model = mesh.parse_mesh(args.mesh)
     world = data * model
     device = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    plan = make_plan(cfg, tp=model, fsdp=data)
+    policy = build_policy(args.policy, args.policy_file, args.codec_backend,
+                          args.comm_scheme)
+    if args.rank is None:       # once, in the launcher's process
+        commcheck.preflight(
+            cfg, plan, policy, {"data": data, "model": model},
+            check=args.check, global_batch=args.batch, seq=args.prompt_len,
+            mode="prefill", card=device.type == "cuda",
+            subject=f"{args.arch}/{args.policy_file or args.policy}",
+            tag="[serve]")
     if world > 1 and args.rank is None:
         argv = list(sys.argv[1:] if argv is None else argv)
         mesh.run_ranks(lambda r, store: [
             sys.executable, "-m", "repro_torch.launch.serve", *argv,
             "--rank", str(r), "--rendezvous", store], world)
         return {"ranks": world}
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    plan = make_plan(cfg, tp=model, fsdp=data)
     rank = args.rank or 0
     _, data_rank, model_rank = mesh.mesh_coord(rank, data, model)
     if world > 1:
@@ -340,8 +372,6 @@ def main(argv=None) -> Dict:
         mesh.site_row_bytes(cfg, plan, rows, args.prompt_len), plan.moe)
     log = print if rank == 0 else (lambda *a, **k: None)
     try:
-        policy = build_policy(args.policy, args.policy_file,
-                              args.codec_backend, args.comm_scheme)
         log(describe_policy(policy, cfg.n_layers))
         if data > 1:          # this rank's shard of the float32 flat store
             params = init_store(cfg, plan, args.seed, device,
@@ -355,6 +385,7 @@ def main(argv=None) -> Dict:
                     data_group=axes.data)
     finally:
         mesh.close_mesh(axes)
+    log(f"[serve] kernel launches {json.dumps(kernel_launches())}")
     log(f"[serve] OK{f' (rank 0 of {world})' if world > 1 else ''}")
     return res
 

@@ -41,7 +41,12 @@ config; for example (two pods on gloo)::
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
       --smoke --device cpu --steps 2 --mesh 1,1,2 --framed-bridge 4
 
-Not ported: ``--check`` (the analyzer, ROADMAP Queue A item 7).
+Before it builds weights or starts a rank process, the launcher runs the
+fused-request guard (:func:`repro_torch.analysis.commcheck.
+check_fused_request`, where a site resolves to ``fused``) and, with
+``--check``, the whole pre-launch pass (``launch_report``); on the card
+both hold the launch to the hand kernels' budget. Either one's error
+exits with code 2.
 """
 from __future__ import annotations
 
@@ -52,9 +57,9 @@ import sys
 import time
 from typing import Dict, List, Optional
 
-import numpy as np
 import torch
 
+from repro_torch.analysis import commcheck
 from repro_torch.configs.registry import ARCH_IDS, get_config, \
     get_smoke_config
 from repro_torch.core.comm_config import BACKENDS, SCHEMES
@@ -66,7 +71,6 @@ from repro_torch.core.policy import (BF16_POLICY, CommPolicy,
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import param_groups
 from repro_torch.parallel.axis import MeshAxes, axis_rank
 from repro_torch.parallel.plan import ShardingPlan, make_plan
 from repro_torch.parallel.shardings import init_store
@@ -94,14 +98,6 @@ def build_policy(name: str = "paper", policy_file: Optional[str] = None,
     if grad_ef:
         policy = dataclasses.replace(policy, grad_ef=True)
     return policy
-
-
-def param_count(cfg: ModelConfig) -> int:
-    """Parameters of the model (its specs at tp = 1)."""
-    plan = make_plan(cfg, tp=1)
-    return sum(n_stack * int(np.prod(sp.shape))
-               for n_stack, specs in param_groups(cfg, plan).values()
-               for sp in specs.values())
 
 
 def _sync(device: torch.device) -> None:
@@ -211,7 +207,10 @@ def main(argv=None) -> Optional[Dict]:
                     help="override the collective schedule at every "
                          "enabled site")
     ap.add_argument("--check", action="store_true",
-                    help="not ported (ROADMAP Queue A item 7)")
+                    help="run the full commcheck pre-launch pass (site "
+                         "lint, choreography, layouts, the card's budget) "
+                         "and exit 2 before building anything if a rule "
+                         "fires")
     ap.add_argument("--n-micro", type=int, default=1)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--resume", default=None)
@@ -225,14 +224,23 @@ def main(argv=None) -> Optional[Dict]:
     ap.add_argument("--rendezvous", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
-    if args.check:
-        raise NotImplementedError(
-            "--check runs the analyzer (commcheck), which is not ported: "
-            "ROADMAP Queue A item 7")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     data, model, pod = mesh_lib.parse_train_mesh(args.mesh)
     device = resolve_device(args.device)
     world = max(pod, 1) * data * model
+    plan = make_plan(cfg, tp=model, fsdp=data)
+    policy = build_policy(args.policy, args.policy_file, args.codec_backend,
+                          args.comm_scheme, args.grad_ef, args.framed_bridge)
+    shape = {"data": data, "model": model}
+    if pod:
+        shape = {"pod": pod, **shape}
+    if args.rank is None:       # once, in the launcher's process
+        commcheck.preflight(
+            cfg, plan, policy, shape, check=args.check,
+            global_batch=args.batch, seq=args.seq, n_micro=args.n_micro,
+            mode="train", card=device.type == "cuda",
+            subject=f"{args.arch}/{args.policy_file or args.policy}",
+            tag="[train]")
     if world > 1 and args.rank is None:
         argv = list(sys.argv[1:] if argv is None else argv)
         mesh_lib.run_ranks(lambda r, store: [
@@ -240,9 +248,6 @@ def main(argv=None) -> Optional[Dict]:
             "--rank", str(r), "--rendezvous", store], world)
         return None
     rank = args.rank or 0
-    plan = make_plan(cfg, tp=model, fsdp=data)
-    policy = build_policy(args.policy, args.policy_file, args.codec_backend,
-                          args.comm_scheme, args.grad_ef, args.framed_bridge)
     opt_cfg = OptimConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 2),
                           total_steps=args.steps)
     if world > 1:
@@ -253,10 +258,7 @@ def main(argv=None) -> Optional[Dict]:
         mesh_lib.site_row_bytes(cfg, plan, b_loc, args.seq), plan.moe)
     log = print if rank == 0 else (lambda *a, **k: None)
     try:
-        shape = {"data": data, "model": model}
-        if pod:
-            shape = {"pod": pod, **shape}
-        log(f"[train] {cfg.name}: {param_count(cfg) / 1e6:.1f}M params, "
+        log(f"[train] {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
             f"mesh {shape}, policy={args.policy_file or args.policy}, "
             f"device {device}")
         log(describe_policy(policy, cfg.n_layers))

@@ -104,3 +104,74 @@ class ModelConfig:
     @property
     def has_cross(self) -> bool:
         return any(k in ("xattn", "dec") for k in self.layer_kinds)
+
+    def param_count(self) -> int:
+        """Parameter count of the *unpadded* logical model: the JAX
+        package's closed form (weight matrices, embeddings, norms; biases
+        and gate vectors left out). The launcher logs it and the
+        analyzer's gradient-site payloads and lowering plans use it."""
+        d, hd = self.d_model, self.hd
+        n = self.vocab * d                      # embedding
+        if not self.tie_embeddings:
+            n += self.vocab * d                 # lm head
+        if self.rope_theta is None and self.learned_pos:
+            n += self.max_pos * d
+
+        def attn(kv=True, q=True):
+            c = 0
+            if q:
+                c += d * self.n_heads * hd + self.n_heads * hd * d
+            if kv:
+                c += 2 * d * self.n_kv_heads * hd
+            return c
+
+        def mlp(d_ff):
+            mats = 3 if self.act in ("swiglu", "geglu") else 2
+            return mats * d * d_ff
+
+        for k in self.layer_kinds:
+            n += 2 * d                          # block norms
+            if k in ("dense", "local", "moe", "enc"):
+                n += attn()
+            elif k == "xattn":
+                n += attn()                     # q from text, kv from image
+            elif k == "dec":
+                n += 2 * attn() + d             # self + cross (+extra norm)
+            elif k == "rec":
+                w = self.lru_width or d
+                n += 2 * d * w + w * d + 3 * w + self.conv_width * w
+            elif k == "mlstm":
+                up = 2 * d
+                n += d * up * 2 + up * d + 3 * up
+            elif k == "slstm":
+                n += 4 * d * d + 4 * d
+            if k == "moe":
+                assert self.moe is not None
+                m = self.moe
+                mats = 3 if self.act in ("swiglu", "geglu") else 2
+                n += d * m.n_experts + m.n_experts * mats * d * m.d_ff
+            elif k in ("dense", "local", "enc", "dec", "xattn", "rec"):
+                n += mlp(self.d_ff)
+        if self.is_enc_dec:
+            e = self.encoder
+            n += e.n_layers * (2 * d + self.d_ff * d *
+                               (3 if self.act in ("swiglu", "geglu") else 2)
+                               + 4 * d * d)
+        return n
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One assigned (seq_len, global_batch, mode) input shape."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                    # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

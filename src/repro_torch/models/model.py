@@ -442,6 +442,37 @@ def lm_loss(hidden: torch.Tensor, unemb: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll) + aux_weight * aux
 
 
+def policy_segments(cfg: ModelConfig, policy: CommPolicy):
+    """Maximal runs of pattern repeats whose resolved layer-site configs
+    are identical -> ``[(start, end), ...)`` repeat ranges (end
+    exclusive).
+
+    The JAX package scans the pattern and splits the scan at these
+    segments (a config that varies across repeats cannot bind inside one
+    traced scan body). The port's forward runs its blocks in a Python
+    loop and has no scan: this pure function of the config and the
+    policy exists so that the analyzer's ``SITE-SEGMENT`` rule gives the
+    JAX package's verdicts. A uniform policy resolves to one segment,
+    first/last-K schedules to at most three.
+    """
+    from repro_torch.core.policy import LAYER_SITES
+    r_total = cfg.pattern_repeats
+    base, period = len(cfg.prefix), len(cfg.pattern)
+
+    def sig(r):
+        return tuple(policy.resolve(site, base + r * period + j)
+                     for j in range(period) for site in LAYER_SITES)
+
+    segs, start, cur = [], 0, sig(0)
+    for r in range(1, r_total):
+        s = sig(r)
+        if s != cur:
+            segs.append((start, r))
+            start, cur = r, s
+    segs.append((start, r_total))
+    return segs
+
+
 def init_block_cache(kind: str, cfg: ModelConfig, plan: ShardingPlan,
                      batch: int, cache_len: int, dtype, device) -> Dict:
     """A block's decode cache: a self-attention block's kv ring of

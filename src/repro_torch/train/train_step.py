@@ -124,9 +124,10 @@ def pod_grad_config(policy: CommPolicy) -> CommConfig:
     schemes run their one-axis forms): the ``bridge`` site's when it is
     set (the SDP4Bit-style mixed-tier split: the pod hop at its own
     width, typically framed, :func:`repro_torch.core.policy.
-    with_framed_bridge`), else the grad site's."""
-    return (policy.resolve("bridge") or policy.resolve("grad")
-            or NO_COMPRESSION)
+    with_framed_bridge`), else the grad site's. Both sites are resolved
+    every time, as JAX's are, so the analyzer's trace lane sees both."""
+    bridge, grad = policy.resolve("bridge"), policy.resolve("grad")
+    return bridge or grad or NO_COMPRESSION
 
 
 def wants_grad_ef(policy: CommPolicy, mesh: MeshAxes) -> bool:

@@ -51,7 +51,7 @@ def test_train_cli_mesh_cpu():
     """``--mesh 2,1 --device cpu`` trains the smoke config in two rank
     processes and ends with the JAX launcher's JSON line; without
     ``--device cpu`` and without a GPU the launcher raises; ``--check``
-    raises NotImplementedError naming its ROADMAP item
+    runs the pre-launch pass (the analyzer) and then trains
     (``--framed-bridge`` trains: tests/test_torch_frame.py); an MoE arch
     trains (its dispatch's backward is ported), its losses finite."""
     from repro_torch.launch import train as ttrain
@@ -71,8 +71,9 @@ def test_train_cli_mesh_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.main(smoke)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttrain.main(smoke + ["--device", "cpu", "--check"])
+    res = ttrain.main(smoke + ["--device", "cpu", "--check", "--seq", "16",
+                               "--batch", "4"])
+    assert len(res["history"]) == 1 and np.isfinite(res["history"][0]["loss"])
     res = ttrain.main(["--arch", "moonshot-v1-16b-a3b", "--smoke",
                        "--device", "cpu", "--steps", "2", "--seq", "16",
                        "--batch", "4", "--log-every", "1"])
